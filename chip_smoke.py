@@ -1,0 +1,426 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (ptsharp_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA card and nvcc. It
+builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
+
+  1. device   name and power limit as nvidia-smi reports them;
+  2. build    nvcc build time and the kernels' register/spill report;
+  3. scene    examples.build("bunny", intersector="pallas", wide_k=8): the
+              full 81,920-triangle bunny, its BVH builder, table size and
+              max_stack_bound;
+  4. closest-hit kernel against closest_hit_plain, on Morton-ordered
+              camera rays plus scattered bounce rays from their hit points:
+              2**16 + 2**16 rays, and the 1080p main-path width;
+  5. any-hit  kernel against any_hit_plain on shadow rays from the same
+              bounce origins toward the light, t_cut formed as
+              sample_lights forms it;
+  6. render   Renderer.render() of the bunny at 1920x1080, 1 spp, through
+              trace_compacted_static, with both kernels' launch counts
+              reset just before and read just after; one cornell pass at
+              512x512; and a 32x24 bunny render on the card held against
+              the same render on the CPU (the plain versions).
+
+Any failed check raises, so the exit code is non-zero; without a CUDA
+device, or without the package beside it, it exits non-zero before
+printing any result. The second-to-last line is a JSON object with each
+kernel's launches, error and times; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+INF = 1e9
+CLOSEST_TOL = dict(rtol=1e-5, atol=1e-5)
+ANYHIT_EDGE = 1e-5          # relative band around t_cut
+ANYHIT_MAX_EDGE_FRAC = 1e-4  # share of lanes allowed in that band
+PIXEL_FRAC = 0.995           # card-vs-CPU render: pixels within 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_ms(fn, device, reps: int = 5) -> float:
+    """Median of `reps` timed calls after one warm-up: CUDA events on the
+    card, the host clock elsewhere (a rehearsal only)."""
+    fn()
+    sync(device)
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# ---- rays -----------------------------------------------------------------
+
+
+def camera_rays(scene, cam, width, height, n, seed=0):
+    """n primary rays of a width x height image. For the full frame, the
+    renderer's own ray generation (Morton order, as the main path gives
+    them); otherwise a centred square block in 2D-Morton order."""
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.renderer import (
+        RenderConfig, Renderer, _expand_bits16,
+    )
+
+    if n == width * height:
+        r = Renderer(scene, cam, RenderConfig(width, height, spp=1))
+        org, dirn, *_ = r._raygen(rng.PRNGKey(seed), 0, height, 1)
+        return org, dirn
+    device = scene.device
+    side = int(round(n ** 0.5))
+    x0, y0 = (width - side) // 2, (height - side) // 2
+    ys, xs = torch.meshgrid(torch.arange(side, device=device),
+                            torch.arange(side, device=device), indexing="ij")
+    key = _expand_bits16(xs) | (_expand_bits16(ys) << 1)
+    order = torch.argsort(key.reshape(-1), stable=True)
+    px = xs.reshape(-1)[order] + x0
+    py = ys.reshape(-1)[order] + y0
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    ju, jv = torch.rand((2, px.shape[0]), generator=g).to(device)
+    return cam.cast_rays(px, py, width, height, ju, jv)
+
+
+def bounce_rays(scene, org, dirn, n, seed=1):
+    """n bounce rays from the hit points of (org, dirn): cosine-weighted
+    about the shading normal, in random (scattered) order."""
+    from ptsharp_tpu_torch.core import sampling
+    from ptsharp_tpu_torch.intersect import closest_hit, hit_info
+
+    hit = closest_hit(scene, org, dirn)
+    info = hit_info(scene, org, dirn, hit)
+    hit_lanes = torch.nonzero(hit.t < INF).squeeze(1)
+    if hit_lanes.numel() == 0:
+        raise AssertionError("no camera ray hits the scene")
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pick = hit_lanes[torch.randint(0, hit_lanes.numel(), (n,), generator=g)
+                     .to(org.device)]
+    u1, u2 = torch.rand((2, n), generator=g).to(org.device)
+    d = sampling.cosine_hemisphere(info.normal[pick], u1, u2)
+    o = info.position[pick] + d * 1e-4
+    return o.contiguous(), d.contiguous()
+
+
+def shadow_cut(scene, org, seed=2):
+    """Directions toward the light and t_cut as sample_lights forms them
+    (soft-shadow disc sample; analytic light distance less a margin)."""
+    from ptsharp_tpu_torch.core import sampling, vec
+    from ptsharp_tpu_torch.intersect import light_hit_t
+
+    r = org.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lidx = torch.randint(0, scene.num_lights, (r,), generator=g) \
+        .to(org.device)
+    u1, u2 = torch.rand((2, r), generator=g).to(org.device)
+    center = scene.light_center[lidx]
+    radius = scene.light_radius[lidx]
+    dx, dy = sampling.uniform_disc_area(u1, u2)
+    t_ax, b_ax = vec.orthonormal_basis(vec.normalize(center - org))
+    point = center + t_ax * (dx * radius)[:, None] + b_ax * (dy * radius)[:, None]
+    d = vec.normalize(point - org)
+    t_light = light_hit_t(scene, org, d, lidx)
+    t_cut = t_light * (1.0 - 1e-3) - 1e-3
+    t_cut = torch.where(t_light < INF, t_cut, torch.full_like(t_cut, -INF))
+    return d.contiguous(), t_cut.contiguous()
+
+
+# ---- kernel checks ----------------------------------------------------------
+
+
+def _slot_triangles(scene):
+    """(kernel slot -> (9,) triangle) lookup over the fat table."""
+    fat = scene.p_fat
+    bits = fat[0::2].view(torch.int32)
+    leaf = (bits[:, 7] & 0xFF) > 0
+    nodes = torch.nonzero(leaf).squeeze(1)
+    first = bits[nodes, 6].long() // scene.max_leaf
+    leaf_node = torch.empty(int(first.max()) + 1, dtype=torch.long,
+                            device=fat.device)
+    leaf_node[first] = nodes
+    return leaf_node
+
+
+def _ties(scene, org, dirn, slot_a, slot_b, t_ref):
+    """Of the lanes where two slots differ, those where both triangles hit
+    at t within the closest-hit tolerance of each other: ties."""
+    from ptsharp_tpu_torch.kernels.traverse import _mt
+
+    lanes = torch.nonzero(slot_a != slot_b).squeeze(1)
+    if lanes.numel() == 0:
+        return lanes, torch.zeros(0, dtype=torch.bool, device=org.device)
+    leaf_node = _slot_triangles(scene)
+    ls = scene.max_leaf
+    tts = []
+    for s in (slot_a[lanes].long(), slot_b[lanes].long()):
+        if bool((s < 0).any()):
+            return lanes, torch.zeros(lanes.numel(), dtype=torch.bool,
+                                      device=org.device)
+        rows = scene.p_fat[2 * leaf_node[s // ls] + 1]
+        cols = (s % ls)[:, None] * 9 + torch.arange(9, device=org.device)
+        tri = torch.gather(rows, 1, cols)[:, None, :]
+        ok, tt, _u, _v = _mt(tri, org[lanes], dirn[lanes])
+        tts.append(torch.where(ok[:, 0], tt[:, 0], torch.full_like(t_ref[lanes], INF)))
+    tol = CLOSEST_TOL["atol"] + CLOSEST_TOL["rtol"] * t_ref[lanes].abs()
+    return lanes, (tts[0] - tts[1]).abs() <= tol
+
+
+def check_closest(scene, org, dirn, label):
+    from ptsharp_tpu_torch.kernels import traverse
+
+    args = (scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
+            scene.wide_k)
+    tmax = torch.full((org.shape[0],), INF, device=org.device)
+    t, s, u, v = traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args)
+    tp, sp, up, vp = traverse.closest_hit_plain(scene.p_fat, org, dirn, tmax,
+                                                *args)
+    sync(org.device)
+    close = torch.isclose(t, tp, **CLOSEST_TOL)
+    if not bool(close.all()):
+        bad = torch.nonzero(~close).squeeze(1)[:5].tolist()
+        raise AssertionError(f"closest-hit t differs on "
+                             f"{int((~close).sum())} lanes, e.g. {bad}")
+    lanes, tie = _ties(scene, org, dirn, s, sp, tp)
+    if not bool(tie.all()):
+        raise AssertionError(f"closest-hit slot differs off ties on "
+                             f"{int((~tie).sum())} lanes")
+    err = float((t - tp).abs().max())
+    ms = time_ms(lambda: traverse.closest_hit(scene.p_fat, org, dirn, tmax,
+                                              *args), org.device)
+    plain_ms = time_ms(lambda: traverse.closest_hit_plain(
+        scene.p_fat, org, dirn, tmax, *args), org.device)
+    hits = float((tp < INF).float().mean())
+    log(f"closest-hit [{label}] rays={org.shape[0]} hit_frac={hits:.4f} "
+        f"max_abs_err_t={err:.3e} slot_mismatches={lanes.numel()} "
+        f"(all ties) kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, t=t)
+
+
+def check_any(scene, org, dirn, t_cut, t_near, label):
+    from ptsharp_tpu_torch.kernels import traverse
+
+    args = (scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
+            scene.wide_k)
+    occ = traverse.any_hit(scene.p_fat, org, dirn, t_cut, *args)
+    occ_p = traverse.any_hit_plain(scene.p_fat, org, dirn, t_cut, *args)
+    sync(org.device)
+    edge = (t_near - t_cut).abs() <= ANYHIT_EDGE * t_cut.abs()
+    diff = occ != occ_p
+    off_edge = diff & ~edge
+    if bool(off_edge.any()):
+        raise AssertionError(f"any-hit differs on {int(off_edge.sum())} "
+                             f"lanes off the t_cut band")
+    n_edge = int((diff & edge).sum())
+    if n_edge > ANYHIT_MAX_EDGE_FRAC * org.shape[0]:
+        raise AssertionError(f"any-hit differs on {n_edge} lanes at t_cut")
+    err = float((occ.float() - occ_p.float())[~edge].abs().max())
+    ms = time_ms(lambda: traverse.any_hit(scene.p_fat, org, dirn, t_cut,
+                                          *args), org.device)
+    plain_ms = time_ms(lambda: traverse.any_hit_plain(
+        scene.p_fat, org, dirn, t_cut, *args), org.device)
+    log(f"any-hit [{label}] rays={org.shape[0]} active="
+        f"{float((t_cut > 0).float().mean()):.4f} occluded="
+        f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def kernel_phase(scene, cam, width, height, n_cam, n_bounce, label):
+    """Closest-hit and any-hit, kernel against plain, on camera rays plus
+    bounce rays, then shadow rays from the bounce origins."""
+    oc, dc = camera_rays(scene, cam, width, height, n_cam)
+    ob, db = bounce_rays(scene, oc, dc, n_bounce)
+    org = torch.cat([oc, ob]).contiguous()
+    dirn = torch.cat([dc, db]).contiguous()
+    closest = check_closest(scene, org, dirn, label)
+    ds, t_cut = shadow_cut(scene, ob)
+    from ptsharp_tpu_torch.kernels import traverse
+
+    t_near, _s, _u, _v = traverse.closest_hit(
+        scene.p_fat, ob, ds, torch.full_like(t_cut, INF),
+        scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
+        scene.wide_k)
+    anyhit = check_any(scene, ob, ds, t_cut, t_near, label)
+    return closest, anyhit
+
+
+# ---- render ---------------------------------------------------------------
+
+
+def render(scene, cam, rcfg, icfg, seed=0):
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.renderer import Renderer
+
+    r = Renderer(scene, cam, rcfg, icfg)
+    sync(scene.device)
+    t0 = time.perf_counter()
+    film = r.render(key=rng.PRNGKey(seed))
+    sync(scene.device)
+    sec = time.perf_counter() - t0
+    mean = film.mean
+    if tuple(mean.shape) != (rcfg.height, rcfg.width, 3):
+        raise AssertionError(f"film shape {tuple(mean.shape)}")
+    if not bool(torch.isfinite(mean).all()) or not float(mean.mean()) > 0:
+        raise AssertionError("film is not finite and positive")
+    if r.rays_traced <= 0:
+        raise AssertionError("no rays traced")
+    return film, r.rays_traced, sec
+
+
+def render_phase(scene, cam, rcfg, icfg, cornell):
+    """The main path (Renderer.render of the bunny through
+    trace_compacted_static) with the launch counts reset just before and
+    read just after, then one cornell pass."""
+    from ptsharp_tpu_torch.integrator import compaction_schedule
+    from ptsharp_tpu_torch.kernels import traverse
+
+    r = rcfg.width * rcfg.height * rcfg.spp
+    if not compaction_schedule(icfg, min(r, rcfg.max_rays_per_chunk)):
+        raise AssertionError("the bunny render would not compact")
+    traverse.reset_launch_counts()
+    film, rays, sec = render(scene, cam, rcfg, icfg)
+    launches = {"closest_hit": traverse.closest_hit.launches,
+                "any_hit": traverse.any_hit.launches}
+    log(f"render bunny {rcfg.width}x{rcfg.height} spp={rcfg.spp} "
+        f"primary_rays={r} rays_traced={rays} seconds={sec:.3f} "
+        f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
+        f"{float(film.mean.mean()):.6f} launches={launches}")
+
+    cs, cc, crc, cic = cornell
+    film, rays, sec = render(cs, cc, crc, cic)
+    log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "
+        f"rays_traced={rays} seconds={sec:.3f} "
+        f"mrays_per_s={rays / sec / 1e6:.3f} "
+        f"film_mean={float(film.mean.mean()):.6f}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+def reference_phase(device):
+    """A small bunny render on the card against the same render on the
+    CPU, where the wrappers run the plain versions."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.renderer import RenderConfig
+
+    means = []
+    for dev in (device, torch.device("cpu")):
+        scene, cam, _rc, icfg = examples.bunny(
+            32, 24, subdivisions=3, intersector="pallas", wide_k=8,
+            device=dev)
+        film, _rays, _sec = render(scene, cam, RenderConfig(32, 24, spp=1),
+                                   icfg, seed=5)
+        means.append(film.mean.cpu().numpy().reshape(-1, 3))
+    close = np.all(np.isclose(means[0], means[1], rtol=1e-4, atol=1e-4),
+                   axis=-1)
+    rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
+    log(f"reference bunny 32x24: pixels_within_1e-4={close.mean():.4f} "
+        f"mean_rel_diff={rel:.3e}")
+    if close.mean() < PIXEL_FRAC or rel > 1e-3:
+        raise AssertionError("card render disagrees with the CPU render")
+
+
+# ---- main -----------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.kernels import build
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    build.load()
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        f"({build.build_info['library']})")
+    for line in build.build_info.get("ptxas", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    t0 = time.perf_counter()
+    scene, cam, rcfg, icfg = examples.build("bunny", intersector="pallas",
+                                            wide_k=8, device=device)
+    n_tri = int((scene.p_slot_tri >= 0).sum())
+    log(f"bunny scene: {n_tri} triangles, bvh_builder={scene.bvh_builder}, "
+        f"fat={scene.p_fat.numel() * 4 / 2**20:.2f} MB "
+        f"({scene.p_fat.shape[0] // 2} nodes), "
+        f"max_stack_bound={scene.p_stack_bound}, "
+        f"build {time.perf_counter() - t0:.1f} s")
+    if n_tri != 81920:
+        raise AssertionError("the bunny must have 81,920 triangles")
+
+    kernel_phase(scene, cam, rcfg.width, rcfg.height, 1 << 16, 1 << 16,
+                 "2^16 camera + 2^16 bounce")
+    n_main = rcfg.width * rcfg.height
+    closest, anyhit = kernel_phase(scene, cam, rcfg.width, rcfg.height,
+                                   n_main, n_main,
+                                   f"1080p main path: {n_main} camera + "
+                                   f"{n_main} bounce")
+    launches = render_phase(scene, cam, replace(rcfg, spp=1), icfg,
+                            examples.build("cornell", device=device))
+    reference_phase(device)
+
+    kernels = [
+        dict(name="closest_hit", route="cuda",
+             source="ptsharp_tpu_torch/csrc/closest_hit.cu",
+             replaces="ptsharp_tpu/pallas/ordered_kernel.py:597",
+             launches=launches["closest_hit"],
+             max_abs_err=closest["max_abs_err"], ms=closest["ms"],
+             plain_ms=closest["plain_ms"]),
+        dict(name="any_hit", route="cuda",
+             source="ptsharp_tpu_torch/csrc/any_hit.cu",
+             replaces="ptsharp_tpu/pallas/wide_kernel.py:604",
+             launches=launches["any_hit"],
+             max_abs_err=anyhit["max_abs_err"], ms=anyhit["ms"],
+             plain_ms=anyhit["plain_ms"]),
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""ptsharp_tpu_torch: the path tracer of ptsharp_tpu, ported to PyTorch and
+CUDA for NVIDIA Hopper (H100).
+
+The JAX package `ptsharp_tpu` stays the reference; this package keeps its
+module paths and public names and imports neither JAX nor ptsharp_tpu.
+Plain tensor code is PyTorch; the two BVH traversals that the JAX package
+ran as Pallas TPU kernels are hand-written CUDA kernels (csrc/), built with
+nvcc for sm_90a at first use. On CPU tensors their plain PyTorch versions
+run instead, which is how the tests exercise the port without a card.
+
+Layer map:
+  core/          vec math, sampling, color, filters, threefry rng
+  geometry/      mesh container, analytic primitives
+  accel/         host BVH build, K-wide collapse, fat-table packing
+  kernels/       CUDA kernel build, wrappers and plain versions
+  scene.py       host scene builder -> SceneData of tensors on one device
+  intersect.py   closest-hit, occlusion, shading data
+  integrator.py  wavefront path integrator (plain and compacted)
+  film.py        Welford film
+  renderer.py    chunked progressive renderer
+  examples.py    scene catalog (cornell, bunny)
+  convert.py     JAX-package scene/camera -> port
+"""
+
+from ptsharp_tpu_torch.camera import Camera
+from ptsharp_tpu_torch.film import Film
+from ptsharp_tpu_torch.integrator import IntegratorConfig
+from ptsharp_tpu_torch.materials import (
+    Material,
+    clear_material,
+    diffuse_material,
+    glossy_material,
+    light_material,
+    metallic_material,
+    specular_material,
+    transparent_material,
+)
+from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
+from ptsharp_tpu_torch.scene import SceneBuilder, SceneData
+
+__all__ = [
+    "Camera",
+    "Film",
+    "IntegratorConfig",
+    "Material",
+    "clear_material",
+    "diffuse_material",
+    "glossy_material",
+    "light_material",
+    "metallic_material",
+    "specular_material",
+    "transparent_material",
+    "RenderConfig",
+    "Renderer",
+    "SceneBuilder",
+    "SceneData",
+]

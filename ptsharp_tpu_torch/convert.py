@@ -1,0 +1,159 @@
+"""Carry a scene and a camera built by the JAX package into the port.
+
+`scene_from_reference` turns the arrays of a ptsharp_tpu SceneData, taken
+as numpy, into the port's SceneData, so one scene can run through both
+packages even where a rebuild could differ. It takes plain dicts and
+never imports the JAX package:
+
+  fields: the reference's data fields by name (numpy arrays); the nested
+          `materials` and `textures` tables as dicts of arrays (or any
+          object with `_asdict()`).
+  meta:   the reference's static metadata fields by name.
+
+The traversal table is the reference's fat interleave: `p_fat`, or
+`p_rows` where the reference streams its tables from HBM (`p_hbm`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.camera import Camera
+from ptsharp_tpu_torch.materials import MaterialTable
+from ptsharp_tpu_torch.scene import SceneData, check_stack_bound, not_ported
+from ptsharp_tpu_torch.textures import TextureAtlas
+
+
+_ARRAY_FIELDS = (
+    "sphere_center", "sphere_radius", "sphere_inv", "sphere_mat",
+    "plane_point", "plane_normal", "plane_mat",
+    "cube_min", "cube_max", "cube_inv", "cube_mat",
+    "cyl_radius", "cyl_z0", "cyl_z1", "cyl_inv", "cyl_mat",
+    "tri_n0", "tri_n1", "tri_n2", "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat",
+    "inst_inv", "inst_mat", "p_rows", "p_fat", "p_slot_tri", "p_slot_inst",
+    "light_ptype", "light_pindex", "light_center", "light_radius",
+    "light_mat", "light_cdf", "light_pmf", "em_v0", "env_color",
+    "texture_angle",
+)
+_META_FIELDS = (
+    "use_tlas", "sdf_objects", "volumes", "functions", "has_surface_maps",
+    "light_types", "intersector", "p_flat", "p_ordered", "p_hbm", "wide_k",
+    "env_texture", "sphere_xform", "cube_xform", "cyl_xform", "max_leaf",
+    "p_inst_base", "p_inst_end",
+)
+
+
+def _as_dict(x) -> dict:
+    return dict(x._asdict()) if hasattr(x, "_asdict") else dict(x)
+
+
+def reference_arrays(ref_scene) -> tuple[dict, dict]:
+    """(fields, meta) of a reference SceneData object, read by attribute
+    name, with every array as numpy."""
+    fields = {name: np.asarray(getattr(ref_scene, name))
+              for name in _ARRAY_FIELDS}
+    for name in ("materials", "textures"):
+        fields[name] = {k: np.asarray(v) for k, v in
+                        _as_dict(getattr(ref_scene, name)).items()}
+    meta = {name: getattr(ref_scene, name) for name in _META_FIELDS}
+    return fields, meta
+
+
+def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
+    dev = torch.device(device)
+    if meta["use_tlas"]:
+        raise not_ported("the TLAS", "Queue 1 item 10")
+    if meta["sdf_objects"] or meta["volumes"] or meta["functions"]:
+        raise not_ported("SDF, volume and function shapes", "Queue 1 item 10")
+    if meta["has_surface_maps"]:
+        raise not_ported("normal and bump maps", "Queue 1 item 10")
+    if np.asarray(fields["em_v0"]).shape[0] or 5 in meta["light_types"]:
+        raise not_ported("mesh lights", "Queue 1 item 10")
+    n_inst = np.asarray(fields["inst_inv"]).shape[0]
+    if n_inst:
+        if meta["intersector"] != "pallas":
+            raise not_ported(f"the {meta['intersector']!r} mesh intersector",
+                             "Queue 1 item 11")
+        if not meta["p_flat"]:
+            raise not_ported("per-instance (non-flat) mesh tables",
+                             "Queue 1 item 10")
+        if not meta["p_ordered"]:
+            raise not_ported("pallas_ordered=False (preorder kernels)",
+                             "Queue 2")
+        fat = np.asarray(fields["p_rows"] if meta["p_hbm"]
+                         else fields["p_fat"], np.float32)
+        stack_bound = tables.max_stack_bound(fat[0::2], int(meta["wide_k"]))
+        check_stack_bound(stack_bound)
+    else:
+        fat = np.zeros((0, tables.ROW), np.float32)
+        stack_bound = 0
+
+    def t(name, dtype=np.float32):
+        a = np.ascontiguousarray(np.asarray(fields[name]), dtype)
+        return torch.from_numpy(a.copy()).to(dev)
+
+    mats = _as_dict(fields["materials"])
+    tex = _as_dict(fields["textures"])
+    return SceneData(
+        device=dev,
+        sphere_center=t("sphere_center"),
+        sphere_radius=t("sphere_radius"),
+        sphere_inv=t("sphere_inv"),
+        sphere_mat=t("sphere_mat", np.int32),
+        plane_point=t("plane_point"),
+        plane_normal=t("plane_normal"),
+        plane_mat=t("plane_mat", np.int32),
+        cube_min=t("cube_min"),
+        cube_max=t("cube_max"),
+        cube_inv=t("cube_inv"),
+        cube_mat=t("cube_mat", np.int32),
+        cyl_radius=t("cyl_radius"),
+        cyl_z0=t("cyl_z0"),
+        cyl_z1=t("cyl_z1"),
+        cyl_inv=t("cyl_inv"),
+        cyl_mat=t("cyl_mat", np.int32),
+        tri_n0=t("tri_n0"),
+        tri_n1=t("tri_n1"),
+        tri_n2=t("tri_n2"),
+        tri_uv0=t("tri_uv0"),
+        tri_uv1=t("tri_uv1"),
+        tri_uv2=t("tri_uv2"),
+        tri_mat=t("tri_mat", np.int32),
+        inst_inv=t("inst_inv"),
+        inst_mat=t("inst_mat", np.int32),
+        p_fat=torch.from_numpy(fat.copy()).to(dev),
+        p_slot_tri=t("p_slot_tri", np.int32),
+        p_slot_inst=t("p_slot_inst", np.int32),
+        light_ptype=t("light_ptype", np.int32),
+        light_pindex=t("light_pindex", np.int32),
+        light_center=t("light_center"),
+        light_radius=t("light_radius"),
+        light_mat=t("light_mat", np.int32),
+        light_cdf=t("light_cdf"),
+        light_pmf=t("light_pmf"),
+        materials=MaterialTable.from_arrays(mats, dev),
+        textures=TextureAtlas.from_arrays(tex["data"], tex["sizes"], dev),
+        env_color=t("env_color"),
+        texture_angle=float(np.asarray(fields["texture_angle"])),
+        env_texture=int(meta["env_texture"]),
+        sphere_xform=bool(meta["sphere_xform"]),
+        cube_xform=bool(meta["cube_xform"]),
+        cyl_xform=bool(meta["cyl_xform"]),
+        max_leaf=int(meta["max_leaf"]),
+        wide_k=int(meta["wide_k"]),
+        intersector=str(meta["intersector"]),
+        p_inst_base=tuple(int(b) for b in meta["p_inst_base"]),
+        p_inst_end=tuple(int(e) for e in meta["p_inst_end"]),
+        p_stack_bound=int(stack_bound),
+        light_types=tuple(int(x) for x in meta["light_types"]),
+        bvh_builder="reference",
+    )
+
+
+def camera_from_reference(fields: dict, device="cpu") -> Camera:
+    """fields: the reference Camera's fields by name (numpy arrays)."""
+    return Camera(**{name: torch.as_tensor(np.array(fields[name]),
+                                           dtype=torch.float32, device=device)
+                     for name in Camera._fields})

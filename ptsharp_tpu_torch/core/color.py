@@ -1,0 +1,22 @@
+"""Color utilities over (..., 3) linear-RGB tensors.
+
+Counterpart of ptsharp_tpu/core/color.py for what the render path uses:
+Rec.709 luminance and the display gamma.
+"""
+
+from __future__ import annotations
+
+import torch
+
+GAMMA = 2.2
+
+
+def luminance(c):
+    """Rec.709 luma."""
+    w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=c.dtype, device=c.device)
+    return torch.sum(c * w, dim=-1)
+
+
+def to_srgb(c):
+    """Linear -> display: pow(1/2.2) + clip."""
+    return torch.clamp(torch.abs(c) ** (1.0 / GAMMA), 0.0, 1.0)

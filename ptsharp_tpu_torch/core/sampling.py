@@ -1,0 +1,60 @@
+"""Monte-Carlo sampling primitives over ray wavefronts.
+
+Counterpart of ptsharp_tpu/core/sampling.py. The uniforms come from
+core/rng.py, so a render is a deterministic function of
+(scene, config, key) in both packages.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ptsharp_tpu_torch.core import vec
+
+
+def uniform_disc_area(u1, u2):
+    """Area-uniform unit disc point (sqrt radius), used for NEE light discs."""
+    angle = u1 * 2.0 * math.pi
+    radius = torch.sqrt(u2)
+    return torch.cos(angle) * radius, torch.sin(angle) * radius
+
+
+def cosine_hemisphere(n, u1, u2):
+    """Cosine-weighted hemisphere direction about unit normal n."""
+    t, b = vec.orthonormal_basis(n)
+    radius = torch.sqrt(u1)
+    theta = 2.0 * math.pi * u2
+    x = radius * torch.cos(theta)
+    y = radius * torch.sin(theta)
+    z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    return t * x[..., None] + b * y[..., None] + n * z[..., None]
+
+
+def cone(d, theta_max, u1, u2):
+    """Perturb unit direction d inside a cone of half-angle theta_max
+    (..., per ray). theta_max < EPS returns d unchanged."""
+    theta_max = torch.broadcast_to(theta_max, u1.shape)
+    theta = theta_max * (1.0 - 2.0 * torch.acos(torch.clamp(u1, 0.0, 1.0))
+                         / math.pi)
+    m1 = torch.sin(theta)
+    m2 = torch.cos(theta)
+    a = u2 * 2.0 * math.pi
+    s, t = vec.orthonormal_basis(d)
+    out = (
+        s * (m1 * torch.cos(a))[..., None]
+        + t * (m1 * torch.sin(a))[..., None]
+        + d * m2[..., None]
+    )
+    out = vec.normalize(out)
+    return torch.where((theta_max < vec.EPS)[..., None], d, out)
+
+
+def stratified_pair(base_u, base_v, n: int, idx):
+    """Map sample index idx in [0, n*n) plus jitter (base_u, base_v) in
+    [0,1) to a stratified (u, v) on the n x n grid."""
+    iu = (idx % n).to(base_u.dtype)
+    iv = torch.div(idx, n, rounding_mode="floor").to(base_v.dtype)
+    nf = float(n)
+    return (iu + base_u) / nf, (iv + base_v) / nf

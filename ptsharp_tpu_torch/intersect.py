@@ -1,0 +1,356 @@
+"""Scene-wide closest-hit, occlusion and shading data over ray wavefronts.
+
+Counterpart of ptsharp_tpu/intersect.py for the port's slice: per
+primitive type the whole batch is intersected in one vectorized pass
+(planes, spheres, cubes, cylinders, in that order), then the flat mesh
+table goes through one closest-hit launch bounded by the best t found so
+far (kernels/traverse.py). Hit records follow Hit.Info (Hit.cs:26-55):
+the shading normal is flipped toward the ray and `inside` set on a flip.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ptsharp_tpu_torch.core import vec
+from ptsharp_tpu_torch.geometry import primitives
+from ptsharp_tpu_torch.kernels import traverse
+from ptsharp_tpu_torch.scene import (
+    PT_CUBE,
+    PT_CYLINDER,
+    PT_NONE,
+    PT_PLANE,
+    PT_SPHERE,
+    PT_TRIANGLE,
+    SceneData,
+)
+
+INF = vec.INF
+
+
+class Hit(NamedTuple):
+    """Per-ray closest hit. pindex is the within-type primitive index (the
+    scene triangle slot for meshes); inst is the mesh instance (-1 else)."""
+
+    t: torch.Tensor
+    ptype: torch.Tensor
+    pindex: torch.Tensor
+    inst: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+
+
+class HitInfo(NamedTuple):
+    """Shading data for hit rays (garbage where ptype == PT_NONE)."""
+
+    position: torch.Tensor
+    normal: torch.Tensor  # flipped toward the ray
+    inside: torch.Tensor
+    mat_id: torch.Tensor
+    tex_u: torch.Tensor
+    tex_v: torch.Tensor
+
+
+def _xform_point(aff, p):
+    """aff (..., 3, 4) applied to points p (..., 3)."""
+    return torch.einsum("...ij,...j->...i", aff[..., :3], p) + aff[..., 3]
+
+
+def _xform_dir(aff, d):
+    return torch.einsum("...ij,...j->...i", aff[..., :3], d)
+
+
+def _xform_normal(aff_inv, n):
+    """Normal transform: n_world ~ aff_inv_lin^T n_obj."""
+    return vec.normalize(torch.einsum("...ji,...j->...i", aff_inv[..., :3], n))
+
+
+def _local(inv, xform: bool, o1, d1):
+    if not xform:
+        return o1, d1
+    return _xform_point(inv[None], o1), _xform_dir(inv[None], d1)
+
+
+def _sphere_t1(o, d, c, rad):
+    oc = o - c
+    a = torch.sum(d * d, dim=-1)
+    b = 2.0 * torch.sum(oc * d, dim=-1)
+    cq = torch.sum(oc * oc, dim=-1) - rad * rad
+    disc = b * b - 4.0 * a * cq
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv2a = 0.5 / torch.clamp(a, min=1e-30)
+    t0 = (-b - sq) * inv2a
+    t1 = (-b + sq) * inv2a
+    inf = torch.full_like(t0, INF)
+    t = torch.where(t0 > primitives.EPS_T, t0,
+                    torch.where(t1 > primitives.EPS_T, t1, inf))
+    return torch.where(disc > 0.0, t, inf)
+
+
+def _cube_t1(o, d, lo, hi):
+    invd = primitives._safe_div(torch.ones_like(d), d)
+    n = (lo - o) * invd
+    f = (hi - o) * invd
+    t0 = torch.amax(torch.minimum(n, f), dim=-1)
+    t1 = torch.amin(torch.maximum(n, f), dim=-1)
+    ok = (t0 > primitives.EPS_T) & (t0 < t1)
+    return torch.where(ok, t0, torch.full_like(t0, INF))
+
+
+def _cyl_t1(o, d, rad, z0, z1):
+    """Capped z-cylinder with per-ray parameters (R,)."""
+    tz0 = primitives._safe_div(z0 - o[..., 2], d[..., 2])
+    tz1 = primitives._safe_div(z1 - o[..., 2], d[..., 2])
+    inf = torch.full_like(tz0, INF)
+
+    def cap_ok(tc):
+        px = o[..., 0] + d[..., 0] * tc
+        py = o[..., 1] + d[..., 1] * tc
+        return (tc > primitives.EPS_T) & (px * px + py * py <= rad * rad)
+
+    t_top = torch.where(cap_ok(tz1), tz1, inf)
+    t_bot = torch.where(cap_ok(tz0), tz0, inf)
+    a = d[..., 0] ** 2 + d[..., 1] ** 2
+    b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 1] * d[..., 1])
+    c = o[..., 0] ** 2 + o[..., 1] ** 2 - rad * rad
+    disc = b * b - 4.0 * a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv2a = 0.5 / torch.clamp(a, min=1e-30)
+    tl0 = (-b - sq) * inv2a
+    tl1 = (-b + sq) * inv2a
+
+    def lat_ok(tl):
+        z = o[..., 2] + d[..., 2] * tl
+        return (tl > primitives.EPS_T) & (z >= z0) & (z <= z1) & (disc >= 0.0)
+
+    t_lat = torch.where(lat_ok(tl0), tl0, torch.where(lat_ok(tl1), tl1, inf))
+    return torch.minimum(torch.minimum(t_top, t_bot), t_lat)
+
+
+def _as_rays(x, r, like):
+    return torch.broadcast_to(
+        torch.as_tensor(x, dtype=torch.float32, device=like.device), (r,))
+
+
+def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
+    """org/dirn (R, 3), unit directions. Returns the closest hit per ray;
+    t_max (scalar or (R,)) bounds the search."""
+    r = org.shape[0]
+    dev = org.device
+    if t_max is None:
+        best_t = torch.full((r,), INF, dtype=torch.float32, device=dev)
+    else:
+        best_t = _as_rays(t_max, r, org).clone()
+    best_type = torch.zeros(r, dtype=torch.int32, device=dev)
+    best_idx = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(r, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(r, dtype=torch.float32, device=dev)
+
+    def take(t_new, ptype, pidx, inst=-1, u=0.0, v=0.0):
+        nonlocal best_t, best_type, best_idx, best_inst, best_u, best_v
+        better = t_new < best_t
+        best_t = torch.where(better, t_new, best_t)
+        best_type = torch.where(better, ptype, best_type)
+        best_idx = torch.where(better, pidx, best_idx)
+        best_inst = torch.where(better, inst, best_inst)
+        best_u = torch.where(better, u, best_u)
+        best_v = torch.where(better, v, best_v)
+
+    def take_min(ts, ptype):
+        # argmin: the first of equal minima, as jnp.argmin picks it
+        idx = torch.argmin(ts, dim=1)
+        take(torch.amin(ts, dim=1), ptype, idx.to(torch.int32))
+
+    o1 = org[:, None, :]
+    d1 = dirn[:, None, :]
+    if scene.plane_point.shape[0] > 0:
+        take_min(primitives.intersect_planes(o1, d1, scene.plane_point,
+                                             scene.plane_normal), PT_PLANE)
+    if scene.sphere_center.shape[0] > 0:
+        o, d = _local(scene.sphere_inv, scene.sphere_xform, o1, d1)
+        take_min(primitives.intersect_spheres(o, d, scene.sphere_center,
+                                              scene.sphere_radius), PT_SPHERE)
+    if scene.cube_min.shape[0] > 0:
+        o, d = _local(scene.cube_inv, scene.cube_xform, o1, d1)
+        take_min(primitives.intersect_cubes(o, d, scene.cube_min,
+                                            scene.cube_max), PT_CUBE)
+    if scene.cyl_radius.shape[0] > 0:
+        o, d = _local(scene.cyl_inv, scene.cyl_xform, o1, d1)
+        take_min(primitives.intersect_cylinders(o, d, scene.cyl_radius,
+                                                scene.cyl_z0, scene.cyl_z1),
+                 PT_CYLINDER)
+    if scene.has_meshes:
+        # one world-space launch over every instance, bounded by the best
+        # analytic t; slot maps recover scene triangle and instance
+        t, kslot, u, v = traverse.closest_hit(
+            scene.p_fat, org.contiguous(), dirn.contiguous(),
+            best_t.contiguous(), scene.p_inst_base[0], scene.p_inst_end[0],
+            scene.max_leaf, scene.wide_k)
+        ks = torch.clamp(kslot, 0, scene.p_slot_tri.shape[0] - 1).long()
+        take(t, PT_TRIANGLE, scene.p_slot_tri[ks], inst=scene.p_slot_inst[ks],
+             u=u, v=v)
+    if t_max is not None:
+        best_t = torch.where(best_type == PT_NONE,
+                             torch.full_like(best_t, INF), best_t)
+    return Hit(best_t, best_type, best_idx, best_inst, best_u, best_v)
+
+
+def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
+    """True where any surface intersects the ray at t in (eps, t_cut);
+    lanes with t_cut <= 0 are never occluded. Mesh instances go through
+    the any-hit kernel over the fat table."""
+    r = org.shape[0]
+    tc = _as_rays(t_cut, r, org)
+    occ = torch.zeros(r, dtype=torch.bool, device=org.device)
+    o1 = org[:, None, :]
+    d1 = dirn[:, None, :]
+
+    def any_below(ts):
+        return torch.any(ts < tc[:, None], dim=1)
+
+    if scene.plane_point.shape[0] > 0:
+        occ = occ | any_below(primitives.intersect_planes(
+            o1, d1, scene.plane_point, scene.plane_normal))
+    if scene.sphere_center.shape[0] > 0:
+        o, d = _local(scene.sphere_inv, scene.sphere_xform, o1, d1)
+        occ = occ | any_below(primitives.intersect_spheres(
+            o, d, scene.sphere_center, scene.sphere_radius))
+    if scene.cube_min.shape[0] > 0:
+        o, d = _local(scene.cube_inv, scene.cube_xform, o1, d1)
+        occ = occ | any_below(primitives.intersect_cubes(
+            o, d, scene.cube_min, scene.cube_max))
+    if scene.cyl_radius.shape[0] > 0:
+        o, d = _local(scene.cyl_inv, scene.cyl_xform, o1, d1)
+        occ = occ | any_below(primitives.intersect_cylinders(
+            o, d, scene.cyl_radius, scene.cyl_z0, scene.cyl_z1))
+    if scene.has_meshes:
+        # already-occluded lanes carry a -INF bound and test nothing
+        cut = torch.where(occ, torch.full_like(tc, -INF), tc)
+        occ = occ | traverse.any_hit(
+            scene.p_fat, org.contiguous(), dirn.contiguous(),
+            cut.contiguous(), scene.p_inst_base[0], scene.p_inst_end[0],
+            scene.max_leaf, scene.wide_k)
+    return occ
+
+
+def light_hit_t(scene: SceneData, org, dirn, lidx) -> torch.Tensor:
+    """Analytic hit distance of each ray against ITS sampled light's
+    primitive (lidx (R,) per-ray light index); INF where it misses."""
+    r = org.shape[0]
+    t_light = torch.full((r,), INF, dtype=torch.float32, device=org.device)
+    pi = torch.clamp(scene.light_pindex[lidx], min=0).long()
+    lt = scene.light_ptype[lidx]
+
+    def local(inv, xform, pic):
+        if not xform:
+            return org, dirn
+        m = inv[pic]
+        return _xform_point(m, org), _xform_dir(m, dirn)
+
+    if PT_SPHERE in scene.light_types:
+        pic = torch.clamp(pi, 0, scene.sphere_center.shape[0] - 1)
+        o, d = local(scene.sphere_inv, scene.sphere_xform, pic)
+        t = _sphere_t1(o, d, scene.sphere_center[pic],
+                       scene.sphere_radius[pic])
+        t_light = torch.where(lt == PT_SPHERE, t, t_light)
+    if PT_CUBE in scene.light_types:
+        pic = torch.clamp(pi, 0, scene.cube_min.shape[0] - 1)
+        o, d = local(scene.cube_inv, scene.cube_xform, pic)
+        t = _cube_t1(o, d, scene.cube_min[pic], scene.cube_max[pic])
+        t_light = torch.where(lt == PT_CUBE, t, t_light)
+    if PT_CYLINDER in scene.light_types:
+        pic = torch.clamp(pi, 0, scene.cyl_radius.shape[0] - 1)
+        o, d = local(scene.cyl_inv, scene.cyl_xform, pic)
+        t = _cyl_t1(o, d, scene.cyl_radius[pic], scene.cyl_z0[pic],
+                    scene.cyl_z1[pic])
+        t_light = torch.where(lt == PT_CYLINDER, t, t_light)
+    return t_light
+
+
+def hit_info(scene: SceneData, org, dirn, hit: Hit) -> HitInfo:
+    """Shading data for the winning primitive of each ray: every present
+    type's info is computed masked and selected."""
+    r = org.shape[0]
+    dev = org.device
+    pos = org + dirn * hit.t[..., None]
+    normal = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+    normal[:, 1] = 1.0  # default up-normal keeps miss lanes finite
+    mat_id = torch.zeros(r, dtype=torch.int32, device=dev)
+    tex_u = torch.zeros(r, dtype=torch.float32, device=dev)
+    tex_v = torch.zeros(r, dtype=torch.float32, device=dev)
+
+    def sel(mask, new_n, new_m, new_u=None, new_v=None):
+        nonlocal normal, mat_id, tex_u, tex_v
+        normal = torch.where(mask[:, None], new_n, normal)
+        mat_id = torch.where(mask, new_m, mat_id)
+        if new_u is not None:
+            tex_u = torch.where(mask, new_u, tex_u)
+            tex_v = torch.where(mask, new_v, tex_v)
+
+    idx = torch.clamp(hit.pindex, min=0).long()
+
+    if scene.sphere_center.shape[0] > 0:
+        i = torch.clamp(idx, max=scene.sphere_center.shape[0] - 1)
+        c = scene.sphere_center[i]
+        rad = scene.sphere_radius[i]
+        if scene.sphere_xform:
+            inv = scene.sphere_inv[i]
+            p_obj = _xform_point(inv, pos)
+            n = _xform_normal(inv, vec.normalize(p_obj - c))
+            u, v = primitives.sphere_uv(p_obj, c, rad)
+        else:
+            n = primitives.sphere_normal(pos, c)
+            u, v = primitives.sphere_uv(pos, c, rad)
+        sel(hit.ptype == PT_SPHERE, n, scene.sphere_mat[i], u, v)
+
+    if scene.plane_point.shape[0] > 0:
+        i = torch.clamp(idx, max=scene.plane_point.shape[0] - 1)
+        sel(hit.ptype == PT_PLANE, scene.plane_normal[i], scene.plane_mat[i])
+
+    if scene.cube_min.shape[0] > 0:
+        i = torch.clamp(idx, max=scene.cube_min.shape[0] - 1)
+        lo = scene.cube_min[i]
+        hi = scene.cube_max[i]
+        if scene.cube_xform:
+            inv = scene.cube_inv[i]
+            p_obj = _xform_point(inv, pos)
+            n = _xform_normal(inv, primitives.cube_normal(p_obj, lo, hi))
+            u, v = primitives.cube_uv(p_obj, lo, hi)
+        else:
+            n = primitives.cube_normal(pos, lo, hi)
+            u, v = primitives.cube_uv(pos, lo, hi)
+        sel(hit.ptype == PT_CUBE, n, scene.cube_mat[i], u, v)
+
+    if scene.cyl_radius.shape[0] > 0:
+        i = torch.clamp(idx, max=scene.cyl_radius.shape[0] - 1)
+        z0 = scene.cyl_z0[i]
+        z1 = scene.cyl_z1[i]
+        if scene.cyl_xform:
+            inv = scene.cyl_inv[i]
+            p_obj = _xform_point(inv, pos)
+            n = _xform_normal(inv, primitives.cylinder_normal(p_obj, z0, z1))
+        else:
+            n = primitives.cylinder_normal(pos, z0, z1)
+        sel(hit.ptype == PT_CYLINDER, n, scene.cyl_mat[i])
+
+    if scene.has_meshes:
+        i = torch.clamp(idx, max=scene.tri_n0.shape[0] - 1)
+        n_obj = vec.normalize(primitives.triangle_interpolate(
+            scene.tri_n0[i], scene.tri_n1[i], scene.tri_n2[i], hit.u, hit.v))
+        uv = primitives.triangle_interpolate(
+            scene.tri_uv0[i], scene.tri_uv1[i], scene.tri_uv2[i], hit.u, hit.v)
+        inst = torch.clamp(hit.inst, min=0).long()
+        over = scene.inst_mat[inst]
+        tm = torch.where(over >= 0, over, scene.tri_mat[i])
+        n = _xform_normal(scene.inst_inv[inst], n_obj)
+        sel(hit.ptype == PT_TRIANGLE, n, tm, uv[..., 0], uv[..., 1])
+
+    # flip toward the ray + inside flag (Hit.cs:36-47)
+    facing = vec.dot(normal, dirn) > 0.0
+    normal = torch.where(facing[:, None], -normal, normal)
+    inside = facing & (hit.ptype != PT_NONE)
+    return HitInfo(position=pos, normal=normal, inside=inside, mat_id=mat_id,
+                   tex_u=tex_u, tex_v=tex_v)

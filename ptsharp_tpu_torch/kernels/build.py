@@ -1,0 +1,97 @@
+"""Build and load the CUDA kernels of csrc/ as one shared library.
+
+nvcc compiles csrc/*.cu for sm_90a into `build/ptsharp_tpu_torch/` (a
+directory .gitignore lists), at first use, with a plain C interface that
+ctypes binds: every pointer and the stream are c_void_p, each entry
+returns cudaGetLastError(). The library name carries a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one
+is reused. `-fmad=false` keeps every multiply and add rounding on its
+own, as the plain PyTorch versions and the JAX reference round them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+from ptsharp_tpu_torch.kernels.traverse import STACK_CAPACITY
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ptsharp_tpu_torch")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    f"-DPT_STACK_CAP={STACK_CAPACITY}",
+]
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode())
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.pt_closest_hit.restype = ci
+    lib.pt_closest_hit.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                   vp, vp, vp, vp, vp]
+    lib.pt_any_hit.restype = ci
+    lib.pt_any_hit.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    return lib
+
+
+def load():
+    """The loaded kernel library, compiling it first if needed. Records
+    the compile seconds and nvcc's resource report in `build_info`."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = os.path.join(BUILD_DIR, f"libptkernels_{_digest()}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, so)
+            build_info["seconds"] = time.perf_counter() - t0
+            build_info["ptxas"] = proc.stderr
+        else:
+            build_info.setdefault("seconds", 0.0)
+        build_info["library"] = so
+        _lib = _bind(ctypes.CDLL(so))
+        return _lib

@@ -1,0 +1,482 @@
+"""Host scene builder -> SceneData of torch tensors on one device.
+
+Counterpart of ptsharp_tpu/scene.py for the slice the port covers:
+analytic primitives (sphere, plane, cube, cylinder, each with an optional
+affine) and triangle meshes flattened into ONE world-space K-wide BVH.
+Differences from the JAX package:
+
+  * one table form. Every mesh scene gets the fat interleave `p_fat`
+    (accel/tables.py), read by both the closest-hit and the any-hit
+    kernel. The JAX package's VMEM/HBM switch and its duplicate
+    `p_rows`/`p_leaf` tables have no counterpart: a GPU has no such split.
+  * the build checks `max_stack_bound` against the kernels' stack
+    capacity and raises if a tree could overflow it.
+  * what the port does not cover yet raises NotImplementedError naming
+    the ROADMAP item that will port it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ptsharp_tpu_torch.accel import bvh as bvh_mod
+from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.geometry.mesh import TriMesh
+from ptsharp_tpu_torch.kernels.traverse import STACK_CAPACITY
+from ptsharp_tpu_torch.materials import Material, MaterialTable
+from ptsharp_tpu_torch.textures import TextureAtlas
+
+# primitive type codes in hit records (same values as the JAX package)
+PT_NONE = 0
+PT_SPHERE = 1
+PT_PLANE = 2
+PT_CUBE = 3
+PT_CYLINDER = 4
+PT_TRIANGLE = 5
+
+# consecutive leaves are padded to a multiple of this per mesh, so scene
+# triangle slots match the JAX package's layout
+CLUSTER_GROUP = 16
+# instances are baked to world space; beyond this many triangles the JAX
+# package switches to per-instance tables
+FLAT_TRI_CAP = 4_000_000
+
+_IDENTITY34 = np.eye(4, dtype=np.float32)[:3, :4]
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to ptsharp_tpu_torch yet (ROADMAP.md {item})")
+
+
+@dataclass(frozen=True, eq=False)
+class SceneData:
+    """Frozen scene tables. Every tensor lives on `device`."""
+
+    device: torch.device
+    # spheres (object space center/radius + world->object affine)
+    sphere_center: torch.Tensor   # (S, 3)
+    sphere_radius: torch.Tensor   # (S,)
+    sphere_inv: torch.Tensor      # (S, 3, 4)
+    sphere_mat: torch.Tensor      # (S,) i32
+    plane_point: torch.Tensor     # (P, 3)
+    plane_normal: torch.Tensor    # (P, 3)
+    plane_mat: torch.Tensor
+    cube_min: torch.Tensor        # (C, 3)
+    cube_max: torch.Tensor
+    cube_inv: torch.Tensor
+    cube_mat: torch.Tensor
+    cyl_radius: torch.Tensor      # (Y,)
+    cyl_z0: torch.Tensor
+    cyl_z1: torch.Tensor
+    cyl_inv: torch.Tensor
+    cyl_mat: torch.Tensor
+    # slot-ordered triangle attributes (padding slots are zeros)
+    tri_n0: torch.Tensor          # (T, 3)
+    tri_n1: torch.Tensor
+    tri_n2: torch.Tensor
+    tri_uv0: torch.Tensor         # (T, 2)
+    tri_uv1: torch.Tensor
+    tri_uv2: torch.Tensor
+    tri_mat: torch.Tensor         # (T,) i32
+    # mesh instances
+    inst_inv: torch.Tensor        # (I, 3, 4) world->object
+    inst_mat: torch.Tensor        # (I,) material override, -1 = per-tri
+    # the fat traversal table and its slot maps
+    p_fat: torch.Tensor           # (2*Nw, 128) f32
+    p_slot_tri: torch.Tensor      # (NL*leaf,) i32 kernel slot -> scene slot
+    p_slot_inst: torch.Tensor     # (NL*leaf,) i32 kernel slot -> instance
+    # NEE light table
+    light_ptype: torch.Tensor
+    light_pindex: torch.Tensor
+    light_center: torch.Tensor
+    light_radius: torch.Tensor
+    light_mat: torch.Tensor
+    light_cdf: torch.Tensor       # power-mode cumulative pmf
+    light_pmf: torch.Tensor
+    materials: MaterialTable
+    textures: TextureAtlas
+    env_color: torch.Tensor       # (3,)
+    texture_angle: float
+    # --- static metadata ---
+    env_texture: int
+    sphere_xform: bool
+    cube_xform: bool
+    cyl_xform: bool
+    max_leaf: int
+    wide_k: int
+    intersector: str
+    p_inst_base: tuple            # node range [base, end) of the fat table
+    p_inst_end: tuple
+    p_stack_bound: int            # max_stack_bound of the fat table
+    light_types: tuple
+    bvh_builder: str              # builder of the traversal tree
+
+    @property
+    def num_lights(self) -> int:
+        return self.light_mat.shape[0]
+
+    @property
+    def has_meshes(self) -> bool:
+        return self.inst_inv.shape[0] > 0
+
+
+def check_stack_bound(bound: int) -> None:
+    if bound > STACK_CAPACITY:
+        raise ValueError(
+            f"BVH needs a traversal stack of {bound} entries; the kernels "
+            f"hold {STACK_CAPACITY}")
+
+
+def _affine(m: np.ndarray) -> np.ndarray:
+    return np.asarray(m, np.float32)[:3, :4]
+
+
+class SceneBuilder:
+    """Collects shapes and materials on the host; `build()` freezes them
+    into tensors on one device. Emissive primitives become NEE lights."""
+
+    def __init__(self):
+        self._materials: list[Material] = []
+        self._mat_ids: dict[Material, int] = {}
+        self._spheres = []   # (center, radius, inv, mat)
+        self._planes = []
+        self._cubes = []
+        self._cyls = []
+        self._meshes: list[tuple[TriMesh, int]] = []  # (mesh, default mat)
+        self._instances = []  # (mesh_idx, inv, world, mat_override)
+        self._lights = []     # (ptype, pindex, center, radius, mat)
+        self._textures: list[np.ndarray] = []
+        self.env_color = np.zeros(3, np.float32)
+        self.env_texture = -1
+        self.texture_angle = 0.0
+
+    # -- materials / textures ----------------------------------------------
+
+    def material_id(self, m: Material) -> int:
+        if m not in self._mat_ids:
+            self._mat_ids[m] = len(self._materials)
+            self._materials.append(m)
+        return self._mat_ids[m]
+
+    def add_texture(self, image: np.ndarray) -> int:
+        """Register an (H, W, 3) linear-RGB image; returns its atlas id."""
+        self._textures.append(np.asarray(image, np.float32))
+        return len(self._textures) - 1
+
+    def set_environment(self, color=None, texture_id: int = -1,
+                        angle: float = 0.0):
+        if color is not None:
+            self.env_color = np.asarray(color, np.float32)
+        self.env_texture = texture_id
+        self.texture_angle = float(angle)
+
+    # -- shapes --------------------------------------------------------------
+
+    def _register_light(self, ptype, pindex, center, radius, mat_id,
+                        m: Material):
+        if m.emittance > 0:
+            self._lights.append((ptype, pindex, np.asarray(center, np.float32),
+                                 float(radius), mat_id))
+
+    def _xform(self, transform):
+        if transform is None:
+            return _IDENTITY34, None
+        t = np.asarray(transform, np.float32)
+        return _affine(np.linalg.inv(t)), t
+
+    def add_sphere(self, center, radius, material: Material,
+                   transform=None) -> int:
+        mid = self.material_id(material)
+        center = np.asarray(center, np.float32)
+        inv, t = self._xform(transform)
+        wcenter, wradius = center, radius
+        if t is not None:
+            wcenter = t[:3, :3] @ center + t[:3, 3]
+            wradius = radius * float(np.linalg.norm(t[:3, :3], 2))
+        idx = len(self._spheres)
+        self._spheres.append((center, float(radius), inv, mid))
+        self._register_light(PT_SPHERE, idx, wcenter, wradius, mid, material)
+        return idx
+
+    def add_plane(self, point, normal, material: Material) -> int:
+        if material.emittance > 0:
+            raise ValueError(
+                "emissive infinite planes are not supported as NEE lights; "
+                "use an emissive quad mesh or thin cube instead")
+        mid = self.material_id(material)
+        n = np.asarray(normal, np.float32)
+        n = n / max(np.linalg.norm(n), 1e-20)
+        self._planes.append((np.asarray(point, np.float32), n, mid))
+        return len(self._planes) - 1
+
+    def add_cube(self, bmin, bmax, material: Material, transform=None) -> int:
+        mid = self.material_id(material)
+        bmin = np.asarray(bmin, np.float32)
+        bmax = np.asarray(bmax, np.float32)
+        inv, t = self._xform(transform)
+        center = 0.5 * (bmin + bmax)
+        radius = 0.5 * float(np.linalg.norm(bmax - bmin))
+        if t is not None:
+            center = t[:3, :3] @ center + t[:3, 3]
+            radius *= float(np.linalg.norm(t[:3, :3], 2))
+        idx = len(self._cubes)
+        self._cubes.append((bmin, bmax, inv, mid))
+        self._register_light(PT_CUBE, idx, center, radius, mid, material)
+        return idx
+
+    def add_cylinder(self, radius, z0, z1, material: Material,
+                     transform=None) -> int:
+        """Z-axis capped cylinder; `transform` places it anywhere."""
+        mid = self.material_id(material)
+        inv, t = self._xform(transform)
+        center = np.array([0.0, 0.0, (z0 + z1) / 2.0], np.float32)
+        rad = float(np.hypot(radius, (z1 - z0) / 2.0))
+        if t is not None:
+            center = t[:3, :3] @ center + t[:3, 3]
+            rad *= float(np.linalg.norm(t[:3, :3], 2))
+        idx = len(self._cyls)
+        self._cyls.append((float(radius), float(z0), float(z1), inv, mid))
+        self._register_light(PT_CYLINDER, idx, center, rad, mid, material)
+        return idx
+
+    def add_mesh(self, mesh: TriMesh, material: Material | None = None,
+                 transform=None) -> int:
+        """Add a mesh; returns its id for add_mesh_instance. material=None
+        keeps per-triangle materials."""
+        mid = -1 if material is None else self.material_id(material)
+        mesh_idx = len(self._meshes)
+        self._meshes.append((mesh, mid))
+        self.add_mesh_instance(mesh_idx, transform=transform,
+                               material=material)
+        return mesh_idx
+
+    def add_mesh_instance(self, mesh_idx: int, transform=None,
+                          material: Material | None = None) -> int:
+        over = -1 if material is None else self.material_id(material)
+        inv, world = _IDENTITY34, _IDENTITY34
+        if transform is not None:
+            t = np.asarray(transform, np.float32)
+            inv, world = _affine(np.linalg.inv(t)), _affine(t)
+        mesh, def_mid = self._meshes[mesh_idx]
+        mat = material if material is not None else (
+            self._materials[def_mid] if def_mid >= 0 else None)
+        emissive = mat is not None and mat.emittance > 0
+        if mat is None and mesh.mat is not None:
+            emissive = any(self._materials[int(m)].emittance > 0
+                           for m in np.unique(mesh.mat))
+        if emissive:
+            raise not_ported("emissive meshes (mesh lights)",
+                             "Queue 1 item 10")
+        self._instances.append((mesh_idx, inv, world, over))
+        return len(self._instances) - 1
+
+    def add_sdf(self, *args, **kwargs):
+        raise not_ported("SDF shapes", "Queue 1 item 10")
+
+    def add_function(self, *args, **kwargs):
+        raise not_ported("function (heightfield) shapes", "Queue 1 item 10")
+
+    def add_volume(self, *args, **kwargs):
+        raise not_ported("volumes", "Queue 1 item 10")
+
+    # -- freeze --------------------------------------------------------------
+
+    def _mesh_slots(self, leaf_size: int):
+        """Per-mesh BVH slot layout, as the JAX package lays out its scene
+        triangle arrays: every leaf owns leaf_size slots and each mesh's
+        leaf count is padded to a CLUSTER_GROUP multiple."""
+        tri_v, tri_n, tri_uv, tri_mat, slot_range = [], [], [], [], []
+        slot_offset = 0
+        for mesh, def_mid in self._meshes:
+            mesh = mesh.fix_normals()
+            v = mesh.v
+            lo = np.minimum(np.minimum(v[:, 0], v[:, 1]), v[:, 2])
+            hi = np.maximum(np.maximum(v[:, 0], v[:, 1]), v[:, 2])
+            flat = bvh_mod.build(lo, hi, leaf_size=leaf_size)
+            order = flat.order
+            sv, sn, suv = v[order], mesh.n[order], mesh.uv[order]
+            if mesh.mat is not None and def_mid < 0:
+                tm = mesh.mat[order]
+            else:
+                tm = np.full(v.shape[0], max(def_mid, 0), np.int32)
+            leaf_ids = np.where(flat.count > 0)[0]
+            nl = leaf_ids.shape[0]
+            lanes = np.arange(leaf_size, dtype=np.int32)
+            src = flat.first[leaf_ids][:, None] + lanes[None, :]
+            valid = lanes[None, :] < flat.count[leaf_ids][:, None]
+            src = np.where(valid, src, 0).reshape(-1)
+            vmask = valid.reshape(-1)
+            lpad = ((-nl) % CLUSTER_GROUP) * leaf_size
+            parts = []
+            for a, shape in ((sv, (3, 3)), (sn, (3, 3)), (suv, (3, 2))):
+                s = np.where(vmask[:, None, None], a[src], 0.0)
+                parts.append(np.concatenate(
+                    [s.astype(np.float32), np.zeros((lpad,) + shape,
+                                                    np.float32)]))
+            tri_v.append(parts[0])
+            tri_n.append(parts[1])
+            tri_uv.append(parts[2])
+            tri_mat.append(np.concatenate(
+                [np.where(vmask, tm[src], 0).astype(np.int32),
+                 np.zeros(lpad, np.int32)]))
+            n_slots = nl * leaf_size + lpad
+            slot_range.append((slot_offset, slot_offset + n_slots))
+            slot_offset += n_slots
+        return (np.concatenate(tri_v), np.concatenate(tri_n),
+                np.concatenate(tri_uv), np.concatenate(tri_mat), slot_range)
+
+    def build(self, leaf_size: int = 8, use_tlas: bool | None = None,
+              intersector: str = "wide", wide_k: int = 4,
+              pallas_ordered: bool = True, device="cpu") -> SceneData:
+        """Freeze the scene onto `device`. Mesh scenes need
+        intersector="pallas": one world-space K-wide tree over all
+        instances, walked by the CUDA kernels (or their plain versions on
+        the CPU)."""
+        if intersector not in ("wide", "walk", "cluster", "pallas"):
+            raise ValueError(intersector)
+        if not pallas_ordered:
+            raise not_ported("pallas_ordered=False (preorder kernels)",
+                             "Queue 2")
+        for m in self._materials:
+            if m.normal_texture >= 0 or m.bump_texture >= 0:
+                raise not_ported("normal and bump maps", "Queue 1 item 10")
+        n_analytic = len(self._spheres) + len(self._cubes) + len(self._cyls)
+        if intersector == "pallas":
+            if leaf_size * 9 > tables.ROW or 9 + 7 * wide_k > tables.ROW:
+                raise ValueError("pallas: leaf_size <= 14 and wide_k <= 17")
+            if use_tlas:
+                raise ValueError("pallas intersector is per-instance")
+            use_tlas = False
+        elif self._instances:
+            raise not_ported(f"the {intersector!r} mesh intersector",
+                             "Queue 1 item 11")
+        if use_tlas is None:
+            use_tlas = len(self._instances) > 1 or n_analytic >= 64
+        if use_tlas and n_analytic + len(self._instances) > 0:
+            raise not_ported("the TLAS", "Queue 1 item 10")
+        dev = torch.device(device)
+
+        def t(a, dtype=np.float32):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+        def soa(rows, idx, shape, dtype=np.float32):
+            if rows:
+                return t(np.stack([np.asarray(r[idx], dtype) for r in rows]),
+                         dtype)
+            return t(np.zeros((0,) + shape, dtype), dtype)
+
+        p_fat = np.zeros((0, tables.ROW), np.float32)
+        p_slot_tri = np.zeros(0, np.int32)
+        p_slot_inst = np.zeros(0, np.int32)
+        p_inst_b, p_inst_e = (), ()
+        stack_bound = 0
+        builder = "none"
+        if self._meshes:
+            tv, tn, tuv, tmat, slot_range = self._mesh_slots(leaf_size)
+        else:
+            tv = np.zeros((0, 3, 3), np.float32)
+            tn = np.zeros((0, 3, 3), np.float32)
+            tuv = np.zeros((0, 3, 2), np.float32)
+            tmat = np.zeros(0, np.int32)
+        if self._instances:
+            e1n = (tv[:, 1] - tv[:, 0]).astype(np.float32)
+            e2n = (tv[:, 2] - tv[:, 0]).astype(np.float32)
+            specs = []
+            for iid, (mesh_idx, _inv, world, _over) in enumerate(
+                    self._instances):
+                lo_s, hi_s = slot_range[mesh_idx]
+                specs.append((lo_s, hi_s, world, iid))
+            if sum(hi - lo for lo, hi, _w, _i in specs) > FLAT_TRI_CAP:
+                raise not_ported("per-instance (non-flat) mesh tables",
+                                 "Queue 1 item 10")
+            rows, leaf, p_slot_tri, p_slot_inst, builder = \
+                tables.pack_flat_tables(tv[:, 0].astype(np.float32), e1n, e2n,
+                                        specs, leaf_size, wide_k)
+            stack_bound = tables.max_stack_bound(rows, wide_k)
+            check_stack_bound(stack_bound)
+            p_fat = tables.pack_fat(rows, leaf, leaf_size)
+            p_inst_b, p_inst_e = (0,), (int(rows.shape[0]),)
+
+        n_l = len(self._lights)
+        if n_l:
+            lum = np.array([0.2126, 0.7152, 0.0722], np.float32)
+            power = np.zeros(n_l, np.float32)
+            for li, (_pt, _pi, _c, rad, lm) in enumerate(self._lights):
+                m = self._materials[lm]
+                power[li] = m.emittance * float(
+                    np.dot(np.asarray(m.color, np.float32), lum)) * max(
+                        rad * rad, 1e-8)
+            total = float(power.sum())
+            pmf = (power / total if total > 0
+                   else np.full(n_l, 1.0 / n_l, np.float32))
+            cdf = np.cumsum(pmf).astype(np.float32)
+            cdf[-1] = 1.0
+        else:
+            pmf = np.zeros(0, np.float32)
+            cdf = np.zeros(0, np.float32)
+
+        def xformed(rows, col):
+            return any(not np.array_equal(r[col], _IDENTITY34) for r in rows)
+
+        def tri_attr(a, k, shape):
+            return t(a[:, k] if a.size else np.zeros((0,) + shape))
+
+        inst = [(inv, over) for _m, inv, _w, over in self._instances]
+        return SceneData(
+            device=dev,
+            sphere_center=soa(self._spheres, 0, (3,)),
+            sphere_radius=soa(self._spheres, 1, ()),
+            sphere_inv=soa(self._spheres, 2, (3, 4)),
+            sphere_mat=soa(self._spheres, 3, (), np.int32),
+            plane_point=soa(self._planes, 0, (3,)),
+            plane_normal=soa(self._planes, 1, (3,)),
+            plane_mat=soa(self._planes, 2, (), np.int32),
+            cube_min=soa(self._cubes, 0, (3,)),
+            cube_max=soa(self._cubes, 1, (3,)),
+            cube_inv=soa(self._cubes, 2, (3, 4)),
+            cube_mat=soa(self._cubes, 3, (), np.int32),
+            cyl_radius=soa(self._cyls, 0, ()),
+            cyl_z0=soa(self._cyls, 1, ()),
+            cyl_z1=soa(self._cyls, 2, ()),
+            cyl_inv=soa(self._cyls, 3, (3, 4)),
+            cyl_mat=soa(self._cyls, 4, (), np.int32),
+            tri_n0=tri_attr(tn, 0, (3,)),
+            tri_n1=tri_attr(tn, 1, (3,)),
+            tri_n2=tri_attr(tn, 2, (3,)),
+            tri_uv0=tri_attr(tuv, 0, (2,)),
+            tri_uv1=tri_attr(tuv, 1, (2,)),
+            tri_uv2=tri_attr(tuv, 2, (2,)),
+            tri_mat=t(tmat, np.int32),
+            inst_inv=soa(inst, 0, (3, 4)),
+            inst_mat=soa(inst, 1, (), np.int32),
+            p_fat=t(p_fat),
+            p_slot_tri=t(p_slot_tri, np.int32),
+            p_slot_inst=t(p_slot_inst, np.int32),
+            light_ptype=soa(self._lights, 0, (), np.int32),
+            light_pindex=soa(self._lights, 1, (), np.int32),
+            light_center=soa(self._lights, 2, (3,)),
+            light_radius=soa(self._lights, 3, ()),
+            light_mat=soa(self._lights, 4, (), np.int32),
+            light_cdf=t(cdf),
+            light_pmf=t(pmf),
+            materials=MaterialTable.build(self._materials, dev),
+            textures=TextureAtlas.build(self._textures, dev),
+            env_color=t(self.env_color),
+            texture_angle=float(self.texture_angle),
+            env_texture=int(self.env_texture),
+            sphere_xform=xformed(self._spheres, 2),
+            cube_xform=xformed(self._cubes, 2),
+            cyl_xform=xformed(self._cyls, 3),
+            max_leaf=int(leaf_size),
+            wide_k=int(wide_k),
+            intersector=intersector,
+            p_inst_base=p_inst_b,
+            p_inst_end=p_inst_e,
+            p_stack_bound=int(stack_bound),
+            light_types=tuple(sorted({lt[0] for lt in self._lights})),
+            bvh_builder=builder,
+        )

@@ -1,0 +1,72 @@
+"""Texture atlas: all scene textures in one padded tensor.
+
+Counterpart of ptsharp_tpu/textures.py: every image is stacked into one
+(K, maxH, maxW, 3) atlas with a (K, 2) size table, so a wavefront's
+texture lookups are one batched bilinear gather indexed by the per-ray
+texture id.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class TextureAtlas(NamedTuple):
+    data: torch.Tensor   # (K, maxH, maxW, 3) linear RGB, zero-padded
+    sizes: torch.Tensor  # (K, 2) int32 (h, w)
+
+    @staticmethod
+    def from_arrays(data, sizes, device) -> "TextureAtlas":
+        return TextureAtlas(
+            data=torch.from_numpy(np.array(data, np.float32)).to(device),
+            sizes=torch.from_numpy(np.array(sizes, np.int32)).to(device))
+
+    @staticmethod
+    def build(images: list[np.ndarray], device) -> "TextureAtlas":
+        """images: list of (H, W, 3) float32 arrays already in linear space."""
+        if not images:
+            return TextureAtlas.from_arrays(np.zeros((1, 1, 1, 3)),
+                                            np.ones((1, 2)), device)
+        mh = max(im.shape[0] for im in images)
+        mw = max(im.shape[1] for im in images)
+        data = np.zeros((len(images), mh, mw, 3), np.float32)
+        sizes = np.zeros((len(images), 2), np.int32)
+        for i, im in enumerate(images):
+            h, w = im.shape[:2]
+            data[i, :h, :w] = im
+            sizes[i] = (h, w)
+        return TextureAtlas.from_arrays(data, sizes, device)
+
+    @property
+    def nontrivial(self) -> bool:
+        """The atlas holds real texels (a (1,1,1,3) empty atlas never
+        samples)."""
+        return self.data.shape[1] > 1 or self.data.shape[0] > 1
+
+    def sample(self, tex_id, u, v):
+        """Bilinear wrap sample -> (..., 3); ids < 0 return texture 0
+        (callers select against a fallback)."""
+        tid = torch.clamp(tex_id, 0, self.data.shape[0] - 1).long()
+        hi = self.sizes[tid, 0].long()
+        wi = self.sizes[tid, 1].long()
+        h = hi.float()
+        w = wi.float()
+        # wrap to [0,1), v flipped like the reference sampler
+        uu = torch.remainder(u, 1.0) * (w - 1.0)
+        vv = (1.0 - torch.remainder(v, 1.0)) * (h - 1.0)
+        x0 = torch.floor(uu).long()
+        y0 = torch.floor(vv).long()
+        fx = (uu - x0)[..., None]
+        fy = (vv - y0)[..., None]
+        x1 = torch.where(x0 + 1 >= wi, 0, x0 + 1)
+        y1 = torch.where(y0 + 1 >= hi, 0, y0 + 1)
+        c00 = self.data[tid, y0, x0]
+        c01 = self.data[tid, y0, x1]
+        c10 = self.data[tid, y1, x0]
+        c11 = self.data[tid, y1, x1]
+        c0 = c00 * (1 - fx) + c01 * fx
+        c1 = c10 * (1 - fx) + c11 * fx
+        return c0 * (1 - fy) + c1 * fy

@@ -1,0 +1,108 @@
+"""The port stands alone: importing ptsharp_tpu_torch and every one of its
+modules, in a fresh interpreter, loads neither jax nor ptsharp_tpu; what
+the slice does not cover raises NotImplementedError naming the ROADMAP
+item that will port it."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import ptsharp_tpu_torch
+from ptsharp_tpu_torch import examples, film
+from ptsharp_tpu_torch.geometry.mesh import cube_mesh
+from ptsharp_tpu_torch.materials import (
+    Material, diffuse_material, light_material,
+)
+from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
+from ptsharp_tpu_torch.scene import SceneBuilder
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = sorted(m.name for m in pkgutil.walk_packages(
+    ptsharp_tpu_torch.__path__, "ptsharp_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'ptsharp_tpu' or m.startswith('ptsharp_tpu.')]\n"
+        "print(len(sys.modules)); sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(MODULES) >= 20
+
+
+def test_public_names_match_the_reference_layout():
+    for name in ("SceneBuilder", "SceneData", "Camera", "Film",
+                 "IntegratorConfig", "Renderer", "RenderConfig"):
+        assert hasattr(ptsharp_tpu_torch, name)
+    from ptsharp_tpu_torch.integrator import trace, trace_compacted_static
+    from ptsharp_tpu_torch.intersect import closest_hit, occlusion_query
+    assert all(callable(f) for f in (trace, trace_compacted_static,
+                                     closest_hit, occlusion_query,
+                                     examples.build))
+
+
+def _plain_builder():
+    b = SceneBuilder()
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.5, 0.5, 0.5]))
+    return b
+
+
+@pytest.mark.parametrize("what", [
+    "sdf", "volume", "function", "mesh_light", "wide_intersector",
+    "preorder_kernels", "tlas", "surface_maps", "example"])
+def test_outside_the_slice_raises(what):
+    b = _plain_builder()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if what == "sdf":
+            b.add_sdf(None, diffuse_material([1, 1, 1]))
+        elif what == "volume":
+            b.add_volume(None)
+        elif what == "function":
+            b.add_function(None, diffuse_material([1, 1, 1]))
+        elif what == "mesh_light":
+            b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
+                       light_material([1, 1, 1], 5.0))
+        elif what == "wide_intersector":
+            b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
+                       diffuse_material([1, 1, 1]))
+            b.build(intersector="wide")
+        elif what == "preorder_kernels":
+            b.build(intersector="pallas", pallas_ordered=False)
+        elif what == "tlas":
+            for i in range(64):
+                b.add_sphere([i, 1, 0], 0.4, diffuse_material([1, 1, 1]))
+            b.build()
+        elif what == "surface_maps":
+            b.add_sphere([0, 1, 0], 1.0, Material(normal_texture=0))
+            b.build()
+        else:
+            examples.build("dragon")
+
+
+def test_iterative_render_options_outside_the_slice_raise():
+    b = _plain_builder()
+    b.add_sphere([0, 3, 0], 0.5, light_material([1, 1, 1], 5.0))
+    scene = b.build()
+    cam = ptsharp_tpu_torch.Camera.look_at([0, 1, -4], [0, 1, 0],
+                                           [0, 1, 0], 40.0)
+    r = Renderer(scene, cam, RenderConfig(8, 8, spp=1))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        r.iterative_render(1, denoise=True)
+    out = r.iterative_render(2)
+    assert float(out.n.mean()) == 2.0 and r.rays_traced > 0
+
+
+def test_save_png_writes_an_image(tmp_path):
+    pytest.importorskip("PIL")
+    path = tmp_path / "out.png"
+    film.save_png(np.full((4, 5, 3), 0.5, np.float32), str(path))
+    assert path.stat().st_size > 0

@@ -1,0 +1,104 @@
+"""The port's host scene build against the JAX package's.
+
+Tolerance: byte-equal. The fat traversal table, the kernel-slot maps,
+max_stack_bound and the slot-ordered triangle attributes must be
+identical for the two-mesh scene of tests/test_tpu_compiled.py and for
+_bunny_mesh(3) at leaf 14, K=8.
+"""
+
+import numpy as np
+import pytest
+
+from ptsharp_tpu import examples as jex
+from ptsharp_tpu.geometry import mesh as jmesh
+from ptsharp_tpu.materials import diffuse_material as jdiffuse
+from ptsharp_tpu.pallas import hbm_kernel, ordered_kernel
+from ptsharp_tpu.scene import SceneBuilder as JBuilder
+
+from ptsharp_tpu_torch import examples as tex
+from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.geometry import mesh as tmesh
+from ptsharp_tpu_torch.materials import diffuse_material as tdiffuse
+from ptsharp_tpu_torch.scene import SceneBuilder as TBuilder
+
+
+def _two_mesh(builder, mesh, diffuse):
+    b = builder()
+    b.add_mesh(mesh.sphere_mesh([0, 0.4, 0], 1.0, subdivisions=3),
+               diffuse([0.5, 0.5, 0.5]))
+    b.add_mesh(mesh.cube_mesh([1.6, -0.3, -0.3], [2.2, 0.3, 0.3]),
+               diffuse([0.9, 0.6, 0.2]))
+    return b.build(leaf_size=8, intersector="pallas", wide_k=8)
+
+
+def _bunny(builder, ex, diffuse):
+    b = builder()
+    b.add_mesh(ex._bunny_mesh(3), diffuse([0.5, 0.5, 0.5]))
+    return b.build(leaf_size=14, intersector="pallas", wide_k=8)
+
+
+SCENES = {
+    "two_mesh": (lambda: _two_mesh(JBuilder, jmesh, jdiffuse),
+                 lambda: _two_mesh(TBuilder, tmesh, tdiffuse)),
+    "bunny3": (lambda: _bunny(JBuilder, jex, jdiffuse),
+               lambda: _bunny(TBuilder, tex, tdiffuse)),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def pair(request):
+    make_ref, make_port = SCENES[request.param]
+    return make_ref(), make_port()
+
+
+def _ref_fat(sj):
+    if sj.p_hbm:
+        return np.asarray(sj.p_rows)
+    return np.asarray(hbm_kernel.pack_fat(sj.p_rows, sj.p_leaf, sj.max_leaf))
+
+
+def test_fat_table_byte_equal(pair):
+    sj, st = pair
+    fat = st.p_fat.numpy()
+    assert fat.shape[1] == 128 and fat.shape[0] % 2 == 0
+    np.testing.assert_array_equal(fat.view(np.int32),
+                                  _ref_fat(sj).view(np.int32))
+    if not sj.p_hbm:  # the reference's own fat copy too
+        np.testing.assert_array_equal(fat.view(np.int32),
+                                      np.asarray(sj.p_fat).view(np.int32))
+
+
+def test_slot_maps_byte_equal(pair):
+    sj, st = pair
+    np.testing.assert_array_equal(st.p_slot_tri.numpy(),
+                                  np.asarray(sj.p_slot_tri))
+    np.testing.assert_array_equal(st.p_slot_inst.numpy(),
+                                  np.asarray(sj.p_slot_inst))
+    assert st.p_inst_base == tuple(sj.p_inst_base)
+    assert st.p_inst_end == tuple(sj.p_inst_end)
+
+
+def test_max_stack_bound_equal(pair):
+    sj, st = pair
+    ref = ordered_kernel.max_stack_bound(np.asarray(sj.p_rows), sj.wide_k)
+    assert st.p_stack_bound == ref
+    assert tables.max_stack_bound(st.p_fat.numpy()[0::2], st.wide_k) == ref
+    assert 0 < ref <= 64
+
+
+@pytest.mark.parametrize("name", ["tri_n0", "tri_n1", "tri_n2", "tri_uv0",
+                                  "tri_uv2", "tri_mat", "inst_inv",
+                                  "inst_mat"])
+def test_triangle_attributes_byte_equal(pair, name):
+    sj, st = pair
+    a = getattr(st, name).numpy()
+    b = np.asarray(getattr(sj, name))
+    assert a.dtype == b.dtype
+    np.testing.assert_array_equal(a, b)
+
+
+def test_bunny_mesh_copy_is_identical():
+    a, b = tex._bunny_mesh(3), jex._bunny_mesh(3)
+    np.testing.assert_array_equal(a.v, b.v)
+    np.testing.assert_array_equal(a.n, b.n)
+    np.testing.assert_array_equal(a.uv, b.uv)
