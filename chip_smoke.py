@@ -7,33 +7,44 @@ Run from the repository root on a machine with a CUDA card and nvcc. It
 builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
 
   1. device   name and power limit as nvidia-smi reports them;
-  2. build    nvcc build time and the kernels' register/spill report;
-  3. scene    examples.build("bunny", intersector="pallas", wide_k=8): the
+  2. build    nvcc build time and each kernel's registers, stack frame
+              and spills as ptxas reports them;
+  3. bunny    examples.build("bunny", intersector="pallas", wide_k=8): the
               full 81,920-triangle bunny, its BVH builder, table size and
               max_stack_bound;
-  4. closest-hit kernel against closest_hit_plain, on Morton-ordered
-              camera rays plus scattered bounce rays from their hit points:
-              2**16 + 2**16 rays, and the 1080p main-path width;
-  5. any-hit  kernel against any_hit_plain on shadow rays from the same
-              bounce origins toward the light, t_cut formed as
-              sample_lights forms it;
-  6. render   Renderer.render() of the bunny at 1920x1080, 1 spp, through
-              trace_compacted_static, with both kernels' launch counts
-              reset just before and read just after; one cornell pass at
-              512x512; and a 32x24 bunny render on the card held against
-              the same render on the CPU (the plain versions).
+  4. kernels  all four kernels against their plain versions, on
+              Morton-ordered camera rays plus scattered bounce rays from
+              their hit points, 2**16 + 2**16 rays and the 1080p main-path
+              width: closest-hit (ordered: t within CLOSEST_TOL, slots
+              equal except ties; preorder: slots equal on every lane),
+              any-hit on shadow rays from the bounce origins toward the
+              light, t_cut formed as sample_lights forms it (equal except
+              in a band around t_cut); and the two walk orders against
+              each other on the same rays;
+  5. dragon   examples.build("dragon_hd", intersector="pallas", wide_k=8,
+              pallas_ordered=False): 1,310,720 triangles, built once; the
+              kernel phase of 4 again on 518,400 + 518,400 rays (960x540);
+  6. render   Renderer.render() at 1 spp of the bunny at 1920x1080 in both
+              walk orders and of dragon_hd at 960x540 in both walk orders,
+              each with every launch count set to 0 just before and read
+              just after (the walk's two kernels must have launched, the
+              other walk's not); one cornell pass at 512x512; and 32x24
+              bunny renders on the card, both walk orders, held against
+              the same renders on the CPU (the plain versions).
 
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-kernel's launches, error and times; the last line is
-{"ok": true, "device": {...}}.
+kernel's launches over the main-path renders, its largest error against
+its plain version and its times at the bunny's 1080p main-path width; the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -49,6 +60,26 @@ CLOSEST_TOL = dict(rtol=1e-5, atol=1e-5)
 ANYHIT_EDGE = 1e-5          # relative band around t_cut
 ANYHIT_MAX_EDGE_FRAC = 1e-4  # share of lanes allowed in that band
 PIXEL_FRAC = 0.995           # card-vs-CPU render: pixels within 1e-4
+DRAGON_TRIANGLES = 1_310_720
+
+# walk order -> its (closest-hit, any-hit) wrappers in kernels/traverse.py
+WALKS = {
+    "ordered": ("closest_hit", "any_hit"),
+    "preorder": ("closest_hit_preorder", "any_hit_preorder"),
+}
+# wrapper -> (its CUDA source, the TPU kernels it replaces)
+KERNELS = {
+    "closest_hit": ("ptsharp_tpu_torch/csrc/closest_hit.cu",
+                    ["ptsharp_tpu/pallas/ordered_kernel.py:597"]),
+    "any_hit": ("ptsharp_tpu_torch/csrc/any_hit.cu",
+                ["ptsharp_tpu/pallas/wide_kernel.py:604",
+                 "ptsharp_tpu/pallas/ordered_kernel.py:758"]),
+    "closest_hit_preorder": ("ptsharp_tpu_torch/csrc/closest_hit_preorder.cu",
+                             ["ptsharp_tpu/pallas/wide_kernel.py:449",
+                              "ptsharp_tpu/pallas/hbm_kernel.py:570"]),
+    "any_hit_preorder": ("ptsharp_tpu_torch/csrc/any_hit_preorder.cu",
+                         ["ptsharp_tpu/pallas/hbm_kernel.py:862"]),
+}
 
 
 def log(msg: str) -> None:
@@ -80,6 +111,29 @@ def time_ms(fn, device, reps: int = 5) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel<K>: {registers, stack, spill_stores, spill_loads}} from
+    nvcc's -Xptxas -v report."""
+    rows, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"([a-z_]+)_kernelILi(\d+)E", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            rows[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            rows[name].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows[name]["registers"] = int(m.group(1))
+    return rows
 
 
 # ---- rays -----------------------------------------------------------------
@@ -158,6 +212,11 @@ def shadow_cut(scene, org, seed=2):
 # ---- kernel checks ----------------------------------------------------------
 
 
+def _args(scene):
+    return (scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
+            scene.wide_k)
+
+
 def _slot_triangles(scene):
     """(kernel slot -> (9,) triangle) lookup over the fat table."""
     fat = scene.p_fat
@@ -195,83 +254,119 @@ def _ties(scene, org, dirn, slot_a, slot_b, t_ref):
     return lanes, (tts[0] - tts[1]).abs() <= tol
 
 
-def check_closest(scene, org, dirn, label):
+def _band(t_near, t_cut, occ_a, occ_b, what):
+    """Lanes where two any-hit results differ; raises unless every one
+    lies in the t_cut band and they are few. Returns (mismatches, band)."""
+    edge = (t_near - t_cut).abs() <= ANYHIT_EDGE * t_cut.abs()
+    diff = occ_a != occ_b
+    off_edge = diff & ~edge
+    if bool(off_edge.any()):
+        raise AssertionError(f"{what} differs on {int(off_edge.sum())} "
+                             f"lanes off the t_cut band")
+    n_edge = int((diff & edge).sum())
+    if n_edge > ANYHIT_MAX_EDGE_FRAC * t_cut.shape[0]:
+        raise AssertionError(f"{what} differs on {n_edge} lanes at t_cut")
+    return n_edge, edge
+
+
+def check_closest(scene, org, dirn, label, walk):
+    """The walk's closest-hit kernel against its plain version: t within
+    CLOSEST_TOL; slots equal except ties (ordered) or on every lane
+    (preorder)."""
     from ptsharp_tpu_torch.kernels import traverse
 
-    args = (scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
-            scene.wide_k)
+    name = WALKS[walk][0]
+    kernel = getattr(traverse, name)
+    plain = getattr(traverse, f"{name}_plain")
+    args = _args(scene)
     tmax = torch.full((org.shape[0],), INF, device=org.device)
-    t, s, u, v = traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args)
-    tp, sp, up, vp = traverse.closest_hit_plain(scene.p_fat, org, dirn, tmax,
-                                                *args)
+    t, s, _u, _v = kernel(scene.p_fat, org, dirn, tmax, *args)
+    tp, sp, _up, _vp = plain(scene.p_fat, org, dirn, tmax, *args)
     sync(org.device)
     close = torch.isclose(t, tp, **CLOSEST_TOL)
     if not bool(close.all()):
         bad = torch.nonzero(~close).squeeze(1)[:5].tolist()
-        raise AssertionError(f"closest-hit t differs on "
-                             f"{int((~close).sum())} lanes, e.g. {bad}")
+        raise AssertionError(f"{name} t differs on {int((~close).sum())} "
+                             f"lanes, e.g. {bad}")
     lanes, tie = _ties(scene, org, dirn, s, sp, tp)
+    if walk == "preorder" and lanes.numel():
+        raise AssertionError(f"{name} slot differs from its plain version "
+                             f"on {lanes.numel()} lanes")
     if not bool(tie.all()):
-        raise AssertionError(f"closest-hit slot differs off ties on "
+        raise AssertionError(f"{name} slot differs off ties on "
                              f"{int((~tie).sum())} lanes")
     err = float((t - tp).abs().max())
-    ms = time_ms(lambda: traverse.closest_hit(scene.p_fat, org, dirn, tmax,
-                                              *args), org.device)
-    plain_ms = time_ms(lambda: traverse.closest_hit_plain(
-        scene.p_fat, org, dirn, tmax, *args), org.device)
+    ms = time_ms(lambda: kernel(scene.p_fat, org, dirn, tmax, *args),
+                 org.device)
+    plain_ms = time_ms(lambda: plain(scene.p_fat, org, dirn, tmax, *args),
+                       org.device)
     hits = float((tp < INF).float().mean())
-    log(f"closest-hit [{label}] rays={org.shape[0]} hit_frac={hits:.4f} "
+    log(f"{name} [{label}] rays={org.shape[0]} hit_frac={hits:.4f} "
         f"max_abs_err_t={err:.3e} slot_mismatches={lanes.numel()} "
         f"(all ties) kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, t=t)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, t=t, slot=s)
 
 
-def check_any(scene, org, dirn, t_cut, t_near, label):
+def check_any(scene, org, dirn, t_cut, t_near, label, walk):
     from ptsharp_tpu_torch.kernels import traverse
 
-    args = (scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
-            scene.wide_k)
-    occ = traverse.any_hit(scene.p_fat, org, dirn, t_cut, *args)
-    occ_p = traverse.any_hit_plain(scene.p_fat, org, dirn, t_cut, *args)
+    name = WALKS[walk][1]
+    kernel = getattr(traverse, name)
+    plain = getattr(traverse, f"{name}_plain")
+    args = _args(scene)
+    occ = kernel(scene.p_fat, org, dirn, t_cut, *args)
+    occ_p = plain(scene.p_fat, org, dirn, t_cut, *args)
     sync(org.device)
-    edge = (t_near - t_cut).abs() <= ANYHIT_EDGE * t_cut.abs()
-    diff = occ != occ_p
-    off_edge = diff & ~edge
-    if bool(off_edge.any()):
-        raise AssertionError(f"any-hit differs on {int(off_edge.sum())} "
-                             f"lanes off the t_cut band")
-    n_edge = int((diff & edge).sum())
-    if n_edge > ANYHIT_MAX_EDGE_FRAC * org.shape[0]:
-        raise AssertionError(f"any-hit differs on {n_edge} lanes at t_cut")
+    n_edge, edge = _band(t_near, t_cut, occ, occ_p, name)
     err = float((occ.float() - occ_p.float())[~edge].abs().max())
-    ms = time_ms(lambda: traverse.any_hit(scene.p_fat, org, dirn, t_cut,
-                                          *args), org.device)
-    plain_ms = time_ms(lambda: traverse.any_hit_plain(
-        scene.p_fat, org, dirn, t_cut, *args), org.device)
-    log(f"any-hit [{label}] rays={org.shape[0]} active="
+    ms = time_ms(lambda: kernel(scene.p_fat, org, dirn, t_cut, *args),
+                 org.device)
+    plain_ms = time_ms(lambda: plain(scene.p_fat, org, dirn, t_cut, *args),
+                       org.device)
+    log(f"{name} [{label}] rays={org.shape[0]} active="
         f"{float((t_cut > 0).float().mean()):.4f} occluded="
         f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, occ=occ)
 
 
 def kernel_phase(scene, cam, width, height, n_cam, n_bounce, label):
-    """Closest-hit and any-hit, kernel against plain, on camera rays plus
-    bounce rays, then shadow rays from the bounce origins."""
+    """All four kernels against their plain versions on camera rays plus
+    bounce rays (closest-hit), then on shadow rays from the bounce origins
+    (any-hit); then the two walk orders' kernels against each other.
+    Returns {wrapper name: {max_abs_err, ms, plain_ms}}."""
+    from ptsharp_tpu_torch.kernels import traverse
+
     oc, dc = camera_rays(scene, cam, width, height, n_cam)
     ob, db = bounce_rays(scene, oc, dc, n_bounce)
     org = torch.cat([oc, ob]).contiguous()
     dirn = torch.cat([dc, db]).contiguous()
-    closest = check_closest(scene, org, dirn, label)
+    closest = {w: check_closest(scene, org, dirn, label, w) for w in WALKS}
     ds, t_cut = shadow_cut(scene, ob)
-    from ptsharp_tpu_torch.kernels import traverse
-
     t_near, _s, _u, _v = traverse.closest_hit(
-        scene.p_fat, ob, ds, torch.full_like(t_cut, INF),
-        scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
-        scene.wide_k)
-    anyhit = check_any(scene, ob, ds, t_cut, t_near, label)
-    return closest, anyhit
+        scene.p_fat, ob, ds, torch.full_like(t_cut, INF), *_args(scene))
+    anyhit = {w: check_any(scene, ob, ds, t_cut, t_near, label, w)
+              for w in WALKS}
+
+    a, b = closest["preorder"], closest["ordered"]
+    close = torch.isclose(a["t"], b["t"], **CLOSEST_TOL)
+    if not bool(close.all()):
+        raise AssertionError(f"the two closest-hit walks differ in t on "
+                             f"{int((~close).sum())} lanes")
+    lanes, tie = _ties(scene, org, dirn, a["slot"], b["slot"], b["t"])
+    if not bool(tie.all()):
+        raise AssertionError(f"the two closest-hit walks differ in slot off "
+                             f"ties on {int((~tie).sum())} lanes")
+    n_edge, _edge = _band(t_near, t_cut, anyhit["preorder"]["occ"],
+                          anyhit["ordered"]["occ"], "the two any-hit walks")
+    log(f"cross-order [{label}]: closest-hit max_abs_diff_t="
+        f"{float((a['t'] - b['t']).abs().max()):.3e} slot_mismatches="
+        f"{lanes.numel()} (all ties); any-hit edge_mismatches={n_edge}")
+    out = {}
+    for w, names in WALKS.items():
+        for name, res in zip(names, (closest[w], anyhit[w])):
+            out[name] = {k: res[k] for k in ("max_abs_err", "ms", "plain_ms")}
+    return out
 
 
 # ---- render ---------------------------------------------------------------
@@ -297,57 +392,61 @@ def render(scene, cam, rcfg, icfg, seed=0):
     return film, r.rays_traced, sec
 
 
-def render_phase(scene, cam, rcfg, icfg, cornell):
-    """The main path (Renderer.render of the bunny through
-    trace_compacted_static) with the launch counts reset just before and
-    read just after, then one cornell pass."""
-    from ptsharp_tpu_torch.integrator import compaction_schedule
+def render_main(label, scene, cam, rcfg, icfg):
+    """One render of the main path with every launch count set to 0 just
+    before and read just after: the scene's walk order's two kernels must
+    have launched, the other order's not."""
     from ptsharp_tpu_torch.kernels import traverse
 
-    r = rcfg.width * rcfg.height * rcfg.spp
-    if not compaction_schedule(icfg, min(r, rcfg.max_rays_per_chunk)):
-        raise AssertionError("the bunny render would not compact")
     traverse.reset_launch_counts()
     film, rays, sec = render(scene, cam, rcfg, icfg)
-    launches = {"closest_hit": traverse.closest_hit.launches,
-                "any_hit": traverse.any_hit.launches}
-    log(f"render bunny {rcfg.width}x{rcfg.height} spp={rcfg.spp} "
-        f"primary_rays={r} rays_traced={rays} seconds={sec:.3f} "
+    launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    walk = "ordered" if scene.p_ordered else "preorder"
+    log(f"render {label} {rcfg.width}x{rcfg.height} spp={rcfg.spp} "
+        f"walk={walk} primary_rays={rcfg.width * rcfg.height * rcfg.spp} "
+        f"rays_traced={rays} seconds={sec:.3f} "
         f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
         f"{float(film.mean.mean()):.6f} launches={launches}")
-
-    cs, cc, crc, cic = cornell
-    film, rays, sec = render(cs, cc, crc, cic)
-    log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "
-        f"rays_traced={rays} seconds={sec:.3f} "
-        f"mrays_per_s={rays / sec / 1e6:.3f} "
-        f"film_mean={float(film.mean.mean()):.6f}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    for order, names in WALKS.items():
+        for name in names:
+            if (order == walk) != (launches[name] > 0):
+                raise AssertionError(f"{label} ({walk} walk) launched "
+                                     f"{name} {launches[name]} times")
     return launches
 
 
 def reference_phase(device):
-    """A small bunny render on the card against the same render on the
-    CPU, where the wrappers run the plain versions."""
+    """Small bunny renders on the card, in both walk orders, against the
+    same renders on the CPU, where the wrappers run the plain versions."""
     from ptsharp_tpu_torch import examples
     from ptsharp_tpu_torch.renderer import RenderConfig
 
-    means = []
-    for dev in (device, torch.device("cpu")):
-        scene, cam, _rc, icfg = examples.bunny(
-            32, 24, subdivisions=3, intersector="pallas", wide_k=8,
-            device=dev)
-        film, _rays, _sec = render(scene, cam, RenderConfig(32, 24, spp=1),
-                                   icfg, seed=5)
-        means.append(film.mean.cpu().numpy().reshape(-1, 3))
-    close = np.all(np.isclose(means[0], means[1], rtol=1e-4, atol=1e-4),
-                   axis=-1)
-    rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
-    log(f"reference bunny 32x24: pixels_within_1e-4={close.mean():.4f} "
-        f"mean_rel_diff={rel:.3e}")
-    if close.mean() < PIXEL_FRAC or rel > 1e-3:
-        raise AssertionError("card render disagrees with the CPU render")
+    for ordered in (True, False):
+        means = []
+        for dev in (device, torch.device("cpu")):
+            scene, cam, _rc, icfg = examples.bunny(
+                32, 24, subdivisions=3, intersector="pallas", wide_k=8,
+                pallas_ordered=ordered, device=dev)
+            film, _rays, _sec = render(scene, cam,
+                                       RenderConfig(32, 24, spp=1), icfg,
+                                       seed=5)
+            means.append(film.mean.cpu().numpy().reshape(-1, 3))
+        close = np.all(np.isclose(means[0], means[1], rtol=1e-4, atol=1e-4),
+                       axis=-1)
+        rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
+        log(f"reference bunny 32x24 pallas_ordered={ordered}: "
+            f"pixels_within_1e-4={close.mean():.4f} mean_rel_diff={rel:.3e}")
+        if close.mean() < PIXEL_FRAC or rel > 1e-3:
+            raise AssertionError("card render disagrees with the CPU render")
+
+
+def scene_line(name, scene, seconds):
+    n_tri = int((scene.p_slot_tri >= 0).sum())
+    log(f"{name} scene: {n_tri} triangles, bvh_builder={scene.bvh_builder}, "
+        f"fat={scene.p_fat.numel() * 4 / 2**20:.2f} MB "
+        f"({scene.p_fat.shape[0] // 2} nodes), "
+        f"max_stack_bound={scene.p_stack_bound}, build {seconds:.1f} s")
+    return n_tri
 
 
 # ---- main -----------------------------------------------------------------
@@ -359,7 +458,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.integrator import compaction_schedule
     from ptsharp_tpu_torch.kernels import build
+    from ptsharp_tpu_torch.scene import check_stack_bound
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,47 +475,73 @@ def main() -> int:
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({build.build_info['library']})")
-    for line in build.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    for kname, row in sorted(ptxas_report(build.build_info.get(
+            "ptxas", "")).items()):
+        log(f"  ptxas {kname}: {row.get('registers')} registers, stack "
+            f"frame {row.get('stack')} B, spill stores "
+            f"{row.get('spill_stores')} B, spill loads "
+            f"{row.get('spill_loads')} B")
 
+    # bunny: the four kernels at two widths
     t0 = time.perf_counter()
     scene, cam, rcfg, icfg = examples.build("bunny", intersector="pallas",
                                             wide_k=8, device=device)
-    n_tri = int((scene.p_slot_tri >= 0).sum())
-    log(f"bunny scene: {n_tri} triangles, bvh_builder={scene.bvh_builder}, "
-        f"fat={scene.p_fat.numel() * 4 / 2**20:.2f} MB "
-        f"({scene.p_fat.shape[0] // 2} nodes), "
-        f"max_stack_bound={scene.p_stack_bound}, "
-        f"build {time.perf_counter() - t0:.1f} s")
-    if n_tri != 81920:
+    if scene_line("bunny", scene, time.perf_counter() - t0) != 81920:
         raise AssertionError("the bunny must have 81,920 triangles")
-
-    kernel_phase(scene, cam, rcfg.width, rcfg.height, 1 << 16, 1 << 16,
-                 "2^16 camera + 2^16 bounce")
+    phases = [kernel_phase(scene, cam, rcfg.width, rcfg.height, 1 << 16,
+                           1 << 16, "bunny 2^16 camera + 2^16 bounce")]
     n_main = rcfg.width * rcfg.height
-    closest, anyhit = kernel_phase(scene, cam, rcfg.width, rcfg.height,
-                                   n_main, n_main,
-                                   f"1080p main path: {n_main} camera + "
-                                   f"{n_main} bounce")
-    launches = render_phase(scene, cam, replace(rcfg, spp=1), icfg,
-                            examples.build("cornell", device=device))
+    main_width = kernel_phase(scene, cam, rcfg.width, rcfg.height, n_main,
+                              n_main, f"bunny 1080p main path: {n_main} "
+                              f"camera + {n_main} bounce")
+    phases.append(main_width)
+
+    # dragon_hd: built once, in the preorder walk this slice brings; the
+    # ordered walk runs the same tables (its stack bound is checked)
+    t0 = time.perf_counter()
+    dscene, dcam, drcfg, dicfg = examples.build(
+        "dragon_hd", intersector="pallas", wide_k=8, pallas_ordered=False,
+        device=device)
+    if scene_line("dragon_hd", dscene, time.perf_counter() - t0) \
+            != DRAGON_TRIANGLES:
+        raise AssertionError("dragon_hd must have 1,310,720 triangles")
+    check_stack_bound(dscene.p_stack_bound)
+    n_dragon = drcfg.width * drcfg.height
+    phases.append(kernel_phase(dscene, dcam, drcfg.width, drcfg.height,
+                               n_dragon, n_dragon,
+                               f"dragon_hd 960x540: {n_dragon} camera + "
+                               f"{n_dragon} bounce"))
+
+    # the main path, each render with its own launch counts
+    rcfg1 = replace(rcfg, spp=1)
+    if not compaction_schedule(icfg, min(n_main, rcfg1.max_rays_per_chunk)):
+        raise AssertionError("the bunny render would not compact")
+    pscene, pcam, _prc, picfg = examples.build(
+        "bunny", intersector="pallas", wide_k=8, pallas_ordered=False,
+        device=device)
+    drcfg1 = replace(drcfg, spp=1)
+    runs = [
+        render_main("bunny", scene, cam, rcfg1, icfg),
+        render_main("bunny", pscene, pcam, rcfg1, picfg),
+        render_main("dragon_hd", dscene, dcam, drcfg1, dicfg),
+        render_main("dragon_hd", replace(dscene, p_ordered=True), dcam,
+                    drcfg1, dicfg),
+    ]
+    cs, cc, crc, cic = examples.build("cornell", device=device)
+    film, rays, sec = render(cs, cc, crc, cic)
+    log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "
+        f"rays_traced={rays} seconds={sec:.3f} "
+        f"mrays_per_s={rays / sec / 1e6:.3f} "
+        f"film_mean={float(film.mean.mean()):.6f}")
     reference_phase(device)
 
-    kernels = [
-        dict(name="closest_hit", route="cuda",
-             source="ptsharp_tpu_torch/csrc/closest_hit.cu",
-             replaces="ptsharp_tpu/pallas/ordered_kernel.py:597",
-             launches=launches["closest_hit"],
-             max_abs_err=closest["max_abs_err"], ms=closest["ms"],
-             plain_ms=closest["plain_ms"]),
-        dict(name="any_hit", route="cuda",
-             source="ptsharp_tpu_torch/csrc/any_hit.cu",
-             replaces="ptsharp_tpu/pallas/wide_kernel.py:604",
-             launches=launches["any_hit"],
-             max_abs_err=anyhit["max_abs_err"], ms=anyhit["ms"],
-             plain_ms=anyhit["plain_ms"]),
-    ]
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(run[name] for run in runs),
+            max_abs_err=max(p[name]["max_abs_err"] for p in phases),
+            ms=main_width[name]["ms"], plain_ms=main_width[name]["plain_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

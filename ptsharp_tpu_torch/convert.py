@@ -11,7 +11,8 @@ never imports the JAX package:
   meta:   the reference's static metadata fields by name.
 
 The traversal table is the reference's fat interleave: `p_fat`, or
-`p_rows` where the reference streams its tables from HBM (`p_hbm`).
+`p_rows` where the reference streams its tables from HBM (`p_hbm`). The
+walk order (`p_ordered`) carries over as it is.
 """
 
 from __future__ import annotations
@@ -79,13 +80,11 @@ def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
         if not meta["p_flat"]:
             raise not_ported("per-instance (non-flat) mesh tables",
                              "Queue 1 item 10")
-        if not meta["p_ordered"]:
-            raise not_ported("pallas_ordered=False (preorder kernels)",
-                             "Queue 2")
         fat = np.asarray(fields["p_rows"] if meta["p_hbm"]
                          else fields["p_fat"], np.float32)
         stack_bound = tables.max_stack_bound(fat[0::2], int(meta["wide_k"]))
-        check_stack_bound(stack_bound)
+        if meta["p_ordered"]:
+            check_stack_bound(stack_bound)
     else:
         fat = np.zeros((0, tables.ROW), np.float32)
         stack_bound = 0
@@ -144,6 +143,7 @@ def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
         max_leaf=int(meta["max_leaf"]),
         wide_k=int(meta["wide_k"]),
         intersector=str(meta["intersector"]),
+        p_ordered=bool(meta["p_ordered"]),
         p_inst_base=tuple(int(b) for b in meta["p_inst_base"]),
         p_inst_end=tuple(int(e) for e in meta["p_inst_end"]),
         p_stack_bound=int(stack_bound),

@@ -6,6 +6,7 @@
 //   packet_slab      slab test of one box (min of maxes, max of mins);
 //   packet_mt        Moller-Trumbore with det clamped at 1e-12, accepting
 //                    u in [0,1], v >= 0, u+v <= 1 and t > 1e-4;
+//   packet_descend   smallest preorder index among the hit children;
 //   accept_closest   keeps a hit only where tt < best t.
 // The library is built with -fmad=false so that no multiply-add is
 // contracted: each product and sum rounds as it does in the plain PyTorch
@@ -131,9 +132,30 @@ __device__ __forceinline__ int hit_children(const float* __restrict__ node,
   return nh;
 }
 
+// The preorder walk's descent (packet_descend): the smallest preorder
+// index among the children the ray enters before `bt`, or -1 when it
+// enters none. Absent children carry index 0 and are never taken.
+template <int K>
+__device__ __forceinline__ int first_hit_child(const float* __restrict__ node,
+                                               const Ray& r, float bt) {
+  const int* bits = reinterpret_cast<const int*>(node);
+  int target = -1;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const int ci = bits[9 + 6 * K + c];
+    float ctmin, ctmax;
+    slab(node + 9 + 6 * c, r, ctmin, ctmax);
+    if (box_hit(ctmin, ctmax, bt) && ci > 0 && (target < 0 || ci < target)) {
+      target = ci;
+    }
+  }
+  return target;
+}
+
 // Push the hit children far to near (all but the nearest, which the walk
-// visits next). The scene build checks max_stack_bound <= kStackCap, so
-// the capacity test never drops an entry for a table the port built.
+// visits next). An ordered scene's build checks max_stack_bound <=
+// kStackCap, so the capacity test never drops an entry for a table the
+// port built.
 template <int K>
 __device__ __forceinline__ void push_far_to_near(const int (&idx)[K], int nh,
                                                  int* stack, int& sp) {

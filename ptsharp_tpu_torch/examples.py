@@ -6,14 +6,16 @@ Each builder returns (scene, camera, render_config, integrator_config).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.geometry.mesh import TriMesh, sphere_mesh
 from ptsharp_tpu_torch.integrator import IntegratorConfig
 from ptsharp_tpu_torch.materials import (
-    Material, clear_material, diffuse_material, light_material,
-    metallic_material,
+    Material, clear_material, diffuse_material, glossy_material,
+    light_material, metallic_material,
 )
 from ptsharp_tpu_torch.renderer import RenderConfig
 from ptsharp_tpu_torch.scene import SceneBuilder, not_ported
@@ -114,6 +116,41 @@ def bunny(width=1920, height=1080, subdivisions: int = 6,
     cam = Camera.look_at([0, 1.8, -4.2], [0, 0.9, 0], [0, 1, 0], 38.0,
                          device=device)
     return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=4)
+
+
+@example("dragon_hd")
+def dragon_hd(width=960, height=540, subdivisions: int = 8,
+              intersector: str = "wide", wide_k: int = 4,
+              pallas_ordered: bool = True, device="cpu"):
+    """Dragon-scale mesh: 1,310,720 triangles (the subdivision-8 displaced
+    icosphere with a serpentine warp), one jade glossy material, a ground
+    plane and one spherical area light. The port runs it with
+    intersector="pallas" (its CUDA kernels)."""
+    if intersector != "pallas":
+        raise not_ported(f"the {intersector!r} mesh intersector",
+                         "Queue 1 item 11")
+    m = _bunny_mesh(subdivisions, seed=23)
+    v = m.v.reshape(-1, 3).copy()
+    t = v[:, 0] * 1.5
+    c, s = np.cos(t * 0.8), np.sin(t * 0.8)
+    y = v[:, 1] * c - v[:, 2] * s
+    z = v[:, 1] * s + v[:, 2] * c
+    v[:, 1], v[:, 2] = y * 0.6, z * 0.8
+    v[:, 0] *= 1.9
+    m = TriMesh(v=v.reshape(-1, 3, 3), uv=m.uv).smooth_normals()
+    b = SceneBuilder()
+    jade = glossy_material([0.35, 0.72, 0.45], 1.6, math.radians(16))
+    b.add_mesh(m.fit_inside([-1.6, 0, -0.8], [1.6, 1.2, 0.8], [0.5, 0, 0.5]),
+               jade)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.42, 0.42, 0.45]))
+    b.add_sphere([-2.5, 5, -3], 1.4, light_material([1, 1, 1], 10.0))
+    b.set_environment(color=[0.15, 0.17, 0.21])
+    scene = b.build(leaf_size=14, intersector=intersector, wide_k=wide_k,
+                    pallas_ordered=pallas_ordered, device=device)
+    cam = Camera.look_at([0, 1.6, -3.6], [0, 0.5, 0], [0, 1, 0], 42.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
         IntegratorConfig(max_bounces=4)
 
 

@@ -4,7 +4,8 @@ Counterpart of ptsharp_tpu/intersect.py for the port's slice: per
 primitive type the whole batch is intersected in one vectorized pass
 (planes, spheres, cubes, cylinders, in that order), then the flat mesh
 table goes through one closest-hit launch bounded by the best t found so
-far (kernels/traverse.py). Hit records follow Hit.Info (Hit.cs:26-55):
+far (kernels/traverse.py): the ordered walk where `scene.p_ordered`, the
+preorder walk otherwise, as ptsharp_tpu/intersect.py dispatches them. Hit records follow Hit.Info (Hit.cs:26-55):
 the shading normal is flipped toward the ray and `inside` set on a flip.
 """
 
@@ -185,7 +186,9 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
     if scene.has_meshes:
         # one world-space launch over every instance, bounded by the best
         # analytic t; slot maps recover scene triangle and instance
-        t, kslot, u, v = traverse.closest_hit(
+        walk = (traverse.closest_hit if scene.p_ordered
+                else traverse.closest_hit_preorder)
+        t, kslot, u, v = walk(
             scene.p_fat, org.contiguous(), dirn.contiguous(),
             best_t.contiguous(), scene.p_inst_base[0], scene.p_inst_end[0],
             scene.max_leaf, scene.wide_k)
@@ -201,7 +204,7 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
 def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     """True where any surface intersects the ray at t in (eps, t_cut);
     lanes with t_cut <= 0 are never occluded. Mesh instances go through
-    the any-hit kernel over the fat table."""
+    the any-hit kernel of the scene's walk order over the fat table."""
     r = org.shape[0]
     tc = _as_rays(t_cut, r, org)
     occ = torch.zeros(r, dtype=torch.bool, device=org.device)
@@ -229,7 +232,9 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     if scene.has_meshes:
         # already-occluded lanes carry a -INF bound and test nothing
         cut = torch.where(occ, torch.full_like(tc, -INF), tc)
-        occ = occ | traverse.any_hit(
+        walk = (traverse.any_hit if scene.p_ordered
+                else traverse.any_hit_preorder)
+        occ = occ | walk(
             scene.p_fat, org.contiguous(), dirn.contiguous(),
             cut.contiguous(), scene.p_inst_base[0], scene.p_inst_end[0],
             scene.max_leaf, scene.wide_k)

@@ -1,12 +1,14 @@
 """Build and load the CUDA kernels of csrc/ as one shared library.
 
-nvcc compiles csrc/*.cu for sm_90a into `build/ptsharp_tpu_torch/` (a
-directory .gitignore lists), at first use, with a plain C interface that
-ctypes binds: every pointer and the stream are c_void_p, each entry
-returns cudaGetLastError(). The library name carries a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one
-is reused. `-fmad=false` keeps every multiply and add rounding on its
-own, as the plain PyTorch versions and the JAX reference round them.
+nvcc compiles each csrc/*.cu for sm_90a into an object, one nvcc process
+per source, all started together, and links the objects into
+`build/ptsharp_tpu_torch/` (a directory .gitignore lists), at first use,
+with a plain C interface that ctypes binds: every pointer and the stream
+are c_void_p, each entry returns cudaGetLastError(). The library name
+carries a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is reused. `-fmad=false` keeps every multiply and
+add rounding on its own, as the plain PyTorch versions and the JAX
+reference round them.
 """
 
 from __future__ import annotations
@@ -25,10 +27,10 @@ from ptsharp_tpu_torch.kernels.traverse import STACK_CAPACITY
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ptsharp_tpu_torch")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
-    f"-DPT_STACK_CAP={STACK_CAPACITY}",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xptxas", "-v", f"-DPT_STACK_CAP={STACK_CAPACITY}",
 ]
 
 _lock = threading.Lock()
@@ -61,12 +63,53 @@ def _digest() -> str:
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pt_closest_hit.restype = ci
-    lib.pt_closest_hit.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                   vp, vp, vp, vp, vp]
-    lib.pt_any_hit.restype = ci
-    lib.pt_any_hit.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    closest = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+    anyhit = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    for fn, argtypes in ((lib.pt_closest_hit, closest),
+                         (lib.pt_any_hit, anyhit),
+                         (lib.pt_closest_hit_preorder, closest),
+                         (lib.pt_any_hit_preorder, anyhit)):
+        fn.restype = ci
+        fn.argtypes = argtypes
     return lib
+
+
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their stderr (ptxas's report)
+    joined, or RuntimeError naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = []
+    for c, p in zip(cmds, procs):
+        _out, err = p.communicate(timeout=900)
+        if p.returncode != 0:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise RuntimeError(f"{' '.join(c)} failed ({p.returncode}):\n"
+                               f"{err}")
+        errs.append(err)
+    return "".join(errs)
+
+
+def _compile(so: str) -> str:
+    """Compile every source into an object in parallel and link them
+    into `so`; returns ptxas's report."""
+    objdir = f"{so}.{os.getpid()}.obj"
+    os.makedirs(objdir, exist_ok=True)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(objdir, os.path.basename(src) + ".o")
+                for src in _sources()]
+        report = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                       for src, obj in zip(_sources(), objs)])
+        tmp = f"{so}.{os.getpid()}.tmp"
+        _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+    return report
 
 
 def load():
@@ -79,17 +122,9 @@ def load():
         so = os.path.join(BUILD_DIR, f"libptkernels_{_digest()}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=900)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, so)
+            build_info["ptxas"] = _compile(so)
             build_info["seconds"] = time.perf_counter() - t0
-            build_info["ptxas"] = proc.stderr
         else:
             build_info.setdefault("seconds", 0.0)
         build_info["library"] = so

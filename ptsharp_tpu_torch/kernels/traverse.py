@@ -1,26 +1,37 @@
 """Closest-hit and any-hit over the fat BVH table: wrappers and plain
-versions of the two CUDA kernels in csrc/.
+versions of the four CUDA kernels in csrc/, two walk orders each.
 
-`closest_hit` and `any_hit` are what the rest of the port calls. On a
-CUDA tensor they launch the hand-written kernel on the current stream
-(csrc/closest_hit.cu, csrc/any_hit.cu) and add one to their `launches`
-count; on a CPU tensor they run the plain version below; any other
-device raises. There is no fallback from the kernel to the plain version.
+`closest_hit` and `any_hit` walk near to far with a per-ray stack (the
+ordered walk, csrc/closest_hit.cu and csrc/any_hit.cu);
+`closest_hit_preorder` and `any_hit_preorder` walk the tree in preorder
+along its skip links, with no stack (csrc/closest_hit_preorder.cu and
+csrc/any_hit_preorder.cu). These four are what the rest of the port
+calls. On a CUDA tensor each launches its hand-written kernel on the
+current stream and adds one to its `launches` count; on a CPU tensor it
+runs its plain version below; any other device raises. There is no
+fallback from a kernel to a plain version.
 
-`closest_hit_plain` and `any_hit_plain` compute the same functions in
-tensor ops: every ray walks the tree with its own row of an (R, S) stack, in
-lockstep with the others, one node per loop step: gather the node rows,
-test the node box against the ray's best t, run Moller-Trumbore over the
-leaf block at leaves, and at internal nodes push the hit children far to
-near and continue with the nearest. The kernels follow the same steps in
-the same order, so both give the same slots even where two triangles tie.
+The plain versions compute the same functions in tensor ops: every ray
+walks the tree with its own cursor, in lockstep with the others, one node
+per loop step: gather the node rows, test the node box against the ray's
+best t, run Moller-Trumbore over the leaf block at leaves, and at
+internal nodes pick the next node.
+  ordered  (`*_plain`): push the hit children far to near on the ray's
+           row of an (R, S) stack and continue with the nearest; pop the
+           stack where nothing is hit.
+  preorder (`*_preorder_plain`): go to the hit child of smallest preorder
+           index, or follow the node's skip link where nothing is hit.
+           The cursor only grows, so [base, end) bounds the walk.
+The kernels follow the same steps in the same order, so each gives the
+same slots as its plain version even where two triangles tie. The two
+orders find the same t; their slots differ only where triangles tie.
 
 Contract (the JAX package's fat-table kernels):
   fat (2*Nw, 128) f32; org, dirn (R, 3) f32; t_max / t_cut (R,) f32;
   [base, end) the node range; leaf_size triangles per leaf; K children.
-  closest_hit -> t (R,) f32 (INF where slot < 0), slot (R,) i32 kernel
+  closest hit -> t (R,) f32 (INF where slot < 0), slot (R,) i32 kernel
                  slot, u, v (R,) f32;
-  any_hit     -> (R,) bool, True where a triangle lies at t in
+  any hit     -> (R,) bool, True where a triangle lies at t in
                  (1e-4, t_cut); False where t_cut <= 0.
 """
 
@@ -30,10 +41,11 @@ import torch
 
 INF = 1e9
 ROW = 128
-# traversal stack entries per ray; scene builds check max_stack_bound
-# against it (the full bunny needs 43)
+# traversal stack entries per ray of the ordered walk; ordered scene
+# builds check max_stack_bound against it (the full bunny needs 43)
 STACK_CAPACITY = 64
 KERNEL_K = (4, 8)  # the kernels' template instances
+_NO_CHILD = torch.iinfo(torch.int64).max
 
 
 # ---- shared arithmetic (the order of operations of bvh_common.cuh) -------
@@ -86,22 +98,21 @@ def _mt(tri, o, d):
     return ok, tt, uu, vv
 
 
+# ---- the two walks ---------------------------------------------------------
+
+
 class _Walk:
-    """Lockstep per-ray stack walk state over a fat table."""
+    """Lockstep per-ray walk state over a fat table: the cursors, the
+    best t, and the node loads and box tests that both walk orders share.
+    A subclass says where a ray goes next."""
 
     def __init__(self, fat, org, dirn, bt, base, end, k, start):
-        r = org.shape[0]
-        dev = org.device
         self.fat, self.org, self.dirn, self.k = fat, org, dirn, k
         self.bits = fat.view(torch.int32)
         self.inv = _safe_inv(dirn)
         self.bt = bt
         self.end = end
         self.cur = torch.where(start, base, end).to(torch.int64)
-        self.stack = torch.zeros((r, STACK_CAPACITY), dtype=torch.int64,
-                                 device=dev)
-        self.sp = torch.zeros(r, dtype=torch.int64, device=dev)
-        self.max_iters = end - base + 2
 
     def visit(self):
         """Load the active lanes' nodes and test their boxes. Returns
@@ -120,21 +131,43 @@ class _Walk:
         blk = self.fat[node + 1, :leaf_size * 9].reshape(-1, leaf_size, 9)
         return _mt(blk, self.org[lanes], self.dirn[lanes])
 
-    def descend(self, lanes, node):
-        """Push the hit children far to near; returns each lane's next
-        node (-1 where no child is hit)."""
+    def child_hits(self, lanes, node):
+        """Slab tests of the K child boxes against the lanes' best t:
+        (hit, entry t, child index), each (A, K)."""
         k = self.k
-        rows = self.fat[node]
-        cb = rows[:, 9:9 + 6 * k].reshape(-1, k, 6)
+        cb = self.fat[node, 9:9 + 6 * k].reshape(-1, k, 6)
         cidx = self.bits[node, 9 + 6 * k:9 + 7 * k].to(torch.int64)
         ctmin, ctmax = _slab(cb, self.org[lanes][:, None, :],
                              self.inv[lanes][:, None, :])
         chit = _box_hit(ctmin, ctmax, self.bt[lanes][:, None]) & (cidx > 0)
+        return chit, ctmin, cidx
+
+
+class _StackWalk(_Walk):
+    """The ordered walk: each ray keeps a row of an (R, S) stack."""
+
+    def __init__(self, fat, org, dirn, bt, base, end, k, start):
+        super().__init__(fat, org, dirn, bt, base, end, k, start)
+        r = org.shape[0]
+        self.stack = torch.zeros((r, STACK_CAPACITY), dtype=torch.int64,
+                                 device=org.device)
+        self.sp = torch.zeros(r, dtype=torch.int64, device=org.device)
+        self.max_iters = end - base + 2
+
+    def no_target(self, node):
+        """Next node where the box misses or no child is hit: -1, which
+        `advance` turns into a pop."""
+        return torch.full_like(node, -1)
+
+    def descend(self, lanes, node):
+        """Push the hit children far to near; returns each lane's next
+        node (-1 where no child is hit)."""
+        chit, ctmin, cidx = self.child_hits(lanes, node)
         key = torch.where(chit, ctmin, torch.full_like(ctmin, float("inf")))
         order = torch.argsort(key, dim=1, stable=True)
         shit = torch.gather(chit, 1, order)
         sidx = torch.gather(cidx, 1, order)
-        for j in range(k - 1, 0, -1):
+        for j in range(self.k - 1, 0, -1):
             sp = self.sp[lanes]
             do = shit[:, j] & (sp < STACK_CAPACITY)
             put = lanes[do]
@@ -156,23 +189,46 @@ class _Walk:
         self.cur[lanes] = nxt
 
 
-def closest_hit_plain(fat, org, dirn, t_max, base: int, end: int,
-                      leaf_size: int, k: int):
-    """Plain PyTorch closest-hit (see the module docstring)."""
-    r = org.shape[0]
-    dev = org.device
-    bt = t_max.clone()
+class _SkipWalk(_Walk):
+    """The preorder walk: no stack. Skip links and child indices point
+    forward in preorder, so each ray's cursor only grows and end - base
+    steps bound the walk."""
+
+    def __init__(self, fat, org, dirn, bt, base, end, k, start):
+        super().__init__(fat, org, dirn, bt, base, end, k, start)
+        self.max_iters = end - base
+
+    def no_target(self, node):
+        """Next node where the box misses or no child is hit: the skip
+        link, the first node after this one's subtree."""
+        return self.bits[node, 8].to(torch.int64)
+
+    def descend(self, lanes, node):
+        """The hit child of smallest preorder index (-1 where none is
+        hit), as first_hit_child in bvh_common.cuh picks it."""
+        chit, _ctmin, cidx = self.child_hits(lanes, node)
+        target = torch.where(chit, cidx, _NO_CHILD).amin(dim=1)
+        return torch.where(target < _NO_CHILD, target, -1)
+
+    def advance(self, lanes, nxt):
+        self.cur[lanes] = nxt
+
+
+def _walk_closest(walk, leaf_size: int):
+    """Run a walk to its end, keeping the closest accepted hit: strict
+    tt < best t, the first slot of a leaf among equal t."""
+    bt = walk.bt
+    r = bt.shape[0]
+    dev = bt.device
     bs = torch.full((r,), -1, dtype=torch.int32, device=dev)
     bu = torch.zeros(r, dtype=torch.float32, device=dev)
     bv = torch.zeros(r, dtype=torch.float32, device=dev)
-    walk = _Walk(fat, org, dirn, bt, base, end, k,
-                 torch.ones(r, dtype=torch.bool, device=dev))
     for _ in range(walk.max_iters):
         v = walk.visit()
         if v is None:
             break
         act, node, leaf, inner = v
-        nxt = torch.full_like(act, -1)
+        nxt = walk.no_target(node)
         if bool(leaf.any()):
             la = act[leaf]
             ok, tt, uu, vv = walk.leaf_block(la, node[leaf], leaf_size)
@@ -187,37 +243,70 @@ def closest_hit_plain(fat, org, dirn, t_max, base: int, end: int,
             bu[g] = torch.gather(uu, 1, l).squeeze(1)[got]
             bv[g] = torch.gather(vv, 1, l).squeeze(1)[got]
         if bool(inner.any()):
-            nxt[inner] = walk.descend(act[inner], node[inner])
+            d = walk.descend(act[inner], node[inner])
+            nxt[inner] = torch.where(d >= 0, d, nxt[inner])
         walk.advance(act, nxt)
     t = torch.where(bs >= 0, bt, torch.full_like(bt, INF))
     return t, bs, bu, bv
 
 
-def any_hit_plain(fat, org, dirn, t_cut, base: int, end: int,
-                  leaf_size: int, k: int):
-    """Plain PyTorch any-hit (see the module docstring)."""
-    r = org.shape[0]
-    occ = torch.zeros(r, dtype=torch.bool, device=org.device)
-    walk = _Walk(fat, org, dirn, t_cut, base, end, k, t_cut > 0.0)
+def _walk_any(walk, t_cut, leaf_size: int):
+    """Run a walk with best t fixed at t_cut; a lane finishes on its
+    first accepted hit."""
+    occ = torch.zeros(t_cut.shape[0], dtype=torch.bool, device=t_cut.device)
     for _ in range(walk.max_iters):
         v = walk.visit()
         if v is None:
             break
         act, node, leaf, inner = v
-        nxt = torch.full_like(act, -1)
+        nxt = walk.no_target(node)
         if bool(leaf.any()):
             la = act[leaf]
             ok, tt, _uu, _vv = walk.leaf_block(la, node[leaf], leaf_size)
             got = torch.any(ok & (tt < t_cut[la][:, None]), dim=1)
             occ[la[got]] = True
-            # an occluded lane is finished: its stack no longer matters
+            # an occluded lane is finished: where it would go next no
+            # longer matters
             done = torch.zeros_like(leaf)
             done[torch.nonzero(leaf).squeeze(1)[got]] = True
-            nxt[done] = end
+            nxt[done] = walk.end
         if bool(inner.any()):
-            nxt[inner] = walk.descend(act[inner], node[inner])
+            d = walk.descend(act[inner], node[inner])
+            nxt[inner] = torch.where(d >= 0, d, nxt[inner])
         walk.advance(act, nxt)
     return occ
+
+
+def _all_lanes(org):
+    return torch.ones(org.shape[0], dtype=torch.bool, device=org.device)
+
+
+def closest_hit_plain(fat, org, dirn, t_max, base: int, end: int,
+                      leaf_size: int, k: int):
+    """Plain PyTorch ordered closest-hit (see the module docstring)."""
+    return _walk_closest(_StackWalk(fat, org, dirn, t_max.clone(), base, end,
+                                    k, _all_lanes(org)), leaf_size)
+
+
+def closest_hit_preorder_plain(fat, org, dirn, t_max, base: int, end: int,
+                               leaf_size: int, k: int):
+    """Plain PyTorch preorder closest-hit (see the module docstring)."""
+    return _walk_closest(_SkipWalk(fat, org, dirn, t_max.clone(), base, end,
+                                   k, _all_lanes(org)), leaf_size)
+
+
+def any_hit_plain(fat, org, dirn, t_cut, base: int, end: int,
+                  leaf_size: int, k: int):
+    """Plain PyTorch ordered any-hit (see the module docstring)."""
+    return _walk_any(_StackWalk(fat, org, dirn, t_cut, base, end, k,
+                                t_cut > 0.0), t_cut, leaf_size)
+
+
+def any_hit_preorder_plain(fat, org, dirn, t_cut, base: int, end: int,
+                           leaf_size: int, k: int):
+    """Plain PyTorch preorder any-hit (see the module docstring)."""
+    return _walk_any(_SkipWalk(fat, org, dirn, t_cut, base, end, k,
+                               t_cut > 0.0), t_cut, leaf_size)
 
 
 # ---- wrappers -------------------------------------------------------------
@@ -256,14 +345,11 @@ def _ptr(x):
     return x.data_ptr()
 
 
-def closest_hit(fat, org, dirn, t_max, base: int, end: int, leaf_size: int,
-                k: int):
-    """Closest hit per ray: (t, slot, u, v). CUDA kernel on CUDA tensors,
-    closest_hit_plain on CPU tensors."""
+def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
+             leaf_size, k):
     _check(fat, org, dirn, t_max, base, end, leaf_size, k)
     if fat.device.type == "cpu":
-        return closest_hit_plain(fat, org, dirn, t_max, base, end,
-                                 leaf_size, k)
+        return plain(fat, org, dirn, t_max, base, end, leaf_size, k)
     lib = _kernel_lib(fat, k)
     r = org.shape[0]
     t = torch.empty(r, dtype=torch.float32, device=fat.device)
@@ -273,41 +359,76 @@ def closest_hit(fat, org, dirn, t_max, base: int, end: int, leaf_size: int,
     if r == 0:
         return t, slot, u, v
     stream = torch.cuda.current_stream(fat.device).cuda_stream
-    err = lib.pt_closest_hit(_ptr(fat), _ptr(org), _ptr(dirn), _ptr(t_max),
-                             r, base, end, leaf_size, k, _ptr(t), _ptr(slot),
-                             _ptr(u), _ptr(v), stream)
+    err = getattr(lib, entry)(_ptr(fat), _ptr(org), _ptr(dirn), _ptr(t_max),
+                              r, base, end, leaf_size, k, _ptr(t),
+                              _ptr(slot), _ptr(u), _ptr(v), stream)
     if err:
-        raise RuntimeError(f"closest-hit kernel launch failed: CUDA error "
-                           f"{err}")
-    closest_hit.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return t, slot, u, v
 
 
-def any_hit(fat, org, dirn, t_cut, base: int, end: int, leaf_size: int,
-            k: int):
-    """Occlusion per ray: (R,) bool. CUDA kernel on CUDA tensors,
-    any_hit_plain on CPU tensors."""
+def _any(wrapper, entry, plain, fat, org, dirn, t_cut, base, end, leaf_size,
+         k):
     _check(fat, org, dirn, t_cut, base, end, leaf_size, k)
     if fat.device.type == "cpu":
-        return any_hit_plain(fat, org, dirn, t_cut, base, end, leaf_size, k)
+        return plain(fat, org, dirn, t_cut, base, end, leaf_size, k)
     lib = _kernel_lib(fat, k)
     r = org.shape[0]
     occ = torch.empty(r, dtype=torch.bool, device=fat.device)
     if r == 0:
         return occ
     stream = torch.cuda.current_stream(fat.device).cuda_stream
-    err = lib.pt_any_hit(_ptr(fat), _ptr(org), _ptr(dirn), _ptr(t_cut), r,
-                         base, end, leaf_size, k, _ptr(occ), stream)
+    err = getattr(lib, entry)(_ptr(fat), _ptr(org), _ptr(dirn), _ptr(t_cut),
+                              r, base, end, leaf_size, k, _ptr(occ), stream)
     if err:
-        raise RuntimeError(f"any-hit kernel launch failed: CUDA error {err}")
-    any_hit.launches += 1
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
     return occ
 
 
-closest_hit.launches = 0
-any_hit.launches = 0
+def closest_hit(fat, org, dirn, t_max, base: int, end: int, leaf_size: int,
+                k: int):
+    """Closest hit per ray by the ordered walk: (t, slot, u, v).
+    csrc/closest_hit.cu on CUDA tensors, closest_hit_plain on CPU
+    tensors."""
+    return _closest(closest_hit, "pt_closest_hit", closest_hit_plain, fat,
+                    org, dirn, t_max, base, end, leaf_size, k)
+
+
+def closest_hit_preorder(fat, org, dirn, t_max, base: int, end: int,
+                         leaf_size: int, k: int):
+    """Closest hit per ray by the preorder walk: (t, slot, u, v).
+    csrc/closest_hit_preorder.cu on CUDA tensors,
+    closest_hit_preorder_plain on CPU tensors."""
+    return _closest(closest_hit_preorder, "pt_closest_hit_preorder",
+                    closest_hit_preorder_plain, fat, org, dirn, t_max, base,
+                    end, leaf_size, k)
+
+
+def any_hit(fat, org, dirn, t_cut, base: int, end: int, leaf_size: int,
+            k: int):
+    """Occlusion per ray by the ordered walk: (R,) bool.
+    csrc/any_hit.cu on CUDA tensors, any_hit_plain on CPU tensors."""
+    return _any(any_hit, "pt_any_hit", any_hit_plain, fat, org, dirn, t_cut,
+                base, end, leaf_size, k)
+
+
+def any_hit_preorder(fat, org, dirn, t_cut, base: int, end: int,
+                     leaf_size: int, k: int):
+    """Occlusion per ray by the preorder walk: (R,) bool.
+    csrc/any_hit_preorder.cu on CUDA tensors, any_hit_preorder_plain on
+    CPU tensors."""
+    return _any(any_hit_preorder, "pt_any_hit_preorder",
+                any_hit_preorder_plain, fat, org, dirn, t_cut, base, end,
+                leaf_size, k)
+
+
+WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder)
+for _w in WRAPPERS:
+    _w.launches = 0
 
 
 def reset_launch_counts() -> None:
-    closest_hit.launches = 0
-    any_hit.launches = 0
+    for w in WRAPPERS:
+        w.launches = 0

@@ -6,11 +6,14 @@ affine) and triangle meshes flattened into ONE world-space K-wide BVH.
 Differences from the JAX package:
 
   * one table form. Every mesh scene gets the fat interleave `p_fat`
-    (accel/tables.py), read by both the closest-hit and the any-hit
-    kernel. The JAX package's VMEM/HBM switch and its duplicate
-    `p_rows`/`p_leaf` tables have no counterpart: a GPU has no such split.
-  * the build checks `max_stack_bound` against the kernels' stack
-    capacity and raises if a tree could overflow it.
+    (accel/tables.py), read by every traversal kernel. The JAX package's
+    VMEM/HBM switch and its duplicate `p_rows`/`p_leaf` tables have no
+    counterpart: a GPU has no such split. `p_ordered` picks the walk, as
+    in the JAX package: near to far with a stack, or preorder along skip
+    links.
+  * an ordered scene's build checks `max_stack_bound` against the ordered
+    kernels' stack capacity and raises if a tree could overflow it; a
+    preorder walk keeps no stack and has no such limit.
   * what the port does not cover yet raises NotImplementedError naming
     the ROADMAP item that will port it.
 """
@@ -109,9 +112,11 @@ class SceneData:
     max_leaf: int
     wide_k: int
     intersector: str
+    p_ordered: bool               # ordered (stack) walk, else preorder
     p_inst_base: tuple            # node range [base, end) of the fat table
     p_inst_end: tuple
     p_stack_bound: int            # max_stack_bound of the fat table
+                                  # (checked for ordered scenes only)
     light_types: tuple
     bvh_builder: str              # builder of the traversal tree
 
@@ -335,12 +340,9 @@ class SceneBuilder:
         """Freeze the scene onto `device`. Mesh scenes need
         intersector="pallas": one world-space K-wide tree over all
         instances, walked by the CUDA kernels (or their plain versions on
-        the CPU)."""
+        the CPU), near to far when `pallas_ordered`, else in preorder."""
         if intersector not in ("wide", "walk", "cluster", "pallas"):
             raise ValueError(intersector)
-        if not pallas_ordered:
-            raise not_ported("pallas_ordered=False (preorder kernels)",
-                             "Queue 2")
         for m in self._materials:
             if m.normal_texture >= 0 or m.bump_texture >= 0:
                 raise not_ported("normal and bump maps", "Queue 1 item 10")
@@ -397,7 +399,8 @@ class SceneBuilder:
                 tables.pack_flat_tables(tv[:, 0].astype(np.float32), e1n, e2n,
                                         specs, leaf_size, wide_k)
             stack_bound = tables.max_stack_bound(rows, wide_k)
-            check_stack_bound(stack_bound)
+            if pallas_ordered:
+                check_stack_bound(stack_bound)
             p_fat = tables.pack_fat(rows, leaf, leaf_size)
             p_inst_b, p_inst_e = (0,), (int(rows.shape[0]),)
 
@@ -474,6 +477,7 @@ class SceneBuilder:
             max_leaf=int(leaf_size),
             wide_k=int(wide_k),
             intersector=intersector,
+            p_ordered=bool(pallas_ordered),
             p_inst_base=p_inst_b,
             p_inst_end=p_inst_e,
             p_stack_bound=int(stack_bound),

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 import ptsharp_tpu_torch
-from ptsharp_tpu_torch import examples, film
+from ptsharp_tpu_torch import convert, examples, film
 from ptsharp_tpu_torch.geometry.mesh import cube_mesh
 from ptsharp_tpu_torch.materials import (
     Material, diffuse_material, light_material,
@@ -58,7 +58,7 @@ def _plain_builder():
 
 @pytest.mark.parametrize("what", [
     "sdf", "volume", "function", "mesh_light", "wide_intersector",
-    "preorder_kernels", "tlas", "surface_maps", "example"])
+    "per_instance_tables", "tlas", "surface_maps", "example"])
 def test_outside_the_slice_raises(what):
     b = _plain_builder()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -75,8 +75,15 @@ def test_outside_the_slice_raises(what):
             b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
                        diffuse_material([1, 1, 1]))
             b.build(intersector="wide")
-        elif what == "preorder_kernels":
-            b.build(intersector="pallas", pallas_ordered=False)
+        elif what == "per_instance_tables":
+            # a reference scene whose meshes keep per-instance tables
+            convert.scene_from_reference(
+                {"em_v0": np.zeros((0, 3, 3)),
+                 "inst_inv": np.zeros((1, 3, 4))},
+                {"use_tlas": False, "sdf_objects": (), "volumes": (),
+                 "functions": (), "has_surface_maps": False,
+                 "light_types": (), "intersector": "pallas",
+                 "p_flat": False})
         elif what == "tlas":
             for i in range(64):
                 b.add_sphere([i, 1, 0], 0.4, diffuse_material([1, 1, 1]))

@@ -1,9 +1,13 @@
 """Renderer.render() of the port against the JAX package's, from the same
-key, on examples.bunny(32, 24, subdivisions=3, intersector="pallas",
-wide_k=8) and examples.cornell(32, 24) at 1 spp. The JAX scene is carried
-over with convert.scene_from_reference; the JAX side's mesh queries run
-through its plain reference walk (intersector "wide" over the same
-scene's tables).
+key, at 1 spp, on examples.bunny(32, 24, subdivisions=3,
+intersector="pallas", wide_k=8) and examples.cornell(32, 24); and at
+30x17 (510 rays, not a multiple of the TPU kernels' 1,024-ray tile) on
+the bunny with pallas_ordered=False and on examples.dragon_hd(30, 17,
+subdivisions=3, intersector="pallas", wide_k=8) in both walk orders. The
+JAX scene is carried over with convert.scene_from_reference, its walk
+order included, so the port runs its preorder or ordered kernels' plain
+versions; the JAX side's mesh queries run through its plain reference
+walk (intersector "wide" over the same scene's tables).
 
 Tolerances: per-pixel film mean within rtol 1e-4, atol 1e-4 on at least
 99.5% of pixels, image mean within 1e-3 relative, sample counts equal,
@@ -34,24 +38,30 @@ from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
 
 from tests.test_torch_integrator import assert_radiance_parity, port_config
 
-W, H = 32, 24
-CASES = {
-    "bunny": lambda: jex.bunny(W, H, subdivisions=3, intersector="pallas",
-                               wide_k=8),
-    "cornell": lambda: jex.cornell(W, H),
+PALLAS = dict(subdivisions=3, intersector="pallas", wide_k=8)
+CASES = {  # name: (width, height, JAX example)
+    "bunny": (32, 24, lambda w, h: jex.bunny(w, h, **PALLAS)),
+    "cornell": (32, 24, lambda w, h: jex.cornell(w, h)),
+    "bunny_preorder": (30, 17, lambda w, h: jex.bunny(
+        w, h, pallas_ordered=False, **PALLAS)),
+    "dragon_hd": (30, 17, lambda w, h: jex.dragon_hd(w, h, **PALLAS)),
+    "dragon_hd_preorder": (30, 17, lambda w, h: jex.dragon_hd(
+        w, h, pallas_ordered=False, **PALLAS)),
 }
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
-    sj, cam, _rc, icfg = CASES[request.param]()
+    w, h, make = CASES[request.param]
+    sj, cam, _rc, icfg = make(w, h)
     walk = (dataclasses.replace(sj, intersector="wide")
             if sj.inst_inv.shape[0] else sj)
-    rj = JRenderer(walk, cam, JRenderConfig(width=W, height=H, spp=1), icfg)
+    rj = JRenderer(walk, cam, JRenderConfig(width=w, height=h, spp=1), icfg)
     film = rj.render(key=jax.random.PRNGKey(1))
-    rt = Renderer(convert.scene_from_reference(*convert.reference_arrays(sj)),
-                  convert.camera_from_reference(cam._asdict()),
-                  RenderConfig(width=W, height=H, spp=1), port_config(icfg))
+    st = convert.scene_from_reference(*convert.reference_arrays(sj))
+    assert st.p_ordered == bool(sj.p_ordered)
+    rt = Renderer(st, convert.camera_from_reference(cam._asdict()),
+                  RenderConfig(width=w, height=h, spp=1), port_config(icfg))
     return dict(rj=rj, rt=rt, film=film._asdict())
 
 

@@ -1,13 +1,16 @@
 """The port's host scene build against the JAX package's.
 
 Tolerance: byte-equal. The fat traversal table, the kernel-slot maps,
-max_stack_bound and the slot-ordered triangle attributes must be
-identical for the two-mesh scene of tests/test_tpu_compiled.py and for
-_bunny_mesh(3) at leaf 14, K=8.
+max_stack_bound, the walk order, the slot-ordered triangle attributes and
+the material table must be identical for the two-mesh scene of
+tests/test_tpu_compiled.py, for _bunny_mesh(3) at leaf 14, K=8, and for
+examples.dragon_hd(subdivisions=3, intersector="pallas", wide_k=8) with
+the preorder walk.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from ptsharp_tpu import examples as jex
 from ptsharp_tpu.geometry import mesh as jmesh
@@ -16,6 +19,7 @@ from ptsharp_tpu.pallas import hbm_kernel, ordered_kernel
 from ptsharp_tpu.scene import SceneBuilder as JBuilder
 
 from ptsharp_tpu_torch import examples as tex
+from ptsharp_tpu_torch import scene as tscene
 from ptsharp_tpu_torch.accel import tables
 from ptsharp_tpu_torch.geometry import mesh as tmesh
 from ptsharp_tpu_torch.materials import diffuse_material as tdiffuse
@@ -37,11 +41,18 @@ def _bunny(builder, ex, diffuse):
     return b.build(leaf_size=14, intersector="pallas", wide_k=8)
 
 
+def _dragon_hd3(ex):
+    return ex.dragon_hd(30, 17, subdivisions=3, intersector="pallas",
+                        wide_k=8, pallas_ordered=False)[0]
+
+
 SCENES = {
     "two_mesh": (lambda: _two_mesh(JBuilder, jmesh, jdiffuse),
                  lambda: _two_mesh(TBuilder, tmesh, tdiffuse)),
     "bunny3": (lambda: _bunny(JBuilder, jex, jdiffuse),
                lambda: _bunny(TBuilder, tex, tdiffuse)),
+    "dragon_hd3_preorder": (lambda: _dragon_hd3(jex),
+                            lambda: _dragon_hd3(tex)),
 }
 
 
@@ -95,6 +106,38 @@ def test_triangle_attributes_byte_equal(pair, name):
     b = np.asarray(getattr(sj, name))
     assert a.dtype == b.dtype
     np.testing.assert_array_equal(a, b)
+
+
+def test_walk_order_equal(pair):
+    sj, st = pair
+    assert st.p_ordered == bool(sj.p_ordered)
+
+
+def test_material_table_byte_equal(pair):
+    sj, st = pair
+    for name in st.materials._fields:
+        a = getattr(st.materials, name).numpy()
+        b = np.asarray(getattr(sj.materials, name))
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_stack_bound_limits_only_the_ordered_walk(monkeypatch, ordered):
+    """Past the ordered kernels' stack capacity an ordered scene's build
+    raises; a preorder scene keeps no stack and builds."""
+    monkeypatch.setattr(tscene, "STACK_CAPACITY", 2)
+    b = TBuilder()
+    b.add_mesh(tmesh.sphere_mesh([0, 0.4, 0], 1.0, subdivisions=3),
+               tdiffuse([0.5, 0.5, 0.5]))
+    if ordered:
+        with pytest.raises(ValueError, match="stack"):
+            b.build(leaf_size=8, intersector="pallas", wide_k=8)
+    else:
+        st = b.build(leaf_size=8, intersector="pallas", wide_k=8,
+                     pallas_ordered=False)
+        assert st.p_stack_bound > 2 and not st.p_ordered
+        assert st.p_fat.dtype == torch.float32
 
 
 def test_bunny_mesh_copy_is_identical():
