@@ -24,19 +24,38 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
   5. dragon   examples.build("dragon_hd", intersector="pallas", wide_k=8,
               pallas_ordered=False): 1,310,720 triangles, built once; the
               kernel phase of 4 again on 518,400 + 518,400 rays (960x540);
+  5b. split   the kernel-level entry points over the split tables
+              (split_fat of the bunny's fat table, K=8, leaf 14) on the
+              rays of 4 at the 1080p main-path width, driven once with
+              every launch count set to 0 just before and read just
+              after: ordered closest-hit in both push orders with each
+              ray's step count, ordered any-hit, and the warp-packet
+              closest-hit; then each against its plain version (the
+              tolerances of 4; the packet's slots equal on every lane;
+              the step counts equal) and against its fat-table twin on
+              the same rays (ordered "full" closest-hit and the packet
+              walk equal to the fat ordered and preorder kernels on every
+              lane, ordered any-hit equal to the fat one); step-count
+              mean, p50 and p99 per ray kind and order; times against
+              the plain versions and, per ray kind, against the twins;
+  5c. stack   the ordered kernels, fat and split, on hand-built chains
+              whose max_stack_bound lies in (64, 128], against the
+              preorder walk;
   6. render   Renderer.render() at 1 spp of the bunny at 1920x1080 in both
               walk orders and of dragon_hd at 960x540 in both walk orders,
               each with every launch count set to 0 just before and read
               just after (the walk's two kernels must have launched, the
-              other walk's not); one cornell pass at 512x512; and 32x24
-              bunny renders on the card, both walk orders, held against
-              the same renders on the CPU (the plain versions).
+              other walk's and the split-table kernels not); one cornell
+              pass at 512x512; and 32x24 bunny renders on the card, both
+              walk orders, held against the same renders on the CPU (the
+              plain versions).
 
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-kernel's launches over the main-path renders, its largest error against
-its plain version and its times at the bunny's 1080p main-path width; the
+kernel's launches over the main-path renders (the split-table kernels':
+over the split phase's driven calls), its largest error against its
+plain version and its times at the bunny's 1080p main-path width; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -79,7 +98,18 @@ KERNELS = {
                               "ptsharp_tpu/pallas/hbm_kernel.py:570"]),
     "any_hit_preorder": ("ptsharp_tpu_torch/csrc/any_hit_preorder.cu",
                          ["ptsharp_tpu/pallas/hbm_kernel.py:862"]),
+    "closest_hit_split": ("ptsharp_tpu_torch/csrc/closest_hit_split.cu",
+                          ["ptsharp_tpu/pallas/ordered_kernel.py:875"]),
+    "any_hit_split": ("ptsharp_tpu_torch/csrc/any_hit_split.cu",
+                      ["ptsharp_tpu/pallas/ordered_kernel.py:816"]),
+    "closest_hit_packet": ("ptsharp_tpu_torch/csrc/closest_hit_packet.cu",
+                           ["ptsharp_tpu/pallas/wide_kernel.py:304"]),
 }
+# the split-table kernels: no render launches them
+SPLIT = ("closest_hit_split", "any_hit_split", "closest_hit_packet")
+# (K, chain depth) of the hand-built trees whose stack bound lies in
+# (64, 128]
+STACK_CHAINS = ((4, 25), (8, 12))
 
 
 def log(msg: str) -> None:
@@ -120,8 +150,11 @@ def ptxas_report(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+)_kernelILi(\d+)E", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            k = re.search(r"([a-z_]+)_kernelILi(\d+)E(?:LN3ptk4PushE(\d)E)?",
+                          m.group(1))
+            push = {None: "", "0": ",full", "1": ",near"}
+            name = (f"{k.group(1)}<{k.group(2)}{push[k.group(3)]}>" if k
+                    else m.group(1))
             rows[name] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -207,6 +240,22 @@ def shadow_cut(scene, org, seed=2):
     t_cut = t_light * (1.0 - 1e-3) - 1e-3
     t_cut = torch.where(t_light < INF, t_cut, torch.full_like(t_cut, -INF))
     return d.contiguous(), t_cut.contiguous()
+
+
+def phase_rays(scene, cam, width, height, n_cam, n_bounce):
+    """The kernel phases' rays: camera rays then bounce rays from their
+    hits (closest-hit), and shadow rays from the bounce origins with
+    their t_cut and their nearest hit t (any-hit)."""
+    from ptsharp_tpu_torch.kernels import traverse
+
+    oc, dc = camera_rays(scene, cam, width, height, n_cam)
+    ob, db = bounce_rays(scene, oc, dc, n_bounce)
+    ds, t_cut = shadow_cut(scene, ob)
+    t_near, _s, _u, _v = traverse.closest_hit(
+        scene.p_fat, ob, ds, torch.full_like(t_cut, INF), *_args(scene))
+    return dict(org=torch.cat([oc, ob]).contiguous(),
+                dirn=torch.cat([dc, db]).contiguous(), n_cam=n_cam,
+                shadow_org=ob, shadow_dirn=ds, t_cut=t_cut, t_near=t_near)
 
 
 # ---- kernel checks ----------------------------------------------------------
@@ -330,21 +379,15 @@ def check_any(scene, org, dirn, t_cut, t_near, label, walk):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, occ=occ)
 
 
-def kernel_phase(scene, cam, width, height, n_cam, n_bounce, label):
-    """All four kernels against their plain versions on camera rays plus
-    bounce rays (closest-hit), then on shadow rays from the bounce origins
-    (any-hit); then the two walk orders' kernels against each other.
-    Returns {wrapper name: {max_abs_err, ms, plain_ms}}."""
-    from ptsharp_tpu_torch.kernels import traverse
-
-    oc, dc = camera_rays(scene, cam, width, height, n_cam)
-    ob, db = bounce_rays(scene, oc, dc, n_bounce)
-    org = torch.cat([oc, ob]).contiguous()
-    dirn = torch.cat([dc, db]).contiguous()
+def kernel_phase(scene, rays, label):
+    """All four fat-table kernels against their plain versions on camera
+    rays plus bounce rays (closest-hit), then on shadow rays from the
+    bounce origins (any-hit); then the two walk orders' kernels against
+    each other. Returns {wrapper name: {max_abs_err, ms, plain_ms}}."""
+    org, dirn = rays["org"], rays["dirn"]
+    ob, ds = rays["shadow_org"], rays["shadow_dirn"]
+    t_cut, t_near = rays["t_cut"], rays["t_near"]
     closest = {w: check_closest(scene, org, dirn, label, w) for w in WALKS}
-    ds, t_cut = shadow_cut(scene, ob)
-    t_near, _s, _u, _v = traverse.closest_hit(
-        scene.p_fat, ob, ds, torch.full_like(t_cut, INF), *_args(scene))
     anyhit = {w: check_any(scene, ob, ds, t_cut, t_near, label, w)
               for w in WALKS}
 
@@ -367,6 +410,253 @@ def kernel_phase(scene, cam, width, height, n_cam, n_bounce, label):
         for name, res in zip(names, (closest[w], anyhit[w])):
             out[name] = {k: res[k] for k in ("max_abs_err", "ms", "plain_ms")}
     return out
+
+
+def _equal(what, got, want):
+    """Raise unless two tuples of result tensors are equal on every lane."""
+    for a, b in zip(got, want):
+        diff = a != b
+        if bool(diff.any()):
+            raise AssertionError(f"{what} differs on {int(diff.sum())} lanes")
+
+
+def _steps_line(steps, n_cam):
+    parts = []
+    for kind, x in (("camera", steps[:n_cam]), ("bounce", steps[n_cam:])):
+        x = x.float()
+        q = torch.quantile(x, torch.tensor([0.5, 0.99], device=x.device))
+        parts.append(f"{kind} mean={float(x.mean()):.3f} "
+                     f"p50={float(q[0]):.0f} p99={float(q[1]):.0f}")
+    return "; ".join(parts)
+
+
+def split_phase(scene, rays, label):
+    """The split-table entry points, driven once on the rays of the main
+    path with the launch counts set to 0 just before and read just after;
+    then each held against its plain version and its fat-table twin, and
+    timed. Returns ({wrapper name: {max_abs_err, ms, plain_ms}},
+    {wrapper name: launches})."""
+    from ptsharp_tpu_torch.accel.tables import split_fat
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.p_fat.device
+    t0 = time.perf_counter()
+    rows, leaf = (torch.from_numpy(x).to(dev) for x in split_fat(
+        scene.p_fat.cpu().numpy(), scene.max_leaf))
+    log(f"split tables [{label}]: rows {tuple(rows.shape)}, leaf "
+        f"{tuple(leaf.shape)}, {time.perf_counter() - t0:.2f} s")
+    org, dirn, n_cam = rays["org"], rays["dirn"], rays["n_cam"]
+    ob, ds = rays["shadow_org"], rays["shadow_dirn"]
+    t_cut, t_near = rays["t_cut"], rays["t_near"]
+    args = _args(scene)
+    tmax = torch.full((org.shape[0],), INF, device=dev)
+    tab = (rows, leaf)
+
+    # the path: each entry point once, as a caller of the kernel-level
+    # API calls it
+    traverse.reset_launch_counts()
+    ordered = {m: traverse.closest_hit_split(*tab, org, dirn, tmax, *args,
+                                             order_mode=m, return_iters=True)
+               for m in traverse.ORDER_MODES}
+    occ = traverse.any_hit_split(*tab, ob, ds, t_cut, *args)
+    packet = traverse.closest_hit_packet(*tab, org, dirn, tmax, *args)
+    sync(dev)
+    launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    for name, count in launches.items():
+        want = dict(closest_hit_split=2, any_hit_split=1,
+                    closest_hit_packet=1).get(name, 0)
+        if count != want:
+            raise AssertionError(f"split phase launched {name} {count} "
+                                 f"times, not {want}")
+    log(f"split path [{label}]: launches={launches}")
+
+    out = {}
+    # #5 against its plain version: t, slots except ties, step counts
+    errs = []
+    for mode, (t, s, u, v, steps) in ordered.items():
+        tp, sp, _up, _vp, steps_p = traverse.closest_hit_split_plain(
+            *tab, org, dirn, tmax, *args, order_mode=mode, return_iters=True)
+        sync(dev)
+        close = torch.isclose(t, tp, **CLOSEST_TOL)
+        if not bool(close.all()):
+            raise AssertionError(f"closest_hit_split ({mode}) t differs on "
+                                 f"{int((~close).sum())} lanes")
+        lanes, tie = _ties(scene, org, dirn, s, sp, tp)
+        if not bool(tie.all()):
+            raise AssertionError(f"closest_hit_split ({mode}) slot differs "
+                                 f"off ties on {int((~tie).sum())} lanes")
+        _equal(f"closest_hit_split ({mode}) step count", (steps,), (steps_p,))
+        errs.append(float((t - tp).abs().max()))
+        ms = time_ms(lambda: traverse.closest_hit_split(
+            *tab, org, dirn, tmax, *args, order_mode=mode), dev)
+        plain_ms = time_ms(lambda: traverse.closest_hit_split_plain(
+            *tab, org, dirn, tmax, *args, order_mode=mode), dev)
+        log(f"closest_hit_split order={mode} [{label}] rays={org.shape[0]} "
+            f"max_abs_err_t={errs[-1]:.3e} slot_mismatches={lanes.numel()} "
+            f"(all ties) step counts equal; kernel_ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f}")
+        log(f"  steps per ray, order={mode}: {_steps_line(steps, n_cam)}")
+        if mode == "full":
+            out["closest_hit_split"] = dict(ms=ms, plain_ms=plain_ms)
+    out["closest_hit_split"]["max_abs_err"] = max(errs)
+    fat_hit = traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args)
+    _equal("closest_hit_split (full) against closest_hit",
+           ordered["full"][:4], fat_hit)
+
+    # #8 against its plain version in both orders, and against #2
+    occ_p = traverse.any_hit_split_plain(*tab, ob, ds, t_cut, *args)
+    sync(dev)
+    n_edge, edge = _band(t_near, t_cut, occ, occ_p, "any_hit_split")
+    err = float((occ.float() - occ_p.float())[~edge].abs().max())
+    occ_near = traverse.any_hit_split(*tab, ob, ds, t_cut, *args,
+                                      order_mode="near")
+    _band(t_near, t_cut, occ_near, traverse.any_hit_split_plain(
+        *tab, ob, ds, t_cut, *args, order_mode="near"),
+        "any_hit_split (near)")
+    _equal("any_hit_split against any_hit", (occ,),
+           (traverse.any_hit(scene.p_fat, ob, ds, t_cut, *args),))
+    ms = time_ms(lambda: traverse.any_hit_split(*tab, ob, ds, t_cut, *args),
+                 dev)
+    plain_ms = time_ms(lambda: traverse.any_hit_split_plain(
+        *tab, ob, ds, t_cut, *args), dev)
+    log(f"any_hit_split [{label}] rays={ob.shape[0]} occluded="
+        f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
+        f"equal to any_hit; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+    out["any_hit_split"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # #13 against its plain version and #4, slots on every lane
+    pp = traverse.closest_hit_packet_plain(*tab, org, dirn, tmax, *args)
+    sync(dev)
+    close = torch.isclose(packet[0], pp[0], **CLOSEST_TOL)
+    if not bool(close.all()):
+        raise AssertionError(f"closest_hit_packet t differs on "
+                             f"{int((~close).sum())} lanes")
+    _equal("closest_hit_packet slot", packet[1:2], pp[1:2])
+    _equal("closest_hit_packet against closest_hit_preorder", packet,
+           traverse.closest_hit_preorder(scene.p_fat, org, dirn, tmax,
+                                         *args))
+    err = float((packet[0] - pp[0]).abs().max())
+    ms = time_ms(lambda: traverse.closest_hit_packet(*tab, org, dirn, tmax,
+                                                     *args), dev)
+    plain_ms = time_ms(lambda: traverse.closest_hit_packet_plain(
+        *tab, org, dirn, tmax, *args), dev)
+    log(f"closest_hit_packet [{label}] rays={org.shape[0]} "
+        f"max_abs_err_t={err:.3e} slot_mismatches=0, equal to "
+        f"closest_hit_preorder; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+    out["closest_hit_packet"] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms)
+
+    # each split kernel against its fat twin, per ray kind
+    for kind, sl in (("camera", slice(0, n_cam)),
+                     ("bounce", slice(n_cam, None))):
+        o, d = org[sl].contiguous(), dirn[sl].contiguous()
+        tm = tmax[sl].contiguous()
+        times = {
+            "closest_hit_split full": lambda: traverse.closest_hit_split(
+                *tab, o, d, tm, *args),
+            "closest_hit_split near": lambda: traverse.closest_hit_split(
+                *tab, o, d, tm, *args, order_mode="near"),
+            "closest_hit (fat)": lambda: traverse.closest_hit(
+                scene.p_fat, o, d, tm, *args),
+            "closest_hit_packet": lambda: traverse.closest_hit_packet(
+                *tab, o, d, tm, *args),
+            "closest_hit_preorder (fat)": lambda:
+                traverse.closest_hit_preorder(scene.p_fat, o, d, tm, *args),
+        }
+        log(f"  {kind} rays ({o.shape[0]}) kernel ms: " + ", ".join(
+            f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
+    return out, {name: launches[name] for name in SPLIT}
+
+
+def stack_chain(k: int, depth: int) -> np.ndarray:
+    """A fat table of depth+1 K-wide internal nodes in a chain, built by
+    hand: node l has K-1 leaf children and, last, node l+1; the last
+    node has K leaf children. One triangle a leaf, a plane x = c facing
+    rays along +x near the x axis. Every internal box enters at x = 1,
+    before its leaf siblings (x >= 1.5), so the ordered walk descends the
+    whole chain first and pushes K-1 leaves at each level: (K-1)(depth+1)
+    entries. The only triangle before x = 5 (at x = 1.55) sits in the
+    nearest leaf of node depth-1, pushed last before the final node,
+    beyond a stack of 64; the final node's triangles lie at x >= 5.05,
+    the others at x >= 10.05, in leaf boxes that all enter by x = 2.1."""
+    n_nodes = k * (depth + 1) + 1
+    fat = np.zeros((2 * n_nodes, 128), np.float32)
+    bits = fat.view(np.int32)
+    inner_box = [1.0, -1.0, -1.0, 100.0, 1.0, 1.0]
+
+    def leaf_x(level, c):
+        """(entry x of the leaf's box, x of its triangle)."""
+        if level == depth - 1 and c == 0:
+            return 1.5, 1.55
+        far = 5.0 if level == depth else 10.0 + level
+        return 2.0 + 0.01 * c, far + 0.2 * c + 0.05
+
+    n_leaf = 0
+    for level in range(depth + 1):
+        p = k * level  # this chain node's index
+        last = level == depth
+        fat[2 * p, 0:6] = inner_box
+        bits[2 * p, 8] = n_nodes  # its subtree runs to the end
+        for c in range(k):
+            j = p + 1 + c  # preorder: the leaves follow their parent
+            if c == k - 1 and not last:
+                box = inner_box  # the chain's next node, p + k
+            else:
+                lo, xt = leaf_x(level, c)
+                box = [lo, -1.0, -1.0, xt + 0.05, 1.0, 1.0]
+                fat[2 * j, 0:6] = box
+                bits[2 * j, 6] = n_leaf  # first slot (leaf_size 1)
+                bits[2 * j, 7] = 1
+                bits[2 * j, 8] = j + 1
+                fat[2 * j + 1, 0:9] = [xt, -1, -1, 0, 4, 0, 0, 0, 4]
+                n_leaf += 1
+            fat[2 * p, 9 + 6 * c:15 + 6 * c] = box
+            bits[2 * p, 9 + 6 * k + c] = j
+    return fat
+
+
+
+def stack_phase(device):
+    """The ordered kernels, over the fat and the split tables, on trees
+    whose max_stack_bound lies in (64, 128]: their t must be the
+    stack-free preorder walk's (x = 1.55), and every shadow ray to
+    t_cut = 3 occluded."""
+    from ptsharp_tpu_torch.accel import tables
+    from ptsharp_tpu_torch.kernels import traverse
+
+    for k, depth in STACK_CHAINS:
+        fat_np = stack_chain(k, depth)
+        bound = tables.max_stack_bound(fat_np[0::2], k)
+        fat = torch.from_numpy(fat_np).to(device)
+        tab = tuple(torch.from_numpy(x).to(device)
+                    for x in tables.split_fat(fat_np, 1))
+        g = torch.Generator(device="cpu").manual_seed(k)
+        n = 256
+        org = torch.zeros((n, 3))
+        org[:, 1:] = torch.rand((n, 2), generator=g) * 0.6 - 0.3
+        d = torch.cat([torch.ones((n, 1)),
+                       torch.rand((n, 2), generator=g) * 0.02 - 0.01], 1)
+        org = org.to(device)
+        d = (d / d.norm(dim=1, keepdim=True)).to(device)
+        args = (0, fat.shape[0] // 2, 1, k)
+        tm = torch.full((n,), INF, device=device)
+        tc = torch.full((n,), 3.0, device=device)
+        want = traverse.closest_hit_preorder_plain(fat, org, d, tm, *args)
+        runs = {"closest_hit": traverse.closest_hit(fat, org, d, tm, *args)}
+        for mode in traverse.ORDER_MODES:
+            runs[f"closest_hit_split {mode}"] = traverse.closest_hit_split(
+                *tab, org, d, tm, *args, order_mode=mode)
+        for name, got in runs.items():
+            _equal(f"{name} on a K={k} chain", got[:2], want[:2])
+        occ = [traverse.any_hit(fat, org, d, tc, *args)] + [
+            traverse.any_hit_split(*tab, org, d, tc, *args, order_mode=m)
+            for m in traverse.ORDER_MODES]
+        if not all(bool(o.all()) for o in occ):
+            raise AssertionError(f"an ordered any-hit misses the K={k} "
+                                 f"chain's occluder")
+        log(f"stack chain K={k}: max_stack_bound={bound}, ordered kernels "
+            f"(fat and split, both orders) equal to the preorder walk, "
+            f"t={float(want[0].min()):.4f}")
 
 
 # ---- render ---------------------------------------------------------------
@@ -407,11 +697,10 @@ def render_main(label, scene, cam, rcfg, icfg):
         f"rays_traced={rays} seconds={sec:.3f} "
         f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
         f"{float(film.mean.mean()):.6f} launches={launches}")
-    for order, names in WALKS.items():
-        for name in names:
-            if (order == walk) != (launches[name] > 0):
-                raise AssertionError(f"{label} ({walk} walk) launched "
-                                     f"{name} {launches[name]} times")
+    for name, count in launches.items():
+        if (name in WALKS[walk]) != (count > 0):
+            raise AssertionError(f"{label} ({walk} walk) launched "
+                                 f"{name} {count} times")
     return launches
 
 
@@ -488,13 +777,19 @@ def main() -> int:
                                             wide_k=8, device=device)
     if scene_line("bunny", scene, time.perf_counter() - t0) != 81920:
         raise AssertionError("the bunny must have 81,920 triangles")
-    phases = [kernel_phase(scene, cam, rcfg.width, rcfg.height, 1 << 16,
-                           1 << 16, "bunny 2^16 camera + 2^16 bounce")]
+    phases = [kernel_phase(
+        scene, phase_rays(scene, cam, rcfg.width, rcfg.height, 1 << 16,
+                          1 << 16), "bunny 2^16 camera + 2^16 bounce")]
     n_main = rcfg.width * rcfg.height
-    main_width = kernel_phase(scene, cam, rcfg.width, rcfg.height, n_main,
-                              n_main, f"bunny 1080p main path: {n_main} "
-                              f"camera + {n_main} bounce")
+    main_rays = phase_rays(scene, cam, rcfg.width, rcfg.height, n_main,
+                           n_main)
+    main_label = f"bunny 1080p main path: {n_main} camera + {n_main} bounce"
+    main_width = kernel_phase(scene, main_rays, main_label)
     phases.append(main_width)
+    split, split_launches = split_phase(scene, main_rays, main_label)
+    main_width.update(split)
+    del main_rays
+    stack_phase(device)
 
     # dragon_hd: built once, in the preorder walk this slice brings; the
     # ordered walk runs the same tables (its stack bound is checked)
@@ -507,10 +802,10 @@ def main() -> int:
         raise AssertionError("dragon_hd must have 1,310,720 triangles")
     check_stack_bound(dscene.p_stack_bound)
     n_dragon = drcfg.width * drcfg.height
-    phases.append(kernel_phase(dscene, dcam, drcfg.width, drcfg.height,
-                               n_dragon, n_dragon,
-                               f"dragon_hd 960x540: {n_dragon} camera + "
-                               f"{n_dragon} bounce"))
+    phases.append(kernel_phase(
+        dscene, phase_rays(dscene, dcam, drcfg.width, drcfg.height,
+                           n_dragon, n_dragon),
+        f"dragon_hd 960x540: {n_dragon} camera + {n_dragon} bounce"))
 
     # the main path, each render with its own launch counts
     rcfg1 = replace(rcfg, spp=1)
@@ -539,8 +834,10 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(run[name] for run in runs),
-            max_abs_err=max(p[name]["max_abs_err"] for p in phases),
+            launches=(split_launches[name] if name in SPLIT
+                      else sum(run[name] for run in runs)),
+            max_abs_err=max(p[name]["max_abs_err"] for p in phases
+                            if name in p),
             ms=main_width[name]["ms"], plain_ms=main_width[name]["plain_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@
 Numpy copies of the JAX package's packers, gathered in one module:
 `pack_flat_tables` and `_pack_rows_128` (pallas/wide_kernel.py),
 `pack_fat` (pallas/hbm_kernel.py) and `max_stack_bound`
-(pallas/ordered_kernel.py). The port keeps one table form, the fat
-interleave: row pair (2i, 2i+1) = [node i's wide row; node i's leaf
+(pallas/ordered_kernel.py). The port's scenes keep one table form, the
+fat interleave: row pair (2i, 2i+1) = [node i's wide row; node i's leaf
 block], 128 float32 columns each, int fields bit-cast, child indices at
-columns 9+6K. Closest-hit and any-hit both walk it.
+columns 9+6K. Closest-hit and any-hit both walk it. `split_fat` gives
+back the node and leaf tables it interleaves, which the split-table
+kernels walk.
 """
 
 from __future__ import annotations
@@ -120,6 +122,23 @@ def pack_fat(rows, leaf, leaf_size: int) -> np.ndarray:
     if leaf.shape[0]:
         fat[1::2] = np.where((cnt > 0)[:, None], leaf[lj], 0.0)
     return fat
+
+
+def split_fat(fat, leaf_size: int):
+    """The inverse of pack_fat: (rows, leaf) with rows = fat[0::2] and
+    leaf row first // leaf_size = fat[2j+1] for each leaf node j, where
+    the split-table walks look a leaf block up.
+
+    fat (2*Nw, 128) -> rows (Nw, 128), leaf (NL, 128) float32, NL one
+    more than the largest leaf row."""
+    fat = np.asarray(fat, np.float32)
+    rows = np.ascontiguousarray(fat[0::2])
+    bits = rows.view(np.int32)
+    leaf_nodes = np.nonzero((bits[:, 7] & 0xFF) > 0)[0]
+    lj = bits[leaf_nodes, 6] // leaf_size
+    leaf = np.zeros((int(lj.max()) + 1 if lj.size else 0, ROW), np.float32)
+    leaf[lj] = fat[2 * leaf_nodes + 1]
+    return rows, leaf
 
 
 def max_stack_bound(rows: np.ndarray, k: int, base: int = 0,

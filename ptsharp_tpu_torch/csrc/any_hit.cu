@@ -17,7 +17,8 @@
 //
 // The walk is the closest-hit walk with best t fixed at t_cut: pop a node,
 // test its own box, run MT at a leaf, push hit children far to near at an
-// internal node.
+// internal node (ptk::ordered_any in bvh_common.cuh, which any_hit_split.cu
+// runs over the split tables).
 
 #include "bvh_common.cuh"
 
@@ -35,39 +36,8 @@ any_hit_kernel(const float* __restrict__ fat, const float* __restrict__ org,
   bool occ = false;
   if (tc > 0.0f) {
     const ptk::Ray r = ptk::load_ray(org, dir, i);
-    int stack[ptk::kStackCap];
-    int sp = 0;
-    int cur = base;
-    const int max_iters = end - base + 2;
-    for (int it = 0; cur < end && it < max_iters && !occ; ++it) {
-      const float* node = fat + static_cast<size_t>(2 * cur) * ptk::kRow;
-      const int* bits = reinterpret_cast<const int*>(node);
-      float tmin, tmax;
-      ptk::slab(node, r, tmin, tmax);
-      int next = -1;
-      if (ptk::box_hit(tmin, tmax, tc)) {
-        if ((bits[7] & 0xFF) > 0) {
-          const float* leaf = node + ptk::kRow;
-          for (int l = 0; l < leaf_size; ++l) {
-            float tt, uu, vv;
-            if (ptk::mt(leaf + 9 * l, r, tt, uu, vv) && tt < tc) {
-              occ = true;
-              break;
-            }
-          }
-        } else {
-          float key[K];
-          int idx[K];
-          const int nh = ptk::hit_children<K>(node, r, tc, key, idx);
-          if (nh > 0) {
-            ptk::push_far_to_near<K>(idx, nh, stack, sp);
-            next = idx[0];
-          }
-        }
-      }
-      if (next < 0) next = sp > 0 ? stack[--sp] : end;
-      cur = next;
-    }
+    occ = ptk::ordered_any<K, ptk::Push::kFull>(ptk::FatTable{fat}, r, tc,
+                                                base, end, leaf_size);
   }
   occ_out[i] = occ;
 }

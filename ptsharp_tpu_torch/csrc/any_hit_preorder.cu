@@ -14,7 +14,7 @@
 // finish at different times, so warps stay partly idle. What the design
 // does about it: no stack and no sort of child keys, so nothing lives in
 // local memory (ptxas, nvcc 12.8 for sm_90a: a 0-byte stack frame, against
-// 320 bytes for any_hit.cu at K=8, though 48 registers against its 40); a
+// 576 bytes for any_hit.cu at K=8, though 48 registers against its 40); a
 // lane with t_cut <= 0 returns False without reading the table; and a
 // thread retires on its first accepted hit.
 //
@@ -50,14 +50,7 @@ any_hit_preorder_kernel(const float* __restrict__ fat,
       int next = bits[8];  // skip link
       if (ptk::box_hit(tmin, tmax, tc)) {
         if ((bits[7] & 0xFF) > 0) {
-          const float* leaf = node + ptk::kRow;
-          for (int l = 0; l < leaf_size; ++l) {
-            float tt, uu, vv;
-            if (ptk::mt(leaf + 9 * l, r, tt, uu, vv) && tt < tc) {
-              occ = true;
-              break;
-            }
-          }
+          occ = ptk::leaf_any(node + ptk::kRow, leaf_size, r, tc);
         } else {
           const int c = ptk::first_hit_child<K>(node, r, tc);
           if (c >= 0) next = c;

@@ -1,4 +1,4 @@
-// Shared device arithmetic for the fat-table BVH kernels.
+// Shared device arithmetic and walk bodies for the BVH kernels.
 //
 // The constants and the order of every floating-point operation follow the
 // JAX package's packet helpers (ptsharp_tpu/pallas/wide_kernel.py:55-152):
@@ -12,11 +12,14 @@
 // contracted: each product and sum rounds as it does in the plain PyTorch
 // version and in the JAX reference, and the MT edge tests decide alike.
 //
-// Table layout (accel/tables.py): fat row pair (2i, 2i+1) = [wide node i;
-// its leaf block], 128 float32 columns each. Node row: own box [0:6],
-// first slot [6] (int bits), count [7] (int bits, low byte), skip [8],
-// K child boxes [9 : 9+6K], K child indices [9+6K : 9+7K] (int bits, 0 =
-// absent). Leaf block: leaf_size x (v0, e1, e2).
+// Table layout (accel/tables.py), 128 float32 columns a row. Node row:
+// own box [0:6], first slot [6] (int bits), count [7] (int bits, low
+// byte), skip [8], K child boxes [9 : 9+6K], K child indices [9+6K :
+// 9+7K] (int bits, 0 = absent). Leaf block: leaf_size x (v0, e1, e2). Two
+// forms hold the same rows: the fat interleave, row pair (2j, 2j+1) =
+// [node j; its leaf block] (FatTable), and the split tables that
+// pack_fat interleaves, node j at rows[j] and its leaf block at
+// leaf[first / leaf_size] (SplitTable). A walk body takes either.
 
 #pragma once
 
@@ -27,8 +30,10 @@ namespace ptk {
 constexpr int kRow = 128;
 constexpr float kInf = 1e9f;
 
+// traversal stack entries per ray of the ordered walk, as the JAX ordered
+// kernels hold per group (ptsharp_tpu/pallas/ordered_kernel.py:34-37)
 #ifndef PT_STACK_CAP
-#define PT_STACK_CAP 64
+#define PT_STACK_CAP 128
 #endif
 constexpr int kStackCap = PT_STACK_CAP;
 
@@ -162,6 +167,185 @@ __device__ __forceinline__ void push_far_to_near(const int (&idx)[K], int nh,
   for (int j = nh - 1; j >= 1; --j) {
     if (sp < kStackCap) stack[sp++] = idx[j];
   }
+}
+
+// Push the children whose bit is set in `mask` in static reverse order
+// (child K-1 first), so they pop in child order.
+template <int K>
+__device__ __forceinline__ void push_static_reverse(const int (&ci)[K],
+                                                    unsigned mask, int* stack,
+                                                    int& sp) {
+#pragma unroll
+  for (int c = K - 1; c >= 0; --c) {
+    if (((mask >> c) & 1u) && sp < kStackCap) stack[sp++] = ci[c];
+  }
+}
+
+// ---- where a walk reads a node row and its leaf block ----------------------
+
+struct FatTable {
+  const float* fat;
+  __device__ __forceinline__ const float* node(int j) const {
+    return fat + static_cast<size_t>(2 * j) * kRow;
+  }
+  __device__ __forceinline__ const float* leaf(const float* node) const {
+    return node + kRow;
+  }
+};
+
+struct SplitTable {
+  const float* rows;
+  const float* leaves;
+  int leaf_size;
+  __device__ __forceinline__ const float* node(int j) const {
+    return rows + static_cast<size_t>(j) * kRow;
+  }
+  __device__ __forceinline__ const float* leaf(const float* node) const {
+    const int first = reinterpret_cast<const int*>(node)[6];
+    return leaves + static_cast<size_t>(first / leaf_size) * kRow;
+  }
+};
+
+// ---- walk bodies ------------------------------------------------------------
+
+// The ordered walk's push order (ordered_kernel.py order_mode): both take
+// the nearest hit child next; kFull pushes the others far to near (:206-
+// 221), kNear in static reverse order (:222-225), so they pop in child
+// order whatever their distance.
+enum class Push { kFull, kNear };
+
+struct Best {
+  float t;
+  int slot;
+  float u, v;
+};
+
+// MT over a leaf block in slot order, keeping the closest accepted hit:
+// strict tt < best t, so the first slot wins among equal t.
+__device__ __forceinline__ void leaf_closest(const float* __restrict__ leaf,
+                                             int first, int leaf_size,
+                                             const Ray& r, Best& b) {
+  for (int l = 0; l < leaf_size; ++l) {
+    float tt, uu, vv;
+    if (mt(leaf + 9 * l, r, tt, uu, vv) && tt < b.t) {
+      b.t = tt;
+      b.slot = first + l;
+      b.u = uu;
+      b.v = vv;
+    }
+  }
+}
+
+// Whether some triangle of a leaf block lies at t in (1e-4, tc).
+__device__ __forceinline__ bool leaf_any(const float* __restrict__ leaf,
+                                         int leaf_size, const Ray& r,
+                                         float tc) {
+  for (int l = 0; l < leaf_size; ++l) {
+    float tt, uu, vv;
+    if (mt(leaf + 9 * l, r, tt, uu, vv) && tt < tc) return true;
+  }
+  return false;
+}
+
+// The ordered walk's step at an internal node: push the hit children
+// other than the nearest in the order P says and return the nearest, or
+// -1 when the ray enters no child before `bt`.
+template <int K, Push P>
+__device__ __forceinline__ int descend_ordered(const float* __restrict__ node,
+                                               const Ray& r, float bt,
+                                               int* stack, int& sp) {
+  if constexpr (P == Push::kFull) {
+    float key[K];
+    int idx[K];
+    const int nh = hit_children<K>(node, r, bt, key, idx);
+    if (nh == 0) return -1;
+    push_far_to_near<K>(idx, nh, stack, sp);
+    return idx[0];
+  } else {
+    const int* bits = reinterpret_cast<const int*>(node);
+    int ci[K];
+    unsigned hit = 0;
+    int near = -1;
+    float near_t = 0.0f;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      ci[c] = bits[9 + 6 * K + c];
+      float ctmin, ctmax;
+      slab(node + 9 + 6 * c, r, ctmin, ctmax);
+      if (box_hit(ctmin, ctmax, bt) && ci[c] > 0) {
+        hit |= 1u << c;
+        if (near < 0 || ctmin < near_t) {
+          near = c;
+          near_t = ctmin;
+        }
+      }
+    }
+    if (near < 0) return -1;
+    push_static_reverse<K>(ci, hit & ~(1u << near), stack, sp);
+    return ci[near];
+  }
+}
+
+// The ordered closest-hit walk of one ray over nodes [base, end): pop a
+// node, re-test its own box against the current best t; at a leaf run MT
+// over its block; at an internal node descend to the nearest hit child
+// and push the others. (end - base + 2) steps bound the loop, as
+// max_iters bounds the TPU kernels. Returns the steps taken.
+template <int K, Push P, class Table>
+__device__ __forceinline__ int ordered_closest(const Table& tab, const Ray& r,
+                                               int base, int end,
+                                               int leaf_size, Best& b) {
+  int stack[kStackCap];
+  int sp = 0;
+  int cur = base;
+  const int max_iters = end - base + 2;
+  int it = 0;
+  for (; cur < end && it < max_iters; ++it) {
+    const float* node = tab.node(cur);
+    const int* bits = reinterpret_cast<const int*>(node);
+    float tmin, tmax;
+    slab(node, r, tmin, tmax);
+    int next = -1;
+    if (box_hit(tmin, tmax, b.t)) {
+      if ((bits[7] & 0xFF) > 0) {
+        leaf_closest(tab.leaf(node), bits[6], leaf_size, r, b);
+      } else {
+        next = descend_ordered<K, P>(node, r, b.t, stack, sp);
+      }
+    }
+    if (next < 0) next = sp > 0 ? stack[--sp] : end;
+    cur = next;
+  }
+  return it;
+}
+
+// The ordered any-hit walk: the closest-hit walk with best t fixed at
+// tc, ending on the first accepted hit.
+template <int K, Push P, class Table>
+__device__ __forceinline__ bool ordered_any(const Table& tab, const Ray& r,
+                                            float tc, int base, int end,
+                                            int leaf_size) {
+  int stack[kStackCap];
+  int sp = 0;
+  int cur = base;
+  const int max_iters = end - base + 2;
+  for (int it = 0; cur < end && it < max_iters; ++it) {
+    const float* node = tab.node(cur);
+    const int* bits = reinterpret_cast<const int*>(node);
+    float tmin, tmax;
+    slab(node, r, tmin, tmax);
+    int next = -1;
+    if (box_hit(tmin, tmax, tc)) {
+      if ((bits[7] & 0xFF) > 0) {
+        if (leaf_any(tab.leaf(node), leaf_size, r, tc)) return true;
+      } else {
+        next = descend_ordered<K, P>(node, r, tc, stack, sp);
+      }
+    }
+    if (next < 0) next = sp > 0 ? stack[--sp] : end;
+    cur = next;
+  }
+  return false;
 }
 
 }  // namespace ptk

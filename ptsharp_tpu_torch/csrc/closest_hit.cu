@@ -21,7 +21,8 @@
 // t; at a leaf run MT over its leaf_size triangles; at an internal node
 // slab-test the K child boxes, push the hit ones far to near and continue
 // with the nearest. The loop is bounded by the node count (end - base + 2),
-// as max_iters bounds the TPU kernel.
+// as max_iters bounds the TPU kernel. The walk body is ptk::ordered_closest
+// (bvh_common.cuh), which closest_hit_split.cu runs over the split tables.
 
 #include "bvh_common.cuh"
 
@@ -39,49 +40,13 @@ closest_hit_kernel(const float* __restrict__ fat,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const ptk::Ray r = ptk::load_ray(org, dir, i);
-  float bt = t_max[i];
-  int bs = -1;
-  float bu = 0.0f, bv = 0.0f;
-  int stack[ptk::kStackCap];
-  int sp = 0;
-  int cur = base;
-  const int max_iters = end - base + 2;
-  for (int it = 0; cur < end && it < max_iters; ++it) {
-    const float* node = fat + static_cast<size_t>(2 * cur) * ptk::kRow;
-    const int* bits = reinterpret_cast<const int*>(node);
-    float tmin, tmax;
-    ptk::slab(node, r, tmin, tmax);
-    int next = -1;
-    if (ptk::box_hit(tmin, tmax, bt)) {
-      if ((bits[7] & 0xFF) > 0) {
-        const float* leaf = node + ptk::kRow;
-        const int first = bits[6];
-        for (int l = 0; l < leaf_size; ++l) {
-          float tt, uu, vv;
-          if (ptk::mt(leaf + 9 * l, r, tt, uu, vv) && tt < bt) {
-            bt = tt;
-            bs = first + l;
-            bu = uu;
-            bv = vv;
-          }
-        }
-      } else {
-        float key[K];
-        int idx[K];
-        const int nh = ptk::hit_children<K>(node, r, bt, key, idx);
-        if (nh > 0) {
-          ptk::push_far_to_near<K>(idx, nh, stack, sp);
-          next = idx[0];
-        }
-      }
-    }
-    if (next < 0) next = sp > 0 ? stack[--sp] : end;
-    cur = next;
-  }
-  t_out[i] = bs >= 0 ? bt : ptk::kInf;
-  slot_out[i] = bs;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  ptk::Best b{t_max[i], -1, 0.0f, 0.0f};
+  ptk::ordered_closest<K, ptk::Push::kFull>(ptk::FatTable{fat}, r, base, end,
+                                            leaf_size, b);
+  t_out[i] = b.slot >= 0 ? b.t : ptk::kInf;
+  slot_out[i] = b.slot;
+  u_out[i] = b.u;
+  v_out[i] = b.v;
 }
 
 }  // namespace

@@ -22,8 +22,8 @@
 // shrinks later. What the design does about it: the walk keeps no stack,
 // only the cursor and the best t, slot, u and v, so nothing lives in
 // local memory (ptxas, nvcc 12.8 for sm_90a: a 0-byte stack frame, against
-// 320 bytes for closest_hit.cu at K=8). It does not save registers: ptxas
-// gives it 47 at K=8 against closest_hit.cu's 40, so fewer warps fit on
+// 576 bytes for closest_hit.cu at K=8). It does not save registers: ptxas
+// gives it 47 at K=8 against closest_hit.cu's 39, so fewer warps fit on
 // an SM to hide each other's load latency. Bounding the registers, packet
 // reordering, TMA and warp cooperation are left to later work.
 //
@@ -51,9 +51,7 @@ closest_hit_preorder_kernel(const float* __restrict__ fat,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const ptk::Ray r = ptk::load_ray(org, dir, i);
-  float bt = t_max[i];
-  int bs = -1;
-  float bu = 0.0f, bv = 0.0f;
+  ptk::Best b{t_max[i], -1, 0.0f, 0.0f};
   int cur = base;
   const int max_iters = end - base;
   for (int it = 0; cur < end && it < max_iters; ++it) {
@@ -62,30 +60,20 @@ closest_hit_preorder_kernel(const float* __restrict__ fat,
     float tmin, tmax;
     ptk::slab(node, r, tmin, tmax);
     int next = bits[8];  // skip link
-    if (ptk::box_hit(tmin, tmax, bt)) {
+    if (ptk::box_hit(tmin, tmax, b.t)) {
       if ((bits[7] & 0xFF) > 0) {
-        const float* leaf = node + ptk::kRow;
-        const int first = bits[6];
-        for (int l = 0; l < leaf_size; ++l) {
-          float tt, uu, vv;
-          if (ptk::mt(leaf + 9 * l, r, tt, uu, vv) && tt < bt) {
-            bt = tt;
-            bs = first + l;
-            bu = uu;
-            bv = vv;
-          }
-        }
+        ptk::leaf_closest(node + ptk::kRow, bits[6], leaf_size, r, b);
       } else {
-        const int c = ptk::first_hit_child<K>(node, r, bt);
+        const int c = ptk::first_hit_child<K>(node, r, b.t);
         if (c >= 0) next = c;
       }
     }
     cur = next;
   }
-  t_out[i] = bs >= 0 ? bt : ptk::kInf;
-  slot_out[i] = bs;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  t_out[i] = b.slot >= 0 ? b.t : ptk::kInf;
+  slot_out[i] = b.slot;
+  u_out[i] = b.u;
+  v_out[i] = b.v;
 }
 
 }  // namespace

@@ -63,12 +63,22 @@ def _digest() -> str:
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    # fat, rays, t, n, base, end, leaf_size, k, outputs, stream
     closest = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
     anyhit = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    # rows, leaf, rays, t, n, base, end, leaf_size, k, [near], outputs,
+    # [iters], stream
+    closest_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                     vp, vp, vp, vp, vp, vp]
+    anyhit_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
+    packet = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
     for fn, argtypes in ((lib.pt_closest_hit, closest),
                          (lib.pt_any_hit, anyhit),
                          (lib.pt_closest_hit_preorder, closest),
-                         (lib.pt_any_hit_preorder, anyhit)):
+                         (lib.pt_any_hit_preorder, anyhit),
+                         (lib.pt_closest_hit_split, closest_split),
+                         (lib.pt_any_hit_split, anyhit_split),
+                         (lib.pt_closest_hit_packet, packet)):
         fn.restype = ci
         fn.argtypes = argtypes
     return lib

@@ -1,12 +1,20 @@
-"""Closest-hit and any-hit over the fat BVH table: wrappers and plain
-versions of the four CUDA kernels in csrc/, two walk orders each.
+"""Closest-hit and any-hit over the BVH tables: wrappers and plain
+versions of the seven CUDA kernels in csrc/.
 
-`closest_hit` and `any_hit` walk near to far with a per-ray stack (the
-ordered walk, csrc/closest_hit.cu and csrc/any_hit.cu);
-`closest_hit_preorder` and `any_hit_preorder` walk the tree in preorder
-along its skip links, with no stack (csrc/closest_hit_preorder.cu and
-csrc/any_hit_preorder.cu). These four are what the rest of the port
-calls. On a CUDA tensor each launches its hand-written kernel on the
+Over the fat table (the render path):
+  `closest_hit` and `any_hit` walk near to far with a per-ray stack (the
+  ordered walk, csrc/closest_hit.cu and csrc/any_hit.cu);
+  `closest_hit_preorder` and `any_hit_preorder` walk the tree in preorder
+  along its skip links, with no stack (csrc/closest_hit_preorder.cu and
+  csrc/any_hit_preorder.cu). intersect.py calls these four.
+Over the split tables `rows` + `leaf` (the kernel-level entry points,
+`accel.tables.split_fat` makes them from the fat table):
+  `closest_hit_split` and `any_hit_split`, the ordered walk in either push
+  order, closest-hit with an optional count of each ray's steps
+  (csrc/closest_hit_split.cu, csrc/any_hit_split.cu);
+  `closest_hit_packet`, the preorder walk with one cursor per warp of 32
+  rays (csrc/closest_hit_packet.cu).
+On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream and adds one to its `launches` count; on a CPU tensor it
 runs its plain version below; any other device raises. There is no
 fallback from a kernel to a plain version.
@@ -16,21 +24,26 @@ walks the tree with its own cursor, in lockstep with the others, one node
 per loop step: gather the node rows, test the node box against the ray's
 best t, run Moller-Trumbore over the leaf block at leaves, and at
 internal nodes pick the next node.
-  ordered  (`*_plain`): push the hit children far to near on the ray's
-           row of an (R, S) stack and continue with the nearest; pop the
-           stack where nothing is hit.
-  preorder (`*_preorder_plain`): go to the hit child of smallest preorder
-           index, or follow the node's skip link where nothing is hit.
-           The cursor only grows, so [base, end) bounds the walk.
+  ordered  (`*_plain`, `*_split_plain`): take the nearest hit child next
+           and push the others on the ray's row of an (R, S) stack, far
+           to near ("full") or in static reverse child order ("near");
+           pop the stack where nothing is hit.
+  preorder (`*_preorder_plain`, `closest_hit_packet_plain`): go to the
+           hit child of smallest preorder index, or follow the node's
+           skip link where nothing is hit. The cursor only grows, so
+           [base, end) bounds the walk.
+A table view (`_Table`) says where a node row and its leaf block are, so
+one walk runs over either table form and gives the same results on both.
 The kernels follow the same steps in the same order, so each gives the
 same slots as its plain version even where two triangles tie. The two
 orders find the same t; their slots differ only where triangles tie.
 
-Contract (the JAX package's fat-table kernels):
-  fat (2*Nw, 128) f32; org, dirn (R, 3) f32; t_max / t_cut (R,) f32;
-  [base, end) the node range; leaf_size triangles per leaf; K children.
+Contract (the JAX package's kernels):
+  fat (2*Nw, 128) f32, or rows (Nw, 128) and leaf (NL, 128) f32;
+  org, dirn (R, 3) f32; t_max / t_cut (R,) f32; [base, end) the node
+  range; leaf_size triangles per leaf; K children.
   closest hit -> t (R,) f32 (INF where slot < 0), slot (R,) i32 kernel
-                 slot, u, v (R,) f32;
+                 slot, u, v (R,) f32 [, steps (R,) i32];
   any hit     -> (R,) bool, True where a triangle lies at t in
                  (1e-4, t_cut); False where t_cut <= 0.
 """
@@ -41,10 +54,12 @@ import torch
 
 INF = 1e9
 ROW = 128
-# traversal stack entries per ray of the ordered walk; ordered scene
-# builds check max_stack_bound against it (the full bunny needs 43)
-STACK_CAPACITY = 64
+# traversal stack entries per ray of the ordered walk, as the JAX ordered
+# kernels hold per group (ordered_kernel.py:34-37); ordered scene builds
+# check max_stack_bound against it (the full bunny needs 43)
+STACK_CAPACITY = 128
 KERNEL_K = (4, 8)  # the kernels' template instances
+ORDER_MODES = ("full", "near")  # the ordered walk's push orders
 _NO_CHILD = torch.iinfo(torch.int64).max
 
 
@@ -101,41 +116,72 @@ def _mt(tri, o, d):
 # ---- the two walks ---------------------------------------------------------
 
 
-class _Walk:
-    """Lockstep per-ray walk state over a fat table: the cursors, the
-    best t, and the node loads and box tests that both walk orders share.
-    A subclass says where a ray goes next."""
+class _Table:
+    """Where a walk reads node j's row and its leaf block: the fat
+    interleave (rows 2j and 2j+1 of `nodes`) or, with `leaf`, the split
+    tables (rows[j], and leaf[first // leaf_size], where pack_fat takes
+    it from)."""
 
-    def __init__(self, fat, org, dirn, bt, base, end, k, start):
-        self.fat, self.org, self.dirn, self.k = fat, org, dirn, k
-        self.bits = fat.view(torch.int32)
+    def __init__(self, nodes, leaf=None, leaf_size: int = 1):
+        self.nodes = nodes
+        self.bits = nodes.view(torch.int32)
+        self.leaf, self.leaf_size = leaf, leaf_size
+
+    def row(self, j):
+        """The node-table rows of nodes j."""
+        return j if self.leaf is not None else 2 * j
+
+    def leaf_rows(self, node):
+        """The leaf blocks of the leaf nodes at node-table rows `node`."""
+        if self.leaf is None:
+            return self.nodes[node + 1]
+        first = self.bits[node, 6].to(torch.int64)
+        return self.leaf[first // self.leaf_size]
+
+
+class _Walk:
+    """Lockstep per-ray walk state over a table view: the cursors, the
+    best t, each ray's step count if asked, and the node loads and box
+    tests that both walk orders share. A subclass says where a ray goes
+    next."""
+
+    def __init__(self, tab, org, dirn, bt, base, end, k, start,
+                 count=False):
+        self.tab, self.org, self.dirn, self.k = tab, org, dirn, k
+        self.nodes, self.bits = tab.nodes, tab.bits
         self.inv = _safe_inv(dirn)
         self.bt = bt
         self.end = end
         self.cur = torch.where(start, base, end).to(torch.int64)
+        self.steps = (torch.zeros(org.shape[0], dtype=torch.int32,
+                                  device=org.device) if count else None)
 
     def visit(self):
         """Load the active lanes' nodes and test their boxes. Returns
         (lanes, node, leaf_lanes_mask, inner_lanes_mask) or None when no
-        lane is active."""
+        lane is active; `node` holds node-table rows."""
         act = torch.nonzero(self.cur < self.end).squeeze(1)
         if act.numel() == 0:
             return None
-        node = 2 * self.cur[act]
-        tmin, tmax = _slab(self.fat[node, 0:6], self.org[act], self.inv[act])
+        if self.steps is not None:
+            self.steps[act] += 1
+        node = self.tab.row(self.cur[act])
+        tmin, tmax = _slab(self.nodes[node, 0:6], self.org[act],
+                           self.inv[act])
         hit = _box_hit(tmin, tmax, self.bt[act])
         is_leaf = (self.bits[node, 7] & 0xFF) > 0
         return act, node, hit & is_leaf, hit & ~is_leaf
 
     def leaf_block(self, lanes, node, leaf_size):
-        blk = self.fat[node + 1, :leaf_size * 9].reshape(-1, leaf_size, 9)
-        return _mt(blk, self.org[lanes], self.dirn[lanes])
+        blk = self.tab.leaf_rows(node)[:, :leaf_size * 9]
+        return _mt(blk.reshape(-1, leaf_size, 9), self.org[lanes],
+                   self.dirn[lanes])
 
     def child_hits(self, lanes, node):
         """Slab tests of the K child boxes against the lanes' best t:
         (hit, entry t, child index), each (A, K)."""
         k = self.k
-        cb = self.fat[node, 9:9 + 6 * k].reshape(-1, k, 6)
+        cb = self.nodes[node, 9:9 + 6 * k].reshape(-1, k, 6)
         cidx = self.bits[node, 9 + 6 * k:9 + 7 * k].to(torch.int64)
         ctmin, ctmax = _slab(cb, self.org[lanes][:, None, :],
                              self.inv[lanes][:, None, :])
@@ -144,12 +190,16 @@ class _Walk:
 
 
 class _StackWalk(_Walk):
-    """The ordered walk: each ray keeps a row of an (R, S) stack."""
+    """The ordered walk: each ray keeps a row of an (R, S) stack and
+    pushes in the order `order` names (ORDER_MODES)."""
 
-    def __init__(self, fat, org, dirn, bt, base, end, k, start):
-        super().__init__(fat, org, dirn, bt, base, end, k, start)
+    def __init__(self, tab, org, dirn, bt, base, end, k, start,
+                 order="full", count=False):
+        _check_order(order)
+        super().__init__(tab, org, dirn, bt, base, end, k, start, count)
         r = org.shape[0]
-        self.stack = torch.zeros((r, STACK_CAPACITY), dtype=torch.int64,
+        self.order = order
+        self.stack = torch.zeros((r, STACK_CAPACITY), dtype=torch.int32,
                                  device=org.device)
         self.sp = torch.zeros(r, dtype=torch.int64, device=org.device)
         self.max_iters = end - base + 2
@@ -159,20 +209,32 @@ class _StackWalk(_Walk):
         `advance` turns into a pop."""
         return torch.full_like(node, -1)
 
+    def _push(self, lanes, do, val):
+        """Push val on the stacks of lanes where `do`, while they have
+        room (an ordered build checks max_stack_bound <= the capacity)."""
+        sp = self.sp[lanes]
+        do = do & (sp < STACK_CAPACITY)
+        put = lanes[do]
+        self.stack[put, sp[do]] = val[do].to(torch.int32)
+        self.sp[put] += 1
+
     def descend(self, lanes, node):
-        """Push the hit children far to near; returns each lane's next
-        node (-1 where no child is hit)."""
+        """Push the hit children other than the nearest ("full": far to
+        near; "near": static reverse order, so they pop in child order);
+        returns each lane's nearest hit child (-1 where none is hit)."""
         chit, ctmin, cidx = self.child_hits(lanes, node)
         key = torch.where(chit, ctmin, torch.full_like(ctmin, float("inf")))
         order = torch.argsort(key, dim=1, stable=True)
         shit = torch.gather(chit, 1, order)
         sidx = torch.gather(cidx, 1, order)
-        for j in range(self.k - 1, 0, -1):
-            sp = self.sp[lanes]
-            do = shit[:, j] & (sp < STACK_CAPACITY)
-            put = lanes[do]
-            self.stack[put, sp[do]] = sidx[do, j]
-            self.sp[put] += 1
+        if self.order == "full":
+            for j in range(self.k - 1, 0, -1):
+                self._push(lanes, shit[:, j], sidx[:, j])
+        else:
+            child = torch.arange(self.k, device=lanes.device)
+            rest = chit & (child[None, :] != order[:, 0:1])
+            for c in range(self.k - 1, -1, -1):
+                self._push(lanes, rest[:, c], cidx[:, c])
         return torch.where(shit[:, 0], sidx[:, 0], -1)
 
     def advance(self, lanes, nxt):
@@ -182,7 +244,7 @@ class _StackWalk(_Walk):
         pl = lanes[pop]
         sp = self.sp[pl]
         has = sp > 0
-        top = self.stack[pl, torch.clamp(sp - 1, min=0)]
+        top = self.stack[pl, torch.clamp(sp - 1, min=0)].to(torch.int64)
         nxt = nxt.clone()
         nxt[pop] = torch.where(has, top, self.end)
         self.sp[pl] = sp - has.to(sp.dtype)
@@ -194,8 +256,8 @@ class _SkipWalk(_Walk):
     forward in preorder, so each ray's cursor only grows and end - base
     steps bound the walk."""
 
-    def __init__(self, fat, org, dirn, bt, base, end, k, start):
-        super().__init__(fat, org, dirn, bt, base, end, k, start)
+    def __init__(self, tab, org, dirn, bt, base, end, k, start):
+        super().__init__(tab, org, dirn, bt, base, end, k, start)
         self.max_iters = end - base
 
     def no_target(self, node):
@@ -284,51 +346,108 @@ def _all_lanes(org):
 def closest_hit_plain(fat, org, dirn, t_max, base: int, end: int,
                       leaf_size: int, k: int):
     """Plain PyTorch ordered closest-hit (see the module docstring)."""
-    return _walk_closest(_StackWalk(fat, org, dirn, t_max.clone(), base, end,
-                                    k, _all_lanes(org)), leaf_size)
+    return _walk_closest(_StackWalk(_Table(fat), org, dirn, t_max.clone(),
+                                    base, end, k, _all_lanes(org)),
+                         leaf_size)
 
 
 def closest_hit_preorder_plain(fat, org, dirn, t_max, base: int, end: int,
                                leaf_size: int, k: int):
     """Plain PyTorch preorder closest-hit (see the module docstring)."""
-    return _walk_closest(_SkipWalk(fat, org, dirn, t_max.clone(), base, end,
-                                   k, _all_lanes(org)), leaf_size)
+    return _walk_closest(_SkipWalk(_Table(fat), org, dirn, t_max.clone(),
+                                   base, end, k, _all_lanes(org)),
+                         leaf_size)
 
 
 def any_hit_plain(fat, org, dirn, t_cut, base: int, end: int,
                   leaf_size: int, k: int):
     """Plain PyTorch ordered any-hit (see the module docstring)."""
-    return _walk_any(_StackWalk(fat, org, dirn, t_cut, base, end, k,
+    return _walk_any(_StackWalk(_Table(fat), org, dirn, t_cut, base, end, k,
                                 t_cut > 0.0), t_cut, leaf_size)
 
 
 def any_hit_preorder_plain(fat, org, dirn, t_cut, base: int, end: int,
                            leaf_size: int, k: int):
     """Plain PyTorch preorder any-hit (see the module docstring)."""
-    return _walk_any(_SkipWalk(fat, org, dirn, t_cut, base, end, k,
+    return _walk_any(_SkipWalk(_Table(fat), org, dirn, t_cut, base, end, k,
                                t_cut > 0.0), t_cut, leaf_size)
+
+
+def closest_hit_split_plain(rows, leaf, org, dirn, t_max, base: int,
+                            end: int, leaf_size: int, k: int,
+                            order_mode: str = "full",
+                            return_iters: bool = False):
+    """Plain PyTorch ordered closest-hit over the split tables, in the
+    push order `order_mode` names; with return_iters, also each ray's
+    step count (int32 (R,))."""
+    walk = _StackWalk(_Table(rows, leaf, leaf_size), org, dirn,
+                      t_max.clone(), base, end, k, _all_lanes(org),
+                      order_mode, count=return_iters)
+    out = _walk_closest(walk, leaf_size)
+    return (*out, walk.steps) if return_iters else out
+
+
+def any_hit_split_plain(rows, leaf, org, dirn, t_cut, base: int, end: int,
+                        leaf_size: int, k: int, order_mode: str = "full"):
+    """Plain PyTorch ordered any-hit over the split tables."""
+    return _walk_any(_StackWalk(_Table(rows, leaf, leaf_size), org, dirn,
+                                t_cut, base, end, k, t_cut > 0.0,
+                                order_mode), t_cut, leaf_size)
+
+
+def closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base: int,
+                             end: int, leaf_size: int, k: int):
+    """Plain PyTorch version of the shared-cursor packet walk: per lane
+    the preorder walk over the split tables, which gives every lane the
+    slot the packet gives it (csrc/closest_hit_packet.cu)."""
+    return _walk_closest(_SkipWalk(_Table(rows, leaf, leaf_size), org, dirn,
+                                   t_max.clone(), base, end, k,
+                                   _all_lanes(org)), leaf_size)
 
 
 # ---- wrappers -------------------------------------------------------------
 
 
-def _check(fat, org, dirn, t, base, end, leaf_size, k):
-    if fat.dtype != torch.float32 or fat.dim() != 2 or fat.shape[1] != ROW \
-            or fat.shape[0] % 2 or not fat.is_contiguous():
-        raise ValueError("fat must be a contiguous (2*Nw, 128) float32 table")
+def _check_table(name, x, rows_even=False):
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != ROW \
+            or (rows_even and x.shape[0] % 2) or not x.is_contiguous():
+        shape = "(2*Nw, 128)" if rows_even else "(N, 128)"
+        raise ValueError(f"{name} must be a contiguous {shape} float32 "
+                         f"table")
+
+
+def _check(nodes, org, dirn, t, base, end, leaf_size, k, leaf=None):
+    """The wrappers' contract. `nodes` is the fat table, or with `leaf`
+    the node rows of the split tables."""
+    if leaf is None:
+        _check_table("fat", nodes, rows_even=True)
+        n_nodes = nodes.shape[0] // 2
+    else:
+        _check_table("rows", nodes)
+        _check_table("leaf", leaf)
+        if leaf.device != nodes.device:
+            raise ValueError(f"leaf is on {leaf.device}, rows on "
+                             f"{nodes.device}")
+        n_nodes = nodes.shape[0]
     r = org.shape[0]
     for name, x, shape in (("org", org, (r, 3)), ("dirn", dirn, (r, 3)),
                            ("t", t, (r,))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape \
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32 {shape}")
-        if x.device != fat.device:
-            raise ValueError(f"{name} is on {x.device}, fat on {fat.device}")
-    if not 0 <= base <= end <= fat.shape[0] // 2:
+        if x.device != nodes.device:
+            raise ValueError(f"{name} is on {x.device}, the tables on "
+                             f"{nodes.device}")
+    if not 0 <= base <= end <= n_nodes:
         raise ValueError(f"node range [{base}, {end}) outside the table")
     if not (1 <= leaf_size and leaf_size * 9 <= ROW) \
             or not (2 <= k and 9 + 7 * k <= ROW):
         raise ValueError(f"leaf_size={leaf_size}, k={k} do not fit a row")
+
+
+def _check_order(order_mode):
+    if order_mode not in ORDER_MODES:
+        raise ValueError(f"order_mode must be one of {ORDER_MODES}")
 
 
 def _kernel_lib(fat, k):
@@ -345,6 +464,24 @@ def _ptr(x):
     return x.data_ptr()
 
 
+def _launch(wrapper, entry, lib, *args):
+    """Call a kernel's C entry on the current stream and count the launch."""
+    err = getattr(lib, entry)(*args)
+    if err:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+
+
+def _hit_outputs(r, device):
+    t = torch.empty(r, dtype=torch.float32, device=device)
+    return (t, torch.empty(r, dtype=torch.int32, device=device),
+            torch.empty_like(t), torch.empty_like(t))
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
              leaf_size, k):
     _check(fat, org, dirn, t_max, base, end, leaf_size, k)
@@ -352,20 +489,12 @@ def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
         return plain(fat, org, dirn, t_max, base, end, leaf_size, k)
     lib = _kernel_lib(fat, k)
     r = org.shape[0]
-    t = torch.empty(r, dtype=torch.float32, device=fat.device)
-    slot = torch.empty(r, dtype=torch.int32, device=fat.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    if r == 0:
-        return t, slot, u, v
-    stream = torch.cuda.current_stream(fat.device).cuda_stream
-    err = getattr(lib, entry)(_ptr(fat), _ptr(org), _ptr(dirn), _ptr(t_max),
-                              r, base, end, leaf_size, k, _ptr(t),
-                              _ptr(slot), _ptr(u), _ptr(v), stream)
-    if err:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
-    return t, slot, u, v
+    out = _hit_outputs(r, fat.device)
+    if r:
+        _launch(wrapper, entry, lib, _ptr(fat), _ptr(org), _ptr(dirn),
+                _ptr(t_max), r, base, end, leaf_size, k,
+                *map(_ptr, out), _stream(fat))
+    return out
 
 
 def _any(wrapper, entry, plain, fat, org, dirn, t_cut, base, end, leaf_size,
@@ -376,14 +505,10 @@ def _any(wrapper, entry, plain, fat, org, dirn, t_cut, base, end, leaf_size,
     lib = _kernel_lib(fat, k)
     r = org.shape[0]
     occ = torch.empty(r, dtype=torch.bool, device=fat.device)
-    if r == 0:
-        return occ
-    stream = torch.cuda.current_stream(fat.device).cuda_stream
-    err = getattr(lib, entry)(_ptr(fat), _ptr(org), _ptr(dirn), _ptr(t_cut),
-                              r, base, end, leaf_size, k, _ptr(occ), stream)
-    if err:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
-    wrapper.launches += 1
+    if r:
+        _launch(wrapper, entry, lib, _ptr(fat), _ptr(org), _ptr(dirn),
+                _ptr(t_cut), r, base, end, leaf_size, k, _ptr(occ),
+                _stream(fat))
     return occ
 
 
@@ -424,7 +549,78 @@ def any_hit_preorder(fat, org, dirn, t_cut, base: int, end: int,
                 leaf_size, k)
 
 
-WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder)
+def closest_hit_split(rows, leaf, org, dirn, t_max, base: int, end: int,
+                      leaf_size: int, k: int, order_mode: str = "full",
+                      return_iters: bool = False):
+    """Closest hit per ray by the ordered walk over the split tables:
+    (t, slot, u, v), and with return_iters each ray's step count (int32
+    (R,); the JAX kernel's count is its packet's, broadcast over the
+    tile). order_mode "full" pushes the hit children far to near, "near"
+    in static reverse order. csrc/closest_hit_split.cu on CUDA tensors,
+    closest_hit_split_plain on CPU tensors."""
+    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
+    _check_order(order_mode)
+    if rows.device.type == "cpu":
+        return closest_hit_split_plain(rows, leaf, org, dirn, t_max, base,
+                                       end, leaf_size, k, order_mode,
+                                       return_iters)
+    lib = _kernel_lib(rows, k)
+    r = org.shape[0]
+    out = _hit_outputs(r, rows.device)
+    steps = (torch.empty(r, dtype=torch.int32, device=rows.device)
+             if return_iters else None)
+    if r:
+        _launch(closest_hit_split, "pt_closest_hit_split", lib, _ptr(rows),
+                _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_max), r, base, end,
+                leaf_size, k, int(order_mode == "near"), *map(_ptr, out),
+                None if steps is None else _ptr(steps), _stream(rows))
+    return (*out, steps) if return_iters else out
+
+
+def any_hit_split(rows, leaf, org, dirn, t_cut, base: int, end: int,
+                  leaf_size: int, k: int, order_mode: str = "full"):
+    """Occlusion per ray by the ordered walk over the split tables: (R,)
+    bool. csrc/any_hit_split.cu on CUDA tensors, any_hit_split_plain on
+    CPU tensors."""
+    _check(rows, org, dirn, t_cut, base, end, leaf_size, k, leaf)
+    _check_order(order_mode)
+    if rows.device.type == "cpu":
+        return any_hit_split_plain(rows, leaf, org, dirn, t_cut, base, end,
+                                   leaf_size, k, order_mode)
+    lib = _kernel_lib(rows, k)
+    r = org.shape[0]
+    occ = torch.empty(r, dtype=torch.bool, device=rows.device)
+    if r:
+        _launch(any_hit_split, "pt_any_hit_split", lib, _ptr(rows),
+                _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_cut), r, base, end,
+                leaf_size, k, int(order_mode == "near"), _ptr(occ),
+                _stream(rows))
+    return occ
+
+
+def closest_hit_packet(rows, leaf, org, dirn, t_max, base: int, end: int,
+                       leaf_size: int, k: int):
+    """Closest hit per ray by the shared-cursor packet walk over the split
+    tables, one cursor per warp of 32 rays: (t, slot, u, v). The JAX
+    kernel's `tile` is its packet size; the card's packet is a warp, and
+    no result depends on it. csrc/closest_hit_packet.cu on CUDA tensors,
+    closest_hit_packet_plain on CPU tensors."""
+    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
+    if rows.device.type == "cpu":
+        return closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base,
+                                        end, leaf_size, k)
+    lib = _kernel_lib(rows, k)
+    r = org.shape[0]
+    out = _hit_outputs(r, rows.device)
+    if r:
+        _launch(closest_hit_packet, "pt_closest_hit_packet", lib, _ptr(rows),
+                _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_max), r, base, end,
+                leaf_size, k, *map(_ptr, out), _stream(rows))
+    return out
+
+
+WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder,
+            closest_hit_split, any_hit_split, closest_hit_packet)
 for _w in WRAPPERS:
     _w.launches = 0
 

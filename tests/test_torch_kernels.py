@@ -26,6 +26,8 @@ from ptsharp_tpu.scene import SceneBuilder
 
 from ptsharp_tpu_torch.kernels import traverse
 
+from chip_smoke import STACK_CHAINS, stack_chain
+
 N = 1024
 RTOL = ATOL = 1e-5
 
@@ -155,6 +157,50 @@ def test_wrappers_reject_bad_inputs(ref, bad):
         end = fat.shape[0]  # past the node count (fat holds 2 rows/node)
     with pytest.raises(ValueError):
         traverse.closest_hit(fat, org, d, tm, base, end, leaf, k)
+
+
+@pytest.mark.parametrize("k, depth", STACK_CHAINS)
+def test_stack_capacity_holds_a_bound_past_64(monkeypatch, k, depth):
+    """A tree whose max_stack_bound lies in (64, 128], the JAX ordered
+    kernels' capacity: the ordered build check passes (and raised at the
+    port's former capacity of 64), and both ordered walks, over the fat
+    and the split tables, find what the stack-free preorder walk finds."""
+    from ptsharp_tpu_torch import scene as tscene
+    from ptsharp_tpu_torch.accel import tables
+
+    fat = stack_chain(k, depth)
+    bound = tables.max_stack_bound(fat[0::2], k)
+    assert 64 < bound <= traverse.STACK_CAPACITY == 128
+    tscene.check_stack_bound(bound)
+    monkeypatch.setattr(tscene, "STACK_CAPACITY", 64)
+    with pytest.raises(ValueError, match="stack"):
+        tscene.check_stack_bound(bound)
+
+    rng = np.random.default_rng(4)
+    n = 16
+    org = np.zeros((n, 3), np.float32)
+    org[:, 1:] = rng.uniform(-0.3, 0.3, (n, 2))
+    d = np.concatenate([np.ones((n, 1)), rng.uniform(-0.01, 0.01, (n, 2))],
+                       axis=1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    fat_t, org_t, d_t = map(torch.from_numpy, (fat, org, d))
+    rows, leaf = map(torch.from_numpy, tables.split_fat(fat, 1))
+    args = (0, fat.shape[0] // 2, 1, k)
+    tm = torch.full((n,), 1e9)
+    t_pre, s_pre, _u, _v = traverse.closest_hit_preorder_plain(
+        fat_t, org_t, d_t, tm, *args)
+    np.testing.assert_allclose(t_pre.numpy() * d[:, 0], 1.55, rtol=1e-5)
+    for mode in traverse.ORDER_MODES:
+        for t, s, _u, _v in (
+                traverse.closest_hit_split_plain(rows, leaf, org_t, d_t, tm,
+                                                 *args, order_mode=mode),
+                traverse.closest_hit_plain(fat_t, org_t, d_t, tm, *args)):
+            assert torch.equal(t, t_pre) and torch.equal(s, s_pre)
+    t_cut = torch.full((n,), 3.0)
+    assert traverse.any_hit_plain(fat_t, org_t, d_t, t_cut, *args).all()
+    for mode in traverse.ORDER_MODES:
+        assert traverse.any_hit_split_plain(rows, leaf, org_t, d_t, t_cut,
+                                            *args, order_mode=mode).all()
 
 
 @pytest.mark.cuda

@@ -5,7 +5,9 @@ max_stack_bound, the walk order, the slot-ordered triangle attributes and
 the material table must be identical for the two-mesh scene of
 tests/test_tpu_compiled.py, for _bunny_mesh(3) at leaf 14, K=8, and for
 examples.dragon_hd(subdivisions=3, intersector="pallas", wide_k=8) with
-the preorder walk.
+the preorder walk. split_fat of the port's fat table must be the JAX
+scene's own node and leaf tables, p_rows and p_leaf, for those scenes
+and for the two-mesh scene at K=4.
 """
 
 import numpy as np
@@ -26,13 +28,13 @@ from ptsharp_tpu_torch.materials import diffuse_material as tdiffuse
 from ptsharp_tpu_torch.scene import SceneBuilder as TBuilder
 
 
-def _two_mesh(builder, mesh, diffuse):
+def _two_mesh(builder, mesh, diffuse, k=8):
     b = builder()
     b.add_mesh(mesh.sphere_mesh([0, 0.4, 0], 1.0, subdivisions=3),
                diffuse([0.5, 0.5, 0.5]))
     b.add_mesh(mesh.cube_mesh([1.6, -0.3, -0.3], [2.2, 0.3, 0.3]),
                diffuse([0.9, 0.6, 0.2]))
-    return b.build(leaf_size=8, intersector="pallas", wide_k=8)
+    return b.build(leaf_size=8, intersector="pallas", wide_k=k)
 
 
 def _bunny(builder, ex, diffuse):
@@ -77,6 +79,28 @@ def test_fat_table_byte_equal(pair):
     if not sj.p_hbm:  # the reference's own fat copy too
         np.testing.assert_array_equal(fat.view(np.int32),
                                       np.asarray(sj.p_fat).view(np.int32))
+
+
+def _assert_split_equal(sj, st):
+    rows, leaf = tables.split_fat(st.p_fat.numpy(), st.max_leaf)
+    assert rows.flags.c_contiguous and leaf.flags.c_contiguous
+    np.testing.assert_array_equal(rows.view(np.int32),
+                                  np.asarray(sj.p_rows).view(np.int32))
+    np.testing.assert_array_equal(leaf.view(np.int32),
+                                  np.asarray(sj.p_leaf).view(np.int32))
+
+
+def test_split_fat_is_the_reference_rows_and_leaf(pair):
+    sj, st = pair
+    assert not sj.p_hbm  # VMEM-scale: the reference keeps both forms
+    _assert_split_equal(sj, st)
+
+
+def test_split_fat_at_k4():
+    sj = _two_mesh(JBuilder, jmesh, jdiffuse, k=4)
+    st = _two_mesh(TBuilder, tmesh, tdiffuse, k=4)
+    assert st.wide_k == 4
+    _assert_split_equal(sj, st)
 
 
 def test_slot_maps_byte_equal(pair):
