@@ -7,8 +7,10 @@ Run from the repository root on a machine with a CUDA card and nvcc. It
 builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
 
   1. device   name and power limit as nvidia-smi reports them;
-  2. build    nvcc build time and each kernel's registers, stack frame
-              and spills as ptxas reports them;
+  2. build    nvcc build time and each kernel's registers, stack frame,
+              spills and static shared memory as ptxas reports them, and
+              the dynamic shared memory each staged kernel's launch asks
+              for;
   3. bunny    examples.build("bunny", intersector="pallas", wide_k=8): the
               full 81,920-triangle bunny, its BVH builder, table size and
               max_stack_bound;
@@ -36,16 +38,34 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               the same rays (ordered "full" closest-hit and the packet
               walk equal to the fat ordered and preorder kernels on every
               lane, ordered any-hit equal to the fat one); step-count
-              mean, p50 and p99 per ray kind and order; times against
-              the plain versions and, per ray kind, against the twins;
+              mean, p50, p99 and lane use (steps taken over the steps
+              each warp runs, one and two rays a thread) per ray kind and
+              order; times against the plain versions and, per ray kind,
+              against the twins;
   5c. stack   the ordered kernels, fat and split, on hand-built chains
               whose max_stack_bound lies in (64, 128], against the
               preorder walk;
+  5d. staged  the four memory-schedule kernels on the closest-hit rays of
+              4 at the bunny's 1080p main-path width and of 5 on
+              dragon_hd (whose table does not fit the card's L2), over
+              split_fat tables padded with pad_rows once per scene: the
+              two-rays-a-thread ordered walk over the fat table, and the
+              preorder packet walks of 128 rays that stage rows into
+              shared memory (fat block cache; two 64-row caches over the
+              padded split tables; a row a step over the unpadded ones);
+              driven once with every launch count set to 0 just before
+              and read just after; each against its plain version (the
+              dual walk as 4 holds the ordered kernel, with slots equal;
+              the others t, slot, u and v equal on every lane) and its
+              twin on every lane (dual = closest_hit; the staged walks =
+              closest_hit_preorder); times per ray kind beside the plain
+              versions and #1, #4 and #13;
   6. render   Renderer.render() at 1 spp of the bunny at 1920x1080 in both
               walk orders and of dragon_hd at 960x540 in both walk orders,
               each with every launch count set to 0 just before and read
-              just after (the walk's two kernels must have launched, the
-              other walk's and the split-table kernels not); one cornell
+              just after (the walk's two kernels must have launched, no
+              other kernel: not the other walk's, the split-table or the
+              staged ones); one cornell
               pass at 512x512; and 32x24 bunny renders on the card, both
               walk orders, held against the same renders on the CPU (the
               plain versions).
@@ -53,14 +73,16 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-kernel's launches over the main-path renders (the split-table kernels':
-over the split phase's driven calls), its largest error against its
-plain version and its times at the bunny's 1080p main-path width; the
-last line is {"ok": true, "device": {...}}.
+of the eleven kernels' launches over the main-path renders (the
+split-table kernels': over the split phase's driven calls; the staged
+kernels': over the staged phase's, both scenes), its largest error
+against its plain version and its times at the bunny's 1080p main-path
+width; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -104,9 +126,24 @@ KERNELS = {
                       ["ptsharp_tpu/pallas/ordered_kernel.py:816"]),
     "closest_hit_packet": ("ptsharp_tpu_torch/csrc/closest_hit_packet.cu",
                            ["ptsharp_tpu/pallas/wide_kernel.py:304"]),
+    "closest_hit_dual": ("ptsharp_tpu_torch/csrc/closest_hit_dual.cu",
+                         ["ptsharp_tpu/pallas/ordered_kernel.py:1117"]),
+    "closest_hit_fat_cache": ("ptsharp_tpu_torch/csrc/closest_hit_fat_cache.cu",
+                              ["ptsharp_tpu/pallas/hbm_kernel.py:718"]),
+    "closest_hit_block_cache": (
+        "ptsharp_tpu_torch/csrc/closest_hit_block_cache.cu",
+        ["ptsharp_tpu/pallas/hbm_kernel.py:918"]),
+    "closest_hit_row_stage": ("ptsharp_tpu_torch/csrc/closest_hit_row_stage.cu",
+                              ["ptsharp_tpu/pallas/hbm_kernel.py:412"]),
 }
 # the split-table kernels: no render launches them
 SPLIT = ("closest_hit_split", "any_hit_split", "closest_hit_packet")
+# the memory-schedule kernels: no render launches them either
+STAGED = ("closest_hit_dual", "closest_hit_fat_cache",
+          "closest_hit_block_cache", "closest_hit_row_stage")
+# dynamic shared memory a launch asks for: 32 fat pairs; two 64-row caches
+DYNAMIC_SMEM = {"closest_hit_fat_cache": 2 * 32 * 128 * 4,
+                "closest_hit_block_cache": 2 * 64 * 128 * 4}
 # (K, chain depth) of the hand-built trees whose stack bound lies in
 # (64, 128]
 STACK_CHAINS = ((4, 25), (8, 12))
@@ -144,8 +181,8 @@ def time_ms(fn, device, reps: int = 5) -> float:
 
 
 def ptxas_report(text: str) -> dict:
-    """{kernel<K>: {registers, stack, spill_stores, spill_loads}} from
-    nvcc's -Xptxas -v report."""
+    """{kernel<K>: {registers, stack, spill_stores, spill_loads, smem}}
+    from nvcc's -Xptxas -v report (smem: static shared memory bytes)."""
     rows, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -155,7 +192,7 @@ def ptxas_report(text: str) -> dict:
             push = {None: "", "0": ",full", "1": ",near"}
             name = (f"{k.group(1)}<{k.group(2)}{push[k.group(3)]}>" if k
                     else m.group(1))
-            rows[name] = {}
+            rows[name] = {"smem": 0}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -166,6 +203,9 @@ def ptxas_report(text: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             rows[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            if smem:
+                rows[name]["smem"] = int(smem.group(1))
     return rows
 
 
@@ -420,13 +460,30 @@ def _equal(what, got, want):
             raise AssertionError(f"{what} differs on {int(diff.sum())} lanes")
 
 
+def _lane_use(x, rays_a_thread):
+    """Steps taken over steps a warp runs, for a kernel that walks
+    `rays_a_thread` rays a thread (ray i and i + ceil(n / 2) for two) and
+    runs each warp of 32 threads until its longest walk ends."""
+    total = float(x.sum())
+    if rays_a_thread == 2:
+        h = (x.shape[0] + 1) // 2
+        b = torch.zeros(h, dtype=x.dtype, device=x.device)
+        b[:x.shape[0] - h] = x[h:]
+        x = torch.maximum(x[:h], b)
+    pad = (-x.shape[0]) % 32
+    warps = torch.cat([x, x.new_zeros(pad)]).view(-1, 32).amax(dim=1)
+    return total / (32 * rays_a_thread * float(warps.sum()))
+
+
 def _steps_line(steps, n_cam):
     parts = []
     for kind, x in (("camera", steps[:n_cam]), ("bounce", steps[n_cam:])):
         x = x.float()
         q = torch.quantile(x, torch.tensor([0.5, 0.99], device=x.device))
         parts.append(f"{kind} mean={float(x.mean()):.3f} "
-                     f"p50={float(q[0]):.0f} p99={float(q[1]):.0f}")
+                     f"p50={float(q[0]):.0f} p99={float(q[1]):.0f} "
+                     f"lane_use={_lane_use(x, 1):.3f} "
+                     f"(two rays a thread {_lane_use(x, 2):.3f})")
     return "; ".join(parts)
 
 
@@ -566,6 +623,101 @@ def split_phase(scene, rays, label):
         log(f"  {kind} rays ({o.shape[0]}) kernel ms: " + ", ".join(
             f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
     return out, {name: launches[name] for name in SPLIT}
+
+
+def staged_phase(scene, rays, label):
+    """The four memory-schedule kernels (two rays a thread, and the three
+    packet walks that stage rows into shared memory), driven once on the
+    closest-hit rays of the main path with every launch count set to 0
+    just before and read just after; then each held against its plain
+    version and its twin (#9 = #1, #10-#12 = #4) on every lane, and timed
+    per ray kind beside its plain version and #1, #4 and #13. Returns
+    ({wrapper name: {max_abs_err, ms, plain_ms}}, {wrapper name:
+    launches})."""
+    from ptsharp_tpu_torch.accel import tables
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.p_fat.device
+    fat = scene.p_fat
+    split_np = tables.split_fat(fat.cpu().numpy(), scene.max_leaf)
+    split = tuple(torch.from_numpy(x).to(dev) for x in split_np)
+    padded = tuple(torch.from_numpy(tables.pad_rows(
+        x, traverse.CACHE_BLOCK_ROWS)).to(dev) for x in split_np)
+    log(f"staged tables [{label}]: rows {tuple(split[0].shape)}, leaf "
+        f"{tuple(split[1].shape)}, padded to {tuple(padded[0].shape)} and "
+        f"{tuple(padded[1].shape)}; "
+        f"{sum(x.numel() for x in padded) * 4 / 2**20:.2f} MB padded, fat "
+        f"{fat.numel() * 4 / 2**20:.2f} MB")
+    org, dirn, n_cam = rays["org"], rays["dirn"], rays["n_cam"]
+    args = _args(scene)
+    tmax = torch.full((org.shape[0],), INF, device=dev)
+    # wrapper -> (its tables, the twin it equals on every lane); #11 runs
+    # on the unpadded split tables, which the JAX kernel misreads
+    kernels = {
+        "closest_hit_dual": ((fat,), "closest_hit"),
+        "closest_hit_fat_cache": ((fat,), "closest_hit_preorder"),
+        "closest_hit_block_cache": (padded, "closest_hit_preorder"),
+        "closest_hit_row_stage": (split, "closest_hit_preorder"),
+    }
+
+    def run(name, o, d, tm, plain=False):
+        fn = getattr(traverse, f"{name}_plain" if plain else name)
+        return fn(*kernels[name][0], o, d, tm, *args)
+
+    # the path: each entry point once, as a caller of the kernel-level
+    # API calls it
+    traverse.reset_launch_counts()
+    got = {name: run(name, org, dirn, tmax) for name in kernels}
+    sync(dev)
+    launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    for name, count in launches.items():
+        if count != int(name in kernels):
+            raise AssertionError(f"staged phase launched {name} {count} "
+                                 f"times")
+    log(f"staged path [{label}]: launches={launches}")
+
+    twins = {name: getattr(traverse, name)(fat, org, dirn, tmax, *args)
+             for name in ("closest_hit", "closest_hit_preorder")}
+    out = {}
+    for name, (_tabs, twin) in kernels.items():
+        plain = run(name, org, dirn, tmax, plain=True)
+        sync(dev)
+        if name == "closest_hit_dual":
+            # held as check_closest holds #1
+            close = torch.isclose(got[name][0], plain[0], **CLOSEST_TOL)
+            if not bool(close.all()):
+                raise AssertionError(f"{name} t differs on "
+                                     f"{int((~close).sum())} lanes")
+            _equal(f"{name} slot", got[name][1:2], plain[1:2])
+        else:
+            _equal(f"{name} against its plain version", got[name], plain)
+        _equal(f"{name} against {twin}", got[name], twins[twin])
+        err = float((got[name][0] - plain[0]).abs().max())
+        ms = time_ms(lambda: run(name, org, dirn, tmax), dev)
+        plain_ms = time_ms(lambda: run(name, org, dirn, tmax, plain=True),
+                           dev)
+        log(f"{name} [{label}] rays={org.shape[0]} max_abs_err_t={err:.3e} "
+            f"slot_mismatches=0, equal to {twin} on every lane; "
+            f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    for kind, sl in (("camera", slice(0, n_cam)),
+                     ("bounce", slice(n_cam, None))):
+        o, d = org[sl].contiguous(), dirn[sl].contiguous()
+        tm = tmax[sl].contiguous()
+        times = {"#1 closest_hit": lambda: traverse.closest_hit(
+                     fat, o, d, tm, *args),
+                 "#4 closest_hit_preorder": lambda:
+                     traverse.closest_hit_preorder(fat, o, d, tm, *args),
+                 "#13 closest_hit_packet": lambda:
+                     traverse.closest_hit_packet(*split, o, d, tm, *args)}
+        for name in kernels:
+            times[name] = functools.partial(run, name, o, d, tm)
+            times[f"{name}_plain"] = functools.partial(run, name, o, d, tm,
+                                                       plain=True)
+        log(f"  {kind} rays ({o.shape[0]}) ms: " + ", ".join(
+            f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
+    return out, {name: launches[name] for name in kernels}
 
 
 def stack_chain(k: int, depth: int) -> np.ndarray:
@@ -769,7 +921,9 @@ def main() -> int:
         log(f"  ptxas {kname}: {row.get('registers')} registers, stack "
             f"frame {row.get('stack')} B, spill stores "
             f"{row.get('spill_stores')} B, spill loads "
-            f"{row.get('spill_loads')} B")
+            f"{row.get('spill_loads')} B, static smem {row['smem']} B")
+    log("  dynamic smem a launch: " + ", ".join(
+        f"{name} {DYNAMIC_SMEM.get(name, 0)} B" for name in STAGED))
 
     # bunny: the four kernels at two widths
     t0 = time.perf_counter()
@@ -788,6 +942,8 @@ def main() -> int:
     phases.append(main_width)
     split, split_launches = split_phase(scene, main_rays, main_label)
     main_width.update(split)
+    staged, staged_launches = staged_phase(scene, main_rays, main_label)
+    main_width.update(staged)
     del main_rays
     stack_phase(device)
 
@@ -802,10 +958,13 @@ def main() -> int:
         raise AssertionError("dragon_hd must have 1,310,720 triangles")
     check_stack_bound(dscene.p_stack_bound)
     n_dragon = drcfg.width * drcfg.height
-    phases.append(kernel_phase(
-        dscene, phase_rays(dscene, dcam, drcfg.width, drcfg.height,
-                           n_dragon, n_dragon),
-        f"dragon_hd 960x540: {n_dragon} camera + {n_dragon} bounce"))
+    drays = phase_rays(dscene, dcam, drcfg.width, drcfg.height, n_dragon,
+                       n_dragon)
+    dlabel = f"dragon_hd 960x540: {n_dragon} camera + {n_dragon} bounce"
+    phases.append(kernel_phase(dscene, drays, dlabel))
+    dstaged, dstaged_launches = staged_phase(dscene, drays, dlabel)
+    phases.append(dstaged)
+    del drays
 
     # the main path, each render with its own launch counts
     rcfg1 = replace(rcfg, spp=1)
@@ -835,6 +994,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=(split_launches[name] if name in SPLIT
+                      else staged_launches[name] + dstaged_launches[name]
+                      if name in STAGED
                       else sum(run[name] for run in runs)),
             max_abs_err=max(p[name]["max_abs_err"] for p in phases
                             if name in p),

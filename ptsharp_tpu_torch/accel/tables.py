@@ -8,7 +8,8 @@ fat interleave: row pair (2i, 2i+1) = [node i's wide row; node i's leaf
 block], 128 float32 columns each, int fields bit-cast, child indices at
 columns 9+6K. Closest-hit and any-hit both walk it. `split_fat` gives
 back the node and leaf tables it interleaves, which the split-table
-kernels walk.
+kernels walk; `pad_rows` pads them to the block-cache kernel's 64-row
+blocks.
 """
 
 from __future__ import annotations
@@ -139,6 +140,18 @@ def split_fat(fat, leaf_size: int):
     leaf = np.zeros((int(lj.max()) + 1 if lj.size else 0, ROW), np.float32)
     leaf[lj] = fat[2 * leaf_nodes + 1]
     return rows, leaf
+
+
+def pad_rows(x, multiple: int) -> np.ndarray:
+    """A (N, 128) table with zero rows appended up to a multiple of
+    `multiple` rows; `x` itself when N already is one. The block-cache
+    kernel over the split tables reads whole 64-row blocks of both; pad
+    once per scene, not per launch."""
+    x = np.asarray(x, np.float32)
+    extra = (-x.shape[0]) % multiple
+    if not extra:
+        return x
+    return np.concatenate([x, np.zeros((extra, x.shape[1]), np.float32)])
 
 
 def max_stack_bound(rows: np.ndarray, k: int, base: int = 0,

@@ -23,6 +23,8 @@
 
 #pragma once
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace ptk {
@@ -286,6 +288,34 @@ __device__ __forceinline__ int descend_ordered(const float* __restrict__ node,
   }
 }
 
+// The ordered walk's step at node row `node`, whose own box the ray
+// enters at [tmin, tmax], short of the leaf test: at a leaf whose box the
+// ray enters before `bt`, return its block (and set `first` to its first
+// slot) for the caller to test; at an internal node it enters, descend
+// to the nearest hit child and push the others; otherwise, and at a
+// leaf, pop the next node (`end` when the stack is empty). Sets `cur` to
+// the next node. The popped node does not depend on the leaf test, so a
+// caller may run the test after the step, as the dual walk does.
+template <int K, Push P, class Table>
+__device__ __forceinline__ const float* ordered_step(
+    const Table& tab, const float* __restrict__ node, float tmin, float tmax,
+    const Ray& r, float bt, int* stack, int& sp, int& cur, int end,
+    int& first) {
+  const int* bits = reinterpret_cast<const int*>(node);
+  const float* leaf = nullptr;
+  int next = -1;
+  if (box_hit(tmin, tmax, bt)) {
+    if ((bits[7] & 0xFF) > 0) {
+      leaf = tab.leaf(node);
+      first = bits[6];
+    } else {
+      next = descend_ordered<K, P>(node, r, bt, stack, sp);
+    }
+  }
+  cur = next >= 0 ? next : (sp > 0 ? stack[--sp] : end);
+  return leaf;
+}
+
 // The ordered closest-hit walk of one ray over nodes [base, end): pop a
 // node, re-test its own box against the current best t; at a leaf run MT
 // over its block; at an internal node descend to the nearest hit child
@@ -302,19 +332,12 @@ __device__ __forceinline__ int ordered_closest(const Table& tab, const Ray& r,
   int it = 0;
   for (; cur < end && it < max_iters; ++it) {
     const float* node = tab.node(cur);
-    const int* bits = reinterpret_cast<const int*>(node);
     float tmin, tmax;
     slab(node, r, tmin, tmax);
-    int next = -1;
-    if (box_hit(tmin, tmax, b.t)) {
-      if ((bits[7] & 0xFF) > 0) {
-        leaf_closest(tab.leaf(node), bits[6], leaf_size, r, b);
-      } else {
-        next = descend_ordered<K, P>(node, r, b.t, stack, sp);
-      }
-    }
-    if (next < 0) next = sp > 0 ? stack[--sp] : end;
-    cur = next;
+    int first = 0;
+    const float* leaf = ordered_step<K, P>(tab, node, tmin, tmax, r, b.t,
+                                           stack, sp, cur, end, first);
+    if (leaf != nullptr) leaf_closest(leaf, first, leaf_size, r, b);
   }
   return it;
 }
@@ -331,21 +354,131 @@ __device__ __forceinline__ bool ordered_any(const Table& tab, const Ray& r,
   const int max_iters = end - base + 2;
   for (int it = 0; cur < end && it < max_iters; ++it) {
     const float* node = tab.node(cur);
-    const int* bits = reinterpret_cast<const int*>(node);
     float tmin, tmax;
     slab(node, r, tmin, tmax);
-    int next = -1;
-    if (box_hit(tmin, tmax, tc)) {
-      if ((bits[7] & 0xFF) > 0) {
-        if (leaf_any(tab.leaf(node), leaf_size, r, tc)) return true;
-      } else {
-        next = descend_ordered<K, P>(node, r, tc, stack, sp);
-      }
-    }
-    if (next < 0) next = sp > 0 ? stack[--sp] : end;
-    cur = next;
+    int first = 0;
+    const float* leaf = ordered_step<K, P>(tab, node, tmin, tmax, r, tc,
+                                           stack, sp, cur, end, first);
+    if (leaf != nullptr && leaf_any(leaf, leaf_size, r, tc)) return true;
   }
   return false;
+}
+
+// ---- the staged packet walk -------------------------------------------------
+//
+// A packet is one block of kPacket threads, one ray each, the TPU kernels'
+// lane width, sharing one cursor. The kernels that stage rows into shared
+// memory (closest_hit_row_stage.cu, closest_hit_block_cache.cu,
+// closest_hit_fat_cache.cu) differ only in their stager: the object that
+// makes node j's row and its leaf block available in shared memory.
+
+constexpr int kPacket = 128;
+constexpr int kPacketWarps = kPacket / 32;
+
+// One 16-byte copy from global to shared memory that bypasses L1
+// (cp.async.cg); both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// Wait for this thread's cp.async copies.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Block-cooperative copy of rows [first, first + n) of a table of `total`
+// rows into `dst`, 16 bytes a thread per turn, cut at the table's end;
+// returns when every thread of the block sees the rows. Every thread of
+// the block calls it with the same arguments.
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ table,
+                                           int first, int n, int total) {
+  const int rows = max(0, min(n, total - first));
+  const float* src = table + static_cast<size_t>(first) * kRow;
+  for (int c = threadIdx.x; c < rows * (kRow / 4); c += kPacket) {
+    cp_async16(dst + 4 * c, src + 4 * c);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// The minimum of v over the block: __reduce_min_sync per warp, then one
+// value per warp through shared memory. `warp_min` holds two turns of
+// kPacketWarps ints and `turn` picks one, so a call never overwrites the
+// values that a slower warp may still be reading from the call before.
+__device__ __forceinline__ int block_min(int v, int* warp_min, int turn) {
+  int* slot = warp_min + (turn & 1) * kPacketWarps;
+  v = __reduce_min_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = slot[0];
+#pragma unroll
+  for (int w = 1; w < kPacketWarps; ++w) m = min(m, slot[w]);
+  return m;
+}
+
+// One step of the preorder packet walk at the packet's cursor j: the
+// stager makes node j's row available (st.node(j)) and, at a leaf, its
+// leaf block (st.leaf(node)); both are block-wide calls, and whether
+// j is a leaf is the same for every thread. Each live lane tests the
+// node's box against its own best t, runs MT over the leaf block in slot
+// order at a leaf, and otherwise picks the hit child of smallest preorder
+// index. Returns the node the lane wants next (its skip link where it
+// picks none; INT_MAX for a lane past R). The arithmetic is that of the
+// one-ray preorder walk (closest_hit_preorder.cu).
+template <int K, class Stager>
+__device__ __forceinline__ int packet_step(Stager& st, int j, const Ray& r,
+                                           bool live, int leaf_size,
+                                           Best& b) {
+  const float* node = st.node(j);
+  const int* bits = reinterpret_cast<const int*>(node);
+  float tmin, tmax;
+  slab(node, r, tmin, tmax);
+  const bool hit = live && box_hit(tmin, tmax, b.t);
+  int next = bits[8];  // skip link
+  if ((bits[7] & 0xFF) > 0) {
+    const float* leaf = st.leaf(node);
+    if (hit) leaf_closest(leaf, bits[6], leaf_size, r, b);
+  } else if (hit) {
+    const int c = first_hit_child<K>(node, r, b.t);
+    if (c >= 0) next = c;
+  }
+  return live ? next : INT_MAX;
+}
+
+// The preorder closest-hit of the packet of rays [blockIdx.x * kPacket,
+// + kPacket) over nodes [base, end): the next cursor is the packet's
+// minimum over its lanes' next nodes. Child indices and skip links point
+// forward, so the cursor only grows and end - base steps bound the walk;
+// the block leaves when every lane wants a node at or past `end`. Each
+// lane gets the slot its own preorder walk gives (closest_hit_packet.cu
+// says why). Launched with kPacket threads a block.
+template <int K, class Stager>
+__device__ __forceinline__ void packet_closest(
+    Stager& st, const float* __restrict__ org, const float* __restrict__ dir,
+    const float* __restrict__ t_max, int n, int base, int end, int leaf_size,
+    float* __restrict__ t_out, int* __restrict__ slot_out,
+    float* __restrict__ u_out, float* __restrict__ v_out) {
+  __shared__ int warp_min[2 * kPacketWarps];
+  const int i = blockIdx.x * kPacket + threadIdx.x;
+  const bool live = i < n;
+  const Ray r = load_ray(org, dir, live ? i : 0);
+  Best b{live ? t_max[i] : -kInf, -1, 0.0f, 0.0f};
+  int cur = base;
+  const int max_iters = end - base;
+  for (int it = 0; cur < end && it < max_iters; ++it) {
+    cur = block_min(packet_step<K>(st, cur, r, live, leaf_size, b), warp_min,
+                    it);
+  }
+  if (!live) return;
+  t_out[i] = b.slot >= 0 ? b.t : kInf;
+  slot_out[i] = b.slot;
+  u_out[i] = b.u;
+  v_out[i] = b.v;
 }
 
 }  // namespace ptk

@@ -72,13 +72,21 @@ def _bind(lib):
                      vp, vp, vp, vp, vp, vp]
     anyhit_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
     packet = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+    # the staged kernels: their tables' row counts after the tables
+    fat_staged = [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+    split_staged = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                    vp, vp, vp, vp, vp]
     for fn, argtypes in ((lib.pt_closest_hit, closest),
                          (lib.pt_any_hit, anyhit),
                          (lib.pt_closest_hit_preorder, closest),
                          (lib.pt_any_hit_preorder, anyhit),
                          (lib.pt_closest_hit_split, closest_split),
                          (lib.pt_any_hit_split, anyhit_split),
-                         (lib.pt_closest_hit_packet, packet)):
+                         (lib.pt_closest_hit_packet, packet),
+                         (lib.pt_closest_hit_dual, closest),
+                         (lib.pt_closest_hit_fat_cache, fat_staged),
+                         (lib.pt_closest_hit_block_cache, split_staged),
+                         (lib.pt_closest_hit_row_stage, split_staged)):
         fn.restype = ci
         fn.argtypes = argtypes
     return lib

@@ -1,5 +1,5 @@
 """Closest-hit and any-hit over the BVH tables: wrappers and plain
-versions of the seven CUDA kernels in csrc/.
+versions of the eleven CUDA kernels in csrc/.
 
 Over the fat table (the render path):
   `closest_hit` and `any_hit` walk near to far with a per-ray stack (the
@@ -14,6 +14,17 @@ Over the split tables `rows` + `leaf` (the kernel-level entry points,
   (csrc/closest_hit_split.cu, csrc/any_hit_split.cu);
   `closest_hit_packet`, the preorder walk with one cursor per warp of 32
   rays (csrc/closest_hit_packet.cu).
+Memory schedules of the same two walks (kernel-level entry points too):
+  `closest_hit_dual`, the ordered walk over the fat table with two rays
+  a thread (csrc/closest_hit_dual.cu);
+  `closest_hit_fat_cache` (fat table), `closest_hit_block_cache` and
+  `closest_hit_row_stage` (split tables), the preorder walk with one
+  cursor per block of 128 rays, staging rows into shared memory with
+  cp.async: through a cache of 32 fat row pairs, through two caches of
+  64 node and 64 leaf rows (both tables a multiple of 64 rows,
+  `accel.tables.pad_rows`), or one node row and leaf block a step
+  (csrc/closest_hit_fat_cache.cu, closest_hit_block_cache.cu,
+  closest_hit_row_stage.cu).
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream and adds one to its `launches` count; on a CPU tensor it
 runs its plain version below; any other device raises. There is no
@@ -28,10 +39,10 @@ internal nodes pick the next node.
            and push the others on the ray's row of an (R, S) stack, far
            to near ("full") or in static reverse child order ("near");
            pop the stack where nothing is hit.
-  preorder (`*_preorder_plain`, `closest_hit_packet_plain`): go to the
-           hit child of smallest preorder index, or follow the node's
-           skip link where nothing is hit. The cursor only grows, so
-           [base, end) bounds the walk.
+  preorder (`*_preorder_plain`, `closest_hit_packet_plain` and the
+           staged walks' plain versions): go to the hit child of smallest
+           preorder index, or follow the node's skip link where nothing
+           is hit. The cursor only grows, so [base, end) bounds the walk.
 A table view (`_Table`) says where a node row and its leaf block are, so
 one walk runs over either table form and gives the same results on both.
 The kernels follow the same steps in the same order, so each gives the
@@ -60,6 +71,7 @@ ROW = 128
 STACK_CAPACITY = 128
 KERNEL_K = (4, 8)  # the kernels' template instances
 ORDER_MODES = ("full", "near")  # the ordered walk's push orders
+CACHE_BLOCK_ROWS = 64  # rows a block of the block-cache kernel (BLK)
 _NO_CHILD = torch.iinfo(torch.int64).max
 
 
@@ -405,6 +417,44 @@ def closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base: int,
                                    _all_lanes(org)), leaf_size)
 
 
+def closest_hit_dual_plain(fat, org, dirn, t_max, base: int, end: int,
+                           leaf_size: int, k: int):
+    """Plain PyTorch version of the two-rays-a-thread ordered walk: per
+    ray the ordered walk over the fat table, "full" push order, which is
+    each ray's walk in csrc/closest_hit_dual.cu."""
+    return _walk_closest(_StackWalk(_Table(fat), org, dirn, t_max.clone(),
+                                    base, end, k, _all_lanes(org)),
+                         leaf_size)
+
+
+def closest_hit_fat_cache_plain(fat, org, dirn, t_max, base: int, end: int,
+                                leaf_size: int, k: int):
+    """Plain PyTorch version of the block-cached packet walk over the fat
+    table: per lane the preorder walk, which gives every lane the slot
+    the packet gives it (csrc/closest_hit_fat_cache.cu)."""
+    return _walk_closest(_SkipWalk(_Table(fat), org, dirn, t_max.clone(),
+                                   base, end, k, _all_lanes(org)), leaf_size)
+
+
+def closest_hit_block_cache_plain(rows, leaf, org, dirn, t_max, base: int,
+                                  end: int, leaf_size: int, k: int):
+    """Plain PyTorch version of the two-cache packet walk over the split
+    tables: per lane the preorder walk (csrc/closest_hit_block_cache.cu).
+    Padding rows past the tables' ends change nothing."""
+    return closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base, end,
+                                    leaf_size, k)
+
+
+def closest_hit_row_stage_plain(rows, leaf, org, dirn, t_max, base: int,
+                                end: int, leaf_size: int, k: int):
+    """Plain PyTorch version of the row-staging packet walk over the split
+    tables: per lane the preorder walk, leaf block leaf[first //
+    leaf_size] on a leaf table of any length
+    (csrc/closest_hit_row_stage.cu)."""
+    return closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base, end,
+                                    leaf_size, k)
+
+
 # ---- wrappers -------------------------------------------------------------
 
 
@@ -482,8 +532,19 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _tables(staged, *tables):
+    """The C entry's table arguments: the pointers, and for a kernel that
+    stages rows into shared memory (16 bytes a copy) also the tables' row
+    counts, which bound its block copies."""
+    if not staged:
+        return tuple(map(_ptr, tables))
+    if any(x.data_ptr() % 16 for x in tables):
+        raise ValueError("the tables must start on a 16-byte boundary")
+    return (*map(_ptr, tables), *(x.shape[0] for x in tables))
+
+
 def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
-             leaf_size, k):
+             leaf_size, k, staged=False):
     _check(fat, org, dirn, t_max, base, end, leaf_size, k)
     if fat.device.type == "cpu":
         return plain(fat, org, dirn, t_max, base, end, leaf_size, k)
@@ -491,8 +552,8 @@ def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
     r = org.shape[0]
     out = _hit_outputs(r, fat.device)
     if r:
-        _launch(wrapper, entry, lib, _ptr(fat), _ptr(org), _ptr(dirn),
-                _ptr(t_max), r, base, end, leaf_size, k,
+        _launch(wrapper, entry, lib, *_tables(staged, fat), _ptr(org),
+                _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, k,
                 *map(_ptr, out), _stream(fat))
     return out
 
@@ -598,6 +659,21 @@ def any_hit_split(rows, leaf, org, dirn, t_cut, base: int, end: int,
     return occ
 
 
+def _closest_split(wrapper, entry, plain, rows, leaf, org, dirn, t_max,
+                   base, end, leaf_size, k, staged=False):
+    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
+    if rows.device.type == "cpu":
+        return plain(rows, leaf, org, dirn, t_max, base, end, leaf_size, k)
+    lib = _kernel_lib(rows, k)
+    r = org.shape[0]
+    out = _hit_outputs(r, rows.device)
+    if r:
+        _launch(wrapper, entry, lib, *_tables(staged, rows, leaf), _ptr(org),
+                _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, k,
+                *map(_ptr, out), _stream(rows))
+    return out
+
+
 def closest_hit_packet(rows, leaf, org, dirn, t_max, base: int, end: int,
                        leaf_size: int, k: int):
     """Closest hit per ray by the shared-cursor packet walk over the split
@@ -605,22 +681,71 @@ def closest_hit_packet(rows, leaf, org, dirn, t_max, base: int, end: int,
     kernel's `tile` is its packet size; the card's packet is a warp, and
     no result depends on it. csrc/closest_hit_packet.cu on CUDA tensors,
     closest_hit_packet_plain on CPU tensors."""
-    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
-    if rows.device.type == "cpu":
-        return closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base,
-                                        end, leaf_size, k)
-    lib = _kernel_lib(rows, k)
-    r = org.shape[0]
-    out = _hit_outputs(r, rows.device)
-    if r:
-        _launch(closest_hit_packet, "pt_closest_hit_packet", lib, _ptr(rows),
-                _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_max), r, base, end,
-                leaf_size, k, *map(_ptr, out), _stream(rows))
-    return out
+    return _closest_split(closest_hit_packet, "pt_closest_hit_packet",
+                          closest_hit_packet_plain, rows, leaf, org, dirn,
+                          t_max, base, end, leaf_size, k)
+
+
+def closest_hit_dual(fat, org, dirn, t_max, base: int, end: int,
+                     leaf_size: int, k: int):
+    """Closest hit per ray by the ordered walk, two rays a thread:
+    (t, slot, u, v), equal to closest_hit's on every lane. The JAX
+    kernel's `mt_gate` and `max_iters` change no result and are not
+    taken. csrc/closest_hit_dual.cu on CUDA tensors,
+    closest_hit_dual_plain on CPU tensors."""
+    return _closest(closest_hit_dual, "pt_closest_hit_dual",
+                    closest_hit_dual_plain, fat, org, dirn, t_max, base, end,
+                    leaf_size, k)
+
+
+def closest_hit_fat_cache(fat, org, dirn, t_max, base: int, end: int,
+                          leaf_size: int, k: int):
+    """Closest hit per ray by the preorder packet walk of 128 rays through
+    a shared-memory cache of 32 fat row pairs: (t, slot, u, v), equal to
+    closest_hit_preorder's on every lane. The table is not padded: the
+    kernel copies the last block up to the table's end.
+    csrc/closest_hit_fat_cache.cu on CUDA tensors,
+    closest_hit_fat_cache_plain on CPU tensors."""
+    return _closest(closest_hit_fat_cache, "pt_closest_hit_fat_cache",
+                    closest_hit_fat_cache_plain, fat, org, dirn, t_max, base,
+                    end, leaf_size, k, staged=True)
+
+
+def closest_hit_block_cache(rows, leaf, org, dirn, t_max, base: int,
+                            end: int, leaf_size: int, k: int):
+    """Closest hit per ray by the preorder packet walk of 128 rays through
+    two shared-memory caches of 64 rows, node rows and leaf blocks:
+    (t, slot, u, v), equal to closest_hit_preorder's on every lane. Both
+    tables must be multiples of 64 rows (accel.tables.pad_rows), as the
+    JAX kernel asserts. Its `leaf_mode` changes no result and is not
+    taken. csrc/closest_hit_block_cache.cu on CUDA tensors,
+    closest_hit_block_cache_plain on CPU tensors."""
+    for name, x in (("rows", rows), ("leaf", leaf)):
+        if x.dim() != 2 or x.shape[0] % CACHE_BLOCK_ROWS:
+            raise ValueError(f"{name} must hold a multiple of "
+                             f"{CACHE_BLOCK_ROWS} rows (tables.pad_rows)")
+    return _closest_split(closest_hit_block_cache,
+                          "pt_closest_hit_block_cache",
+                          closest_hit_block_cache_plain, rows, leaf, org,
+                          dirn, t_max, base, end, leaf_size, k, staged=True)
+
+
+def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
+                          leaf_size: int, k: int):
+    """Closest hit per ray by the preorder packet walk of 128 rays that
+    stages each step's node row and leaf block into shared memory:
+    (t, slot, u, v), equal to closest_hit_preorder's on every lane, on
+    tables of any length. csrc/closest_hit_row_stage.cu on CUDA tensors,
+    closest_hit_row_stage_plain on CPU tensors."""
+    return _closest_split(closest_hit_row_stage, "pt_closest_hit_row_stage",
+                          closest_hit_row_stage_plain, rows, leaf, org, dirn,
+                          t_max, base, end, leaf_size, k, staged=True)
 
 
 WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder,
-            closest_hit_split, any_hit_split, closest_hit_packet)
+            closest_hit_split, any_hit_split, closest_hit_packet,
+            closest_hit_dual, closest_hit_fat_cache, closest_hit_block_cache,
+            closest_hit_row_stage)
 for _w in WRAPPERS:
     _w.launches = 0
 

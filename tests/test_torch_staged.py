@@ -1,0 +1,263 @@
+"""The memory-schedule closest-hit walks' plain versions against the JAX
+package's Pallas kernels (interpret mode, as the JAX package's own tests
+run them on the CPU): the two-packet ordered walk
+pallas_traverse_ordered8_fat_dual with and without its MT gate, and the
+preorder packet walks pallas_traverse_hbm8_fat_cache (fat block cache),
+pallas_traverse_hbm8 (two 64-row block caches, in all three of its leaf
+modes on one scene) and pallas_traverse_hbm8_row (a row copy a step). The
+scenes, rays and t_max mix of tests/test_torch_split.py: the sphere +
+cube scene at leaf 8, sphere at subdivisions 2 (K=4) and 3 (K=8); 1,000
+rays, not a multiple of the dual kernel's 2,048-ray tile nor of the
+others' 1,024, so their pad lanes are in play.
+
+pallas_traverse_hbm8 asserts that both split tables are multiples of 64
+rows, and pallas_traverse_hbm8_row clamps each leaf row to the last full
+64-row block of its leaf table, so both run here on tables padded with
+zero rows (accel.tables.pad_rows). test_row_stage_reference_fault pins
+why the second one needs it.
+
+Tolerances, those of test_torch_split.py: t within 1e-6 on at least
+99.5% of lanes and within rtol 1e-5, atol 1e-5 on every lane (XLA's
+fused multiply-adds on grazing triangles; ROADMAP Queue 3). Slots: equal
+except ties for the dual walk (the JAX packets' consensus order differs
+from a ray's own near-to-far order), equal on every lane for the
+preorder packet walks. u, v within 1e-4 on hit lanes off ties.
+
+The card-marked test runs the four CUDA kernels against their plain
+versions; it skips on a machine without a card.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ptsharp_tpu.pallas import hbm_kernel, ordered_kernel, wide_kernel
+
+from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.kernels import traverse
+
+from tests.test_torch_kernels import _rays, _tied
+from tests.test_torch_split import SCENES, _assert_t, _scene
+
+N = 1000
+BLK = traverse.CACHE_BLOCK_ROWS
+# the scene on which pallas_traverse_hbm8 runs in every leaf mode
+ALL_LEAF_MODES = "sphere2_k4"
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def ref(request):
+    """A scene, its port tables (fat, split, split padded to 64 rows), the
+    rays, and the JAX kernels' results, each computed on first use."""
+    sp = _scene(*SCENES[request.param])
+    org, d = _rays(N, seed=5)
+    rng = np.random.default_rng(11)
+    t_max = np.where(rng.random(N) < 0.1, -1e9,
+                     np.where(rng.random(N) < 0.5, 1e9,
+                              rng.uniform(0.5, 4.0, N))).astype(np.float32)
+    args = (sp.p_inst_base[0], sp.p_inst_end[0], sp.max_leaf, sp.wide_k)
+    fat = np.array(sp.p_fat)
+    rows, leaf = tables.split_fat(fat, sp.max_leaf)
+    padded = [tables.pad_rows(x, BLK) for x in (rows, leaf)]
+    jr = (jnp.asarray(org), jnp.asarray(d), jnp.asarray(t_max), *args)
+
+    @functools.cache
+    def jax_run(kernel, **kw):
+        if kernel == "dual":
+            out = ordered_kernel.pallas_traverse_ordered8_fat_dual(
+                sp.p_fat, *jr, **kw)
+        elif kernel == "fat_cache":
+            out = hbm_kernel.pallas_traverse_hbm8_fat_cache(sp.p_fat, *jr)
+        elif kernel == "block_cache":
+            out = hbm_kernel.pallas_traverse_hbm8(*padded, *jr, **kw)
+        else:
+            out = hbm_kernel.pallas_traverse_hbm8_row(*padded, *jr)
+        return [np.asarray(x) for x in out]
+
+    t = torch.from_numpy
+    return dict(
+        name=request.param, fat=t(fat), rows=t(rows), leaf=t(leaf),
+        padded=[t(x) for x in padded], org=t(org), dirn=t(d),
+        t_max=t(t_max), args=args, jax=jax_run)
+
+
+def _rays_of(ref):
+    return ref["org"], ref["dirn"], ref["t_max"], *ref["args"]
+
+
+def _assert_preorder_packet(got, want):
+    """A preorder packet walk against its JAX kernel: slots on every
+    lane, t to the stated tolerance, u and v on hit lanes."""
+    t, slot, u, v = (x.numpy() for x in got)
+    t_ref, s_ref, u_ref, v_ref = want
+    hit = s_ref >= 0
+    assert 0.2 < hit.mean() < 0.9
+    np.testing.assert_array_equal(slot, s_ref)
+    _assert_t(t, t_ref)
+    np.testing.assert_allclose(u[hit], u_ref[hit], atol=1e-4)
+    np.testing.assert_allclose(v[hit], v_ref[hit], atol=1e-4)
+    assert (t[~hit] == 1e9).all()
+
+
+@pytest.mark.parametrize("mt_gate", [False, True])
+def test_closest_hit_dual_plain_matches_dual_kernel(ref, mt_gate):
+    t, slot, u, v = traverse.closest_hit_dual_plain(ref["fat"],
+                                                    *_rays_of(ref))
+    t_ref, s_ref, u_ref, v_ref = ref["jax"]("dual", mt_gate=mt_gate)
+    hit = s_ref >= 0
+    assert 0.2 < hit.mean() < 0.9
+    _assert_t(t.numpy(), t_ref)
+    np.testing.assert_array_equal(slot.numpy() >= 0, hit)
+    tie = _tied(ref["fat"], ref["org"], ref["dirn"], ref["t_max"],
+                ref["args"][2])
+    same = hit & ~tie
+    np.testing.assert_array_equal(slot.numpy()[same], s_ref[same])
+    np.testing.assert_allclose(u.numpy()[same], u_ref[same], atol=1e-4)
+    np.testing.assert_allclose(v.numpy()[same], v_ref[same], atol=1e-4)
+    assert (t.numpy()[~hit] == 1e9).all()
+
+
+def test_closest_hit_fat_cache_plain_matches_fat_cache_kernel(ref):
+    _assert_preorder_packet(
+        traverse.closest_hit_fat_cache_plain(ref["fat"], *_rays_of(ref)),
+        ref["jax"]("fat_cache"))
+
+
+def test_closest_hit_block_cache_plain_matches_hbm8(ref):
+    got = traverse.closest_hit_block_cache_plain(*ref["padded"],
+                                                 *_rays_of(ref))
+    modes = (0, 1, 2) if ref["name"] == ALL_LEAF_MODES else (0,)
+    for mode in modes:
+        _assert_preorder_packet(got, ref["jax"]("block_cache",
+                                                leaf_mode=mode))
+
+
+def test_closest_hit_row_stage_plain_matches_hbm8_row(ref):
+    _assert_preorder_packet(
+        traverse.closest_hit_row_stage_plain(*ref["padded"], *_rays_of(ref)),
+        ref["jax"]("row_stage"))
+
+
+def test_row_stage_reference_fault():
+    """pallas_traverse_hbm8_row clamps every leaf row to the last full
+    64-row block of the leaf table (hbm_kernel.py:328-332, 442), so on
+    the 224-row leaf table of the subdivision-3 scene the leaves in rows
+    192-223 read the wrong block. The port reads leaf[first // leaf_size]
+    and gives the preorder walk's slot (pallas_traverse_wide8) on every
+    lane; the JAX kernel does not."""
+    sp = _scene(3, 8)
+    org, d = _rays(N, seed=5)
+    t_max = np.full(N, 1e9, np.float32)
+    args = (sp.p_inst_base[0], sp.p_inst_end[0], sp.max_leaf, sp.wide_k)
+    rows, leaf = tables.split_fat(np.array(sp.p_fat), sp.max_leaf)
+    assert leaf.shape[0] == 224 and leaf.shape[0] % BLK
+    jr = (jnp.asarray(org), jnp.asarray(d), jnp.asarray(t_max), *args)
+    wide8 = [np.asarray(x) for x in wide_kernel.pallas_traverse_wide8(
+        sp.p_rows, sp.p_leaf, *jr)]
+    row = np.asarray(hbm_kernel.pallas_traverse_hbm8_row(
+        sp.p_rows, sp.p_leaf, *jr)[1])
+    got = traverse.closest_hit_row_stage_plain(
+        *map(torch.from_numpy, (rows, leaf, org, d, t_max)), *args)
+    _assert_preorder_packet(got, wide8)
+    assert (row != wide8[1]).sum() >= 1
+
+
+def test_staged_walks_equal_the_fat_walks(ref):
+    """The plain versions are bit-equal to the walks they schedule: the
+    dual walk to the ordered walk, and the three preorder packet walks,
+    over the fat table and over padded and unpadded split tables, to the
+    preorder walk."""
+    rays = _rays_of(ref)
+    fat, split = ref["fat"], (ref["rows"], ref["leaf"])
+    pre = traverse.closest_hit_preorder_plain(fat, *rays)
+    pairs = [
+        (traverse.closest_hit_dual_plain(fat, *rays),
+         traverse.closest_hit_plain(fat, *rays)),
+        (traverse.closest_hit_fat_cache_plain(fat, *rays), pre),
+        (traverse.closest_hit_block_cache_plain(*ref["padded"], *rays), pre),
+        (traverse.closest_hit_row_stage_plain(*ref["padded"], *rays), pre),
+        (traverse.closest_hit_row_stage_plain(*split, *rays), pre),
+    ]
+    for got, want in pairs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_staged_wrappers_take_the_plain_version_on_cpu(ref):
+    traverse.reset_launch_counts()
+    rays = _rays_of(ref)
+    runs = [
+        (traverse.closest_hit_dual(ref["fat"], *rays),
+         traverse.closest_hit_dual_plain(ref["fat"], *rays)),
+        (traverse.closest_hit_fat_cache(ref["fat"], *rays),
+         traverse.closest_hit_fat_cache_plain(ref["fat"], *rays)),
+        (traverse.closest_hit_block_cache(*ref["padded"], *rays),
+         traverse.closest_hit_block_cache_plain(*ref["padded"], *rays)),
+        (traverse.closest_hit_row_stage(ref["rows"], ref["leaf"], *rays),
+         traverse.closest_hit_row_stage_plain(ref["rows"], ref["leaf"],
+                                              *rays)),
+    ]
+    for got, want in runs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert all(w.launches == 0 for w in traverse.WRAPPERS)
+
+
+@pytest.mark.parametrize("table", ["rows", "leaf"])
+def test_block_cache_rejects_tables_off_the_block(ref, table):
+    padded = dict(zip(("rows", "leaf"), ref["padded"]))
+    padded[table] = ref[table]
+    assert padded[table].shape[0] % BLK
+    with pytest.raises(ValueError, match="multiple of 64"):
+        traverse.closest_hit_block_cache(padded["rows"], padded["leaf"],
+                                         *_rays_of(ref))
+
+
+@pytest.mark.parametrize("n, multiple", [(5, 4), (64, 64), (0, 64),
+                                         (65, 64)])
+def test_pad_rows(n, multiple):
+    x = np.random.default_rng(n).random((n, 128), dtype=np.float32)
+    y = tables.pad_rows(x, multiple)
+    assert y.dtype == np.float32 and y.shape[1] == 128
+    assert y.shape[0] % multiple == 0 and n <= y.shape[0] < n + multiple
+    np.testing.assert_array_equal(y[:n], x)
+    assert not y[n:].any()
+    if n % multiple == 0:
+        assert y is x
+
+
+@pytest.mark.cuda
+def test_cuda_staged_kernels_match_plain_versions(ref):
+    """Runs on a machine with a card: the four CUDA kernels against their
+    plain versions on the same inputs, every lane equal, and their launch
+    counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    fat = ref["fat"].to(dev)
+    split = (ref["rows"].to(dev), ref["leaf"].to(dev))
+    padded = tuple(x.to(dev) for x in ref["padded"])
+    rays = (ref["org"].to(dev), ref["dirn"].to(dev), ref["t_max"].to(dev),
+            *ref["args"])
+    traverse.reset_launch_counts()
+    runs = [
+        (traverse.closest_hit_dual(fat, *rays),
+         traverse.closest_hit_dual_plain(fat, *rays)),
+        (traverse.closest_hit_fat_cache(fat, *rays),
+         traverse.closest_hit_fat_cache_plain(fat, *rays)),
+        (traverse.closest_hit_block_cache(*padded, *rays),
+         traverse.closest_hit_block_cache_plain(*padded, *rays)),
+        (traverse.closest_hit_row_stage(*split, *rays),
+         traverse.closest_hit_row_stage_plain(*split, *rays)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in runs:
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    for w in (traverse.closest_hit_dual, traverse.closest_hit_fat_cache,
+              traverse.closest_hit_block_cache,
+              traverse.closest_hit_row_stage):
+        assert w.launches == 1
