@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Where the time of a bunny render goes on one NVIDIA GPU, per mesh
+intersector of the PyTorch/CUDA port.
+
+    python3 chip_profile.py [--reps 5]
+
+Run from the repository root on a machine with a CUDA card and nvcc. For
+each build of examples.bunny at 1920x1080, 1 spp ("pallas" with the
+ordered walk, "wide", "walk", "cluster"): one warm-up render; `reps`
+unprofiled renders, wall seconds each (host clock, ending in
+torch.cuda.synchronize()), in turns across the builds; then one render
+under torch.profiler (CPU and CUDA activities), whose device kernels are
+summed by kind from key_averages(). Prints per build: rays traced, the
+median wall seconds and Mrays/s, the device milliseconds of the profiled
+render, the card's idle share at the median wall time (1 - device ms /
+median wall ms), device launches, and the device milliseconds of the
+traversal kernels, sorts, gathers and scatters, reductions and the other
+elementwise kernels; then one JSON line of the same. Exits non-zero
+without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from dataclasses import replace
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+BUILDS = {
+    "pallas": dict(intersector="pallas", wide_k=8),
+    "wide": dict(),  # examples.bunny()'s default build
+    "walk": dict(intersector="walk"),
+    "cluster": dict(intersector="cluster"),
+}
+# kernel-name fragments -> kind; the first match wins
+KINDS = (("traversal", ("closest_hit", "any_hit")),
+         ("sort", ("sort", "radix", "Sort")),
+         ("gather/scatter", ("index", "gather", "scatter", "Index")),
+         ("reduction", ("reduce", "Reduce")))
+
+
+def kind_of(name: str) -> str:
+    for kind, frags in KINDS:
+        if any(f in name for f in frags):
+            return kind
+    return "elementwise/other"
+
+
+def device_us(event) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return float(getattr(event, attr))
+    return 0.0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.renderer import Renderer
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    renderers = {}
+    for name, kw in BUILDS.items():
+        scene, cam, rcfg, icfg = examples.bunny(device=dev, **kw)
+        r = Renderer(scene, cam, replace(rcfg, spp=1), icfg)
+        r.render(key=rng.PRNGKey(0))  # warm-up
+        renderers[name] = r
+    torch.cuda.synchronize(dev)
+
+    walls = {name: [] for name in BUILDS}
+    rays = {}
+    for rep in range(args.reps):
+        order = list(BUILDS) if rep % 2 == 0 else list(reversed(BUILDS))
+        for name in order:
+            r = renderers[name]
+            before = r.rays_traced
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            r.render(key=rng.PRNGKey(1 + rep))
+            torch.cuda.synchronize(dev)
+            walls[name].append(time.perf_counter() - t0)
+            rays[name] = r.rays_traced - before
+
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, r in renderers.items():
+        with torch.profiler.profile(activities=acts) as prof:
+            r.render(key=rng.PRNGKey(99))
+            torch.cuda.synchronize(dev)
+        kinds, total, launches = {}, 0.0, 0
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                us = device_us(e)
+                kinds[kind_of(e.key)] = kinds.get(kind_of(e.key), 0.0) + us
+                total += us
+                launches += int(e.count)
+        wall = statistics.median(walls[name])
+        res = dict(rays_traced=rays[name], wall_s_median=wall,
+                   wall_s=walls[name], mrays_per_s=rays[name] / wall / 1e6,
+                   device_ms=total / 1e3,
+                   idle_share=1.0 - total / 1e3 / (wall * 1e3),
+                   device_launches=launches,
+                   kind_ms={k: v / 1e3 for k, v in sorted(kinds.items())})
+        out[name] = res
+        print(f"{name}: rays={res['rays_traced']} wall_s median="
+              f"{wall:.4f} (runs {', '.join(f'{w:.4f}' for w in walls[name])})"
+              f" mrays_per_s={res['mrays_per_s']:.3f} device_ms="
+              f"{res['device_ms']:.2f} idle_share={res['idle_share']:.3f} "
+              f"launches={launches} " + " ".join(
+                  f"{k}={v:.2f}ms" for k, v in res["kind_ms"].items())
+              + f" [{card}]", flush=True)
+    print(json.dumps({"card": card, "renders": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

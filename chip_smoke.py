@@ -60,24 +60,48 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               twin on every lane (dual = closest_hit; the staged walks =
               closest_hit_preorder); times per ray kind beside the plain
               versions and #1, #4 and #13;
+  5e. rows    the XLA walks' kernels over the row tables of
+              examples.build("bunny", intersector="walk") (leaf 8, K=4) on
+              the rays of 4 at the 1080p main-path width, and of dragon_hd
+              built once with intersector="walk" on the rays of 5: the
+              binary walk over u_rows (#14) and the K-wide walk over w_rows
+              (#4's walk body), driven once with every launch count set to
+              0 just before and read just after; each against its plain
+              version (accel.traverse.traverse_packed, traverse_wide: t
+              within CLOSEST_TOL, slots equal on every lane) and against
+              each other (the wide tree collapses the same binary tree over
+              the same leaf_rows: t within CLOSEST_TOL, slots equal except
+              ties, bit-equal lanes counted); times per ray kind beside the
+              plain versions;
   6. render   Renderer.render() at 1 spp of the bunny at 1920x1080 in both
-              walk orders and of dragon_hd at 960x540 in both walk orders,
-              each with every launch count set to 0 just before and read
-              just after (the walk's two kernels must have launched, no
-              other kernel: not the other walk's, the split-table or the
-              staged ones); one cornell
-              pass at 512x512; and 32x24 bunny renders on the card, both
-              walk orders, held against the same renders on the CPU (the
-              plain versions).
+              walk orders, of dragon_hd at 960x540 in both walk orders,
+              and of the bunny at 1920x1080 with the XLA intersectors
+              ("wide", the default build, "walk" and "cluster"), each with
+              every launch count set to 0 just before and read just after
+              (exactly the build's kernels must have launched: the walk's
+              two fat-table kernels for "pallas", closest_hit_wide_rows for
+              "wide", that and closest_hit_binary for "walk" and
+              "cluster"); one cornell pass at 512x512; and 32x24 bunny
+              renders on the card, both walk orders and "walk", held
+              against the same renders on the CPU (the plain versions).
+
+Every kernel's least time on the card (bound_ms) is computed from the
+work its plain version did on the main-path rays (kernels.traverse.
+count_work): operations are box tests and triangle tests counted from
+csrc/bvh_common.cuh, over the card's float32 rate; bytes are each ray's
+inputs and outputs once and each table row the walks read once (the
+columns a read uses), over its memory rate; the larger of the two bounds
+it.
 
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-of the eleven kernels' launches over the main-path renders (the
+of the thirteen kernels' launches over the main-path renders (the
 split-table kernels': over the split phase's driven calls; the staged
 kernels': over the staged phase's, both scenes), its largest error
-against its plain version and its times at the bunny's 1080p main-path
-width; the last line is {"ok": true, "device": {...}}.
+against its plain version, its times at the bunny's 1080p main-path
+width and its bound there; the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -135,7 +159,24 @@ KERNELS = {
         ["ptsharp_tpu/pallas/hbm_kernel.py:918"]),
     "closest_hit_row_stage": ("ptsharp_tpu_torch/csrc/closest_hit_row_stage.cu",
                               ["ptsharp_tpu/pallas/hbm_kernel.py:412"]),
+    "closest_hit_binary": ("ptsharp_tpu_torch/csrc/closest_hit_binary.cu",
+                           ["ptsharp_tpu/pallas/traverse_kernel.py:144"]),
+    # #4's walk body over another table view, not a TPU kernel of its own
+    "closest_hit_wide_rows": ("ptsharp_tpu_torch/csrc/closest_hit_preorder.cu",
+                              ["ptsharp_tpu/pallas/wide_kernel.py:449"]),
 }
+TABLE_VIEWS = {"closest_hit_wide_rows": "w_rows + leaf_rows"}
+# the XLA walks' kernels
+ROWS = ("closest_hit_binary", "closest_hit_wide_rows")
+# the kernels a render of each build launches, exactly
+RENDER_KERNELS = {
+    "ordered": {"closest_hit", "any_hit"},
+    "preorder": {"closest_hit_preorder", "any_hit_preorder"},
+    "wide": {"closest_hit_wide_rows"},
+    "walk": {"closest_hit_binary", "closest_hit_wide_rows"},
+    "cluster": {"closest_hit_binary", "closest_hit_wide_rows"},
+}
+XLA_INTERSECTORS = ("wide", "walk", "cluster")
 # the split-table kernels: no render launches them
 SPLIT = ("closest_hit_split", "any_hit_split", "closest_hit_packet")
 # the memory-schedule kernels: no render launches them either
@@ -147,6 +188,19 @@ DYNAMIC_SMEM = {"closest_hit_fat_cache": 2 * 32 * 128 * 4,
 # (K, chain depth) of the hand-built trees whose stack bound lies in
 # (64, 128]
 STACK_CHAINS = ((4, 25), (8, 12))
+
+# the least time of a walk on the card: published H100 SXM peaks
+# (NVIDIA's data sheet, at the 700 W power limit), float32 outside the
+# tensor cores and device memory
+PEAK_F32 = 67e12     # operations/s
+PEAK_BYTES = 3.35e12  # bytes/s
+# operations counted from csrc/bvh_common.cuh (each add, multiply, divide,
+# min, max, abs and compare one operation)
+OPS_RAY = 9    # safe_inv of the direction: 3 x (abs, compare, divide)
+OPS_BOX = 25   # slab: 6 sub, 6 mul, 10 min/max; box_hit: max, 2 compares
+OPS_MT = 55    # mt: 45 arithmetic, 9 compares, 1 add; and tt < best t
+RAY_BYTES = 28  # org, dir, t_max or t_cut: float32
+OUT_BYTES = {"closest": 16, "any": 1}  # t, slot, u, v; one bool
 
 
 def log(msg: str) -> None:
@@ -180,6 +234,23 @@ def time_ms(fn, device, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(work, n_rays: int, kind: str) -> dict:
+    """The least time of the work a plain walk counted (kernels.traverse.
+    count_work) on n_rays rays: the larger of its operations over
+    PEAK_F32 and its bytes over PEAK_BYTES."""
+    ops = n_rays * OPS_RAY + work.boxes * OPS_BOX + work.triangles * OPS_MT
+    nbytes = n_rays * (RAY_BYTES + OUT_BYTES[kind]) + work.table_bytes
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+def bound_text(res: dict) -> str:
+    return (f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}: "
+            f"{res['ops']:.4g} ops, {res['bytes']:.4g} B)")
+
+
 def ptxas_report(text: str) -> dict:
     """{kernel<K>: {registers, stack, spill_stores, spill_loads, smem}}
     from nvcc's -Xptxas -v report (smem: static shared memory bytes)."""
@@ -187,11 +258,14 @@ def ptxas_report(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+)_kernelILi(\d+)E(?:LN3ptk4PushE(\d)E)?",
+            k = re.search(r"([a-z_]+)_kernel(?:ILi(\d+)E)?"
+                          r"(?:LN3ptk4PushE(\d)E)?(?:N3ptk\d+([A-Z][a-z]+Table)E)?",
                           m.group(1))
             push = {None: "", "0": ",full", "1": ",near"}
-            name = (f"{k.group(1)}<{k.group(2)}{push[k.group(3)]}>" if k
-                    else m.group(1))
+            args = ",".join(x for x in (
+                k.group(2), push[k.group(3)].lstrip(","), k.group(4)) if x) \
+                if k else ""
+            name = f"{k.group(1)}<{args}>" if k else m.group(1)
             rows[name] = {"smem": 0}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -307,7 +381,7 @@ def _args(scene):
 
 
 def _slot_triangles(scene):
-    """(kernel slot -> (9,) triangle) lookup over the fat table."""
+    """(kernel slot // leaf_size -> fat node) lookup over the fat table."""
     fat = scene.p_fat
     bits = fat[0::2].view(torch.int32)
     leaf = (bits[:, 7] & 0xFF) > 0
@@ -327,16 +401,20 @@ def _ties(scene, org, dirn, slot_a, slot_b, t_ref):
     lanes = torch.nonzero(slot_a != slot_b).squeeze(1)
     if lanes.numel() == 0:
         return lanes, torch.zeros(0, dtype=torch.bool, device=org.device)
-    leaf_node = _slot_triangles(scene)
     ls = scene.max_leaf
+    if scene.p_fat.shape[0]:
+        leaf_node = _slot_triangles(scene)
     tts = []
     for s in (slot_a[lanes].long(), slot_b[lanes].long()):
         if bool((s < 0).any()):
             return lanes, torch.zeros(lanes.numel(), dtype=torch.bool,
                                       device=org.device)
-        rows = scene.p_fat[2 * leaf_node[s // ls] + 1]
-        cols = (s % ls)[:, None] * 9 + torch.arange(9, device=org.device)
-        tri = torch.gather(rows, 1, cols)[:, None, :]
+        if scene.p_fat.shape[0]:
+            rows = scene.p_fat[2 * leaf_node[s // ls] + 1]
+            cols = (s % ls)[:, None] * 9 + torch.arange(9, device=org.device)
+            tri = torch.gather(rows, 1, cols)[:, None, :]
+        else:  # the XLA walks' slots index leaf_rows' triangles
+            tri = scene.leaf_rows.reshape(-1, 9)[s][:, None, :]
         ok, tt, _u, _v = _mt(tri, org[lanes], dirn[lanes])
         tts.append(torch.where(ok[:, 0], tt[:, 0], torch.full_like(t_ref[lanes], INF)))
     tol = CLOSEST_TOL["atol"] + CLOSEST_TOL["rtol"] * t_ref[lanes].abs()
@@ -370,8 +448,10 @@ def check_closest(scene, org, dirn, label, walk):
     args = _args(scene)
     tmax = torch.full((org.shape[0],), INF, device=org.device)
     t, s, _u, _v = kernel(scene.p_fat, org, dirn, tmax, *args)
-    tp, sp, _up, _vp = plain(scene.p_fat, org, dirn, tmax, *args)
+    with traverse.count_work() as work:
+        tp, sp, _up, _vp = plain(scene.p_fat, org, dirn, tmax, *args)
     sync(org.device)
+    bnd = bound(work, org.shape[0], "closest")
     close = torch.isclose(t, tp, **CLOSEST_TOL)
     if not bool(close.all()):
         bad = torch.nonzero(~close).squeeze(1)[:5].tolist()
@@ -392,8 +472,10 @@ def check_closest(scene, org, dirn, label, walk):
     hits = float((tp < INF).float().mean())
     log(f"{name} [{label}] rays={org.shape[0]} hit_frac={hits:.4f} "
         f"max_abs_err_t={err:.3e} slot_mismatches={lanes.numel()} "
-        f"(all ties) kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, t=t, slot=s)
+        f"(all ties) kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"{bound_text(bnd)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, t=t, slot=s,
+                **bnd)
 
 
 def check_any(scene, org, dirn, t_cut, t_near, label, walk):
@@ -404,8 +486,10 @@ def check_any(scene, org, dirn, t_cut, t_near, label, walk):
     plain = getattr(traverse, f"{name}_plain")
     args = _args(scene)
     occ = kernel(scene.p_fat, org, dirn, t_cut, *args)
-    occ_p = plain(scene.p_fat, org, dirn, t_cut, *args)
+    with traverse.count_work() as work:
+        occ_p = plain(scene.p_fat, org, dirn, t_cut, *args)
     sync(org.device)
+    bnd = bound(work, org.shape[0], "any")
     n_edge, edge = _band(t_near, t_cut, occ, occ_p, name)
     err = float((occ.float() - occ_p.float())[~edge].abs().max())
     ms = time_ms(lambda: kernel(scene.p_fat, org, dirn, t_cut, *args),
@@ -415,8 +499,8 @@ def check_any(scene, org, dirn, t_cut, t_near, label, walk):
     log(f"{name} [{label}] rays={org.shape[0]} active="
         f"{float((t_cut > 0).float().mean()):.4f} occluded="
         f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
-        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, occ=occ)
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, occ=occ, **bnd)
 
 
 def kernel_phase(scene, rays, label):
@@ -448,8 +532,11 @@ def kernel_phase(scene, rays, label):
     out = {}
     for w, names in WALKS.items():
         for name, res in zip(names, (closest[w], anyhit[w])):
-            out[name] = {k: res[k] for k in ("max_abs_err", "ms", "plain_ms")}
+            out[name] = {k: res[k] for k in RESULT_KEYS}
     return out
+
+
+RESULT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
 
 def _equal(what, got, want):
@@ -531,9 +618,12 @@ def split_phase(scene, rays, label):
     # #5 against its plain version: t, slots except ties, step counts
     errs = []
     for mode, (t, s, u, v, steps) in ordered.items():
-        tp, sp, _up, _vp, steps_p = traverse.closest_hit_split_plain(
-            *tab, org, dirn, tmax, *args, order_mode=mode, return_iters=True)
+        with traverse.count_work() as work:
+            tp, sp, _up, _vp, steps_p = traverse.closest_hit_split_plain(
+                *tab, org, dirn, tmax, *args, order_mode=mode,
+                return_iters=True)
         sync(dev)
+        bnd = bound(work, org.shape[0], "closest")
         close = torch.isclose(t, tp, **CLOSEST_TOL)
         if not bool(close.all()):
             raise AssertionError(f"closest_hit_split ({mode}) t differs on "
@@ -551,18 +641,20 @@ def split_phase(scene, rays, label):
         log(f"closest_hit_split order={mode} [{label}] rays={org.shape[0]} "
             f"max_abs_err_t={errs[-1]:.3e} slot_mismatches={lanes.numel()} "
             f"(all ties) step counts equal; kernel_ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f}")
+            f"plain_ms={plain_ms:.3f} {bound_text(bnd)}")
         log(f"  steps per ray, order={mode}: {_steps_line(steps, n_cam)}")
         if mode == "full":
-            out["closest_hit_split"] = dict(ms=ms, plain_ms=plain_ms)
+            out["closest_hit_split"] = dict(ms=ms, plain_ms=plain_ms, **bnd)
     out["closest_hit_split"]["max_abs_err"] = max(errs)
     fat_hit = traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args)
     _equal("closest_hit_split (full) against closest_hit",
            ordered["full"][:4], fat_hit)
 
     # #8 against its plain version in both orders, and against #2
-    occ_p = traverse.any_hit_split_plain(*tab, ob, ds, t_cut, *args)
+    with traverse.count_work() as work:
+        occ_p = traverse.any_hit_split_plain(*tab, ob, ds, t_cut, *args)
     sync(dev)
+    bnd = bound(work, ob.shape[0], "any")
     n_edge, edge = _band(t_near, t_cut, occ, occ_p, "any_hit_split")
     err = float((occ.float() - occ_p.float())[~edge].abs().max())
     occ_near = traverse.any_hit_split(*tab, ob, ds, t_cut, *args,
@@ -578,12 +670,16 @@ def split_phase(scene, rays, label):
         *tab, ob, ds, t_cut, *args), dev)
     log(f"any_hit_split [{label}] rays={ob.shape[0]} occluded="
         f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
-        f"equal to any_hit; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
-    out["any_hit_split"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"equal to any_hit; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"{bound_text(bnd)}")
+    out["any_hit_split"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                **bnd)
 
     # #13 against its plain version and #4, slots on every lane
-    pp = traverse.closest_hit_packet_plain(*tab, org, dirn, tmax, *args)
+    with traverse.count_work() as work:
+        pp = traverse.closest_hit_packet_plain(*tab, org, dirn, tmax, *args)
     sync(dev)
+    bnd = bound(work, org.shape[0], "closest")
     close = torch.isclose(packet[0], pp[0], **CLOSEST_TOL)
     if not bool(close.all()):
         raise AssertionError(f"closest_hit_packet t differs on "
@@ -599,9 +695,10 @@ def split_phase(scene, rays, label):
         *tab, org, dirn, tmax, *args), dev)
     log(f"closest_hit_packet [{label}] rays={org.shape[0]} "
         f"max_abs_err_t={err:.3e} slot_mismatches=0, equal to "
-        f"closest_hit_preorder; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
+        f"closest_hit_preorder; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+        f"{bound_text(bnd)}")
     out["closest_hit_packet"] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
+                                     plain_ms=plain_ms, **bnd)
 
     # each split kernel against its fat twin, per ray kind
     for kind, sl in (("camera", slice(0, n_cam)),
@@ -680,8 +777,10 @@ def staged_phase(scene, rays, label):
              for name in ("closest_hit", "closest_hit_preorder")}
     out = {}
     for name, (_tabs, twin) in kernels.items():
-        plain = run(name, org, dirn, tmax, plain=True)
+        with traverse.count_work() as work:
+            plain = run(name, org, dirn, tmax, plain=True)
         sync(dev)
+        bnd = bound(work, org.shape[0], "closest")
         if name == "closest_hit_dual":
             # held as check_closest holds #1
             close = torch.isclose(got[name][0], plain[0], **CLOSEST_TOL)
@@ -698,8 +797,8 @@ def staged_phase(scene, rays, label):
                            dev)
         log(f"{name} [{label}] rays={org.shape[0]} max_abs_err_t={err:.3e} "
             f"slot_mismatches=0, equal to {twin} on every lane; "
-            f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
     for kind, sl in (("camera", slice(0, n_cam)),
                      ("bounce", slice(n_cam, None))):
@@ -718,6 +817,108 @@ def staged_phase(scene, rays, label):
         log(f"  {kind} rays ({o.shape[0]}) ms: " + ", ".join(
             f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
     return out, {name: launches[name] for name in kernels}
+
+
+def rows_phase(scene, rays, label):
+    """The XLA walks' kernels on the closest-hit rays of the main path, over
+    the row tables of a "walk" build (object-space rays of its one
+    instance): driven once with every launch count set to 0 just before and
+    read just after; each held against its plain version (t within
+    CLOSEST_TOL, slots equal on every lane) and the two against each other
+    (t within CLOSEST_TOL, slots equal except ties); timed per ray kind
+    beside the plain versions. Returns ({wrapper name: {max_abs_err, ms,
+    plain_ms, bound_ms, bound_by}}, {wrapper name: launches})."""
+    from ptsharp_tpu_torch.accel import traverse as walks
+    from ptsharp_tpu_torch.intersect import _instance_rays
+    from ptsharp_tpu_torch.kernels import traverse
+
+    if scene.inst_inv.shape[0] != 1:
+        raise AssertionError("the rows phase takes a one-instance scene")
+    dev = scene.device
+    org, dirn = _instance_rays(scene, 0, rays["org"], rays["dirn"])
+    n_cam = rays["n_cam"]
+    tmax = torch.full((org.shape[0],), INF, device=dev)
+    ls, k = scene.max_leaf, scene.wide_k
+    binary = (scene.u_rows, scene.leaf_rows)
+    binary_args = (scene.u_inst_base[0], scene.u_inst_end[0], ls)
+    wide = (scene.w_rows, scene.leaf_rows)
+    wide_args = (scene.w_inst_base[0], scene.w_inst_end[0], ls, k)
+    runs = {
+        "closest_hit_binary": (
+            lambda o, d, t: traverse.closest_hit_binary(*binary, o, d, t,
+                                                        *binary_args),
+            lambda o, d, t: walks.traverse_packed(*binary, o, d, t,
+                                                  *binary_args)),
+        "closest_hit_wide_rows": (
+            lambda o, d, t: traverse.closest_hit_wide_rows(*wide, o, d, t,
+                                                           *wide_args),
+            lambda o, d, t: walks.traverse_wide(*wide, o, d, t, *wide_args)),
+    }
+    log(f"rows tables [{label}]: u_rows {tuple(scene.u_rows.shape)}, w_rows "
+        f"{tuple(scene.w_rows.shape)}, leaf_rows "
+        f"{tuple(scene.leaf_rows.shape)}: "
+        f"{sum(x.numel() for x in (scene.u_rows, scene.w_rows, scene.leaf_rows)) * 4 / 1e6:.2f} MB; "
+        f"BLAS nodes [{binary_args[0]}, {binary_args[1]}) binary, "
+        f"[{wide_args[0]}, {wide_args[1]}) wide")
+
+    # the path: each entry point once, as intersect.py calls it
+    traverse.reset_launch_counts()
+    got = {name: kernel(org, dirn, tmax) for name, (kernel, _p) in
+           runs.items()}
+    sync(dev)
+    launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    for name, count in launches.items():
+        if count != int(name in runs):
+            raise AssertionError(f"rows phase launched {name} {count} times")
+    log(f"rows path [{label}]: launches={launches}")
+
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        with traverse.count_work() as work:
+            want = plain(org, dirn, tmax)
+        sync(dev)
+        bnd = bound(work, org.shape[0], "closest")
+        t, sl = got[name][0], got[name][1]
+        close = torch.isclose(t, want[0], **CLOSEST_TOL)
+        if not bool(close.all()):
+            raise AssertionError(f"{name} t differs on {int((~close).sum())} "
+                                 f"lanes")
+        _equal(f"{name} slot", (sl,), (want[1],))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got[name], want))
+        err = float((t - want[0]).abs().max())
+        ms = time_ms(lambda: kernel(org, dirn, tmax), dev)
+        plain_ms = time_ms(lambda: plain(org, dirn, tmax), dev)
+        log(f"{name} [{label}] rays={org.shape[0]} hit_frac="
+            f"{float((want[0] < INF).float().mean()):.4f} "
+            f"max_abs_err_t={err:.3e} slot_mismatches=0, all four outputs "
+            f"bit-equal: {same}; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"{bound_text(bnd)}")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
+
+    a, b = got["closest_hit_binary"], got["closest_hit_wide_rows"]
+    close = torch.isclose(a[0], b[0], **CLOSEST_TOL)
+    if not bool(close.all()):
+        raise AssertionError(f"the binary and the K-wide walk differ in t on "
+                             f"{int((~close).sum())} lanes")
+    lanes, tie = _ties(scene, org, dirn, a[1], b[1], b[0])
+    if not bool(tie.all()):
+        raise AssertionError(f"the binary and the K-wide walk differ in slot "
+                             f"off ties on {int((~tie).sum())} lanes")
+    bit_equal = int(((a[0] == b[0]) & (a[1] == b[1])).sum())
+    log(f"binary vs K-wide [{label}]: max_abs_diff_t="
+        f"{float((a[0] - b[0]).abs().max()):.3e} slot_mismatches="
+        f"{lanes.numel()} (all ties); bit-equal (t, slot) lanes {bit_equal} "
+        f"of {org.shape[0]}")
+
+    for kind, sl in (("camera", slice(0, n_cam)),
+                     ("bounce", slice(n_cam, None))):
+        o, d = org[sl].contiguous(), dirn[sl].contiguous()
+        tm = tmax[sl].contiguous()
+        log(f"  {kind} rays ({o.shape[0]}) ms: " + ", ".join(
+            f"{name}{tag} {time_ms(functools.partial(fn, o, d, tm), dev):.3f}"
+            for name, fns in runs.items()
+            for tag, fn in zip(("", "_plain"), fns)))
+    return out, {name: launches[name] for name in runs}
 
 
 def stack_chain(k: int, depth: int) -> np.ndarray:
@@ -834,23 +1035,26 @@ def render(scene, cam, rcfg, icfg, seed=0):
     return film, r.rays_traced, sec
 
 
-def render_main(label, scene, cam, rcfg, icfg):
+def render_main(label, scene, cam, rcfg, icfg, card=""):
     """One render of the main path with every launch count set to 0 just
-    before and read just after: the scene's walk order's two kernels must
-    have launched, the other order's not."""
+    before and read just after: exactly the build's kernels
+    (RENDER_KERNELS) must have launched."""
     from ptsharp_tpu_torch.kernels import traverse
 
     traverse.reset_launch_counts()
     film, rays, sec = render(scene, cam, rcfg, icfg)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
-    walk = "ordered" if scene.p_ordered else "preorder"
+    if scene.intersector == "pallas":
+        walk = "ordered" if scene.p_ordered else "preorder"
+    else:
+        walk = scene.intersector
     log(f"render {label} {rcfg.width}x{rcfg.height} spp={rcfg.spp} "
         f"walk={walk} primary_rays={rcfg.width * rcfg.height * rcfg.spp} "
         f"rays_traced={rays} seconds={sec:.3f} "
         f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
-        f"{float(film.mean.mean()):.6f} launches={launches}")
+        f"{float(film.mean.mean()):.6f} launches={launches} [{card}]")
     for name, count in launches.items():
-        if (name in WALKS[walk]) != (count > 0):
+        if (name in RENDER_KERNELS[walk]) != (count > 0):
             raise AssertionError(f"{label} ({walk} walk) launched "
                                  f"{name} {count} times")
     return launches
@@ -862,12 +1066,15 @@ def reference_phase(device):
     from ptsharp_tpu_torch import examples
     from ptsharp_tpu_torch.renderer import RenderConfig
 
-    for ordered in (True, False):
+    builds = {"pallas_ordered=True": dict(intersector="pallas", wide_k=8),
+              "pallas_ordered=False": dict(intersector="pallas", wide_k=8,
+                                           pallas_ordered=False),
+              "intersector=walk": dict(intersector="walk")}
+    for name, kw in builds.items():
         means = []
         for dev in (device, torch.device("cpu")):
             scene, cam, _rc, icfg = examples.bunny(
-                32, 24, subdivisions=3, intersector="pallas", wide_k=8,
-                pallas_ordered=ordered, device=dev)
+                32, 24, subdivisions=3, device=dev, **kw)
             film, _rays, _sec = render(scene, cam,
                                        RenderConfig(32, 24, spp=1), icfg,
                                        seed=5)
@@ -875,13 +1082,24 @@ def reference_phase(device):
         close = np.all(np.isclose(means[0], means[1], rtol=1e-4, atol=1e-4),
                        axis=-1)
         rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
-        log(f"reference bunny 32x24 pallas_ordered={ordered}: "
+        log(f"reference bunny 32x24 {name}: "
             f"pixels_within_1e-4={close.mean():.4f} mean_rel_diff={rel:.3e}")
         if close.mean() < PIXEL_FRAC or rel > 1e-3:
             raise AssertionError("card render disagrees with the CPU render")
 
 
 def scene_line(name, scene, seconds):
+    if scene.intersector != "pallas":
+        # leaf slots holding a triangle (padding slots are all zero)
+        n_tri = int((scene.leaf_rows.reshape(-1, 9).abs().sum(1) > 0).sum())
+        log(f"{name} scene ({scene.intersector}): {n_tri} triangles, "
+            f"bvh_builder={scene.bvh_builder}, u_rows "
+            f"{tuple(scene.u_rows.shape)}, w_rows "
+            f"{tuple(scene.w_rows.shape)}, leaf_rows "
+            f"{tuple(scene.leaf_rows.shape)}, clusters "
+            f"{scene.cluster_bmin.shape[0]}, TLAS head {scene.tlas_end} "
+            f"rows, build {seconds:.1f} s")
+        return n_tri
     n_tri = int((scene.p_slot_tri >= 0).sum())
     log(f"{name} scene: {n_tri} triangles, bvh_builder={scene.bvh_builder}, "
         f"fat={scene.p_fat.numel() * 4 / 2**20:.2f} MB "
@@ -944,6 +1162,14 @@ def main() -> int:
     main_width.update(split)
     staged, staged_launches = staged_phase(scene, main_rays, main_label)
     main_width.update(staged)
+    # the XLA walks' tables of the same bunny: leaf 8, K=4
+    t0 = time.perf_counter()
+    wscene, wcam, _wrc, wicfg = examples.build("bunny", intersector="walk",
+                                               device=device)
+    if scene_line("bunny", wscene, time.perf_counter() - t0) != 81920:
+        raise AssertionError("the walk bunny must have 81,920 triangles")
+    rows, _rows_launches = rows_phase(wscene, main_rays, main_label)
+    main_width.update(rows)
     del main_rays
     stack_phase(device)
 
@@ -964,7 +1190,15 @@ def main() -> int:
     phases.append(kernel_phase(dscene, drays, dlabel))
     dstaged, dstaged_launches = staged_phase(dscene, drays, dlabel)
     phases.append(dstaged)
-    del drays
+    t0 = time.perf_counter()
+    dwscene = examples.build("dragon_hd", intersector="walk",
+                             device=device)[0]
+    if scene_line("dragon_hd", dwscene, time.perf_counter() - t0) \
+            != DRAGON_TRIANGLES:
+        raise AssertionError("dragon_hd must have 1,310,720 triangles")
+    drows, _drows_launches = rows_phase(dwscene, drays, dlabel)
+    phases.append(drows)
+    del drays, dwscene
 
     # the main path, each render with its own launch counts
     rcfg1 = replace(rcfg, spp=1)
@@ -975,12 +1209,25 @@ def main() -> int:
         device=device)
     drcfg1 = replace(drcfg, spp=1)
     runs = [
-        render_main("bunny", scene, cam, rcfg1, icfg),
-        render_main("bunny", pscene, pcam, rcfg1, picfg),
-        render_main("dragon_hd", dscene, dcam, drcfg1, dicfg),
+        render_main("bunny", scene, cam, rcfg1, icfg, card),
+        render_main("bunny", pscene, pcam, rcfg1, picfg, card),
+        render_main("dragon_hd", dscene, dcam, drcfg1, dicfg, card),
         render_main("dragon_hd", replace(dscene, p_ordered=True), dcam,
-                    drcfg1, dicfg),
+                    drcfg1, dicfg, card),
     ]
+    del pscene, dscene
+    # the XLA intersectors: "wide" is examples.bunny()'s default build
+    xla = {"wide": examples.bunny(device=device),
+           "walk": (wscene, wcam, _wrc, wicfg),
+           "cluster": examples.build("bunny", intersector="cluster",
+                                     device=device)}
+    if xla["wide"][0].intersector != "wide":
+        raise AssertionError("examples.bunny() must build the wide walk")
+    for name in XLA_INTERSECTORS:
+        xs, xc, xrc, xic = xla.pop(name)
+        runs.append(render_main("bunny", xs, xc, replace(xrc, spp=1), xic,
+                                card))
+    del wscene
     cs, cc, crc, cic = examples.build("cornell", device=device)
     film, rays, sec = render(cs, cc, crc, cic)
     log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "
@@ -999,7 +1246,13 @@ def main() -> int:
                       else sum(run[name] for run in runs)),
             max_abs_err=max(p[name]["max_abs_err"] for p in phases
                             if name in p),
-            ms=main_width[name]["ms"], plain_ms=main_width[name]["plain_ms"]))
+            ms=main_width[name]["ms"], plain_ms=main_width[name]["plain_ms"],
+            bound_ms=main_width[name]["bound_ms"],
+            bound_by=main_width[name]["bound_by"],
+            # no single PyTorch call walks a BVH
+            library_ms=None))
+        if name in TABLE_VIEWS:
+            kernels[-1]["table_view"] = TABLE_VIEWS[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,22 +3,25 @@ CUDA for NVIDIA Hopper (H100).
 
 The JAX package `ptsharp_tpu` stays the reference; this package keeps its
 module paths and public names and imports neither JAX nor ptsharp_tpu.
-Plain tensor code is PyTorch; the two BVH traversals that the JAX package
+Plain tensor code is PyTorch; the BVH traversals that the JAX package
 ran as Pallas TPU kernels are hand-written CUDA kernels (csrc/), built with
 nvcc for sm_90a at first use. On CPU tensors their plain PyTorch versions
 run instead, which is how the tests exercise the port without a card.
+Entry points that take a `device` run on the card unless "cpu" is asked
+for.
 
 Layer map:
-  core/          vec math, sampling, color, filters, threefry rng
+  core/          vec math, sampling, color, filters, threefry rng, device
   geometry/      mesh container, analytic primitives
-  accel/         host BVH build, K-wide collapse, fat-table packing
+  accel/         host BVH build, K-wide collapse, fat-table packing; the
+                 XLA walks (traverse.py) and the cluster cull (cluster.py)
   kernels/       CUDA kernel build, wrappers and plain versions
   scene.py       host scene builder -> SceneData of tensors on one device
   intersect.py   closest-hit, occlusion, shading data
   integrator.py  wavefront path integrator (plain and compacted)
   film.py        Welford film
   renderer.py    chunked progressive renderer
-  examples.py    scene catalog (cornell, bunny)
+  examples.py    scene catalog (cornell, bunny, dragon_hd)
   convert.py     JAX-package scene/camera -> port
 """
 

@@ -11,6 +11,7 @@ from typing import NamedTuple
 
 import torch
 
+from ptsharp_tpu_torch.core import device as devices
 from ptsharp_tpu_torch.core import vec
 
 
@@ -28,7 +29,10 @@ class Camera(NamedTuple):
     aperture_radius: torch.Tensor
 
     @staticmethod
-    def look_at(eye, center, up, fovy_deg: float, device="cpu") -> "Camera":
+    def look_at(eye, center, up, fovy_deg: float,
+                device=devices.DEFAULT) -> "Camera":
+        """On `device`: the card unless "cpu" is asked for."""
+        device = devices.resolve(device)
         eye = _f32(eye, device)
         center = _f32(center, device)
         up = _f32(up, device)

@@ -10,9 +10,15 @@ never imports the JAX package:
           object with `_asdict()`).
   meta:   the reference's static metadata fields by name.
 
-The traversal table is the reference's fat interleave: `p_fat`, or
-`p_rows` where the reference streams its tables from HBM (`p_hbm`). The
-walk order (`p_ordered`) carries over as it is.
+For intersector "pallas" the traversal table is the reference's fat
+interleave: `p_fat`, or `p_rows` where the reference streams its tables
+from HBM (`p_hbm`); the walk order (`p_ordered`) carries over as it is.
+For the XLA walks ("wide", "walk", "cluster") the reference's row tables
+(u_rows, w_rows, leaf_rows, the cluster tables) and each instance's
+ranges in them carry over.
+
+Both functions put the tensors on the card unless device="cpu" is asked
+for.
 """
 
 from __future__ import annotations
@@ -22,11 +28,19 @@ import torch
 
 from ptsharp_tpu_torch.accel import tables
 from ptsharp_tpu_torch.camera import Camera
+from ptsharp_tpu_torch.core import device as devices
 from ptsharp_tpu_torch.materials import MaterialTable
-from ptsharp_tpu_torch.scene import SceneData, check_stack_bound, not_ported
+from ptsharp_tpu_torch.scene import (
+    SceneData, check_stack_bound, no_xla_tables, not_ported,
+)
 from ptsharp_tpu_torch.textures import TextureAtlas
 
 
+# the XLA walks' tables, and the per-instance ranges in them
+_XLA_TABLES = ("u_rows", "leaf_rows", "w_rows", "cluster_bmin",
+               "cluster_bmax", "cluster_rows")
+_XLA_RANGES = ("u_inst_base", "u_inst_end", "w_inst_base", "w_inst_end",
+               "inst_cluster_base", "inst_cluster_end")
 _ARRAY_FIELDS = (
     "sphere_center", "sphere_radius", "sphere_inv", "sphere_mat",
     "plane_point", "plane_normal", "plane_mat",
@@ -37,12 +51,12 @@ _ARRAY_FIELDS = (
     "light_ptype", "light_pindex", "light_center", "light_radius",
     "light_mat", "light_cdf", "light_pmf", "em_v0", "env_color",
     "texture_angle",
-)
+) + _XLA_TABLES + _XLA_RANGES
 _META_FIELDS = (
     "use_tlas", "sdf_objects", "volumes", "functions", "has_surface_maps",
     "light_types", "intersector", "p_flat", "p_ordered", "p_hbm", "wide_k",
     "env_texture", "sphere_xform", "cube_xform", "cyl_xform", "max_leaf",
-    "p_inst_base", "p_inst_end",
+    "p_inst_base", "p_inst_end", "tlas_end", "w_tlas_end",
 )
 
 
@@ -62,8 +76,9 @@ def reference_arrays(ref_scene) -> tuple[dict, dict]:
     return fields, meta
 
 
-def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
-    dev = torch.device(device)
+def scene_from_reference(fields: dict, meta: dict,
+                         device=devices.DEFAULT) -> SceneData:
+    dev = devices.resolve(device)
     if meta["use_tlas"]:
         raise not_ported("the TLAS", "Queue 1 item 10")
     if meta["sdf_objects"] or meta["volumes"] or meta["functions"]:
@@ -73,10 +88,8 @@ def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
     if np.asarray(fields["em_v0"]).shape[0] or 5 in meta["light_types"]:
         raise not_ported("mesh lights", "Queue 1 item 10")
     n_inst = np.asarray(fields["inst_inv"]).shape[0]
-    if n_inst:
-        if meta["intersector"] != "pallas":
-            raise not_ported(f"the {meta['intersector']!r} mesh intersector",
-                             "Queue 1 item 11")
+    pallas = meta["intersector"] == "pallas"
+    if n_inst and pallas:
         if not meta["p_flat"]:
             raise not_ported("per-instance (non-flat) mesh tables",
                              "Queue 1 item 10")
@@ -92,6 +105,15 @@ def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
     def t(name, dtype=np.float32):
         a = np.ascontiguousarray(np.asarray(fields[name]), dtype)
         return torch.from_numpy(a.copy()).to(dev)
+
+    if pallas:
+        xla, ranges = no_xla_tables(int(meta["max_leaf"]), int(meta["wide_k"]))
+    else:
+        xla = {name: fields[name] for name in _XLA_TABLES}
+        ranges = {name: tuple(int(x) for x in np.asarray(fields[name]))
+                  for name in _XLA_RANGES}
+        ranges.update((name, int(meta[name]))
+                      for name in ("tlas_end", "w_tlas_end"))
 
     mats = _as_dict(fields["materials"])
     tex = _as_dict(fields["textures"])
@@ -125,6 +147,8 @@ def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
         p_fat=torch.from_numpy(fat.copy()).to(dev),
         p_slot_tri=t("p_slot_tri", np.int32),
         p_slot_inst=t("p_slot_inst", np.int32),
+        **{name: torch.from_numpy(np.array(a, np.float32)).to(dev)
+           for name, a in xla.items()},
         light_ptype=t("light_ptype", np.int32),
         light_pindex=t("light_pindex", np.int32),
         light_center=t("light_center"),
@@ -147,13 +171,16 @@ def scene_from_reference(fields: dict, meta: dict, device="cpu") -> SceneData:
         p_inst_base=tuple(int(b) for b in meta["p_inst_base"]),
         p_inst_end=tuple(int(e) for e in meta["p_inst_end"]),
         p_stack_bound=int(stack_bound),
+        **ranges,
         light_types=tuple(int(x) for x in meta["light_types"]),
         bvh_builder="reference",
     )
 
 
-def camera_from_reference(fields: dict, device="cpu") -> Camera:
+def camera_from_reference(fields: dict,
+                          device=devices.DEFAULT) -> Camera:
     """fields: the reference Camera's fields by name (numpy arrays)."""
+    device = devices.resolve(device)
     return Camera(**{name: torch.as_tensor(np.array(fields[name]),
                                            dtype=torch.float32, device=device)
                      for name in Camera._fields})

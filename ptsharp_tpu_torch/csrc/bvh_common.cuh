@@ -20,6 +20,12 @@
 // [node j; its leaf block] (FatTable), and the split tables that
 // pack_fat interleaves, node j at rows[j] and its leaf block at
 // leaf[first / leaf_size] (SplitTable). A walk body takes either.
+//
+// The XLA walks' row tables (ptsharp_tpu/accel/traverse.py) hold the same
+// fields at other strides (RowTable): the binary node rows u_rows (N, 10),
+// whose internal nodes carry no child fields, the K-wide w_rows
+// (Nw, row_width(K)), 40 floats at K=4 and 72 at K=8, and the leaf blocks
+// leaf_rows (NL, leaf_size * 9), node j's block at leaf[first / leaf_size].
 
 #pragma once
 
@@ -208,6 +214,24 @@ struct SplitTable {
   }
 };
 
+// Node rows and leaf blocks at strides given at run time (the XLA walks'
+// tables). A stride of 10 or 72 floats is not 16 bytes, so the walks read
+// these rows with scalar loads only.
+struct RowTable {
+  const float* rows;
+  const float* leaves;
+  int node_stride;
+  int leaf_stride;
+  int leaf_size;
+  __device__ __forceinline__ const float* node(int j) const {
+    return rows + static_cast<size_t>(j) * node_stride;
+  }
+  __device__ __forceinline__ const float* leaf(const float* node) const {
+    const int first = reinterpret_cast<const int*>(node)[6];
+    return leaves + static_cast<size_t>(first / leaf_size) * leaf_stride;
+  }
+};
+
 // ---- walk bodies ------------------------------------------------------------
 
 // The ordered walk's push order (ordered_kernel.py order_mode): both take
@@ -362,6 +386,26 @@ __device__ __forceinline__ bool ordered_any(const Table& tab, const Ray& r,
     if (leaf != nullptr && leaf_any(leaf, leaf_size, r, tc)) return true;
   }
   return false;
+}
+
+// One step of the binary skip-link walk (traverse_packed) at node j: test
+// the node's own box against the best t; at a leaf (count = bits[7] &
+// 0xFF > 0) run MT over its block in slot order; go to j + 1, the left
+// child in preorder, where an internal box is hit, else to the skip link
+// bits[8]. Returns the next node.
+template <class Table>
+__device__ __forceinline__ int binary_step(const Table& tab, int j,
+                                           const Ray& r, int leaf_size,
+                                           Best& b) {
+  const float* node = tab.node(j);
+  const int* bits = reinterpret_cast<const int*>(node);
+  float tmin, tmax;
+  slab(node, r, tmin, tmax);
+  if (box_hit(tmin, tmax, b.t)) {
+    if ((bits[7] & 0xFF) == 0) return j + 1;
+    leaf_closest(tab.leaf(node), bits[6], leaf_size, r, b);
+  }
+  return bits[8];
 }
 
 // ---- the staged packet walk -------------------------------------------------

@@ -1,5 +1,6 @@
 """Scene catalog: the scenes of the port's slice (counterpart of
-ptsharp_tpu/examples.py, same signatures and defaults plus a `device`).
+ptsharp_tpu/examples.py, same signatures and defaults plus a `device`,
+the card unless "cpu" is asked for).
 
 Each builder returns (scene, camera, render_config, integrator_config).
 """
@@ -11,6 +12,7 @@ import math
 import numpy as np
 
 from ptsharp_tpu_torch.camera import Camera
+from ptsharp_tpu_torch.core.device import DEFAULT
 from ptsharp_tpu_torch.geometry.mesh import TriMesh, sphere_mesh
 from ptsharp_tpu_torch.integrator import IntegratorConfig
 from ptsharp_tpu_torch.materials import (
@@ -32,7 +34,7 @@ def example(name):
 
 
 @example("cornell")
-def cornell(width=512, height=512, device="cpu"):
+def cornell(width=512, height=512, device=DEFAULT):
     """Cornell-style box: area-light NEE, specular and refractive spheres,
     Russian roulette. Analytic primitives only."""
     red = diffuse_material([0.63, 0.065, 0.05])
@@ -89,16 +91,19 @@ def _bunny_mesh(subdivisions: int = 6, seed: int = 11) -> TriMesh:
     return TriMesh(v=new_v, n=m.n, uv=uv).smooth_normals()
 
 
+def _leaf_size(intersector: str) -> int:
+    """Leaf 14 fills the pallas kernels' 126-slot row; the XLA walks take
+    leaf 8 (ptsharp_tpu/examples.py:211-214)."""
+    return 14 if intersector == "pallas" else 8
+
+
 @example("bunny")
 def bunny(width=1920, height=1080, subdivisions: int = 6,
           intersector: str = "wide", wide_k: int = 4,
-          pallas_ordered: bool = True, device="cpu"):
+          pallas_ordered: bool = True, device=DEFAULT):
     """A bunny-class triangle mesh (81,920 triangles) with a procedural
     marble texture, a ground plane and one spherical area light, 1080p.
-    The port runs it with intersector="pallas" (its CUDA kernels)."""
-    if intersector != "pallas":
-        raise not_ported(f"the {intersector!r} mesh intersector",
-                         "Queue 1 item 11")
+    Leaf 14 for "pallas", 8 for the XLA walks, as in the JAX package."""
     b = SceneBuilder()
     ty, tx = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
     vein = np.sin(tx * 0.35 + 3.0 * np.sin(ty * 0.12)) * 0.5 + 0.5
@@ -111,7 +116,8 @@ def bunny(width=1920, height=1080, subdivisions: int = 6,
     b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.75, 0.72, 0.68]))
     b.add_sphere([3.5, 6, -3], 1.6, light_material([1, 1, 1], 9.0))
     b.set_environment(color=[0.10, 0.11, 0.14])
-    scene = b.build(leaf_size=14, intersector=intersector, wide_k=wide_k,
+    scene = b.build(leaf_size=_leaf_size(intersector),
+                    intersector=intersector, wide_k=wide_k,
                     pallas_ordered=pallas_ordered, device=device)
     cam = Camera.look_at([0, 1.8, -4.2], [0, 0.9, 0], [0, 1, 0], 38.0,
                          device=device)
@@ -122,14 +128,11 @@ def bunny(width=1920, height=1080, subdivisions: int = 6,
 @example("dragon_hd")
 def dragon_hd(width=960, height=540, subdivisions: int = 8,
               intersector: str = "wide", wide_k: int = 4,
-              pallas_ordered: bool = True, device="cpu"):
+              pallas_ordered: bool = True, device=DEFAULT):
     """Dragon-scale mesh: 1,310,720 triangles (the subdivision-8 displaced
     icosphere with a serpentine warp), one jade glossy material, a ground
-    plane and one spherical area light. The port runs it with
-    intersector="pallas" (its CUDA kernels)."""
-    if intersector != "pallas":
-        raise not_ported(f"the {intersector!r} mesh intersector",
-                         "Queue 1 item 11")
+    plane and one spherical area light. Leaf 14 for "pallas", 8 for the
+    XLA walks."""
     m = _bunny_mesh(subdivisions, seed=23)
     v = m.v.reshape(-1, 3).copy()
     t = v[:, 0] * 1.5
@@ -146,7 +149,8 @@ def dragon_hd(width=960, height=540, subdivisions: int = 8,
     b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.42, 0.42, 0.45]))
     b.add_sphere([-2.5, 5, -3], 1.4, light_material([1, 1, 1], 10.0))
     b.set_environment(color=[0.15, 0.17, 0.21])
-    scene = b.build(leaf_size=14, intersector=intersector, wide_k=wide_k,
+    scene = b.build(leaf_size=_leaf_size(intersector),
+                    intersector=intersector, wide_k=wide_k,
                     pallas_ordered=pallas_ordered, device=device)
     cam = Camera.look_at([0, 1.6, -3.6], [0, 0.5, 0], [0, 1, 0], 42.0,
                          device=device)

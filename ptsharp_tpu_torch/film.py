@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ptsharp_tpu_torch.core import color as colorlib
+from ptsharp_tpu_torch.core import device as devices
 
 
 class Film(NamedTuple):
@@ -26,7 +27,11 @@ class Film(NamedTuple):
     normal: torch.Tensor
 
     @staticmethod
-    def zeros(height: int, width: int, device="cpu") -> "Film":
+    def zeros(height: int, width: int, device=devices.DEFAULT) -> "Film":
+        """An empty film on `device`: the card unless "cpu" is asked
+        for."""
+        device = devices.resolve(device)
+
         def z(*shape):
             return torch.zeros(shape, dtype=torch.float32, device=device)
 

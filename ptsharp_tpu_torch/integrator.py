@@ -240,8 +240,11 @@ def _bounce(scene: SceneData, cfg: IntegratorConfig, state: RayState,
 
 def _mesh_root_box(scene: SceneData):
     """World-space root box of the flat mesh tree (a sort-partition hint:
-    rays that miss every mesh go to the end of the Morton order)."""
-    if scene.has_meshes and scene.p_fat.shape[0] > 0:
+    rays that miss every mesh go to the end of the Morton order). Only
+    the "pallas" table is world-space; the XLA walks' per-instance roots
+    are object-space and would misclassify, so they give no hint."""
+    if scene.intersector == "pallas" and scene.has_meshes \
+            and scene.p_fat.shape[0] > 0:
         return scene.p_fat[0, 0:3], scene.p_fat[0, 3:6]
     return None
 

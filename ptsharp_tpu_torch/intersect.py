@@ -2,11 +2,22 @@
 
 Counterpart of ptsharp_tpu/intersect.py for the port's slice: per
 primitive type the whole batch is intersected in one vectorized pass
-(planes, spheres, cubes, cylinders, in that order), then the flat mesh
-table goes through one closest-hit launch bounded by the best t found so
-far (kernels/traverse.py): the ordered walk where `scene.p_ordered`, the
-preorder walk otherwise, as ptsharp_tpu/intersect.py dispatches them. Hit records follow Hit.Info (Hit.cs:26-55):
-the shading normal is flipped toward the ray and `inside` set on a flip.
+(planes, spheres, cubes, cylinders, in that order), then the meshes,
+bounded by the best t found so far, by `scene.intersector`, as
+ptsharp_tpu/intersect.py dispatches them (kernels/traverse.py):
+  "pallas"   the flat world-space table in one launch: the ordered walk
+             where `scene.p_ordered`, the preorder walk otherwise;
+  "wide"     per instance, object-space rays through the K-wide walk
+             over w_rows (closest_hit_wide_rows);
+  "walk"     per instance, the binary walk over u_rows
+             (closest_hit_binary);
+  "cluster"  per instance, the cluster cull (accel/cluster.py), whose
+             unresolved rays take the binary walk.
+Shadow rays of the last three go through the K-wide walk, per instance,
+occluded where it finds a hit before t_cut. Object-space rays are not
+normalised: t is parametric in the world ray. Hit records follow Hit.Info
+(Hit.cs:26-55): the shading normal is flipped toward the ray and `inside`
+set on a flip.
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ptsharp_tpu_torch.accel import cluster
 from ptsharp_tpu_torch.core import vec
 from ptsharp_tpu_torch.geometry import primitives
 from ptsharp_tpu_torch.kernels import traverse
@@ -72,6 +84,13 @@ def _local(inv, xform: bool, o1, d1):
     if not xform:
         return o1, d1
     return _xform_point(inv[None], o1), _xform_dir(inv[None], d1)
+
+
+def _instance_rays(scene: SceneData, i: int, org, dirn):
+    """Rays of instance i's object space, unnormalised."""
+    inv = scene.inst_inv[i][None]
+    return (_xform_point(inv, org).contiguous(),
+            _xform_dir(inv, dirn).contiguous())
 
 
 def _sphere_t1(o, d, c, rad):
@@ -183,7 +202,7 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
         take_min(primitives.intersect_cylinders(o, d, scene.cyl_radius,
                                                 scene.cyl_z0, scene.cyl_z1),
                  PT_CYLINDER)
-    if scene.has_meshes:
+    if scene.has_meshes and scene.intersector == "pallas":
         # one world-space launch over every instance, bounded by the best
         # analytic t; slot maps recover scene triangle and instance
         walk = (traverse.closest_hit if scene.p_ordered
@@ -195,6 +214,32 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
         ks = torch.clamp(kslot, 0, scene.p_slot_tri.shape[0] - 1).long()
         take(t, PT_TRIANGLE, scene.p_slot_tri[ks], inst=scene.p_slot_inst[ks],
              u=u, v=v)
+    elif scene.has_meshes:
+        # per instance, object-space rays; slots index the scene's slot
+        # arrays directly
+        tpc = (scene.cluster_rows.shape[1] // 9
+               if scene.cluster_rows.shape[0] else 0)
+        for i in range(scene.inst_inv.shape[0]):
+            o, d = _instance_rays(scene, i, org, dirn)
+            if scene.intersector == "cluster" and tpc:
+                t, slot, u, v = cluster.intersect_clustered(
+                    (scene.cluster_bmin, scene.cluster_bmax,
+                     scene.cluster_rows, tpc, scene.inst_cluster_base[i],
+                     scene.inst_cluster_end[i], scene.u_rows,
+                     scene.leaf_rows, scene.u_inst_base[i],
+                     scene.u_inst_end[i], scene.max_leaf),
+                    o, d, best_t)
+            elif scene.intersector == "walk":
+                t, slot, u, v = traverse.closest_hit_binary(
+                    scene.u_rows, scene.leaf_rows, o, d, best_t.contiguous(),
+                    scene.u_inst_base[i], scene.u_inst_end[i],
+                    scene.max_leaf)
+            else:
+                t, slot, u, v = traverse.closest_hit_wide_rows(
+                    scene.w_rows, scene.leaf_rows, o, d, best_t.contiguous(),
+                    scene.w_inst_base[i], scene.w_inst_end[i],
+                    scene.max_leaf, scene.wide_k)
+            take(t, PT_TRIANGLE, slot, inst=i, u=u, v=v)
     if t_max is not None:
         best_t = torch.where(best_type == PT_NONE,
                              torch.full_like(best_t, INF), best_t)
@@ -204,7 +249,9 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
 def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     """True where any surface intersects the ray at t in (eps, t_cut);
     lanes with t_cut <= 0 are never occluded. Mesh instances go through
-    the any-hit kernel of the scene's walk order over the fat table."""
+    the any-hit kernel of the scene's walk order over the fat table
+    ("pallas"), else, per instance, through the K-wide closest-hit walk
+    bounded by t_cut (as ptsharp_tpu/intersect.py:722-728 runs it)."""
     r = org.shape[0]
     tc = _as_rays(t_cut, r, org)
     occ = torch.zeros(r, dtype=torch.bool, device=org.device)
@@ -229,15 +276,25 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
         o, d = _local(scene.cyl_inv, scene.cyl_xform, o1, d1)
         occ = occ | any_below(primitives.intersect_cylinders(
             o, d, scene.cyl_radius, scene.cyl_z0, scene.cyl_z1))
-    if scene.has_meshes:
+    def cut():
         # already-occluded lanes carry a -INF bound and test nothing
-        cut = torch.where(occ, torch.full_like(tc, -INF), tc)
+        return torch.where(occ, torch.full_like(tc, -INF), tc).contiguous()
+
+    if scene.has_meshes and scene.intersector == "pallas":
         walk = (traverse.any_hit if scene.p_ordered
                 else traverse.any_hit_preorder)
         occ = occ | walk(
-            scene.p_fat, org.contiguous(), dirn.contiguous(),
-            cut.contiguous(), scene.p_inst_base[0], scene.p_inst_end[0],
-            scene.max_leaf, scene.wide_k)
+            scene.p_fat, org.contiguous(), dirn.contiguous(), cut(),
+            scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
+            scene.wide_k)
+    elif scene.has_meshes:
+        for i in range(scene.inst_inv.shape[0]):
+            o, d = _instance_rays(scene, i, org, dirn)
+            t, _s, _u, _v = traverse.closest_hit_wide_rows(
+                scene.w_rows, scene.leaf_rows, o, d, cut(),
+                scene.w_inst_base[i], scene.w_inst_end[i], scene.max_leaf,
+                scene.wide_k)
+            occ = occ | (t < INF)
     return occ
 
 

@@ -76,6 +76,12 @@ def _bind(lib):
     fat_staged = [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
     split_staged = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                     vp, vp, vp, vp, vp]
+    # the XLA walks' row tables: rows, leaf, their strides, rays, t, n,
+    # base, end, leaf_size, [k], max_iters, outputs, stream
+    binary = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+              vp, vp, vp, vp, vp]
+    wide_rows = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                 vp, vp, vp, vp, vp]
     for fn, argtypes in ((lib.pt_closest_hit, closest),
                          (lib.pt_any_hit, anyhit),
                          (lib.pt_closest_hit_preorder, closest),
@@ -86,7 +92,9 @@ def _bind(lib):
                          (lib.pt_closest_hit_dual, closest),
                          (lib.pt_closest_hit_fat_cache, fat_staged),
                          (lib.pt_closest_hit_block_cache, split_staged),
-                         (lib.pt_closest_hit_row_stage, split_staged)):
+                         (lib.pt_closest_hit_row_stage, split_staged),
+                         (lib.pt_closest_hit_binary, binary),
+                         (lib.pt_closest_hit_wide_rows, wide_rows)):
         fn.restype = ci
         fn.argtypes = argtypes
     return lib

@@ -1,5 +1,5 @@
 """Closest-hit and any-hit over the BVH tables: wrappers and plain
-versions of the eleven CUDA kernels in csrc/.
+versions of the thirteen CUDA kernels in csrc/.
 
 Over the fat table (the render path):
   `closest_hit` and `any_hit` walk near to far with a per-ray stack (the
@@ -25,6 +25,14 @@ Memory schedules of the same two walks (kernel-level entry points too):
   `accel.tables.pad_rows`), or one node row and leaf block a step
   (csrc/closest_hit_fat_cache.cu, closest_hit_block_cache.cu,
   closest_hit_row_stage.cu).
+Over the XLA walks' row tables (intersect.py, intersector "walk", "wide"
+and "cluster"; node rows of any width, leaf blocks (NL, leaf_size * 9)):
+  `closest_hit_binary`, the binary skip-link walk over u_rows (N, 10)
+  (csrc/closest_hit_binary.cu; its plain version is
+  accel.traverse.traverse_packed);
+  `closest_hit_wide_rows`, the preorder walk of closest_hit_preorder over
+  the K-wide w_rows (csrc/closest_hit_preorder.cu; its plain version is
+  accel.traverse.traverse_wide).
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream and adds one to its `launches` count; on a CPU tensor it
 runs its plain version below; any other device raises. There is no
@@ -61,6 +69,8 @@ Contract (the JAX package's kernels):
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 INF = 1e9
@@ -72,7 +82,49 @@ STACK_CAPACITY = 128
 KERNEL_K = (4, 8)  # the kernels' template instances
 ORDER_MODES = ("full", "near")  # the ordered walk's push orders
 CACHE_BLOCK_ROWS = 64  # rows a block of the block-cache kernel (BLK)
+# each ray's step cap on the XLA walks' row tables, as max_iters caps the
+# JAX package's lockstep loops (accel/traverse.py: every active ray takes
+# one step an iteration, so the cap is per ray)
+MAX_ITERS = 65536
 _NO_CHILD = torch.iinfo(torch.int64).max
+
+
+class Work:
+    """What plain walks did, for a kernel's least time on the card
+    (chip_smoke.py): box tests (each visit's own box and, at a hit K-wide
+    internal node, its K children's), Moller-Trumbore tests, and the
+    distinct table rows they read with the float32 columns a read uses."""
+
+    def __init__(self):
+        self.boxes = 0
+        self.triangles = 0
+        self._rows = {}  # (table, "node" | "leaf") -> (row mask, columns)
+
+    def touch(self, table, what, rows, cols):
+        key = (table.data_ptr(), what)
+        if key not in self._rows:
+            self._rows[key] = (torch.zeros(table.shape[0], dtype=torch.bool,
+                                           device=table.device), cols)
+        self._rows[key][0][rows] = True
+
+    @property
+    def table_bytes(self) -> int:
+        return sum(int(mask.sum()) * cols * 4
+                   for mask, cols in self._rows.values())
+
+
+_work: Work | None = None
+
+
+@contextlib.contextmanager
+def count_work():
+    """Count the work of the plain walks run inside the block."""
+    global _work
+    outer, _work = _work, Work()
+    try:
+        yield _work
+    finally:
+        _work = outer
 
 
 # ---- shared arithmetic (the order of operations of bvh_common.cuh) -------
@@ -130,9 +182,11 @@ def _mt(tri, o, d):
 
 class _Table:
     """Where a walk reads node j's row and its leaf block: the fat
-    interleave (rows 2j and 2j+1 of `nodes`) or, with `leaf`, the split
-    tables (rows[j], and leaf[first // leaf_size], where pack_fat takes
-    it from)."""
+    interleave (rows 2j and 2j+1 of `nodes`) or, with `leaf`, separate
+    node and leaf tables (rows[j], and leaf[first // leaf_size], where
+    pack_fat takes it from): the split tables, or the XLA walks' u_rows
+    or w_rows with leaf_rows. Columns are read by index, so rows of any
+    width serve."""
 
     def __init__(self, nodes, leaf=None, leaf_size: int = 1):
         self.nodes = nodes
@@ -143,12 +197,13 @@ class _Table:
         """The node-table rows of nodes j."""
         return j if self.leaf is not None else 2 * j
 
-    def leaf_rows(self, node):
-        """The leaf blocks of the leaf nodes at node-table rows `node`."""
+    def leaf_at(self, node):
+        """(table, row indices) of the leaf blocks of the leaf nodes at
+        node-table rows `node`."""
         if self.leaf is None:
-            return self.nodes[node + 1]
+            return self.nodes, node + 1
         first = self.bits[node, 6].to(torch.int64)
-        return self.leaf[first // self.leaf_size]
+        return self.leaf, first // self.leaf_size
 
 
 class _Walk:
@@ -182,10 +237,18 @@ class _Walk:
                            self.inv[act])
         hit = _box_hit(tmin, tmax, self.bt[act])
         is_leaf = (self.bits[node, 7] & 0xFF) > 0
-        return act, node, hit & is_leaf, hit & ~is_leaf
+        inner = hit & ~is_leaf
+        if _work is not None:
+            _work.boxes += act.numel() + self.k * int(inner.sum())
+            _work.touch(self.nodes, "node", node, 9 + 7 * self.k)
+        return act, node, hit & is_leaf, inner
 
     def leaf_block(self, lanes, node, leaf_size):
-        blk = self.tab.leaf_rows(node)[:, :leaf_size * 9]
+        table, rows = self.tab.leaf_at(node)
+        if _work is not None:
+            _work.triangles += lanes.numel() * leaf_size
+            _work.touch(table, "leaf", rows, leaf_size * 9)
+        blk = table[rows, :leaf_size * 9]
         return _mt(blk.reshape(-1, leaf_size, 9), self.org[lanes],
                    self.dirn[lanes])
 
@@ -266,11 +329,13 @@ class _StackWalk(_Walk):
 class _SkipWalk(_Walk):
     """The preorder walk: no stack. Skip links and child indices point
     forward in preorder, so each ray's cursor only grows and end - base
-    steps bound the walk."""
+    steps bound the walk (and `max_iters`, where given, caps it)."""
 
-    def __init__(self, tab, org, dirn, bt, base, end, k, start):
+    def __init__(self, tab, org, dirn, bt, base, end, k, start,
+                 max_iters=None):
         super().__init__(tab, org, dirn, bt, base, end, k, start)
-        self.max_iters = end - base
+        self.max_iters = (end - base if max_iters is None
+                          else min(end - base, max_iters))
 
     def no_target(self, node):
         """Next node where the box misses or no child is hit: the skip
@@ -286,6 +351,15 @@ class _SkipWalk(_Walk):
 
     def advance(self, lanes, nxt):
         self.cur[lanes] = nxt
+
+
+def _first_min(ok, tt, fill=float("inf")):
+    """Per row, the first slot of least accepted t and that t (`fill`
+    where none is accepted), as jnp.argmin and jnp.min pick them. The
+    walks fill with inf, so that no t_max accepts a rejected slot."""
+    t_ok = torch.where(ok, tt, torch.full_like(tt, fill))
+    lane = torch.argmin(t_ok, dim=1, keepdim=True)
+    return lane, torch.gather(t_ok, 1, lane).squeeze(1)
 
 
 def _walk_closest(walk, leaf_size: int):
@@ -306,9 +380,7 @@ def _walk_closest(walk, leaf_size: int):
         if bool(leaf.any()):
             la = act[leaf]
             ok, tt, uu, vv = walk.leaf_block(la, node[leaf], leaf_size)
-            tt_ok = torch.where(ok, tt, torch.full_like(tt, float("inf")))
-            l = torch.argmin(tt_ok, dim=1, keepdim=True)
-            tbest = torch.gather(tt_ok, 1, l).squeeze(1)
+            l, tbest = _first_min(ok, tt)
             got = tbest < bt[la]
             g = la[got]
             first = walk.bits[node[leaf], 6][got]
@@ -479,6 +551,13 @@ def _check(nodes, org, dirn, t, base, end, leaf_size, k, leaf=None):
             raise ValueError(f"leaf is on {leaf.device}, rows on "
                              f"{nodes.device}")
         n_nodes = nodes.shape[0]
+    _check_rays(nodes, org, dirn, t, base, end, n_nodes)
+    if not (1 <= leaf_size and leaf_size * 9 <= ROW) \
+            or not (2 <= k and 9 + 7 * k <= ROW):
+        raise ValueError(f"leaf_size={leaf_size}, k={k} do not fit a row")
+
+
+def _check_rays(nodes, org, dirn, t, base, end, n_nodes):
     r = org.shape[0]
     for name, x, shape in (("org", org, (r, 3)), ("dirn", dirn, (r, 3)),
                            ("t", t, (r,))):
@@ -490,9 +569,23 @@ def _check(nodes, org, dirn, t, base, end, leaf_size, k, leaf=None):
                              f"{nodes.device}")
     if not 0 <= base <= end <= n_nodes:
         raise ValueError(f"node range [{base}, {end}) outside the table")
-    if not (1 <= leaf_size and leaf_size * 9 <= ROW) \
-            or not (2 <= k and 9 + 7 * k <= ROW):
-        raise ValueError(f"leaf_size={leaf_size}, k={k} do not fit a row")
+
+
+def _check_row_tables(rows, leaf, org, dirn, t, base, end, leaf_size, k):
+    """The contract of the XLA walks' row tables: node rows (N, W) with
+    W >= 9 + 7k (k = 0: the binary rows), leaf blocks (NL, L) with
+    L >= leaf_size * 9, float32 and contiguous, on one device."""
+    if leaf_size < 1:
+        raise ValueError(f"leaf_size={leaf_size}")
+    for name, x, cols in (("rows", rows, 9 + 7 * k),
+                          ("leaf", leaf, 9 * leaf_size)):
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] < cols \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 table "
+                             f"of at least {cols} columns")
+    if leaf.device != rows.device:
+        raise ValueError(f"leaf is on {leaf.device}, rows on {rows.device}")
+    _check_rays(rows, org, dirn, t, base, end, rows.shape[0])
 
 
 def _check_order(order_mode):
@@ -500,10 +593,12 @@ def _check_order(order_mode):
         raise ValueError(f"order_mode must be one of {ORDER_MODES}")
 
 
-def _kernel_lib(fat, k):
+def _kernel_lib(fat, k=None):
+    """The kernel library for a launch over tables on `fat.device` at K
+    (None: a walk with no K)."""
     if fat.device.type != "cuda":
         raise ValueError(f"no kernel for device {fat.device}")
-    if k not in KERNEL_K:
+    if k is not None and k not in KERNEL_K:
         raise ValueError(f"the CUDA kernels are built for K in {KERNEL_K}")
     from ptsharp_tpu_torch.kernels import build
 
@@ -742,10 +837,67 @@ def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
                           t_max, base, end, leaf_size, k, staged=True)
 
 
+def _closest_rows(wrapper, entry, rows, leaf, org, dirn, t_max, base, end,
+                  leaf_size, *k):
+    """Launch a closest-hit kernel over the XLA walks' row tables; the
+    strides are the tables' widths, and each ray's walk is capped at
+    MAX_ITERS steps."""
+    lib = _kernel_lib(rows, *k)
+    r = org.shape[0]
+    out = _hit_outputs(r, rows.device)
+    if r:
+        _launch(wrapper, entry, lib, _ptr(rows), _ptr(leaf), rows.shape[1],
+                leaf.shape[1], _ptr(org), _ptr(dirn), _ptr(t_max), r, base,
+                end, leaf_size, *k, MAX_ITERS, *map(_ptr, out),
+                _stream(rows))
+    return out
+
+
+def closest_hit_binary(rows, leaf, org, dirn, t_max, base: int, end: int,
+                       leaf_size: int):
+    """Closest hit per ray by the binary skip-link walk over u_rows
+    (N, 10) and leaf_rows (NL, leaf_size * 9): (t, slot, u, v), slot
+    indexing the scene's slot-ordered triangles. The JAX kernel
+    (pallas_traverse) walks a 1,024-ray tile with one cursor; every lane
+    gets this per-ray walk's result, so the tile changes nothing.
+    csrc/closest_hit_binary.cu on CUDA tensors; on CPU tensors its plain
+    version, accel.traverse.traverse_packed."""
+    from ptsharp_tpu_torch.accel import traverse as walks
+
+    base, end = int(base), int(end)
+    _check_row_tables(rows, leaf, org, dirn, t_max, base, end, leaf_size, 0)
+    if rows.device.type == "cpu":
+        return walks.traverse_packed(rows, leaf, org, dirn, t_max, base, end,
+                                     leaf_size)
+    return _closest_rows(closest_hit_binary, "pt_closest_hit_binary", rows,
+                         leaf, org, dirn, t_max, base, end, leaf_size)
+
+
+def closest_hit_wide_rows(rows, leaf, org, dirn, t_max, base: int, end: int,
+                          leaf_size: int, k: int):
+    """Closest hit per ray by the K-wide preorder walk over w_rows
+    (Nw, row_width(K)) and leaf_rows (NL, leaf_size * 9): (t, slot, u, v).
+    The walk body of closest_hit_preorder over another table view.
+    csrc/closest_hit_preorder.cu (K in KERNEL_K) on CUDA tensors; on CPU
+    tensors its plain version, accel.traverse.traverse_wide (any K)."""
+    from ptsharp_tpu_torch.accel import traverse as walks
+
+    base, end = int(base), int(end)
+    if k < 2:
+        raise ValueError(f"k={k}")
+    _check_row_tables(rows, leaf, org, dirn, t_max, base, end, leaf_size, k)
+    if rows.device.type == "cpu":
+        return walks.traverse_wide(rows, leaf, org, dirn, t_max, base, end,
+                                   leaf_size, k)
+    return _closest_rows(closest_hit_wide_rows, "pt_closest_hit_wide_rows",
+                         rows, leaf, org, dirn, t_max, base, end, leaf_size,
+                         k)
+
+
 WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder,
             closest_hit_split, any_hit_split, closest_hit_packet,
             closest_hit_dual, closest_hit_fat_cache, closest_hit_block_cache,
-            closest_hit_row_stage)
+            closest_hit_row_stage, closest_hit_binary, closest_hit_wide_rows)
 for _w in WRAPPERS:
     _w.launches = 0
 

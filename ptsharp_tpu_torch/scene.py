@@ -2,20 +2,25 @@
 
 Counterpart of ptsharp_tpu/scene.py for the slice the port covers:
 analytic primitives (sphere, plane, cube, cylinder, each with an optional
-affine) and triangle meshes flattened into ONE world-space K-wide BVH.
-Differences from the JAX package:
+affine) and triangle meshes, in one of two table sets by `intersector`:
 
-  * one table form. Every mesh scene gets the fat interleave `p_fat`
-    (accel/tables.py), read by every traversal kernel. The JAX package's
-    VMEM/HBM switch and its duplicate `p_rows`/`p_leaf` tables have no
-    counterpart: a GPU has no such split. `p_ordered` picks the walk, as
-    in the JAX package: near to far with a stack, or preorder along skip
-    links.
-  * an ordered scene's build checks `max_stack_bound` against the ordered
-    kernels' stack capacity and raises if a tree could overflow it; a
-    preorder walk keeps no stack and has no such limit.
-  * what the port does not cover yet raises NotImplementedError naming
-    the ROADMAP item that will port it.
+  * "pallas": the meshes flattened into ONE world-space K-wide BVH, the
+    fat interleave `p_fat` (accel/tables.py), read by the fat-table
+    kernels. The JAX package's VMEM/HBM switch and its duplicate
+    `p_rows`/`p_leaf` tables have no counterpart: a GPU has no such
+    split. `p_ordered` picks the walk, as in the JAX package: near to far
+    with a stack, or preorder along skip links. An ordered scene's build
+    checks `max_stack_bound` against the ordered kernels' stack capacity
+    and raises if a tree could overflow it; a preorder walk keeps no
+    stack and has no such limit.
+  * "wide", "walk", "cluster" (the XLA walks): a binary BVH per mesh in
+    object space, its K-wide collapse, and a TLAS head over every object,
+    packed as the JAX package packs them (u_rows, w_rows, leaf_rows, the
+    cluster tables for "cluster"), byte for byte; intersect.py walks each
+    instance with object-space rays.
+
+What the port does not cover yet raises NotImplementedError naming the
+ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 
 from ptsharp_tpu_torch.accel import bvh as bvh_mod
 from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.accel import wide as wide_mod
+from ptsharp_tpu_torch.core import device as devices
 from ptsharp_tpu_torch.geometry.mesh import TriMesh
 from ptsharp_tpu_torch.kernels.traverse import STACK_CAPACITY
 from ptsharp_tpu_torch.materials import Material, MaterialTable
@@ -39,6 +46,7 @@ PT_PLANE = 2
 PT_CUBE = 3
 PT_CYLINDER = 4
 PT_TRIANGLE = 5
+PT_INSTANCE = 9  # TLAS leaf: a mesh instance
 
 # consecutive leaves are padded to a multiple of this per mesh, so scene
 # triangle slots match the JAX package's layout
@@ -88,10 +96,18 @@ class SceneData:
     # mesh instances
     inst_inv: torch.Tensor        # (I, 3, 4) world->object
     inst_mat: torch.Tensor        # (I,) material override, -1 = per-tri
-    # the fat traversal table and its slot maps
+    # "pallas": the fat traversal table and its slot maps (else empty)
     p_fat: torch.Tensor           # (2*Nw, 128) f32
     p_slot_tri: torch.Tensor      # (NL*leaf,) i32 kernel slot -> scene slot
     p_slot_inst: torch.Tensor     # (NL*leaf,) i32 kernel slot -> instance
+    # "wide" / "walk" / "cluster": the XLA walks' tables (else empty);
+    # node rows are [TLAS head][object-space BLAS per mesh]
+    u_rows: torch.Tensor          # (N, 10) binary node rows
+    leaf_rows: torch.Tensor       # (NL, leaf*9) (v0, e1, e2) per slot
+    w_rows: torch.Tensor          # (Nw, row_width(K)) K-wide node rows
+    cluster_bmin: torch.Tensor    # (C, 3) boxes of 16 leaves ("cluster")
+    cluster_bmax: torch.Tensor
+    cluster_rows: torch.Tensor    # (C, 16*leaf*9)
     # NEE light table
     light_ptype: torch.Tensor
     light_pindex: torch.Tensor
@@ -117,6 +133,16 @@ class SceneData:
     p_inst_end: tuple
     p_stack_bound: int            # max_stack_bound of the fat table
                                   # (checked for ordered scenes only)
+    # per instance: its BLAS node range in u_rows and w_rows and its
+    # cluster range; the TLAS heads' row counts
+    u_inst_base: tuple
+    u_inst_end: tuple
+    w_inst_base: tuple
+    w_inst_end: tuple
+    inst_cluster_base: tuple
+    inst_cluster_end: tuple
+    tlas_end: int
+    w_tlas_end: int
     light_types: tuple
     bvh_builder: str              # builder of the traversal tree
 
@@ -136,8 +162,37 @@ def check_stack_bound(bound: int) -> None:
             f"hold {STACK_CAPACITY}")
 
 
+def no_xla_tables(leaf_size: int, k: int) -> tuple[dict, dict]:
+    """The XLA walks' (tables, ranges) of a scene that has none: a
+    "pallas" scene."""
+    cw = CLUSTER_GROUP * leaf_size * 9
+    return (dict(u_rows=np.zeros((0, 10), np.float32),
+                 leaf_rows=np.zeros((0, leaf_size * 9), np.float32),
+                 w_rows=np.zeros((0, wide_mod.row_width(k)), np.float32),
+                 cluster_bmin=np.zeros((0, 3), np.float32),
+                 cluster_bmax=np.zeros((0, 3), np.float32),
+                 cluster_rows=np.zeros((0, cw), np.float32)),
+            dict(u_inst_base=(), u_inst_end=(), w_inst_base=(),
+                 w_inst_end=(), inst_cluster_base=(), inst_cluster_end=(),
+                 tlas_end=0, w_tlas_end=0))
+
+
 def _affine(m: np.ndarray) -> np.ndarray:
     return np.asarray(m, np.float32)[:3, :4]
+
+
+def _xform_aabb(world34: np.ndarray, lo, hi):
+    """World box of an object-space box under an affine: the 8 corners
+    transformed and re-boxed (Matrix.MulBox, Matrix.cs:157-173)."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    corners = np.array(
+        [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+         for z in (lo[2], hi[2])],
+        np.float32,
+    )
+    w = corners @ np.asarray(world34, np.float32)[:, :3].T + world34[:, 3]
+    return w.min(axis=0), w.max(axis=0)
 
 
 class SceneBuilder:
@@ -147,7 +202,7 @@ class SceneBuilder:
     def __init__(self):
         self._materials: list[Material] = []
         self._mat_ids: dict[Material, int] = {}
-        self._spheres = []   # (center, radius, inv, mat)
+        self._spheres = []   # (center, radius, inv, mat, world)
         self._planes = []
         self._cubes = []
         self._cyls = []
@@ -193,6 +248,10 @@ class SceneBuilder:
         t = np.asarray(transform, np.float32)
         return _affine(np.linalg.inv(t)), t
 
+    @staticmethod
+    def _world(t):
+        return _IDENTITY34 if t is None else _affine(t)
+
     def add_sphere(self, center, radius, material: Material,
                    transform=None) -> int:
         mid = self.material_id(material)
@@ -203,7 +262,8 @@ class SceneBuilder:
             wcenter = t[:3, :3] @ center + t[:3, 3]
             wradius = radius * float(np.linalg.norm(t[:3, :3], 2))
         idx = len(self._spheres)
-        self._spheres.append((center, float(radius), inv, mid))
+        self._spheres.append((center, float(radius), inv, mid,
+                              self._world(t)))
         self._register_light(PT_SPHERE, idx, wcenter, wradius, mid, material)
         return idx
 
@@ -229,7 +289,7 @@ class SceneBuilder:
             center = t[:3, :3] @ center + t[:3, 3]
             radius *= float(np.linalg.norm(t[:3, :3], 2))
         idx = len(self._cubes)
-        self._cubes.append((bmin, bmax, inv, mid))
+        self._cubes.append((bmin, bmax, inv, mid, self._world(t)))
         self._register_light(PT_CUBE, idx, center, radius, mid, material)
         return idx
 
@@ -244,7 +304,8 @@ class SceneBuilder:
             center = t[:3, :3] @ center + t[:3, 3]
             rad *= float(np.linalg.norm(t[:3, :3], 2))
         idx = len(self._cyls)
-        self._cyls.append((float(radius), float(z0), float(z1), inv, mid))
+        self._cyls.append((float(radius), float(z0), float(z1), inv, mid,
+                           self._world(t)))
         self._register_light(PT_CYLINDER, idx, center, rad, mid, material)
         return idx
 
@@ -293,8 +354,10 @@ class SceneBuilder:
     def _mesh_slots(self, leaf_size: int):
         """Per-mesh BVH slot layout, as the JAX package lays out its scene
         triangle arrays: every leaf owns leaf_size slots and each mesh's
-        leaf count is padded to a CLUSTER_GROUP multiple."""
+        leaf count is padded to a CLUSTER_GROUP multiple. Also returns
+        each mesh's binary BVH and its leaf node ids."""
         tri_v, tri_n, tri_uv, tri_mat, slot_range = [], [], [], [], []
+        blas = []
         slot_offset = 0
         for mesh, def_mid in self._meshes:
             mesh = mesh.fix_normals()
@@ -330,17 +393,144 @@ class SceneBuilder:
                  np.zeros(lpad, np.int32)]))
             n_slots = nl * leaf_size + lpad
             slot_range.append((slot_offset, slot_offset + n_slots))
+            blas.append((flat, leaf_ids))
             slot_offset += n_slots
         return (np.concatenate(tri_v), np.concatenate(tri_n),
-                np.concatenate(tri_uv), np.concatenate(tri_mat), slot_range)
+                np.concatenate(tri_uv), np.concatenate(tri_mat), slot_range,
+                blas)
+
+    def _xla_tables(self, tv, slot_range, blas, leaf_size: int, k: int,
+                    clusters: bool) -> tuple[dict, dict]:
+        """The XLA walks' tables, laid out as the JAX package's build lays
+        them out (ptsharp_tpu/scene.py:499-760): per mesh its binary BVH in
+        object space with leaf firsts moved to its padded slots, and the
+        K-wide collapse of it; a TLAS over every object (leaf 1, world
+        boxes), built whenever there are objects, ahead of the meshes'
+        rows; leaf_rows (NL, leaf*9); and for "cluster" the boxes of each
+        CLUSTER_GROUP leaves with their blocks. Returns (tables, ranges):
+        the arrays, and each instance's node and cluster ranges with the
+        TLAS heads' row counts."""
+        nodes, ranges, roots, wides = [], [], [], []
+        cl_min, cl_max, cl_ranges = [], [], []
+        node_off = cl_off = 0
+        for flat, leaf_ids in blas:
+            nl = leaf_ids.shape[0]
+            lo_s, hi_s = slot_range[len(ranges)]
+            nlp = (hi_s - lo_s) // leaf_size
+            first = flat.first.copy()
+            first[leaf_ids] = np.arange(nl, dtype=np.int32) * leaf_size + lo_s
+            nc = nlp // CLUSTER_GROUP
+            if clusters:
+                lb_min = np.full((nlp, 3), np.float32(np.inf))
+                lb_max = np.full((nlp, 3), np.float32(-np.inf))
+                lb_min[:nl] = flat.bmin[leaf_ids]
+                lb_max[:nl] = flat.bmax[leaf_ids]
+                cl_min.append(lb_min.reshape(nc, CLUSTER_GROUP, 3).min(1))
+                cl_max.append(lb_max.reshape(nc, CLUSTER_GROUP, 3).max(1))
+            cl_ranges.append((cl_off, cl_off + nc))
+            cl_off += nc
+            kind = np.where(flat.count > 0, PT_TRIANGLE, PT_NONE)
+            wides.append(wide_mod.collapse(
+                flat.bmin, flat.bmax, first, flat.count, flat.skip,
+                kind=kind.astype(np.int32), k=k))
+            n = flat.bmin.shape[0]
+            nodes.append((flat.bmin, flat.bmax, first, flat.count,
+                          flat.skip + node_off, kind))
+            ranges.append((node_off, node_off + n))
+            roots.append((flat.bmin[0].copy(), flat.bmax[0].copy()))
+            node_off += n
+        leaf_rows = np.concatenate(
+            [tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]],
+            axis=1).reshape(-1, leaf_size * 9).astype(np.float32)
+        cw = CLUSTER_GROUP * leaf_size * 9
+        if clusters and cl_min:
+            cl_min, cl_max = np.concatenate(cl_min), np.concatenate(cl_max)
+            cl_rows = leaf_rows.reshape(cl_min.shape[0], cw)
+        else:
+            cl_min = cl_max = np.zeros((0, 3), np.float32)
+            cl_rows = np.zeros((0, cw), np.float32)
+
+        # the TLAS (Tree.cs:22-42): typed singleton leaves over objects
+        objs = [(PT_SPHERE, i, c - rad, c + rad, w)
+                for i, (c, rad, _inv, _m, w) in enumerate(self._spheres)]
+        objs += [(PT_CUBE, i, lo, hi, w)
+                 for i, (lo, hi, _inv, _m, w) in enumerate(self._cubes)]
+        objs += [(PT_CYLINDER, i, [-rad, -rad, z0], [rad, rad, z1], w)
+                 for i, (rad, z0, z1, _inv, _m, w) in enumerate(self._cyls)]
+        objs += [(PT_INSTANCE, i, *roots[mesh_idx], w)
+                 for i, (mesh_idx, _inv, w, _o) in enumerate(self._instances)]
+        w_parts = []
+        tlas_n = 0
+        if objs:
+            boxes = [_xform_aabb(w, lo, hi) for _k, _i, lo, hi, w in objs]
+            tl = bvh_mod.build(np.stack([b[0] for b in boxes]),
+                               np.stack([b[1] for b in boxes]), leaf_size=1)
+            tlas_n = tl.bmin.shape[0]
+            t_kind = np.zeros(tlas_n, np.int32)
+            t_first = np.zeros(tlas_n, np.int32)
+            leaf = tl.count > 0
+            ids = tl.order[tl.first[leaf]]
+            t_kind[leaf] = np.asarray([o[0] for o in objs], np.int32)[ids]
+            t_first[leaf] = np.asarray([o[1] for o in objs], np.int32)[ids]
+            w_parts.append(wide_mod.pack_rows(wide_mod.collapse(
+                tl.bmin, tl.bmax, t_first, tl.count, tl.skip, kind=t_kind,
+                k=k), 0))
+            parts = [(tl.bmin, tl.bmax, t_first, tl.count, tl.skip, t_kind)]
+            parts += [(*x[:4], x[4] + tlas_n, x[5]) for x in nodes]
+            bmin, bmax, first, count, skip, kind = (np.concatenate(x)
+                                                    for x in zip(*parts))
+        else:
+            bmin = bmax = np.zeros((0, 3), np.float32)
+            first = count = skip = kind = np.zeros(0, np.int32)
+        # binary node rows: [bmin, bmax, first, kind << 8 | count, skip],
+        # the ints as bits; skip owns a whole int32
+        if leaf_size > 255:
+            raise ValueError("leaf_size must be <= 255")
+        u_rows = np.zeros((bmin.shape[0], 10), np.float32)
+        u_rows[:, 0:3] = bmin
+        u_rows[:, 3:6] = bmax
+        u_rows[:, 6] = first.astype(np.int32).view(np.float32)
+        meta = ((kind.astype(np.int64) << 8)
+                | np.minimum(count, 255).astype(np.int64)).astype(np.int32)
+        u_rows[:, 7] = meta.view(np.float32)
+        u_rows[:, 8] = skip.astype(np.int32).view(np.float32)
+
+        w_tlas_n = w_off = sum(p.shape[0] for p in w_parts)
+        w_ranges = []
+        for wm in wides:
+            w_parts.append(wide_mod.pack_rows(wm, w_off))
+            w_ranges.append((w_off, w_off + wm.bmin.shape[0]))
+            w_off += wm.bmin.shape[0]
+        w_rows = (np.concatenate(w_parts) if w_parts
+                  else np.zeros((0, wide_mod.row_width(k)), np.float32))
+        meshes = [m for m, *_ in self._instances]
+        tabs = dict(u_rows=u_rows, leaf_rows=leaf_rows, w_rows=w_rows,
+                    cluster_bmin=cl_min, cluster_bmax=cl_max,
+                    cluster_rows=cl_rows)
+        return tabs, dict(
+            u_inst_base=tuple(ranges[m][0] + tlas_n for m in meshes),
+            u_inst_end=tuple(ranges[m][1] + tlas_n for m in meshes),
+            w_inst_base=tuple(w_ranges[m][0] for m in meshes),
+            w_inst_end=tuple(w_ranges[m][1] for m in meshes),
+            inst_cluster_base=tuple(cl_ranges[m][0] for m in meshes),
+            inst_cluster_end=tuple(cl_ranges[m][1] for m in meshes),
+            tlas_end=int(tlas_n), w_tlas_end=int(w_tlas_n))
 
     def build(self, leaf_size: int = 8, use_tlas: bool | None = None,
               intersector: str = "wide", wide_k: int = 4,
-              pallas_ordered: bool = True, device="cpu") -> SceneData:
-        """Freeze the scene onto `device`. Mesh scenes need
-        intersector="pallas": one world-space K-wide tree over all
-        instances, walked by the CUDA kernels (or their plain versions on
-        the CPU), near to far when `pallas_ordered`, else in preorder."""
+              pallas_ordered: bool = True,
+              device=devices.DEFAULT) -> SceneData:
+        """Freeze the scene onto `device` (the card unless "cpu" is
+        asked for). Mesh instances are walked by the CUDA kernels, or by
+        their plain versions on the CPU:
+          "wide"    (default) the K-wide preorder walk over w_rows;
+          "walk"    the binary skip-link walk over u_rows;
+          "cluster" a cluster cull, then the binary walk for the rays it
+                    leaves unresolved;
+          "pallas"  one world-space K-wide tree over all instances, near
+                    to far when `pallas_ordered`, else in preorder.
+        Shadow rays of the first three take the K-wide walk, as in the JAX
+        package."""
         if intersector not in ("wide", "walk", "cluster", "pallas"):
             raise ValueError(intersector)
         for m in self._materials:
@@ -353,14 +543,11 @@ class SceneBuilder:
             if use_tlas:
                 raise ValueError("pallas intersector is per-instance")
             use_tlas = False
-        elif self._instances:
-            raise not_ported(f"the {intersector!r} mesh intersector",
-                             "Queue 1 item 11")
         if use_tlas is None:
             use_tlas = len(self._instances) > 1 or n_analytic >= 64
         if use_tlas and n_analytic + len(self._instances) > 0:
             raise not_ported("the TLAS", "Queue 1 item 10")
-        dev = torch.device(device)
+        dev = devices.resolve(device)
 
         def t(a, dtype=np.float32):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
@@ -378,13 +565,20 @@ class SceneBuilder:
         stack_bound = 0
         builder = "none"
         if self._meshes:
-            tv, tn, tuv, tmat, slot_range = self._mesh_slots(leaf_size)
+            tv, tn, tuv, tmat, slot_range, blas = self._mesh_slots(leaf_size)
         else:
             tv = np.zeros((0, 3, 3), np.float32)
             tn = np.zeros((0, 3, 3), np.float32)
             tuv = np.zeros((0, 3, 2), np.float32)
             tmat = np.zeros(0, np.int32)
-        if self._instances:
+            slot_range, blas = [], []
+        if intersector != "pallas":
+            xla, ranges = self._xla_tables(tv, slot_range, blas, leaf_size,
+                                           wide_k, intersector == "cluster")
+            builder = blas[0][0].builder if blas else "none"
+        else:
+            xla, ranges = no_xla_tables(leaf_size, wide_k)
+        if self._instances and intersector == "pallas":
             e1n = (tv[:, 1] - tv[:, 0]).astype(np.float32)
             e2n = (tv[:, 2] - tv[:, 0]).astype(np.float32)
             specs = []
@@ -459,6 +653,7 @@ class SceneBuilder:
             p_fat=t(p_fat),
             p_slot_tri=t(p_slot_tri, np.int32),
             p_slot_inst=t(p_slot_inst, np.int32),
+            **{name: t(a) for name, a in xla.items()},
             light_ptype=soa(self._lights, 0, (), np.int32),
             light_pindex=soa(self._lights, 1, (), np.int32),
             light_center=soa(self._lights, 2, (3,)),
@@ -481,6 +676,7 @@ class SceneBuilder:
             p_inst_base=p_inst_b,
             p_inst_end=p_inst_e,
             p_stack_bound=int(stack_bound),
+            **ranges,
             light_types=tuple(sorted({lt[0] for lt in self._lights})),
             bvh_builder=builder,
         )

@@ -39,6 +39,47 @@ def test_every_module_imports_without_jax():
     assert len(MODULES) >= 20
 
 
+@pytest.mark.parametrize("module", ["ptsharp_tpu_torch.accel.traverse",
+                                    "ptsharp_tpu_torch.accel.cluster",
+                                    "ptsharp_tpu_torch.core.device"])
+def test_new_module_imports_without_jax(module):
+    """The XLA walks' modules and the device default, each alone."""
+    assert module in MODULES
+    code = (f"import importlib, sys; importlib.import_module({module!r})\n"
+            "sys.exit(any(m.split('.')[0] in ('jax', 'ptsharp_tpu')"
+            " for m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry", ["build", "example", "look_at",
+                                   "film", "scene_from_reference",
+                                   "camera_from_reference"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a card, each entry point's default device raises; nothing
+    moves to the CPU on its own."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "build":
+            _plain_builder().build()
+        elif entry == "example":
+            examples.cornell(8, 8)
+        elif entry == "look_at":
+            ptsharp_tpu_torch.Camera.look_at([0, 1, -4], [0, 1, 0],
+                                             [0, 1, 0], 40.0)
+        elif entry == "film":
+            ptsharp_tpu_torch.Film.zeros(2, 2)
+        elif entry == "scene_from_reference":
+            convert.scene_from_reference({}, {})
+        else:
+            convert.camera_from_reference({})
+
+
 def test_public_names_match_the_reference_layout():
     for name in ("SceneBuilder", "SceneData", "Camera", "Film",
                  "IntegratorConfig", "Renderer", "RenderConfig"):
@@ -72,9 +113,10 @@ def test_outside_the_slice_raises(what):
             b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
                        light_material([1, 1, 1], 5.0))
         elif what == "wide_intersector":
+            # the XLA walks are ported; their TLAS path is not
             b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
                        diffuse_material([1, 1, 1]))
-            b.build(intersector="wide")
+            b.build(intersector="wide", use_tlas=True, device="cpu")
         elif what == "per_instance_tables":
             # a reference scene whose meshes keep per-instance tables
             convert.scene_from_reference(
@@ -83,24 +125,24 @@ def test_outside_the_slice_raises(what):
                 {"use_tlas": False, "sdf_objects": (), "volumes": (),
                  "functions": (), "has_surface_maps": False,
                  "light_types": (), "intersector": "pallas",
-                 "p_flat": False})
+                 "p_flat": False}, device="cpu")
         elif what == "tlas":
             for i in range(64):
                 b.add_sphere([i, 1, 0], 0.4, diffuse_material([1, 1, 1]))
-            b.build()
+            b.build(device="cpu")
         elif what == "surface_maps":
             b.add_sphere([0, 1, 0], 1.0, Material(normal_texture=0))
-            b.build()
+            b.build(device="cpu")
         else:
-            examples.build("dragon")
+            examples.build("dragon", device="cpu")
 
 
 def test_iterative_render_options_outside_the_slice_raise():
     b = _plain_builder()
     b.add_sphere([0, 3, 0], 0.5, light_material([1, 1, 1], 5.0))
-    scene = b.build()
+    scene = b.build(device="cpu")
     cam = ptsharp_tpu_torch.Camera.look_at([0, 1, -4], [0, 1, 0],
-                                           [0, 1, 0], 40.0)
+                                           [0, 1, 0], 40.0, device="cpu")
     r = Renderer(scene, cam, RenderConfig(8, 8, spp=1))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         r.iterative_render(1, denoise=True)

@@ -71,7 +71,8 @@ def build(name):
 @pytest.fixture(scope="module", params=["bunny", "cornell"])
 def case(request):
     sj, cam, _rc, icfg = build(request.param)
-    st = convert.scene_from_reference(*convert.reference_arrays(sj))
+    st = convert.scene_from_reference(*convert.reference_arrays(sj),
+                                       device="cpu")
     o, d = camera_rays(cam, W, H)
     key = jax.random.PRNGKey(KEY)
     walk = (dataclasses.replace(sj, intersector="wide")

@@ -74,7 +74,8 @@ def _reference_queries(sj, org, dirn, t_cut, lidx):
 @pytest.fixture(scope="module")
 def ref():
     sj = _scene()
-    st = convert.scene_from_reference(*convert.reference_arrays(sj))
+    st = convert.scene_from_reference(*convert.reference_arrays(sj),
+                                       device="cpu")
     rng = np.random.default_rng(5)
     org = (rng.uniform(-3, 3, (N, 3)) + [0, 1.0, 0]).astype(np.float32)
     tgt = rng.uniform(-1.5, 1.5, (N, 3)).astype(np.float32)
@@ -147,7 +148,7 @@ def test_light_hit_t_matches(ref):
 
 def test_camera_rays_match():
     args = ([0, 1.8, -4.2], [0, 0.9, 0], [0, 1, 0], 38.0)
-    cj, ct = JCamera.look_at(*args), TCamera.look_at(*args)
+    cj, ct = JCamera.look_at(*args), TCamera.look_at(*args, device="cpu")
     for f in ct._fields:
         np.testing.assert_allclose(getattr(ct, f).numpy(),
                                    np.asarray(getattr(cj, f)), atol=1e-7)

@@ -58,9 +58,11 @@ def case(request):
             if sj.inst_inv.shape[0] else sj)
     rj = JRenderer(walk, cam, JRenderConfig(width=w, height=h, spp=1), icfg)
     film = rj.render(key=jax.random.PRNGKey(1))
-    st = convert.scene_from_reference(*convert.reference_arrays(sj))
+    st = convert.scene_from_reference(*convert.reference_arrays(sj),
+                                       device="cpu")
     assert st.p_ordered == bool(sj.p_ordered)
-    rt = Renderer(st, convert.camera_from_reference(cam._asdict()),
+    rt = Renderer(st, convert.camera_from_reference(cam._asdict(),
+                                                    device="cpu"),
                   RenderConfig(width=w, height=h, spp=1), port_config(icfg))
     return dict(rj=rj, rt=rt, film=film._asdict())
 
@@ -93,7 +95,8 @@ def test_renderer_takes_the_compacted_trace():
     capacity: the renderer compacts (fewer rays traced than the plain
     trace) and the image agrees with the plain render in expectation."""
     scene, cam, _rc, icfg = tex.bunny(64, 48, subdivisions=3,
-                                      intersector="pallas", wide_k=8)
+                                      intersector="pallas", wide_k=8,
+                                      device="cpu")
     assert compaction_schedule(icfg, 64 * 48 * 2)
     films, rays = [], []
     for compaction in (True, False):

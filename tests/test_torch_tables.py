@@ -28,33 +28,34 @@ from ptsharp_tpu_torch.materials import diffuse_material as tdiffuse
 from ptsharp_tpu_torch.scene import SceneBuilder as TBuilder
 
 
-def _two_mesh(builder, mesh, diffuse, k=8):
+def _two_mesh(builder, mesh, diffuse, k=8, **kw):
     b = builder()
     b.add_mesh(mesh.sphere_mesh([0, 0.4, 0], 1.0, subdivisions=3),
                diffuse([0.5, 0.5, 0.5]))
     b.add_mesh(mesh.cube_mesh([1.6, -0.3, -0.3], [2.2, 0.3, 0.3]),
                diffuse([0.9, 0.6, 0.2]))
-    return b.build(leaf_size=8, intersector="pallas", wide_k=k)
+    return b.build(leaf_size=8, intersector="pallas", wide_k=k, **kw)
 
 
-def _bunny(builder, ex, diffuse):
+def _bunny(builder, ex, diffuse, **kw):
     b = builder()
     b.add_mesh(ex._bunny_mesh(3), diffuse([0.5, 0.5, 0.5]))
-    return b.build(leaf_size=14, intersector="pallas", wide_k=8)
+    return b.build(leaf_size=14, intersector="pallas", wide_k=8, **kw)
 
 
-def _dragon_hd3(ex):
+def _dragon_hd3(ex, **kw):
     return ex.dragon_hd(30, 17, subdivisions=3, intersector="pallas",
-                        wide_k=8, pallas_ordered=False)[0]
+                        wide_k=8, pallas_ordered=False, **kw)[0]
 
 
 SCENES = {
     "two_mesh": (lambda: _two_mesh(JBuilder, jmesh, jdiffuse),
-                 lambda: _two_mesh(TBuilder, tmesh, tdiffuse)),
+                 lambda: _two_mesh(TBuilder, tmesh, tdiffuse,
+                                   device="cpu")),
     "bunny3": (lambda: _bunny(JBuilder, jex, jdiffuse),
-               lambda: _bunny(TBuilder, tex, tdiffuse)),
+               lambda: _bunny(TBuilder, tex, tdiffuse, device="cpu")),
     "dragon_hd3_preorder": (lambda: _dragon_hd3(jex),
-                            lambda: _dragon_hd3(tex)),
+                            lambda: _dragon_hd3(tex, device="cpu")),
 }
 
 
@@ -98,7 +99,7 @@ def test_split_fat_is_the_reference_rows_and_leaf(pair):
 
 def test_split_fat_at_k4():
     sj = _two_mesh(JBuilder, jmesh, jdiffuse, k=4)
-    st = _two_mesh(TBuilder, tmesh, tdiffuse, k=4)
+    st = _two_mesh(TBuilder, tmesh, tdiffuse, k=4, device="cpu")
     assert st.wide_k == 4
     _assert_split_equal(sj, st)
 
@@ -156,10 +157,11 @@ def test_stack_bound_limits_only_the_ordered_walk(monkeypatch, ordered):
                tdiffuse([0.5, 0.5, 0.5]))
     if ordered:
         with pytest.raises(ValueError, match="stack"):
-            b.build(leaf_size=8, intersector="pallas", wide_k=8)
+            b.build(leaf_size=8, intersector="pallas", wide_k=8,
+                    device="cpu")
     else:
         st = b.build(leaf_size=8, intersector="pallas", wide_k=8,
-                     pallas_ordered=False)
+                     pallas_ordered=False, device="cpu")
         assert st.p_stack_bound > 2 and not st.p_ordered
         assert st.p_fat.dtype == torch.float32
 
