@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of a bunny render goes on one NVIDIA GPU, per mesh
-intersector of the PyTorch/CUDA port.
+"""Where the time of a render goes on one NVIDIA GPU, per mesh intersector
+of the PyTorch/CUDA port.
 
     python3 chip_profile.py [--reps 5]
 
 Run from the repository root on a machine with a CUDA card and nvcc. For
-each build of examples.bunny at 1920x1080, 1 spp ("pallas" with the
-ordered walk, "wide", "walk", "cluster"): one warm-up render; `reps`
+each render of RENDERS (the main path: "pallas" with the ordered walk,
+the bunny at 1920x1080 and dragon_hd at 960x540; and the bunny's default
+build, "wide"), at 1 spp: one warm-up render; `reps`
 unprofiled renders, wall seconds each (host clock, ending in
-torch.cuda.synchronize()), in turns across the builds; then one render
+torch.cuda.synchronize()), in turns across the renders; then one render
 under torch.profiler (CPU and CUDA activities), whose device kernels are
 summed by kind from key_averages(). Prints per build: rays traced, the
 median wall seconds and Mrays/s, the device milliseconds of the profiled
@@ -33,11 +34,12 @@ from dataclasses import replace
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-BUILDS = {
-    "pallas": dict(intersector="pallas", wide_k=8),
-    "wide": dict(),  # examples.bunny()'s default build
-    "walk": dict(intersector="walk"),
-    "cluster": dict(intersector="cluster"),
+PALLAS = dict(intersector="pallas", wide_k=8)
+# render -> (examples scene, build)
+RENDERS = {
+    "bunny/pallas": ("bunny", PALLAS),
+    "dragon_hd/pallas": ("dragon_hd", PALLAS),
+    "bunny/wide": ("bunny", dict()),  # examples.bunny()'s default build
 }
 # kernel-name fragments -> kind; the first match wins
 KINDS = (("traversal", ("closest_hit", "any_hit")),
@@ -80,17 +82,17 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     renderers = {}
-    for name, kw in BUILDS.items():
-        scene, cam, rcfg, icfg = examples.bunny(device=dev, **kw)
+    for name, (scene_name, kw) in RENDERS.items():
+        scene, cam, rcfg, icfg = examples.build(scene_name, device=dev, **kw)
         r = Renderer(scene, cam, replace(rcfg, spp=1), icfg)
         r.render(key=rng.PRNGKey(0))  # warm-up
         renderers[name] = r
     torch.cuda.synchronize(dev)
 
-    walls = {name: [] for name in BUILDS}
+    walls = {name: [] for name in RENDERS}
     rays = {}
     for rep in range(args.reps):
-        order = list(BUILDS) if rep % 2 == 0 else list(reversed(BUILDS))
+        order = list(RENDERS) if rep % 2 == 0 else list(reversed(RENDERS))
         for name in order:
             r = renderers[name]
             before = r.rays_traced

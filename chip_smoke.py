@@ -17,15 +17,26 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
   4. kernels  all four kernels against their plain versions, on
               Morton-ordered camera rays plus scattered bounce rays from
               their hit points, 2**16 + 2**16 rays and the 1080p main-path
-              width: closest-hit (ordered: t within CLOSEST_TOL, slots
-              equal except ties; preorder: slots equal on every lane),
-              any-hit on shadow rays from the bounce origins toward the
-              light, t_cut formed as sample_lights forms it (equal except
-              in a band around t_cut); and the two walk orders against
-              each other on the same rays;
+              width: closest-hit (ordered: t, slot, u and v equal on every
+              lane; preorder: t within CLOSEST_TOL, slots equal on every
+              lane), any-hit on shadow rays from the bounce origins toward
+              the light, t_cut formed as sample_lights forms it (equal
+              except in a band around t_cut); and the two walk orders
+              against each other on the same rays; then, at the main
+              width, the persistent ordered kernels #1 and #2 per ray kind
+              (camera, bounce, shadow): time, lane use and step count as
+              the kernels count them (the steps equal to their plain
+              versions'), steps per ray, and a launch of 17 rays, fewer
+              than a warp, against the plain version;
   5. dragon   examples.build("dragon_hd", intersector="pallas", wide_k=8,
-              pallas_ordered=False): 1,310,720 triangles, built once; the
+              pallas_ordered=False): 1,310,720 triangles, built once, its
+              child boxes checked as an ordered build checks them; the
               kernel phase of 4 again on 518,400 + 518,400 rays (960x540);
+              and the bench's dragon_hd closest-hit shape (bench.py
+              run_closest_hit): 4 x 1,048,576 Morton-ordered jittered
+              camera rays over 1920x1080 pixels through #1, 65,536 rays
+              of each chunk held against the plain version on every
+              lane, the four launches timed in full;
   5b. split   the kernel-level entry points over the split tables
               (split_fat of the bunny's fat table, K=8, leaf 14) on the
               rays of 4 at the 1080p main-path width, driven once with
@@ -35,7 +46,7 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               closest-hit; then each against its plain version (the
               tolerances of 4; the packet's slots equal on every lane;
               the step counts equal) and against its fat-table twin on
-              the same rays (ordered "full" closest-hit and the packet
+              the same rays (ordered "near" closest-hit and the packet
               walk equal to the fat ordered and preorder kernels on every
               lane, ordered any-hit equal to the fat one); step-count
               mean, p50, p99 and lane use (steps taken over the steps
@@ -210,6 +221,15 @@ def log(msg: str) -> None:
 def sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# a plain version repeats its kernel's arithmetic in tensor ops and takes
+# about a second at the main-path widths: it is timed once after a warm-up
+PLAIN_REPS = 1
+
+
+def _reps(name: str) -> int:
+    return PLAIN_REPS if name.endswith("_plain") else 5
 
 
 def time_ms(fn, device, reps: int = 5) -> float:
@@ -437,9 +457,10 @@ def _band(t_near, t_cut, occ_a, occ_b, what):
 
 
 def check_closest(scene, org, dirn, label, walk):
-    """The walk's closest-hit kernel against its plain version: t within
-    CLOSEST_TOL; slots equal except ties (ordered) or on every lane
-    (preorder)."""
+    """The walk's closest-hit kernel against its plain version: t, slot,
+    u and v equal on every lane (ordered: the persistent kernel takes its
+    plain version's steps); t within CLOSEST_TOL and slots equal on every
+    lane (preorder)."""
     from ptsharp_tpu_torch.kernels import traverse
 
     name = WALKS[walk][0]
@@ -447,9 +468,9 @@ def check_closest(scene, org, dirn, label, walk):
     plain = getattr(traverse, f"{name}_plain")
     args = _args(scene)
     tmax = torch.full((org.shape[0],), INF, device=org.device)
-    t, s, _u, _v = kernel(scene.p_fat, org, dirn, tmax, *args)
+    t, s, u, v = kernel(scene.p_fat, org, dirn, tmax, *args)
     with traverse.count_work() as work:
-        tp, sp, _up, _vp = plain(scene.p_fat, org, dirn, tmax, *args)
+        tp, sp, up, vp = plain(scene.p_fat, org, dirn, tmax, *args)
     sync(org.device)
     bnd = bound(work, org.shape[0], "closest")
     close = torch.isclose(t, tp, **CLOSEST_TOL)
@@ -457,23 +478,22 @@ def check_closest(scene, org, dirn, label, walk):
         bad = torch.nonzero(~close).squeeze(1)[:5].tolist()
         raise AssertionError(f"{name} t differs on {int((~close).sum())} "
                              f"lanes, e.g. {bad}")
-    lanes, tie = _ties(scene, org, dirn, s, sp, tp)
-    if walk == "preorder" and lanes.numel():
+    lanes = torch.nonzero(s != sp).squeeze(1)
+    if lanes.numel():
         raise AssertionError(f"{name} slot differs from its plain version "
                              f"on {lanes.numel()} lanes")
-    if not bool(tie.all()):
-        raise AssertionError(f"{name} slot differs off ties on "
-                             f"{int((~tie).sum())} lanes")
+    if walk == "ordered":
+        _equal(f"{name} against its plain version", (t, s, u, v),
+               (tp, sp, up, vp))
     err = float((t - tp).abs().max())
     ms = time_ms(lambda: kernel(scene.p_fat, org, dirn, tmax, *args),
                  org.device)
     plain_ms = time_ms(lambda: plain(scene.p_fat, org, dirn, tmax, *args),
-                       org.device)
+                       org.device, PLAIN_REPS)
     hits = float((tp < INF).float().mean())
     log(f"{name} [{label}] rays={org.shape[0]} hit_frac={hits:.4f} "
-        f"max_abs_err_t={err:.3e} slot_mismatches={lanes.numel()} "
-        f"(all ties) kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"{bound_text(bnd)}")
+        f"max_abs_err_t={err:.3e} slot_mismatches=0 "
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, t=t, slot=s,
                 **bnd)
 
@@ -495,7 +515,7 @@ def check_any(scene, org, dirn, t_cut, t_near, label, walk):
     ms = time_ms(lambda: kernel(scene.p_fat, org, dirn, t_cut, *args),
                  org.device)
     plain_ms = time_ms(lambda: plain(scene.p_fat, org, dirn, t_cut, *args),
-                       org.device)
+                       org.device, PLAIN_REPS)
     log(f"{name} [{label}] rays={org.shape[0]} active="
         f"{float((t_cut > 0).float().mean()):.4f} occluded="
         f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
@@ -537,6 +557,123 @@ def kernel_phase(scene, rays, label):
 
 
 RESULT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+
+
+def _steps_text(steps):
+    x = steps.float()
+    q = torch.quantile(x, torch.tensor([0.5, 0.99], device=x.device))
+    return (f"steps mean={float(x.mean()):.3f} p50={float(q[0]):.0f} "
+            f"p99={float(q[1]):.0f}")
+
+
+def walk_stats(scene, rays, label):
+    """The persistent ordered kernels #1 and #2 per ray kind (camera and
+    bounce rays through closest_hit, shadow rays through any_hit): time,
+    lane use (the steps their rays took over the lane slots their warps
+    ran, both counted in the kernel), and steps per ray from the plain
+    version, whose total the kernel's count must equal. Also one launch
+    of fewer rays than a warp against the plain version. Returns {kind:
+    ms}."""
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.p_fat.device
+    args = _args(scene)
+    n_cam = rays["n_cam"]
+    org, dirn = rays["org"], rays["dirn"]
+    cam = (org[:n_cam].contiguous(), dirn[:n_cam].contiguous())
+    bounce = (org[n_cam:].contiguous(), dirn[n_cam:].contiguous())
+    kinds = {
+        "camera": ("closest_hit", *cam, torch.full((n_cam,), INF, device=dev)),
+        "bounce": ("closest_hit", *bounce,
+                   torch.full((bounce[0].shape[0],), INF, device=dev)),
+        "shadow": ("any_hit", rays["shadow_org"], rays["shadow_dirn"],
+                   rays["t_cut"]),
+    }
+    out = {}
+    for kind, (name, o, d, t) in kinds.items():
+        kernel = getattr(traverse, name)
+        plain = getattr(traverse, f"{name}_plain")
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        kernel(scene.p_fat, o, d, t, *args, counts=counts)
+        steps = plain(scene.p_fat, o, d, t, *args, return_iters=True)[-1]
+        taken, slots = counts.tolist()
+        if taken != int(steps.sum()):
+            raise AssertionError(f"{name} took {taken} steps on the {kind} "
+                                 f"rays, its plain version {int(steps.sum())}")
+        few = [x[:17].contiguous() for x in (o, d, t)]
+        got, want = (kernel(scene.p_fat, *few, *args),
+                      plain(scene.p_fat, *few, *args))
+        if name == "any_hit":
+            got, want = (got,), (want,)
+        _equal(f"{name} on 17 {kind} rays", got, want)
+        out[kind] = time_ms(lambda: kernel(scene.p_fat, o, d, t, *args), dev)
+        log(f"{name} [{label}] {kind} rays={o.shape[0]} kernel_ms="
+            f"{out[kind]:.4f} lane_use={taken / slots:.3f} "
+            f"{_steps_text(steps)} (kernel's step count equal); 17 rays "
+            f"equal to the plain version")
+    return out
+
+
+def bench_closest_rays(cam, chunk, ci, width=1920, height=1080, seed=7):
+    """Chunk ci of the bench's closest-hit rays (bench.py
+    run_closest_hit): `chunk` camera rays of a width x height image in
+    2D-Morton pixel order from pixel ci * chunk on, jittered by
+    uniform(fold_in(PRNGKey(seed), ci), (2, chunk))."""
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.renderer import _expand_bits16
+
+    dev = cam.p.device
+    ys, xs = torch.meshgrid(torch.arange(height, device=dev),
+                            torch.arange(width, device=dev), indexing="ij")
+    key = _expand_bits16(xs) | (_expand_bits16(ys) << 1)
+    morder = torch.argsort(key.reshape(-1), stable=True)
+    idx = morder[(ci * chunk + torch.arange(chunk, device=dev))
+                 % (width * height)]
+    ju, jv = rng.uniform(rng.fold_in(rng.PRNGKey(seed), ci), (2, chunk),
+                         device=dev)
+    org, dirn = cam.cast_rays(idx % width, idx // width, width, height, ju,
+                              jv)
+    return org.contiguous(), dirn.contiguous()
+
+
+def bench_shape_phase(scene, cam, label, chunks=4, chunk=1 << 20,
+                      sample=1 << 16):
+    """The bench's dragon_hd closest-hit shape through #1: `chunks`
+    launches of `chunk` Morton-ordered jittered camera rays over 1920x1080
+    pixels; the first `sample` rays of each chunk held against the plain
+    version (t, slot, u and v on every lane), all chunks timed in full.
+    Returns the ms of the full shape."""
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.p_fat.device
+    args = _args(scene)
+    rays = [bench_closest_rays(cam, chunk, ci) for ci in range(chunks)]
+    tmax = torch.full((chunk,), INF, device=dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    hits = 0
+    for org, dirn in rays:
+        got = traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args,
+                                   counts=counts)
+        hits += int((got[0] < INF).sum())
+        few = (org[:sample].contiguous(), dirn[:sample].contiguous(),
+               tmax[:sample].contiguous())
+        _equal("closest_hit on the bench shape's sample",
+               tuple(x[:sample] for x in got),
+               traverse.closest_hit_plain(scene.p_fat, *few, *args))
+    taken, slots = counts.tolist()
+
+    def run():
+        for org, dirn in rays:
+            traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args)
+
+    ms = time_ms(run, dev)
+    log(f"closest_hit [{label}] bench shape {chunks} x {chunk} Morton-ordered "
+        f"jittered camera rays over 1920x1080: kernel_ms={ms:.4f} "
+        f"({chunks * chunk / ms / 1e3:.1f} Mrays/s) hit_frac="
+        f"{hits / (chunks * chunk):.4f} lane_use={taken / slots:.3f} "
+        f"steps/ray={taken / (chunks * chunk):.3f}; {chunks} x {sample} "
+        f"sampled rays equal to the plain version")
+    return ms
 
 
 def _equal(what, got, want):
@@ -606,6 +743,7 @@ def split_phase(scene, rays, label):
     packet = traverse.closest_hit_packet(*tab, org, dirn, tmax, *args)
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    launch_rays = {w.__name__: w.rays for w in traverse.WRAPPERS}
     for name, count in launches.items():
         want = dict(closest_hit_split=2, any_hit_split=1,
                     closest_hit_packet=1).get(name, 0)
@@ -637,7 +775,8 @@ def split_phase(scene, rays, label):
         ms = time_ms(lambda: traverse.closest_hit_split(
             *tab, org, dirn, tmax, *args, order_mode=mode), dev)
         plain_ms = time_ms(lambda: traverse.closest_hit_split_plain(
-            *tab, org, dirn, tmax, *args, order_mode=mode), dev)
+            *tab, org, dirn, tmax, *args, order_mode=mode), dev,
+            PLAIN_REPS)
         log(f"closest_hit_split order={mode} [{label}] rays={org.shape[0]} "
             f"max_abs_err_t={errs[-1]:.3e} slot_mismatches={lanes.numel()} "
             f"(all ties) step counts equal; kernel_ms={ms:.3f} "
@@ -646,9 +785,10 @@ def split_phase(scene, rays, label):
         if mode == "full":
             out["closest_hit_split"] = dict(ms=ms, plain_ms=plain_ms, **bnd)
     out["closest_hit_split"]["max_abs_err"] = max(errs)
+    # #1 pushes "near", the order the JAX package asks of its kernel
     fat_hit = traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args)
-    _equal("closest_hit_split (full) against closest_hit",
-           ordered["full"][:4], fat_hit)
+    _equal("closest_hit_split (near) against closest_hit",
+           ordered["near"][:4], fat_hit)
 
     # #8 against its plain version in both orders, and against #2
     with traverse.count_work() as work:
@@ -667,7 +807,7 @@ def split_phase(scene, rays, label):
     ms = time_ms(lambda: traverse.any_hit_split(*tab, ob, ds, t_cut, *args),
                  dev)
     plain_ms = time_ms(lambda: traverse.any_hit_split_plain(
-        *tab, ob, ds, t_cut, *args), dev)
+        *tab, ob, ds, t_cut, *args), dev, PLAIN_REPS)
     log(f"any_hit_split [{label}] rays={ob.shape[0]} occluded="
         f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
         f"equal to any_hit; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
@@ -692,7 +832,7 @@ def split_phase(scene, rays, label):
     ms = time_ms(lambda: traverse.closest_hit_packet(*tab, org, dirn, tmax,
                                                      *args), dev)
     plain_ms = time_ms(lambda: traverse.closest_hit_packet_plain(
-        *tab, org, dirn, tmax, *args), dev)
+        *tab, org, dirn, tmax, *args), dev, PLAIN_REPS)
     log(f"closest_hit_packet [{label}] rays={org.shape[0]} "
         f"max_abs_err_t={err:.3e} slot_mismatches=0, equal to "
         f"closest_hit_preorder; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
@@ -719,7 +859,8 @@ def split_phase(scene, rays, label):
         }
         log(f"  {kind} rays ({o.shape[0]}) kernel ms: " + ", ".join(
             f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
-    return out, {name: launches[name] for name in SPLIT}
+    return out, {name: (launches[name], launch_rays[name])
+                 for name in SPLIT}
 
 
 def staged_phase(scene, rays, label):
@@ -767,6 +908,7 @@ def staged_phase(scene, rays, label):
     got = {name: run(name, org, dirn, tmax) for name in kernels}
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    launch_rays = {w.__name__: w.rays for w in traverse.WRAPPERS}
     for name, count in launches.items():
         if count != int(name in kernels):
             raise AssertionError(f"staged phase launched {name} {count} "
@@ -794,7 +936,7 @@ def staged_phase(scene, rays, label):
         err = float((got[name][0] - plain[0]).abs().max())
         ms = time_ms(lambda: run(name, org, dirn, tmax), dev)
         plain_ms = time_ms(lambda: run(name, org, dirn, tmax, plain=True),
-                           dev)
+                           dev, PLAIN_REPS)
         log(f"{name} [{label}] rays={org.shape[0]} max_abs_err_t={err:.3e} "
             f"slot_mismatches=0, equal to {twin} on every lane; "
             f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
@@ -815,8 +957,10 @@ def staged_phase(scene, rays, label):
             times[f"{name}_plain"] = functools.partial(run, name, o, d, tm,
                                                        plain=True)
         log(f"  {kind} rays ({o.shape[0]}) ms: " + ", ".join(
-            f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
-    return out, {name: launches[name] for name in kernels}
+            f"{name} {time_ms(fn, dev, _reps(name)):.3f}"
+            for name, fn in times.items()))
+    return out, {name: (launches[name], launch_rays[name])
+                 for name in kernels}
 
 
 def rows_phase(scene, rays, label):
@@ -867,6 +1011,7 @@ def rows_phase(scene, rays, label):
            runs.items()}
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    launch_rays = {w.__name__: w.rays for w in traverse.WRAPPERS}
     for name, count in launches.items():
         if count != int(name in runs):
             raise AssertionError(f"rows phase launched {name} {count} times")
@@ -887,7 +1032,7 @@ def rows_phase(scene, rays, label):
         same = all(bool(torch.equal(a, b)) for a, b in zip(got[name], want))
         err = float((t - want[0]).abs().max())
         ms = time_ms(lambda: kernel(org, dirn, tmax), dev)
-        plain_ms = time_ms(lambda: plain(org, dirn, tmax), dev)
+        plain_ms = time_ms(lambda: plain(org, dirn, tmax), dev, PLAIN_REPS)
         log(f"{name} [{label}] rays={org.shape[0]} hit_frac="
             f"{float((want[0] < INF).float().mean()):.4f} "
             f"max_abs_err_t={err:.3e} slot_mismatches=0, all four outputs "
@@ -915,10 +1060,12 @@ def rows_phase(scene, rays, label):
         o, d = org[sl].contiguous(), dirn[sl].contiguous()
         tm = tmax[sl].contiguous()
         log(f"  {kind} rays ({o.shape[0]}) ms: " + ", ".join(
-            f"{name}{tag} {time_ms(functools.partial(fn, o, d, tm), dev):.3f}"
+            f"{name}{tag} "
+            f"{time_ms(functools.partial(fn, o, d, tm), dev, _reps(tag)):.3f}"
             for name, fns in runs.items()
             for tag, fn in zip(("", "_plain"), fns)))
-    return out, {name: launches[name] for name in runs}
+    return out, {name: (launches[name], launch_rays[name])
+                 for name in runs}
 
 
 def stack_chain(k: int, depth: int) -> np.ndarray:
@@ -1038,12 +1185,15 @@ def render(scene, cam, rcfg, icfg, seed=0):
 def render_main(label, scene, cam, rcfg, icfg, card=""):
     """One render of the main path with every launch count set to 0 just
     before and read just after: exactly the build's kernels
-    (RENDER_KERNELS) must have launched."""
+    (RENDER_KERNELS) must have launched. Returns {wrapper name:
+    (launches, rays of those launches)}."""
     from ptsharp_tpu_torch.kernels import traverse
 
     traverse.reset_launch_counts()
     film, rays, sec = render(scene, cam, rcfg, icfg)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    widths = {w.__name__: w.rays // w.launches for w in traverse.WRAPPERS
+              if w.launches}
     if scene.intersector == "pallas":
         walk = "ordered" if scene.p_ordered else "preorder"
     else:
@@ -1052,12 +1202,13 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
         f"walk={walk} primary_rays={rcfg.width * rcfg.height * rcfg.spp} "
         f"rays_traced={rays} seconds={sec:.3f} "
         f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
-        f"{float(film.mean.mean()):.6f} launches={launches} [{card}]")
+        f"{float(film.mean.mean()):.6f} launches={launches} rays a launch="
+        f"{widths} [{card}]")
     for name, count in launches.items():
         if (name in RENDER_KERNELS[walk]) != (count > 0):
             raise AssertionError(f"{label} ({walk} walk) launched "
                                  f"{name} {count} times")
-    return launches
+    return {w.__name__: (w.launches, w.rays) for w in traverse.WRAPPERS}
 
 
 def reference_phase(device):
@@ -1117,10 +1268,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.accel.tables import check_child_boxes
     from ptsharp_tpu_torch.integrator import compaction_schedule
     from ptsharp_tpu_torch.kernels import build
     from ptsharp_tpu_torch.scene import check_stack_bound
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1158,6 +1311,7 @@ def main() -> int:
     main_label = f"bunny 1080p main path: {n_main} camera + {n_main} bounce"
     main_width = kernel_phase(scene, main_rays, main_label)
     phases.append(main_width)
+    walk_stats(scene, main_rays, main_label)
     split, split_launches = split_phase(scene, main_rays, main_label)
     main_width.update(split)
     staged, staged_launches = staged_phase(scene, main_rays, main_label)
@@ -1183,11 +1337,14 @@ def main() -> int:
             != DRAGON_TRIANGLES:
         raise AssertionError("dragon_hd must have 1,310,720 triangles")
     check_stack_bound(dscene.p_stack_bound)
+    check_child_boxes(dscene.p_fat[0::2].cpu().numpy(), dscene.wide_k)
     n_dragon = drcfg.width * drcfg.height
     drays = phase_rays(dscene, dcam, drcfg.width, drcfg.height, n_dragon,
                        n_dragon)
     dlabel = f"dragon_hd 960x540: {n_dragon} camera + {n_dragon} bounce"
     phases.append(kernel_phase(dscene, drays, dlabel))
+    walk_stats(dscene, drays, dlabel)
+    bench_shape_phase(dscene, dcam, "dragon_hd")
     dstaged, dstaged_launches = staged_phase(dscene, drays, dlabel)
     phases.append(dstaged)
     t0 = time.perf_counter()
@@ -1236,14 +1393,18 @@ def main() -> int:
         f"film_mean={float(film.mean.mean()):.6f}")
     reference_phase(device)
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
+        f"of main")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        counted = ([split_launches[name]] if name in SPLIT
+                   else [staged_launches[name], dstaged_launches[name]]
+                   if name in STAGED else [run[name] for run in runs])
+        launches = sum(n for n, _rays in counted)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(split_launches[name] if name in SPLIT
-                      else staged_launches[name] + dstaged_launches[name]
-                      if name in STAGED
-                      else sum(run[name] for run in runs)),
+            launches=launches,
+            rays_a_launch=sum(r for _n, r in counted) / max(launches, 1),
             max_abs_err=max(p[name]["max_abs_err"] for p in phases
                             if name in p),
             ms=main_width[name]["ms"], plain_ms=main_width[name]["plain_ms"],

@@ -154,6 +154,33 @@ def pad_rows(x, multiple: int) -> np.ndarray:
     return np.concatenate([x, np.zeros((extra, x.shape[1]), np.float32)])
 
 
+def check_child_boxes(rows, k: int) -> None:
+    """Raise ValueError unless every child box in the node rows of an
+    internal node equals that child's own box bit for bit. The ordered
+    kernels (csrc/closest_hit.cu, any_hit.cu) test a node's box only
+    once, as a child box of its parent row, and carry the entry distance
+    on the stack; that is the walk that re-tests each node's own box only
+    where the two boxes agree. The K-wide collapse copies both from one
+    float32 value (accel/wide.py), so a table this package builds passes.
+    `rows` are node rows, the even rows of a fat table."""
+    bits = np.ascontiguousarray(rows, np.float32).view(np.int32)
+    internal = (bits[:, 7] & 0xFF) == 0
+    cidx = bits[:, 9 + 6 * k:9 + 7 * k]
+    parent, slot = np.nonzero((cidx > 0) & internal[:, None])
+    child = cidx[parent, slot]
+    if child.size and child.max() >= bits.shape[0]:
+        raise ValueError("a child index lies past the node rows")
+    cols = 9 + 6 * slot[:, None] + np.arange(6)
+    bad = np.nonzero(np.any(bits[parent[:, None], cols] != bits[child, 0:6],
+                            axis=1))[0]
+    if bad.size:
+        i = bad[0]
+        raise ValueError(
+            f"child box {slot[i]} of node {parent[i]} differs from the own "
+            f"box of node {child[i]} on {bad.size} child slots: the ordered "
+            f"walk needs them equal bit for bit")
+
+
 def max_stack_bound(rows: np.ndarray, k: int, base: int = 0,
                     end: int | None = None) -> int:
     """Worst-case stack entries of an ordered walk over wide node rows

@@ -98,6 +98,7 @@ def scene_from_reference(fields: dict, meta: dict,
         stack_bound = tables.max_stack_bound(fat[0::2], int(meta["wide_k"]))
         if meta["p_ordered"]:
             check_stack_bound(stack_bound)
+            tables.check_child_boxes(fat[0::2], int(meta["wide_k"]))
     else:
         fat = np.zeros((0, tables.ROW), np.float32)
         stack_bound = 0

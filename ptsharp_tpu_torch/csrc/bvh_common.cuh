@@ -116,21 +116,21 @@ __device__ __forceinline__ bool mt(const float* __restrict__ tri,
          uu + vv <= 1.0f && tt > 1e-4f;
 }
 
-// Children of an internal node that the ray enters before `bt`, sorted
-// near to far (stable: equal entry distances keep child order). Returns
-// their number; idx[0] is the nearest.
+// Children the ray enters before `bt`, sorted near to far (stable: equal
+// entry distances keep child order), from K child boxes cb[6c : 6c+6] and
+// K child indices ci[c] (int bits). Returns their number; idx[0] is the
+// nearest and key[j] the entry distance of idx[j].
 template <int K>
-__device__ __forceinline__ int hit_children(const float* __restrict__ node,
-                                            const Ray& r, float bt,
-                                            float (&key)[K], int (&idx)[K]) {
-  const int* bits = reinterpret_cast<const int*>(node);
+__device__ __forceinline__ int sort_children(const float* cb, const float* ci,
+                                             const Ray& r, float bt,
+                                             float (&key)[K], int (&idx)[K]) {
   int nh = 0;
 #pragma unroll
   for (int c = 0; c < K; ++c) {
-    const int ci = bits[9 + 6 * K + c];
+    const int cc = __float_as_int(ci[c]);
     float ctmin, ctmax;
-    slab(node + 9 + 6 * c, r, ctmin, ctmax);
-    if (box_hit(ctmin, ctmax, bt) && ci > 0) {
+    slab(cb + 6 * c, r, ctmin, ctmax);
+    if (box_hit(ctmin, ctmax, bt) && cc > 0) {
       int j = nh;
       while (j > 0 && key[j - 1] > ctmin) {
         key[j] = key[j - 1];
@@ -138,11 +138,19 @@ __device__ __forceinline__ int hit_children(const float* __restrict__ node,
         --j;
       }
       key[j] = ctmin;
-      idx[j] = ci;
+      idx[j] = cc;
       ++nh;
     }
   }
   return nh;
+}
+
+// sort_children over the child fields of a node row
+template <int K>
+__device__ __forceinline__ int hit_children(const float* __restrict__ node,
+                                            const Ray& r, float bt,
+                                            float (&key)[K], int (&idx)[K]) {
+  return sort_children<K>(node + 9, node + 9 + 6 * K, r, bt, key, idx);
 }
 
 // The preorder walk's descent (packet_descend): the smallest preorder
@@ -406,6 +414,275 @@ __device__ __forceinline__ int binary_step(const Table& tab, int j,
     leaf_closest(tab.leaf(node), bits[6], leaf_size, r, b);
   }
   return bits[8];
+}
+
+// ---- the persistent ordered walk over the fat table (#1, #2) --------------
+//
+// closest_hit.cu and any_hit.cu run the ordered walk in persistent warps:
+// the grid holds as many blocks as are resident at once, and each warp
+// takes rays from one global counter in their input order. A lane whose
+// ray has ended writes its result and takes the next ray, with its stack
+// reset, while the other lanes keep walking; a warp refills its idle lanes
+// (one atomicAdd for all of them) when fewer than kRefillBelow are live.
+// Stack entries carry the entry distance of their box, computed when the
+// parent tested its children: a pop drops the entries that the ray no
+// longer enters before the best t without reading their rows, and no node
+// reached from the stack or from its parent tests its own box again, since
+// the parent's child test decided it (exact because every child box in a
+// row equals the child's own box bit for bit, which the scene build checks:
+// accel.tables.check_child_boxes). A step reads what it uses with float4
+// loads through the read-only path: the meta fields, then at an internal
+// node the K child boxes and indices, at a leaf its `count` triangles.
+
+constexpr int kWalkThreads = 128;  // threads a block
+constexpr unsigned kWarpAll = 0xffffffffu;
+// a warp takes new rays when fewer of its lanes than this are live
+// (measured against 8-32 on the H100, PERF.md section 6)
+constexpr int kRefillBelow = 24;
+
+// The ordered walk's stack, in local memory. With kDist each entry also
+// carries the distance at which the ray enters the entry's box, and
+// next() drops the entries no longer nearer than the best t; without it
+// (any-hit, whose bound never shrinks, so nothing pushed is ever dropped)
+// the entries hold node indices only.
+template <bool kDist>
+struct EntryStack {
+  int sp;
+  int node[kStackCap];
+  float dist[kDist ? kStackCap : 1];
+
+  __device__ __forceinline__ void push(int n, float d) {
+    if (sp >= kStackCap) return;  // builds check max_stack_bound
+    node[sp] = n;
+    if constexpr (kDist) dist[sp] = d;
+    ++sp;
+  }
+  // the next node to visit, `end` when the stack runs out
+  __device__ __forceinline__ int next(float bt, int end) {
+    while (sp > 0) {
+      --sp;
+      if (!kDist || dist[sp] < bt) return node[sp];
+    }
+    return end;
+  }
+};
+
+// Fields [8, 8 + 4 kVec) of a node row in registers, by float4 loads:
+// the skip link, the K child boxes at [9, 9 + 6K) and the K child indices
+// at [9 + 6K, 9 + 7K).
+template <int K>
+struct ChildFields {
+  static constexpr int kVec = (1 + 7 * K + 3) / 4;
+  float f[4 * kVec];
+
+  __device__ __forceinline__ void load(const float* __restrict__ node) {
+    const float4* p = reinterpret_cast<const float4*>(node) + 2;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const float4 q = __ldg(p + i);
+      f[4 * i + 0] = q.x;
+      f[4 * i + 1] = q.y;
+      f[4 * i + 2] = q.z;
+      f[4 * i + 3] = q.w;
+    }
+  }
+  __device__ __forceinline__ const float* boxes() const { return f + 1; }
+  __device__ __forceinline__ const float* children() const {
+    return f + 1 + 6 * K;
+  }
+};
+
+// MT over the first `cnt` triangles of a leaf block in slot order, four
+// triangles (nine float4 loads, none past the last triangle) a turn;
+// keep(l, tt, uu, vv) takes each hit at tt > 1e-4 and returns true to
+// stop. The padding slots past `cnt` are zero triangles, which MT rejects,
+// so the result is that of every slot.
+template <class Keep>
+__device__ __forceinline__ void leaf_slots(const float* __restrict__ leaf,
+                                           int cnt, const Ray& r,
+                                           Keep keep) {
+  const float4* p = reinterpret_cast<const float4*>(leaf);
+  for (int g = 0; g < cnt; g += 4) {
+    float f[36];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+      const int q = 9 * (g / 4) + i;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (4 * q < 9 * cnt) v = __ldg(p + q);
+      f[4 * i + 0] = v.x;
+      f[4 * i + 1] = v.y;
+      f[4 * i + 2] = v.z;
+      f[4 * i + 3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float tt, uu, vv;
+      if (g + j < cnt && mt(f + 9 * j, r, tt, uu, vv) &&
+          keep(g + j, tt, uu, vv)) {
+        return;
+      }
+    }
+  }
+}
+
+// Where a ray starts over nodes [base, end): the root, or `end` when the
+// ray does not enter the root's box before `bt`.
+__device__ __forceinline__ int fat_start(const float* __restrict__ fat,
+                                         const Ray& r, float bt, int base,
+                                         int end) {
+  if (base >= end) return end;
+  float tmin, tmax;
+  slab(fat + static_cast<size_t>(2 * base) * kRow, r, tmin, tmax);
+  return box_hit(tmin, tmax, bt) ? base : end;
+}
+
+// One step at node `cur` of the fat table, which the ray enters before
+// `bt` (the root by fat_start, any other node by its parent's child test):
+// at a leaf, leaf(block, first, cnt) tests its triangles and returns true
+// to end the walk; at an internal node, push the hit children other than
+// the nearest with their entry distances, in the order P names, and go to
+// the nearest (the lowest child among equal entry distances). Returns the
+// next node: `end` when the walk is over.
+template <int K, Push P, bool kDist, class Leaf>
+__device__ __forceinline__ int fat_step(const float* __restrict__ fat,
+                                        int cur, const Ray& r,
+                                        const float& bt,
+                                        EntryStack<kDist>& st, int end,
+                                        Leaf leaf) {
+  const float* node = fat + static_cast<size_t>(2 * cur) * kRow;
+  const float4 meta = __ldg(reinterpret_cast<const float4*>(node) + 1);
+  const int cnt = __float_as_int(meta.w) & 0xFF;
+  if (cnt > 0) {
+    if (leaf(node + kRow, __float_as_int(meta.z), cnt)) return end;
+    return st.next(bt, end);
+  }
+  ChildFields<K> cf;
+  cf.load(node);
+  float key[K];
+  if constexpr (P == Push::kFull) {
+    int idx[K];
+    const int nh = sort_children<K>(cf.boxes(), cf.children(), r, bt, key,
+                                    idx);
+    for (int j = nh - 1; j >= 1; --j) st.push(idx[j], key[j]);
+    return nh > 0 ? idx[0] : st.next(bt, end);
+  } else {
+    unsigned hit = 0;
+    int near = -1, near_idx = 0;
+    float near_t = 0.0f;
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      float ctmax;
+      slab(cf.boxes() + 6 * c, r, key[c], ctmax);
+      const int cc = __float_as_int(cf.children()[c]);
+      if (box_hit(key[c], ctmax, bt) && cc > 0) {
+        hit |= 1u << c;
+        if (near < 0 || key[c] < near_t) {
+          near = c;
+          near_idx = cc;
+          near_t = key[c];
+        }
+      }
+    }
+    if (near < 0) return st.next(bt, end);
+    hit &= ~(1u << near);
+#pragma unroll
+    for (int c = K - 1; c >= 0; --c) {
+      if ((hit >> c) & 1u) st.push(__float_as_int(cf.children()[c]), key[c]);
+    }
+    return near_idx;
+  }
+}
+
+// The persistent loop of one warp over rays [0, n), which it takes from
+// next_ray[0], a counter at 0 when the launch starts: begin(i) starts ray i and returns its first node, step(cur)
+// takes one step and returns the next node, finish(i) writes ray i's
+// result. A ray ends at `end` or after (end - base + 2) steps, as
+// max_iters bounds the TPU kernels. With `counts`, the warp adds the
+// steps its rays took to counts[0] and the lane slots it ran (32 a loop
+// turn) to counts[1]: their ratio is its lane use.
+template <class Begin, class Step, class Finish>
+__device__ __forceinline__ void persistent_walk(
+    int n, int base, int end, int* __restrict__ next_ray,
+    unsigned long long* __restrict__ counts, Begin begin, Step step,
+    Finish finish) {
+  const int lane = threadIdx.x & 31;
+  const int max_iters = end - base + 2;
+  int ray = -1, cur = end, it = 0;
+  bool drained = false;
+  unsigned long long steps = 0, turns = 0;
+  for (;;) {
+    unsigned live = __ballot_sync(kWarpAll, ray >= 0);
+    if (!drained && __popc(live) < kRefillBelow) {
+      const unsigned idle = ~live;
+      const int want = __popc(idle);
+      int first = 0;
+      if (lane == 0) first = atomicAdd(next_ray, want);
+      first = __shfl_sync(kWarpAll, first, 0);
+      drained = first + want >= n;
+      if (ray < 0) {
+        const int i = first + __popc(idle & ((1u << lane) - 1u));
+        if (i < n) {
+          ray = i;
+          cur = begin(i);
+          it = 0;
+        }
+      }
+      live = __ballot_sync(kWarpAll, ray >= 0);
+    }
+    if (live == 0) break;  // only once the counter is drained
+    ++turns;
+    if (ray >= 0) {
+      if (cur < end && it < max_iters) {
+        cur = step(cur);
+        ++it;
+      }
+      if (cur >= end || it >= max_iters) {
+        finish(ray);
+        steps += it;
+        ray = -1;
+      }
+    }
+  }
+  if (counts != nullptr) {
+    for (int o = 16; o > 0; o >>= 1) {
+      steps += __shfl_down_sync(kWarpAll, steps, o);
+    }
+    if (lane == 0) {
+      atomicAdd(counts, steps);
+      atomicAdd(counts + 1, 32ull * turns);
+    }
+  }
+  // The last warp of the grid to finish sets next_ray[0] (the counter) and
+  // next_ray[1] (the warps finished) back to 0 for the next launch on the
+  // stream: every other warp took its last rays before it counted itself.
+  if (lane == 0) {
+    __threadfence();
+    const int warps = static_cast<int>(gridDim.x * (blockDim.x / 32));
+    if (atomicAdd(next_ray + 1, 1) == warps - 1) {
+      atomicExch(next_ray, 0);
+      atomicExch(next_ray + 1, 0);
+    }
+  }
+}
+
+// Blocks of `kernel` (kWalkThreads threads each) resident at once on the
+// current card: its blocks an SM times the card's SMs. A launcher asks
+// once and keeps the answer.
+template <class Kernel>
+__host__ inline int resident_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kWalkThreads, 0);
+  return per_sm * sms;
+}
+
+// Blocks of a persistent launch over n rays: the resident blocks, fewer
+// for fewer rays.
+__host__ inline int persistent_blocks(int n, int resident) {
+  const int need = (n + kWalkThreads - 1) / kWalkThreads;
+  return need < resident ? need : resident;
 }
 
 // ---- the staged packet walk -------------------------------------------------

@@ -5,9 +5,10 @@
 // pallas_traverse_ordered8_fat_dual (body _kernel8_ord_fat_dual): two
 // independent packets of the ordered walk interleaved in one program,
 // each issuing the DMA of its next fat pair before its MT unroll, so that
-// the other packet's whole phase runs in that copy's shadow. Its results
-// are those of pallas_traverse_ordered8_fat (closest_hit.cu). Its
-// `mt_gate` only skips MT passes no lane needs and changes no result, and
+// the other packet's whole phase runs in that copy's shadow. It pushes in
+// the "near" order only, and its results are those of
+// pallas_traverse_ordered8_fat (closest_hit.cu), which the JAX package
+// calls in that order. Its `mt_gate` only skips MT passes no lane needs and changes no result, and
 // its `max_iters` is closest_hit.cu's bound, so the port takes neither.
 //
 // closest_hit.cu already walks one ray a thread, so the counterpart of
@@ -20,8 +21,10 @@
 //      (ptk::ordered_step: descend and push, or pop), which pick each
 //      ray's next node,
 //   3. and only then runs MT over each ray's leaf block, if it has one.
-// The next node does not depend on the leaf test, so each ray's walk is
-// closest_hit.cu's step for step: t, slot, u and v equal on every lane.
+// The next node does not depend on the leaf test, so each ray tests the
+// leaves closest_hit.cu tests, in the same order (that walk also pushes
+// "near", and only skips the steps whose own-box test fails here): t,
+// slot, u and v equal on every lane.
 //
 // What bounds it on an H100: the chain of dependent 1 KB row-pair loads
 // of each walk. What the design does about it: two chains in one
@@ -73,11 +76,11 @@ closest_hit_dual_kernel(const float* __restrict__ fat,
     const float* la = nullptr;
     const float* lb = nullptr;
     if (run_a) {
-      la = ptk::ordered_step<K, ptk::Push::kFull>(
+      la = ptk::ordered_step<K, ptk::Push::kNear>(
           tab, na, tmin_a, tmax_a, ra, ba.t, stack_a, sp_a, ca, end, fa);
     }
     if (run_b) {
-      lb = ptk::ordered_step<K, ptk::Push::kFull>(
+      lb = ptk::ordered_step<K, ptk::Push::kNear>(
           tab, nb, tmin_b, tmax_b, rb, bb.t, stack_b, sp_b, cb, end, fb);
     }
     if (la != nullptr) ptk::leaf_closest(la, fa, leaf_size, ra, ba);

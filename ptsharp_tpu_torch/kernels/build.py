@@ -66,6 +66,11 @@ def _bind(lib):
     # fat, rays, t, n, base, end, leaf_size, k, outputs, stream
     closest = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
     anyhit = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
+    # the persistent walks: fat, rays, t, n, base, end, k, outputs, the
+    # ray counter, [steps, lane slots] or null, stream
+    persistent_closest = [vp, vp, vp, vp, ci, ci, ci, ci,
+                          vp, vp, vp, vp, vp, vp, vp]
+    persistent_any = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
     # rows, leaf, rays, t, n, base, end, leaf_size, k, [near], outputs,
     # [iters], stream
     closest_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
@@ -82,8 +87,8 @@ def _bind(lib):
               vp, vp, vp, vp, vp]
     wide_rows = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                  vp, vp, vp, vp, vp]
-    for fn, argtypes in ((lib.pt_closest_hit, closest),
-                         (lib.pt_any_hit, anyhit),
+    for fn, argtypes in ((lib.pt_closest_hit, persistent_closest),
+                         (lib.pt_any_hit, persistent_any),
                          (lib.pt_closest_hit_preorder, closest),
                          (lib.pt_any_hit_preorder, anyhit),
                          (lib.pt_closest_hit_split, closest_split),

@@ -3,7 +3,8 @@ versions of the thirteen CUDA kernels in csrc/.
 
 Over the fat table (the render path):
   `closest_hit` and `any_hit` walk near to far with a per-ray stack (the
-  ordered walk, csrc/closest_hit.cu and csrc/any_hit.cu);
+  ordered walk, csrc/closest_hit.cu and csrc/any_hit.cu, in persistent
+  warps that refill their idle lanes from a ray counter);
   `closest_hit_preorder` and `any_hit_preorder` walk the tree in preorder
   along its skip links, with no stack (csrc/closest_hit_preorder.cu and
   csrc/any_hit_preorder.cu). intersect.py calls these four.
@@ -34,9 +35,10 @@ and "cluster"; node rows of any width, leaf blocks (NL, leaf_size * 9)):
   the K-wide w_rows (csrc/closest_hit_preorder.cu; its plain version is
   accel.traverse.traverse_wide).
 On a CUDA tensor each wrapper launches its hand-written kernel on the
-current stream and adds one to its `launches` count; on a CPU tensor it
-runs its plain version below; any other device raises. There is no
-fallback from a kernel to a plain version.
+current stream, adds one to its `launches` count and the launch's rays
+to its `rays`; on a CPU tensor it runs its plain version below; any
+other device raises. There is no fallback from a kernel to a plain
+version.
 
 The plain versions compute the same functions in tensor ops: every ray
 walks the tree with its own cursor, in lockstep with the others, one node
@@ -46,7 +48,11 @@ internal nodes pick the next node.
   ordered  (`*_plain`, `*_split_plain`): take the nearest hit child next
            and push the others on the ray's row of an (R, S) stack, far
            to near ("full") or in static reverse child order ("near");
-           pop the stack where nothing is hit.
+           pop the stack where nothing is hit. closest_hit_plain
+           ("near") and any_hit_plain ("full") push each entry with its
+           entry distance and drop it on pop once it is no nearer than
+           the best t, instead of testing each visited node's box
+           (_StackWalk, entry=True).
   preorder (`*_preorder_plain`, `closest_hit_packet_plain` and the
            staged walks' plain versions): go to the hit child of smallest
            preorder index, or follow the node's skip link where nothing
@@ -212,6 +218,8 @@ class _Walk:
     tests that both walk orders share. A subclass says where a ray goes
     next."""
 
+    own_box = True  # whether a visit tests the node's own box
+
     def __init__(self, tab, org, dirn, bt, base, end, k, start,
                  count=False):
         self.tab, self.org, self.dirn, self.k = tab, org, dirn, k
@@ -233,13 +241,17 @@ class _Walk:
         if self.steps is not None:
             self.steps[act] += 1
         node = self.tab.row(self.cur[act])
-        tmin, tmax = _slab(self.nodes[node, 0:6], self.org[act],
-                           self.inv[act])
-        hit = _box_hit(tmin, tmax, self.bt[act])
         is_leaf = (self.bits[node, 7] & 0xFF) > 0
+        if self.own_box:
+            tmin, tmax = _slab(self.nodes[node, 0:6], self.org[act],
+                               self.inv[act])
+            hit = _box_hit(tmin, tmax, self.bt[act])
+        else:
+            hit = torch.ones_like(is_leaf)
         inner = hit & ~is_leaf
         if _work is not None:
-            _work.boxes += act.numel() + self.k * int(inner.sum())
+            _work.boxes += (act.numel() * self.own_box
+                            + self.k * int(inner.sum()))
             _work.touch(self.nodes, "node", node, 9 + 7 * self.k)
         return act, node, hit & is_leaf, inner
 
@@ -266,16 +278,35 @@ class _Walk:
 
 class _StackWalk(_Walk):
     """The ordered walk: each ray keeps a row of an (R, S) stack and
-    pushes in the order `order` names (ORDER_MODES)."""
+    pushes in the order `order` names (ORDER_MODES).
+
+    entry=False: a visit tests the node's own box against the best t,
+    and a pop takes the top entry (the walk of #5, #8 and #9).
+    entry=True: each entry carries the entry distance of its box, which
+    the parent's child test computed; a pop drops the entries the ray no
+    longer enters before the best t, and no visit tests its own box again,
+    since the child test decided it (the parent row holds each child's
+    box bit for bit, accel.tables.check_child_boxes). Only the root's box
+    is tested, once, where the walk starts. Both give the same results;
+    entry=True takes fewer steps (the walk of #1 and #2)."""
 
     def __init__(self, tab, org, dirn, bt, base, end, k, start,
-                 order="full", count=False):
+                 order="full", count=False, entry=False):
         _check_order(order)
+        if entry and base < end:
+            root = tab.nodes[tab.row(base), 0:6]
+            tmin, tmax = _slab(root, org, _safe_inv(dirn))
+            start = start & _box_hit(tmin, tmax, bt)
+            if _work is not None:
+                _work.boxes += org.shape[0]
         super().__init__(tab, org, dirn, bt, base, end, k, start, count)
         r = org.shape[0]
         self.order = order
+        self.own_box = not entry
         self.stack = torch.zeros((r, STACK_CAPACITY), dtype=torch.int32,
                                  device=org.device)
+        self.stack_t = (torch.zeros((r, STACK_CAPACITY), device=org.device)
+                        if entry else None)
         self.sp = torch.zeros(r, dtype=torch.int64, device=org.device)
         self.max_iters = end - base + 2
 
@@ -284,13 +315,16 @@ class _StackWalk(_Walk):
         `advance` turns into a pop."""
         return torch.full_like(node, -1)
 
-    def _push(self, lanes, do, val):
-        """Push val on the stacks of lanes where `do`, while they have
-        room (an ordered build checks max_stack_bound <= the capacity)."""
+    def _push(self, lanes, do, val, key):
+        """Push val (entered at `key`) on the stacks of lanes where `do`,
+        while they have room (an ordered build checks max_stack_bound <=
+        the capacity)."""
         sp = self.sp[lanes]
         do = do & (sp < STACK_CAPACITY)
         put = lanes[do]
         self.stack[put, sp[do]] = val[do].to(torch.int32)
+        if self.stack_t is not None:
+            self.stack_t[put, sp[do]] = key[do]
         self.sp[put] += 1
 
     def descend(self, lanes, node):
@@ -303,26 +337,34 @@ class _StackWalk(_Walk):
         shit = torch.gather(chit, 1, order)
         sidx = torch.gather(cidx, 1, order)
         if self.order == "full":
+            skey = torch.gather(ctmin, 1, order)
             for j in range(self.k - 1, 0, -1):
-                self._push(lanes, shit[:, j], sidx[:, j])
+                self._push(lanes, shit[:, j], sidx[:, j], skey[:, j])
         else:
             child = torch.arange(self.k, device=lanes.device)
             rest = chit & (child[None, :] != order[:, 0:1])
             for c in range(self.k - 1, -1, -1):
-                self._push(lanes, rest[:, c], cidx[:, c])
+                self._push(lanes, rest[:, c], cidx[:, c], ctmin[:, c])
         return torch.where(shit[:, 0], sidx[:, 0], -1)
 
     def advance(self, lanes, nxt):
         """Set each lane's next node; lanes with nxt < 0 pop their stack
-        (or finish when it is empty)."""
-        pop = nxt < 0
-        pl = lanes[pop]
-        sp = self.sp[pl]
-        has = sp > 0
-        top = self.stack[pl, torch.clamp(sp - 1, min=0)].to(torch.int64)
-        nxt = nxt.clone()
-        nxt[pop] = torch.where(has, top, self.end)
-        self.sp[pl] = sp - has.to(sp.dtype)
+        (with entry distances, past the entries no longer nearer than the
+        best t), or finish when it runs out."""
+        pop = torch.nonzero(nxt < 0).squeeze(1)
+        while pop.numel():
+            pl = lanes[pop]
+            sp = self.sp[pl]
+            has = sp > 0
+            pop, pl, sp = pop[has], pl[has], sp[has]
+            top = self.stack[pl, sp - 1].to(torch.int64)
+            self.sp[pl] = sp - 1
+            take = (self.stack_t[pl, sp - 1] < self.bt[pl]
+                    if self.stack_t is not None
+                    else torch.ones_like(pop, dtype=torch.bool))
+            nxt[pop[take]] = top[take]
+            pop = pop[~take]
+        nxt = torch.where(nxt < 0, self.end, nxt)
         self.cur[lanes] = nxt
 
 
@@ -428,11 +470,17 @@ def _all_lanes(org):
 
 
 def closest_hit_plain(fat, org, dirn, t_max, base: int, end: int,
-                      leaf_size: int, k: int):
-    """Plain PyTorch ordered closest-hit (see the module docstring)."""
-    return _walk_closest(_StackWalk(_Table(fat), org, dirn, t_max.clone(),
-                                    base, end, k, _all_lanes(org)),
-                         leaf_size)
+                      leaf_size: int, k: int, return_iters: bool = False):
+    """Plain PyTorch ordered closest-hit, "near" push order (the order
+    the JAX package asks of its kernel), with stack entries that carry
+    their entry distance (see the module docstring); with return_iters,
+    also each ray's step count (int32 (R,)), the steps
+    csrc/closest_hit.cu takes."""
+    walk = _StackWalk(_Table(fat), org, dirn, t_max.clone(), base, end, k,
+                      _all_lanes(org), order="near", count=return_iters,
+                      entry=True)
+    out = _walk_closest(walk, leaf_size)
+    return (*out, walk.steps) if return_iters else out
 
 
 def closest_hit_preorder_plain(fat, org, dirn, t_max, base: int, end: int,
@@ -444,10 +492,15 @@ def closest_hit_preorder_plain(fat, org, dirn, t_max, base: int, end: int,
 
 
 def any_hit_plain(fat, org, dirn, t_cut, base: int, end: int,
-                  leaf_size: int, k: int):
-    """Plain PyTorch ordered any-hit (see the module docstring)."""
-    return _walk_any(_StackWalk(_Table(fat), org, dirn, t_cut, base, end, k,
-                                t_cut > 0.0), t_cut, leaf_size)
+                  leaf_size: int, k: int, return_iters: bool = False):
+    """Plain PyTorch ordered any-hit, the walk of closest_hit_plain with
+    best t fixed at t_cut, in "full" push order (see the module
+    docstring); with return_iters, also each ray's step count (int32
+    (R,))."""
+    walk = _StackWalk(_Table(fat), org, dirn, t_cut, base, end, k,
+                      t_cut > 0.0, count=return_iters, entry=True)
+    occ = _walk_any(walk, t_cut, leaf_size)
+    return (occ, walk.steps) if return_iters else occ
 
 
 def any_hit_preorder_plain(fat, org, dirn, t_cut, base: int, end: int,
@@ -492,11 +545,12 @@ def closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base: int,
 def closest_hit_dual_plain(fat, org, dirn, t_max, base: int, end: int,
                            leaf_size: int, k: int):
     """Plain PyTorch version of the two-rays-a-thread ordered walk: per
-    ray the ordered walk over the fat table, "full" push order, which is
-    each ray's walk in csrc/closest_hit_dual.cu."""
+    ray the ordered walk over the fat table, "near" push order (the
+    only order of the JAX kernel), which is each ray's walk in
+    csrc/closest_hit_dual.cu."""
     return _walk_closest(_StackWalk(_Table(fat), org, dirn, t_max.clone(),
-                                    base, end, k, _all_lanes(org)),
-                         leaf_size)
+                                    base, end, k, _all_lanes(org),
+                                    order="near"), leaf_size)
 
 
 def closest_hit_fat_cache_plain(fat, org, dirn, t_max, base: int, end: int,
@@ -609,12 +663,14 @@ def _ptr(x):
     return x.data_ptr()
 
 
-def _launch(wrapper, entry, lib, *args):
-    """Call a kernel's C entry on the current stream and count the launch."""
+def _launch(wrapper, entry, lib, *args, rays: int):
+    """Call a kernel's C entry on the current stream and count the launch
+    and its rays."""
     err = getattr(lib, entry)(*args)
     if err:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
     wrapper.launches += 1
+    wrapper.rays += rays
 
 
 def _hit_outputs(r, device):
@@ -649,7 +705,7 @@ def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
     if r:
         _launch(wrapper, entry, lib, *_tables(staged, fat), _ptr(org),
                 _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, k,
-                *map(_ptr, out), _stream(fat))
+                *map(_ptr, out), _stream(fat), rays=r)
     return out
 
 
@@ -664,17 +720,70 @@ def _any(wrapper, entry, plain, fat, org, dirn, t_cut, base, end, leaf_size,
     if r:
         _launch(wrapper, entry, lib, _ptr(fat), _ptr(org), _ptr(dirn),
                 _ptr(t_cut), r, base, end, leaf_size, k, _ptr(occ),
-                _stream(fat))
+                _stream(fat), rays=r)
     return occ
 
 
+# (device index, stream) -> the two ints of the persistent walks' ray
+# counter on that stream: zeroed once here, and by the kernel's last warp
+# at the end of each launch, so a launch fills nothing first
+_RAY_COUNTERS = {}
+
+
+def _persistent(wrapper, entry, fat, org, dirn, t, base, end, k, counts,
+                out):
+    """Launch a persistent ordered walk (csrc/closest_hit.cu, any_hit.cu)
+    over the rays, writing `out`: its warps take rays from the counter of
+    the current stream, which is at 0 between launches."""
+    lib = _kernel_lib(fat, k)
+    if fat.data_ptr() % 16:
+        raise ValueError("fat must start on a 16-byte boundary (float4 "
+                         "loads)")
+    if counts is not None and (counts.dtype != torch.int64
+                               or tuple(counts.shape) != (2,)
+                               or counts.device != fat.device
+                               or not counts.is_contiguous()):
+        raise ValueError("counts must be a contiguous (2,) int64 tensor on "
+                         "the tables' device")
+    r = org.shape[0]
+    if r:
+        stream = _stream(fat)
+        key = (fat.device.index, stream)
+        if key not in _RAY_COUNTERS:
+            _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32,
+                                             device=fat.device)
+        try:
+            _launch(wrapper, entry, lib, _ptr(fat), _ptr(org), _ptr(dirn),
+                    _ptr(t), r, base, end, k, *map(_ptr, out),
+                    _ptr(_RAY_COUNTERS[key]),
+                    None if counts is None else _ptr(counts), stream, rays=r)
+        except RuntimeError:
+            del _RAY_COUNTERS[key]  # a launch that failed may leave it set
+            raise
+    return out
+
+
+def _plain_counts(counts):
+    if counts is not None:
+        raise ValueError("counts are kept by the CUDA kernels; the plain "
+                         "versions give each ray's steps (return_iters)")
+
+
 def closest_hit(fat, org, dirn, t_max, base: int, end: int, leaf_size: int,
-                k: int):
+                k: int, counts=None):
     """Closest hit per ray by the ordered walk: (t, slot, u, v).
     csrc/closest_hit.cu on CUDA tensors, closest_hit_plain on CPU
-    tensors."""
-    return _closest(closest_hit, "pt_closest_hit", closest_hit_plain, fat,
-                    org, dirn, t_max, base, end, leaf_size, k)
+    tensors. `counts`, a (2,) int64 tensor on the card, if given: the
+    kernel adds the steps its rays took and the lane slots its warps ran
+    (32 a loop turn); their ratio is its lane use."""
+    _check(fat, org, dirn, t_max, base, end, leaf_size, k)
+    if fat.device.type == "cpu":
+        _plain_counts(counts)
+        return closest_hit_plain(fat, org, dirn, t_max, base, end,
+                                 leaf_size, k)
+    return _persistent(closest_hit, "pt_closest_hit", fat, org, dirn, t_max,
+                       base, end, k, counts,
+                       _hit_outputs(org.shape[0], fat.device))
 
 
 def closest_hit_preorder(fat, org, dirn, t_max, base: int, end: int,
@@ -688,11 +797,17 @@ def closest_hit_preorder(fat, org, dirn, t_max, base: int, end: int,
 
 
 def any_hit(fat, org, dirn, t_cut, base: int, end: int, leaf_size: int,
-            k: int):
+            k: int, counts=None):
     """Occlusion per ray by the ordered walk: (R,) bool.
-    csrc/any_hit.cu on CUDA tensors, any_hit_plain on CPU tensors."""
-    return _any(any_hit, "pt_any_hit", any_hit_plain, fat, org, dirn, t_cut,
-                base, end, leaf_size, k)
+    csrc/any_hit.cu on CUDA tensors, any_hit_plain on CPU tensors;
+    `counts` as in closest_hit."""
+    _check(fat, org, dirn, t_cut, base, end, leaf_size, k)
+    if fat.device.type == "cpu":
+        _plain_counts(counts)
+        return any_hit_plain(fat, org, dirn, t_cut, base, end, leaf_size, k)
+    occ = torch.empty(org.shape[0], dtype=torch.bool, device=fat.device)
+    return _persistent(any_hit, "pt_any_hit", fat, org, dirn, t_cut, base,
+                       end, k, counts, (occ,))[0]
 
 
 def any_hit_preorder(fat, org, dirn, t_cut, base: int, end: int,
@@ -729,7 +844,7 @@ def closest_hit_split(rows, leaf, org, dirn, t_max, base: int, end: int,
         _launch(closest_hit_split, "pt_closest_hit_split", lib, _ptr(rows),
                 _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_max), r, base, end,
                 leaf_size, k, int(order_mode == "near"), *map(_ptr, out),
-                None if steps is None else _ptr(steps), _stream(rows))
+                None if steps is None else _ptr(steps), _stream(rows), rays=r)
     return (*out, steps) if return_iters else out
 
 
@@ -750,7 +865,7 @@ def any_hit_split(rows, leaf, org, dirn, t_cut, base: int, end: int,
         _launch(any_hit_split, "pt_any_hit_split", lib, _ptr(rows),
                 _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_cut), r, base, end,
                 leaf_size, k, int(order_mode == "near"), _ptr(occ),
-                _stream(rows))
+                _stream(rows), rays=r)
     return occ
 
 
@@ -765,7 +880,7 @@ def _closest_split(wrapper, entry, plain, rows, leaf, org, dirn, t_max,
     if r:
         _launch(wrapper, entry, lib, *_tables(staged, rows, leaf), _ptr(org),
                 _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, k,
-                *map(_ptr, out), _stream(rows))
+                *map(_ptr, out), _stream(rows), rays=r)
     return out
 
 
@@ -849,7 +964,7 @@ def _closest_rows(wrapper, entry, rows, leaf, org, dirn, t_max, base, end,
         _launch(wrapper, entry, lib, _ptr(rows), _ptr(leaf), rows.shape[1],
                 leaf.shape[1], _ptr(org), _ptr(dirn), _ptr(t_max), r, base,
                 end, leaf_size, *k, MAX_ITERS, *map(_ptr, out),
-                _stream(rows))
+                _stream(rows), rays=r)
     return out
 
 
@@ -899,9 +1014,11 @@ WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder,
             closest_hit_dual, closest_hit_fat_cache, closest_hit_block_cache,
             closest_hit_row_stage, closest_hit_binary, closest_hit_wide_rows)
 for _w in WRAPPERS:
-    _w.launches = 0
+    _w.launches = _w.rays = 0
 
 
 def reset_launch_counts() -> None:
+    """Set every wrapper's `launches` and `rays` (the rays of its
+    launches, summed) to 0."""
     for w in WRAPPERS:
-        w.launches = 0
+        w.launches = w.rays = 0

@@ -11,8 +11,11 @@ affine) and triangle meshes, in one of two table sets by `intersector`:
     split. `p_ordered` picks the walk, as in the JAX package: near to far
     with a stack, or preorder along skip links. An ordered scene's build
     checks `max_stack_bound` against the ordered kernels' stack capacity
-    and raises if a tree could overflow it; a preorder walk keeps no
-    stack and has no such limit.
+    and raises if a tree could overflow it, and checks that each child
+    box in a node row equals the child's own box bit for bit, which the
+    ordered kernels' single box test per node needs
+    (tables.check_child_boxes); a preorder walk keeps no stack and has no
+    such limit.
   * "wide", "walk", "cluster" (the XLA walks): a binary BVH per mesh in
     object space, its K-wide collapse, and a TLAS head over every object,
     packed as the JAX package packs them (u_rows, w_rows, leaf_rows, the
@@ -595,6 +598,7 @@ class SceneBuilder:
             stack_bound = tables.max_stack_bound(rows, wide_k)
             if pallas_ordered:
                 check_stack_bound(stack_bound)
+                tables.check_child_boxes(rows, wide_k)
             p_fat = tables.pack_fat(rows, leaf, leaf_size)
             p_inst_b, p_inst_e = (0,), (int(rows.shape[0]),)
 

@@ -203,27 +203,41 @@ def test_stack_capacity_holds_a_bound_past_64(monkeypatch, k, depth):
                                             *args, order_mode=mode).all()
 
 
+# rays of a launch: fewer than one warp; the test's rays; more than the
+# persistent grid holds at once (132 SMs x 2,048 threads at most), so that
+# warps refill their lanes
+CUDA_RAYS = (17, N, 1 << 19)
+
+
 @pytest.mark.cuda
-def test_cuda_kernels_match_plain_versions(ref):
-    """Runs on a machine with a card: both CUDA kernels against their plain
-    versions on the same inputs, and their launch counts."""
+@pytest.mark.parametrize("n", CUDA_RAYS)
+def test_cuda_kernels_match_plain_versions(ref, n):
+    """Runs on a machine with a card: both persistent CUDA kernels against
+    their plain versions on the same inputs (the test's rays repeated or
+    cut to n), their launch counts, and their step counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
+    rep = -(-n // N)
     fat = ref["fat"].to(dev)
-    org, d = ref["org"].to(dev), ref["dirn"].to(dev)
+    org, d, tm, tc = (ref[x].repeat(rep, *([1] * (ref[x].dim() - 1)))[:n]
+                      .contiguous().to(dev)
+                      for x in ("org", "dirn", "t_max", "t_cut"))
     traverse.reset_launch_counts()
-    t, s, u, v = traverse.closest_hit(fat, org, d, ref["t_max"].to(dev),
-                                      *ref["args"])
-    occ = traverse.any_hit(fat, org, d, ref["t_cut"].to(dev), *ref["args"])
+    counts = torch.zeros((2, 2), dtype=torch.int64, device=dev)
+    t, s, u, v = traverse.closest_hit(fat, org, d, tm, *ref["args"],
+                                      counts=counts[0])
+    occ = traverse.any_hit(fat, org, d, tc, *ref["args"], counts=counts[1])
     torch.cuda.synchronize()
     assert traverse.closest_hit.launches == 1
     assert traverse.any_hit.launches == 1
-    tp, sp, _up, _vp = traverse.closest_hit_plain(
-        fat, org, d, ref["t_max"].to(dev), *ref["args"])
-    np.testing.assert_allclose(t.cpu().numpy(), tp.cpu().numpy(),
-                               rtol=RTOL, atol=ATOL)
-    np.testing.assert_array_equal(s.cpu().numpy(), sp.cpu().numpy())
-    occ_p = traverse.any_hit_plain(fat, org, d, ref["t_cut"].to(dev),
-                                   *ref["args"])
-    np.testing.assert_array_equal(occ.cpu().numpy(), occ_p.cpu().numpy())
+    *want, steps = traverse.closest_hit_plain(fat, org, d, tm, *ref["args"],
+                                              return_iters=True)
+    for got, exp in zip((t, s, u, v), want):
+        assert torch.equal(got, exp)
+    occ_p, steps_any = traverse.any_hit_plain(fat, org, d, tc, *ref["args"],
+                                              return_iters=True)
+    assert torch.equal(occ, occ_p)
+    # the kernels take the plain versions' steps; lane slots bound them
+    assert counts[:, 0].tolist() == [int(steps.sum()), int(steps_any.sum())]
+    assert bool((counts[:, 0] <= counts[:, 1]).all())

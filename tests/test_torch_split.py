@@ -155,13 +155,15 @@ def test_closest_hit_packet_plain_matches_traverse_wide(ref):
 
 def test_split_walks_equal_the_fat_walks(ref):
     """The same walks over the two table forms are bit-equal: the packet
-    walk's plain version with the preorder walk, the ordered "full" walk
-    with the fat ordered walk, and the two ordered any-hits."""
+    walk's plain version with the preorder walk, the ordered "near" walk
+    with the fat ordered walk (which pushes "near"), and the two ordered
+    any-hits."""
     fat, org, d, tm = ref["fat"], ref["org"], ref["dirn"], ref["t_max"]
     pairs = [
         (traverse.closest_hit_packet_plain(*_split(ref), tm, *ref["args"]),
          traverse.closest_hit_preorder_plain(fat, org, d, tm, *ref["args"])),
-        (traverse.closest_hit_split_plain(*_split(ref), tm, *ref["args"]),
+        (traverse.closest_hit_split_plain(*_split(ref), tm, *ref["args"],
+                                          order_mode="near"),
          traverse.closest_hit_plain(fat, org, d, tm, *ref["args"])),
     ]
     for split, whole in pairs:
