@@ -2,22 +2,25 @@
 """Where the time of a render goes on one NVIDIA GPU, per mesh intersector
 of the PyTorch/CUDA port.
 
-    python3 chip_profile.py [--reps 5]
+    python3 chip_profile.py [--reps 5] [--repo PATH]
 
-Run from the repository root on a machine with a CUDA card and nvcc. For
-each render of RENDERS (the main path: "pallas" with the ordered walk,
-the bunny at 1920x1080 and dragon_hd at 960x540; and the bunny's default
-build, "wide"), at 1 spp: one warm-up render; `reps`
-unprofiled renders, wall seconds each (host clock, ending in
+Run from the repository root on a machine with a CUDA card and nvcc;
+`--repo` names another checkout whose ptsharp_tpu_torch to profile (an
+unpacked parent commit, to compare two commits in one call). For each
+render of RENDERS (the main path: "pallas" with the ordered walk, the
+bunny at 1920x1080 and dragon_hd at 960x540; the bunny's "pallas" build
+with the preorder walk; and the bunny's default build, "wide"), at 1
+spp: one warm-up render; `reps` unprofiled renders, wall seconds each
+(host clock, ending in
 torch.cuda.synchronize()), in turns across the renders; then one render
 under torch.profiler (CPU and CUDA activities), whose device kernels are
 summed by kind from key_averages(). Prints per build: rays traced, the
 median wall seconds and Mrays/s, the device milliseconds of the profiled
 render, the card's idle share at the median wall time (1 - device ms /
 median wall ms), device launches, and the device milliseconds of the
-traversal kernels, sorts, gathers and scatters, reductions and the other
-elementwise kernels; then one JSON line of the same. Exits non-zero
-without a CUDA device.
+traversal kernels (also by kernel instance), sorts, gathers and
+scatters, reductions and the other elementwise kernels; then one JSON
+line of the same. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -39,6 +43,7 @@ PALLAS = dict(intersector="pallas", wide_k=8)
 RENDERS = {
     "bunny/pallas": ("bunny", PALLAS),
     "dragon_hd/pallas": ("dragon_hd", PALLAS),
+    "bunny/pallas_preorder": ("bunny", dict(PALLAS, pallas_ordered=False)),
     "bunny/wide": ("bunny", dict()),  # examples.bunny()'s default build
 }
 # kernel-name fragments -> kind; the first match wins
@@ -55,6 +60,13 @@ def kind_of(name: str) -> str:
     return "elementwise/other"
 
 
+def kernel_instance(name: str) -> str:
+    """A traversal kernel's name and template arguments, without its
+    namespace and parameters."""
+    m = re.search(r"(\w+_kernel)(<[^>]*>)?", name)
+    return m.group(1) + (m.group(2) or "") if m else name
+
+
 def device_us(event) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, attr):
@@ -65,12 +77,14 @@ def device_us(event) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--repo", default=REPO,
+                    help="the checkout whose ptsharp_tpu_torch to profile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.repo))
     from ptsharp_tpu_torch import examples
     from ptsharp_tpu_torch.core import rng
     from ptsharp_tpu_torch.renderer import Renderer
@@ -80,7 +94,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    print(f"{card}; ptsharp_tpu_torch from {os.path.abspath(args.repo)}",
+          flush=True)
     renderers = {}
     for name, (scene_name, kw) in RENDERS.items():
         scene, cam, rcfg, icfg = examples.build(scene_name, device=dev, **kw)
@@ -110,11 +125,14 @@ def main() -> int:
         with torch.profiler.profile(activities=acts) as prof:
             r.render(key=rng.PRNGKey(99))
             torch.cuda.synchronize(dev)
-        kinds, total, launches = {}, 0.0, 0
+        kinds, walks, total, launches = {}, {}, 0.0, 0
         for e in prof.key_averages():
             if str(getattr(e, "device_type", "")).endswith("CUDA"):
                 us = device_us(e)
                 kinds[kind_of(e.key)] = kinds.get(kind_of(e.key), 0.0) + us
+                if kind_of(e.key) == "traversal":
+                    walk = kernel_instance(e.key)
+                    walks[walk] = walks.get(walk, 0.0) + us
                 total += us
                 launches += int(e.count)
         wall = statistics.median(walls[name])
@@ -123,7 +141,8 @@ def main() -> int:
                    device_ms=total / 1e3,
                    idle_share=1.0 - total / 1e3 / (wall * 1e3),
                    device_launches=launches,
-                   kind_ms={k: v / 1e3 for k, v in sorted(kinds.items())})
+                   kind_ms={k: v / 1e3 for k, v in sorted(kinds.items())},
+                   traversal_ms={k: v / 1e3 for k, v in sorted(walks.items())})
         out[name] = res
         print(f"{name}: rays={res['rays_traced']} wall_s median="
               f"{wall:.4f} (runs {', '.join(f'{w:.4f}' for w in walls[name])})"
@@ -131,8 +150,11 @@ def main() -> int:
               f"{res['device_ms']:.2f} idle_share={res['idle_share']:.3f} "
               f"launches={launches} " + " ".join(
                   f"{k}={v:.2f}ms" for k, v in res["kind_ms"].items())
-              + f" [{card}]", flush=True)
-    print(json.dumps({"card": card, "renders": out}))
+              + " (" + ", ".join(f"{k} {v:.3f}ms" for k, v in
+                                 res["traversal_ms"].items())
+              + f") [{card}]", flush=True)
+    print(json.dumps({"card": card, "repo": os.path.abspath(args.repo),
+                      "renders": out}))
     return 0
 
 

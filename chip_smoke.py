@@ -14,20 +14,20 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
   3. bunny    examples.build("bunny", intersector="pallas", wide_k=8): the
               full 81,920-triangle bunny, its BVH builder, table size and
               max_stack_bound;
-  4. kernels  all four kernels against their plain versions, on
-              Morton-ordered camera rays plus scattered bounce rays from
-              their hit points, 2**16 + 2**16 rays and the 1080p main-path
-              width: closest-hit (ordered: t, slot, u and v equal on every
-              lane; preorder: t within CLOSEST_TOL, slots equal on every
-              lane), any-hit on shadow rays from the bounce origins toward
-              the light, t_cut formed as sample_lights forms it (equal
-              except in a band around t_cut); and the two walk orders
-              against each other on the same rays; then, at the main
-              width, the persistent ordered kernels #1 and #2 per ray kind
-              (camera, bounce, shadow): time, lane use and step count as
-              the kernels count them (the steps equal to their plain
-              versions'), steps per ray, and a launch of 17 rays, fewer
-              than a warp, against the plain version;
+  4. kernels  all four fat-table kernels, each persistent, against their
+              plain versions, on Morton-ordered camera rays plus scattered
+              bounce rays from their hit points, 2**16 + 2**16 rays and the
+              1080p main-path width: closest-hit (t, slot, u and v equal on
+              every lane), any-hit on shadow rays from the bounce origins
+              toward the light, t_cut formed as sample_lights forms it
+              (equal on every lane); and the two walk orders against each
+              other on the same rays (any-hit equal except in a band around
+              t_cut); then, at the main width, each walk order's kernels
+              (ordered #1 and #2, preorder #4 and #7) per ray kind (camera,
+              bounce, shadow): time, lane use and step count as the kernels
+              count them (the steps equal to their plain versions'), steps
+              per ray, and a launch of 17 rays, fewer than a warp, against
+              the plain version;
   5. dragon   examples.build("dragon_hd", intersector="pallas", wide_k=8,
               pallas_ordered=False): 1,310,720 triangles, built once, its
               child boxes checked as an ordered build checks them; the
@@ -75,31 +75,43 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               examples.build("bunny", intersector="walk") (leaf 8, K=4) on
               the rays of 4 at the 1080p main-path width, and of dragon_hd
               built once with intersector="walk" on the rays of 5: the
-              binary walk over u_rows (#14) and the K-wide walk over w_rows
-              (#4's walk body), driven once with every launch count set to
-              0 just before and read just after; each against its plain
-              version (accel.traverse.traverse_packed, traverse_wide: t
-              within CLOSEST_TOL, slots equal on every lane) and against
-              each other (the wide tree collapses the same binary tree over
-              the same leaf_rows: t within CLOSEST_TOL, slots equal except
-              ties, bit-equal lanes counted); times per ray kind beside the
-              plain versions;
+              binary walk over u_rows (#14) and the persistent K-wide
+              closest-hit over w_rows (4w, #4's walk) on the closest-hit
+              rays, the persistent K-wide any-hit over w_rows (#7's walk)
+              on the shadow rays, driven once with every launch count set
+              to 0 just before and read just after; each against its plain
+              version (#14: t within CLOSEST_TOL and slots equal on every
+              lane; the K-wide walks: every output on every lane), the two
+              closest-hits against each other (the wide tree collapses the
+              same binary tree over the same leaf_rows: t within
+              CLOSEST_TOL, slots equal except ties, bit-equal lanes
+              counted), and the any-hit against the bounded closest-hit's
+              t < INF on every shadow lane (the JAX package's route for
+              these shadow rays); times per ray kind beside the plain
+              versions, with kernel-counted lane use and steps of the
+              K-wide walks; then the K-wide walks' scalar-load instance on
+              a leaf-6 "wide" build of the bunny (leaf_rows of 54 floats,
+              not a 16-byte stride), each held against its plain version
+              on every lane and in its step count;
   6. render   Renderer.render() at 1 spp of the bunny at 1920x1080 in both
               walk orders, of dragon_hd at 960x540 in both walk orders,
               and of the bunny at 1920x1080 with the XLA intersectors
               ("wide", the default build, "walk" and "cluster"), each with
               every launch count set to 0 just before and read just after
               (exactly the build's kernels must have launched: the walk's
-              two fat-table kernels for "pallas", closest_hit_wide_rows for
-              "wide", that and closest_hit_binary for "walk" and
-              "cluster"); one cornell pass at 512x512; and 32x24 bunny
-              renders on the card, both walk orders and "walk", held
-              against the same renders on the CPU (the plain versions).
+              two fat-table kernels for "pallas", closest_hit_wide_rows and
+              any_hit_wide_rows for "wide", closest_hit_binary and
+              any_hit_wide_rows for "walk" and "cluster"); one cornell pass
+              at 512x512; and 32x24 bunny renders on the card, both walk
+              orders, "walk" and "wide", held against the same renders on
+              the CPU (the plain versions).
 
 Every kernel's least time on the card (bound_ms) is computed from the
 work its plain version did on the main-path rays (kernels.traverse.
-count_work): operations are box tests and triangle tests counted from
-csrc/bvh_common.cuh, over the card's float32 rate; bytes are each ray's
+count_work): operations are box tests and triangle tests (a leaf's
+`count` triangles, not its padding slots, and an any-hit's only up to its
+first accepted one) counted from csrc/bvh_common.cuh, over the card's
+float32 rate; bytes are each ray's
 inputs and outputs once and each table row the walks read once (the
 columns a read uses), over its memory rate; the larger of the two bounds
 it.
@@ -107,12 +119,12 @@ it.
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-of the thirteen kernels' launches over the main-path renders (the
-split-table kernels': over the split phase's driven calls; the staged
-kernels': over the staged phase's, both scenes), its largest error
-against its plain version, its times at the bunny's 1080p main-path
-width and its bound there; the last line is {"ok": true, "device":
-{...}}.
+of the fourteen kernel entry points' launches over the main-path renders
+(the split-table kernels': over the split phase's driven calls; the
+staged kernels': over the staged phase's, both scenes), its largest
+error against its plain version, its times at the bunny's 1080p
+main-path width and its bound there; the last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -172,20 +184,30 @@ KERNELS = {
                               ["ptsharp_tpu/pallas/hbm_kernel.py:412"]),
     "closest_hit_binary": ("ptsharp_tpu_torch/csrc/closest_hit_binary.cu",
                            ["ptsharp_tpu/pallas/traverse_kernel.py:144"]),
-    # #4's walk body over another table view, not a TPU kernel of its own
+    # #4's and #7's walks over the XLA walk's row tables: the JAX package
+    # runs these rays through no Pallas kernel (NOTES)
     "closest_hit_wide_rows": ("ptsharp_tpu_torch/csrc/closest_hit_preorder.cu",
-                              ["ptsharp_tpu/pallas/wide_kernel.py:449"]),
+                              []),
+    "any_hit_wide_rows": ("ptsharp_tpu_torch/csrc/any_hit_preorder.cu", []),
 }
-TABLE_VIEWS = {"closest_hit_wide_rows": "w_rows + leaf_rows"}
+# what a kernel with no TPU kernel of its own stands in for
+NOTES = {
+    "closest_hit_wide_rows": "XLA traverse_wide over w_rows + leaf_rows "
+                             "(ptsharp_tpu/accel/traverse.py:309)",
+    "any_hit_wide_rows": "XLA traverse_wide over w_rows + leaf_rows, "
+                         "bounded by t_cut, tested t < INF "
+                         "(ptsharp_tpu/intersect.py:722-728)",
+}
 # the XLA walks' kernels
-ROWS = ("closest_hit_binary", "closest_hit_wide_rows")
-# the kernels a render of each build launches, exactly
+ROWS = ("closest_hit_binary", "closest_hit_wide_rows", "any_hit_wide_rows")
+# the kernels a render of each build launches, exactly: the XLA builds'
+# shadow rays go through the any-hit over w_rows
 RENDER_KERNELS = {
     "ordered": {"closest_hit", "any_hit"},
     "preorder": {"closest_hit_preorder", "any_hit_preorder"},
-    "wide": {"closest_hit_wide_rows"},
-    "walk": {"closest_hit_binary", "closest_hit_wide_rows"},
-    "cluster": {"closest_hit_binary", "closest_hit_wide_rows"},
+    "wide": {"closest_hit_wide_rows", "any_hit_wide_rows"},
+    "walk": {"closest_hit_binary", "any_hit_wide_rows"},
+    "cluster": {"closest_hit_binary", "any_hit_wide_rows"},
 }
 XLA_INTERSECTORS = ("wide", "walk", "cluster")
 # the split-table kernels: no render launches them
@@ -278,13 +300,14 @@ def ptxas_report(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+)_kernel(?:ILi(\d+)E)?"
+            k = re.search(r"([a-z_]+)_kernel(?:ILi(\d+)E)?(?:Lb(\d)E)?"
                           r"(?:LN3ptk4PushE(\d)E)?(?:N3ptk\d+([A-Z][a-z]+Table)E)?",
                           m.group(1))
-            push = {None: "", "0": ",full", "1": ",near"}
+            loads = {None: None, "0": "scalar", "1": "float4"}
+            push = {None: None, "0": "full", "1": "near"}
             args = ",".join(x for x in (
-                k.group(2), push[k.group(3)].lstrip(","), k.group(4)) if x) \
-                if k else ""
+                k.group(2), loads[k.group(3)], push[k.group(4)], k.group(5))
+                if x) if k else ""
             name = f"{k.group(1)}<{args}>" if k else m.group(1)
             rows[name] = {"smem": 0}
             continue
@@ -458,9 +481,8 @@ def _band(t_near, t_cut, occ_a, occ_b, what):
 
 def check_closest(scene, org, dirn, label, walk):
     """The walk's closest-hit kernel against its plain version: t, slot,
-    u and v equal on every lane (ordered: the persistent kernel takes its
-    plain version's steps); t within CLOSEST_TOL and slots equal on every
-    lane (preorder)."""
+    u and v equal on every lane (each persistent kernel takes its plain
+    version's steps in the same order)."""
     from ptsharp_tpu_torch.kernels import traverse
 
     name = WALKS[walk][0]
@@ -478,13 +500,8 @@ def check_closest(scene, org, dirn, label, walk):
         bad = torch.nonzero(~close).squeeze(1)[:5].tolist()
         raise AssertionError(f"{name} t differs on {int((~close).sum())} "
                              f"lanes, e.g. {bad}")
-    lanes = torch.nonzero(s != sp).squeeze(1)
-    if lanes.numel():
-        raise AssertionError(f"{name} slot differs from its plain version "
-                             f"on {lanes.numel()} lanes")
-    if walk == "ordered":
-        _equal(f"{name} against its plain version", (t, s, u, v),
-               (tp, sp, up, vp))
+    _equal(f"{name} against its plain version", (t, s, u, v),
+           (tp, sp, up, vp))
     err = float((t - tp).abs().max())
     ms = time_ms(lambda: kernel(scene.p_fat, org, dirn, tmax, *args),
                  org.device)
@@ -498,7 +515,9 @@ def check_closest(scene, org, dirn, label, walk):
                 **bnd)
 
 
-def check_any(scene, org, dirn, t_cut, t_near, label, walk):
+def check_any(scene, org, dirn, t_cut, label, walk):
+    """The walk's any-hit kernel against its plain version, equal on every
+    lane."""
     from ptsharp_tpu_torch.kernels import traverse
 
     name = WALKS[walk][1]
@@ -510,15 +529,15 @@ def check_any(scene, org, dirn, t_cut, t_near, label, walk):
         occ_p = plain(scene.p_fat, org, dirn, t_cut, *args)
     sync(org.device)
     bnd = bound(work, org.shape[0], "any")
-    n_edge, edge = _band(t_near, t_cut, occ, occ_p, name)
-    err = float((occ.float() - occ_p.float())[~edge].abs().max())
+    _equal(f"{name} against its plain version", (occ,), (occ_p,))
+    err = float((occ.float() - occ_p.float()).abs().max())
     ms = time_ms(lambda: kernel(scene.p_fat, org, dirn, t_cut, *args),
                  org.device)
     plain_ms = time_ms(lambda: plain(scene.p_fat, org, dirn, t_cut, *args),
                        org.device, PLAIN_REPS)
     log(f"{name} [{label}] rays={org.shape[0]} active="
         f"{float((t_cut > 0).float().mean()):.4f} occluded="
-        f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
+        f"{float(occ_p.float().mean()):.4f} equal on every lane "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, occ=occ, **bnd)
 
@@ -532,8 +551,7 @@ def kernel_phase(scene, rays, label):
     ob, ds = rays["shadow_org"], rays["shadow_dirn"]
     t_cut, t_near = rays["t_cut"], rays["t_near"]
     closest = {w: check_closest(scene, org, dirn, label, w) for w in WALKS}
-    anyhit = {w: check_any(scene, ob, ds, t_cut, t_near, label, w)
-              for w in WALKS}
+    anyhit = {w: check_any(scene, ob, ds, t_cut, label, w) for w in WALKS}
 
     a, b = closest["preorder"], closest["ordered"]
     close = torch.isclose(a["t"], b["t"], **CLOSEST_TOL)
@@ -566,14 +584,30 @@ def _steps_text(steps):
             f"p99={float(q[1]):.0f}")
 
 
-def walk_stats(scene, rays, label):
-    """The persistent ordered kernels #1 and #2 per ray kind (camera and
-    bounce rays through closest_hit, shadow rays through any_hit): time,
-    lane use (the steps their rays took over the lane slots their warps
-    ran, both counted in the kernel), and steps per ray from the plain
-    version, whose total the kernel's count must equal. Also one launch
-    of fewer rays than a warp against the plain version. Returns {kind:
-    ms}."""
+def _kind_stats(kernel, plain, tables, o, d, t, args, counted, dev):
+    """One ray kind through a persistent kernel: its kernel-counted steps
+    (equal to its plain version's) and lane use, and its time. `counted`
+    names the ray kind for the messages. Returns (ms, lane use, steps)."""
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    kernel(*tables, o, d, t, *args, counts=counts)
+    steps = plain(*tables, o, d, t, *args, return_iters=True)[-1]
+    taken, slots = counts.tolist()
+    if taken != int(steps.sum()):
+        raise AssertionError(f"{kernel.__name__} took {taken} steps on "
+                             f"{counted}, its plain version "
+                             f"{int(steps.sum())}")
+    ms = time_ms(lambda: kernel(*tables, o, d, t, *args), dev)
+    return ms, taken / slots, steps
+
+
+def walk_stats(scene, rays, label, walk):
+    """The persistent kernels of a walk order over the fat table (ordered:
+    #1 and #2; preorder: #4 and #7) per ray kind (camera and bounce rays
+    through closest-hit, shadow rays through any-hit): time, lane use (the
+    steps their rays took over the lane slots their warps ran, both
+    counted in the kernel), and steps per ray from the plain version,
+    whose total the kernel's count must equal. Also one launch of fewer
+    rays than a warp against the plain version. Returns {kind: ms}."""
     from ptsharp_tpu_torch.kernels import traverse
 
     dev = scene.p_fat.device
@@ -582,33 +616,29 @@ def walk_stats(scene, rays, label):
     org, dirn = rays["org"], rays["dirn"]
     cam = (org[:n_cam].contiguous(), dirn[:n_cam].contiguous())
     bounce = (org[n_cam:].contiguous(), dirn[n_cam:].contiguous())
+    closest, anyhit = WALKS[walk]
     kinds = {
-        "camera": ("closest_hit", *cam, torch.full((n_cam,), INF, device=dev)),
-        "bounce": ("closest_hit", *bounce,
+        "camera": (closest, *cam, torch.full((n_cam,), INF, device=dev)),
+        "bounce": (closest, *bounce,
                    torch.full((bounce[0].shape[0],), INF, device=dev)),
-        "shadow": ("any_hit", rays["shadow_org"], rays["shadow_dirn"],
+        "shadow": (anyhit, rays["shadow_org"], rays["shadow_dirn"],
                    rays["t_cut"]),
     }
     out = {}
     for kind, (name, o, d, t) in kinds.items():
         kernel = getattr(traverse, name)
         plain = getattr(traverse, f"{name}_plain")
-        counts = torch.zeros(2, dtype=torch.int64, device=dev)
-        kernel(scene.p_fat, o, d, t, *args, counts=counts)
-        steps = plain(scene.p_fat, o, d, t, *args, return_iters=True)[-1]
-        taken, slots = counts.tolist()
-        if taken != int(steps.sum()):
-            raise AssertionError(f"{name} took {taken} steps on the {kind} "
-                                 f"rays, its plain version {int(steps.sum())}")
+        out[kind], use, steps = _kind_stats(
+            kernel, plain, (scene.p_fat,), o, d, t, args,
+            f"the {kind} rays", dev)
         few = [x[:17].contiguous() for x in (o, d, t)]
         got, want = (kernel(scene.p_fat, *few, *args),
-                      plain(scene.p_fat, *few, *args))
-        if name == "any_hit":
+                     plain(scene.p_fat, *few, *args))
+        if name == anyhit:
             got, want = (got,), (want,)
         _equal(f"{name} on 17 {kind} rays", got, want)
-        out[kind] = time_ms(lambda: kernel(scene.p_fat, o, d, t, *args), dev)
         log(f"{name} [{label}] {kind} rays={o.shape[0]} kernel_ms="
-            f"{out[kind]:.4f} lane_use={taken / slots:.3f} "
+            f"{out[kind]:.4f} lane_use={use:.3f} "
             f"{_steps_text(steps)} (kernel's step count equal); 17 rays "
             f"equal to the plain version")
     return out
@@ -964,14 +994,21 @@ def staged_phase(scene, rays, label):
 
 
 def rows_phase(scene, rays, label):
-    """The XLA walks' kernels on the closest-hit rays of the main path, over
-    the row tables of a "walk" build (object-space rays of its one
-    instance): driven once with every launch count set to 0 just before and
-    read just after; each held against its plain version (t within
-    CLOSEST_TOL, slots equal on every lane) and the two against each other
-    (t within CLOSEST_TOL, slots equal except ties); timed per ray kind
-    beside the plain versions. Returns ({wrapper name: {max_abs_err, ms,
-    plain_ms, bound_ms, bound_by}}, {wrapper name: launches})."""
+    """The XLA walks' kernels on the rays of the main path, over the row
+    tables of a "walk" build (object-space rays of its one instance): the
+    binary walk over u_rows (#14) and the K-wide closest-hit over w_rows
+    (4w) on the closest-hit rays, the K-wide any-hit over w_rows on the
+    shadow rays; driven once with every launch count set to 0 just before
+    and read just after; each held against its plain version (#14: t
+    within CLOSEST_TOL and slots equal on every lane; the persistent K-wide
+    walks: every output on every lane), the two closest-hits against each
+    other (t within CLOSEST_TOL, slots equal except ties), and the any-hit
+    against the bounded closest-hit's t < INF on every shadow lane (the
+    route the JAX package takes); per ray kind the times beside the plain
+    versions, and for the K-wide walks lane use and steps counted in the
+    kernels (equal to the plain versions'). Returns ({wrapper name:
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by}}, {wrapper name:
+    launches})."""
     from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.intersect import _instance_rays
     from ptsharp_tpu_torch.kernels import traverse
@@ -980,6 +1017,8 @@ def rows_phase(scene, rays, label):
         raise AssertionError("the rows phase takes a one-instance scene")
     dev = scene.device
     org, dirn = _instance_rays(scene, 0, rays["org"], rays["dirn"])
+    so, sd = _instance_rays(scene, 0, rays["shadow_org"], rays["shadow_dirn"])
+    t_cut = rays["t_cut"]
     n_cam = rays["n_cam"]
     tmax = torch.full((org.shape[0],), INF, device=dev)
     ls, k = scene.max_leaf, scene.wide_k
@@ -987,27 +1026,37 @@ def rows_phase(scene, rays, label):
     binary_args = (scene.u_inst_base[0], scene.u_inst_end[0], ls)
     wide = (scene.w_rows, scene.leaf_rows)
     wide_args = (scene.w_inst_base[0], scene.w_inst_end[0], ls, k)
+    # wrapper -> (kernel, plain version, the rays it takes, result kind)
     runs = {
         "closest_hit_binary": (
             lambda o, d, t: traverse.closest_hit_binary(*binary, o, d, t,
                                                         *binary_args),
             lambda o, d, t: walks.traverse_packed(*binary, o, d, t,
-                                                  *binary_args)),
+                                                  *binary_args),
+            (org, dirn, tmax), "closest"),
         "closest_hit_wide_rows": (
             lambda o, d, t: traverse.closest_hit_wide_rows(*wide, o, d, t,
                                                            *wide_args),
-            lambda o, d, t: walks.traverse_wide(*wide, o, d, t, *wide_args)),
+            lambda o, d, t: walks.traverse_wide(*wide, o, d, t, *wide_args),
+            (org, dirn, tmax), "closest"),
+        "any_hit_wide_rows": (
+            lambda o, d, t: traverse.any_hit_wide_rows(*wide, o, d, t,
+                                                       *wide_args),
+            lambda o, d, t: traverse.any_hit_wide_rows_plain(*wide, o, d, t,
+                                                             *wide_args),
+            (so, sd, t_cut), "any"),
     }
     log(f"rows tables [{label}]: u_rows {tuple(scene.u_rows.shape)}, w_rows "
         f"{tuple(scene.w_rows.shape)}, leaf_rows "
         f"{tuple(scene.leaf_rows.shape)}: "
         f"{sum(x.numel() for x in (scene.u_rows, scene.w_rows, scene.leaf_rows)) * 4 / 1e6:.2f} MB; "
         f"BLAS nodes [{binary_args[0]}, {binary_args[1]}) binary, "
-        f"[{wide_args[0]}, {wide_args[1]}) wide")
+        f"[{wide_args[0]}, {wide_args[1]}) wide; K-wide loads "
+        f"{traverse.row_loads(*wide)}")
 
     # the path: each entry point once, as intersect.py calls it
     traverse.reset_launch_counts()
-    got = {name: kernel(org, dirn, tmax) for name, (kernel, _p) in
+    got = {name: kernel(*inputs) for name, (kernel, _p, inputs, _k) in
            runs.items()}
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
@@ -1018,26 +1067,32 @@ def rows_phase(scene, rays, label):
     log(f"rows path [{label}]: launches={launches}")
 
     out = {}
-    for name, (kernel, plain) in runs.items():
+    for name, (kernel, plain, inputs, kind) in runs.items():
         with traverse.count_work() as work:
-            want = plain(org, dirn, tmax)
+            want = plain(*inputs)
         sync(dev)
-        bnd = bound(work, org.shape[0], "closest")
-        t, sl = got[name][0], got[name][1]
-        close = torch.isclose(t, want[0], **CLOSEST_TOL)
-        if not bool(close.all()):
-            raise AssertionError(f"{name} t differs on {int((~close).sum())} "
-                                 f"lanes")
-        _equal(f"{name} slot", (sl,), (want[1],))
+        bnd = bound(work, inputs[0].shape[0], kind)
+        if kind == "any":
+            got[name], want = (got[name],), (want,)
+        elif name == "closest_hit_binary":
+            close = torch.isclose(got[name][0], want[0], **CLOSEST_TOL)
+            if not bool(close.all()):
+                raise AssertionError(f"{name} t differs on "
+                                     f"{int((~close).sum())} lanes")
+            _equal(f"{name} slot", got[name][1:2], want[1:2])
+        else:
+            _equal(f"{name} against its plain version", got[name], want)
         same = all(bool(torch.equal(a, b)) for a, b in zip(got[name], want))
-        err = float((t - want[0]).abs().max())
-        ms = time_ms(lambda: kernel(org, dirn, tmax), dev)
-        plain_ms = time_ms(lambda: plain(org, dirn, tmax), dev, PLAIN_REPS)
-        log(f"{name} [{label}] rays={org.shape[0]} hit_frac="
-            f"{float((want[0] < INF).float().mean()):.4f} "
-            f"max_abs_err_t={err:.3e} slot_mismatches=0, all four outputs "
-            f"bit-equal: {same}; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"{bound_text(bnd)}")
+        err = float((got[name][0].float() - want[0].float()).abs().max())
+        ms = time_ms(lambda: kernel(*inputs), dev)
+        plain_ms = time_ms(lambda: plain(*inputs), dev, PLAIN_REPS)
+        what = (f"occluded={float(want[0].float().mean()):.4f}"
+                if kind == "any" else
+                f"hit_frac={float((want[0] < INF).float().mean()):.4f}")
+        log(f"{name} [{label}] rays={inputs[0].shape[0]} {what} "
+            f"max_abs_err={err:.3e} equal to its plain version "
+            f"(all outputs bit-equal: {same}); kernel_ms={ms:.3f} "
+            f"plain_ms={plain_ms:.3f} {bound_text(bnd)}")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
     a, b = got["closest_hit_binary"], got["closest_hit_wide_rows"]
@@ -1054,18 +1109,96 @@ def rows_phase(scene, rays, label):
         f"{float((a[0] - b[0]).abs().max()):.3e} slot_mismatches="
         f"{lanes.numel()} (all ties); bit-equal (t, slot) lanes {bit_equal} "
         f"of {org.shape[0]}")
+    bounded = traverse.closest_hit_wide_rows(*wide, so, sd, t_cut,
+                                             *wide_args)[0] < INF
+    _equal("any_hit_wide_rows against the bounded closest-hit's t < INF",
+           got["any_hit_wide_rows"], (bounded,))
+    log(f"any_hit_wide_rows [{label}]: equal to closest_hit_wide_rows "
+        f"bounded by t_cut, t < INF, on all {so.shape[0]} shadow lanes")
 
-    for kind, sl in (("camera", slice(0, n_cam)),
-                     ("bounce", slice(n_cam, None))):
-        o, d = org[sl].contiguous(), dirn[sl].contiguous()
-        tm = tmax[sl].contiguous()
-        log(f"  {kind} rays ({o.shape[0]}) ms: " + ", ".join(
-            f"{name}{tag} "
-            f"{time_ms(functools.partial(fn, o, d, tm), dev, _reps(tag)):.3f}"
-            for name, fns in runs.items()
-            for tag, fn in zip(("", "_plain"), fns)))
+    kinds = {"camera": (org[:n_cam].contiguous(), dirn[:n_cam].contiguous(),
+                        tmax[:n_cam].contiguous()),
+             "bounce": (org[n_cam:].contiguous(), dirn[n_cam:].contiguous(),
+                        tmax[n_cam:].contiguous()),
+             "shadow": (so, sd, t_cut)}
+    counted = {"closest_hit_wide_rows": (traverse.closest_hit_wide_rows,
+                                         walks.traverse_wide),
+               "any_hit_wide_rows": (traverse.any_hit_wide_rows,
+                                     traverse.any_hit_wide_rows_plain)}
+    for kind, rk in kinds.items():
+        names = [n for n, r in runs.items() if (r[3] == "any") ==
+                 (kind == "shadow")]
+        times = []
+        for name in names:
+            if name in counted:
+                ms, use, steps = _kind_stats(*counted[name], wide, *rk,
+                                             wide_args, f"the {kind} rays",
+                                             dev)
+                log(f"{name} [{label}] {kind} rays={rk[0].shape[0]} "
+                    f"kernel_ms={ms:.4f} lane_use={use:.3f} "
+                    f"{_steps_text(steps)} (kernel's step count equal)")
+            else:
+                ms = time_ms(lambda: runs[name][0](*rk), dev)
+            times.append(f"{name} {ms:.3f}")
+            times.append(f"{name}_plain "
+                         f"{time_ms(lambda: runs[name][1](*rk), dev, PLAIN_REPS):.3f}")
+        log(f"  {kind} rays ({rk[0].shape[0]}) ms: " + ", ".join(times))
     return out, {name: (launches[name], launch_rays[name])
                  for name in runs}
+
+
+def leaf6_bunny(device):
+    """The bunny mesh of examples.bunny() in a "wide" build at leaf 6
+    (K=4): leaf_rows of 54 floats, not a 16-byte stride."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.materials import diffuse_material
+    from ptsharp_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    m = examples._bunny_mesh(6).fit_inside([-1, 0, -1], [1, 2, 1],
+                                           [0.5, 0.0, 0.5])
+    b.add_mesh(m, diffuse_material([0.7, 0.65, 0.55]))
+    return b.build(leaf_size=6, intersector="wide", wide_k=4, device=device)
+
+
+def scalar_rows_phase(scene, rays, label):
+    """The K-wide row kernels' scalar-load instance, which the wrappers
+    take on tables that are not 16-byte strides: on a leaf-6 "wide" build
+    (leaf_rows of 54 floats), closest-hit on the closest-hit rays and
+    any-hit on the shadow rays, each held against its plain version on
+    every lane and in its kernel-counted steps, and timed."""
+    from ptsharp_tpu_torch.accel import traverse as walks
+    from ptsharp_tpu_torch.intersect import _instance_rays
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.device
+    wide = (scene.w_rows, scene.leaf_rows)
+    args = (scene.w_inst_base[0], scene.w_inst_end[0], scene.max_leaf,
+            scene.wide_k)
+    if traverse.row_loads(*wide) != "scalar":
+        raise AssertionError("a leaf-6 build must take scalar loads")
+    org, dirn = _instance_rays(scene, 0, rays["org"], rays["dirn"])
+    so, sd = _instance_rays(scene, 0, rays["shadow_org"], rays["shadow_dirn"])
+    tmax = torch.full((org.shape[0],), INF, device=dev)
+    for kernel, plain, rk in (
+            (traverse.closest_hit_wide_rows, walks.traverse_wide,
+             (org, dirn, tmax)),
+            (traverse.any_hit_wide_rows, traverse.any_hit_wide_rows_plain,
+             (so, sd, rays["t_cut"]))):
+        got = kernel(*wide, *rk, *args)
+        want = plain(*wide, *rk, *args)
+        if kernel is traverse.any_hit_wide_rows:
+            got, want = (got,), (want,)
+        _equal(f"{kernel.__name__} (scalar loads) against its plain "
+               f"version", got, want)
+        ms, use, steps = _kind_stats(kernel, plain, wide, *rk, args,
+                                     "leaf-6 rays", dev)
+        log(f"{kernel.__name__} [{label}] leaf 6, scalar loads, w_rows "
+            f"{tuple(scene.w_rows.shape)} leaf_rows "
+            f"{tuple(scene.leaf_rows.shape)}: rays={rk[0].shape[0]} equal "
+            f"to its plain version on every lane; kernel_ms={ms:.4f} "
+            f"lane_use={use:.3f} {_steps_text(steps)} (kernel's step count "
+            f"equal)")
 
 
 def stack_chain(k: int, depth: int) -> np.ndarray:
@@ -1220,7 +1353,8 @@ def reference_phase(device):
     builds = {"pallas_ordered=True": dict(intersector="pallas", wide_k=8),
               "pallas_ordered=False": dict(intersector="pallas", wide_k=8,
                                            pallas_ordered=False),
-              "intersector=walk": dict(intersector="walk")}
+              "intersector=walk": dict(intersector="walk"),
+              "intersector=wide": dict(intersector="wide")}
     for name, kw in builds.items():
         means = []
         for dev in (device, torch.device("cpu")):
@@ -1311,7 +1445,8 @@ def main() -> int:
     main_label = f"bunny 1080p main path: {n_main} camera + {n_main} bounce"
     main_width = kernel_phase(scene, main_rays, main_label)
     phases.append(main_width)
-    walk_stats(scene, main_rays, main_label)
+    for walk in WALKS:
+        walk_stats(scene, main_rays, main_label, walk)
     split, split_launches = split_phase(scene, main_rays, main_label)
     main_width.update(split)
     staged, staged_launches = staged_phase(scene, main_rays, main_label)
@@ -1324,6 +1459,7 @@ def main() -> int:
         raise AssertionError("the walk bunny must have 81,920 triangles")
     rows, _rows_launches = rows_phase(wscene, main_rays, main_label)
     main_width.update(rows)
+    scalar_rows_phase(leaf6_bunny(device), main_rays, main_label)
     del main_rays
     stack_phase(device)
 
@@ -1343,7 +1479,8 @@ def main() -> int:
                        n_dragon)
     dlabel = f"dragon_hd 960x540: {n_dragon} camera + {n_dragon} bounce"
     phases.append(kernel_phase(dscene, drays, dlabel))
-    walk_stats(dscene, drays, dlabel)
+    for walk in WALKS:
+        walk_stats(dscene, drays, dlabel, walk)
     bench_shape_phase(dscene, dcam, "dragon_hd")
     dstaged, dstaged_launches = staged_phase(dscene, drays, dlabel)
     phases.append(dstaged)
@@ -1412,8 +1549,8 @@ def main() -> int:
             bound_by=main_width[name]["bound_by"],
             # no single PyTorch call walks a BVH
             library_ms=None))
-        if name in TABLE_VIEWS:
-            kernels[-1]["table_view"] = TABLE_VIEWS[name]
+        if name in NOTES:
+            kernels[-1]["note"] = NOTES[name]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

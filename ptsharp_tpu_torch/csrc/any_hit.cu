@@ -37,7 +37,7 @@ any_hit_kernel(const float* __restrict__ fat, const float* __restrict__ org,
   bool occ = false;
   ptk::EntryStack<false> st;
   ptk::persistent_walk(
-      n, base, end, next_ray, counts,
+      n, end, end - base + 2, next_ray, counts,
       [&](int i) {
         tc = t_cut[i];
         occ = false;

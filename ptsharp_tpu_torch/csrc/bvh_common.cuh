@@ -26,6 +26,8 @@
 // whose internal nodes carry no child fields, the K-wide w_rows
 // (Nw, row_width(K)), 40 floats at K=4 and 72 at K=8, and the leaf blocks
 // leaf_rows (NL, leaf_size * 9), node j's block at leaf[first / leaf_size].
+// A leaf's slots past its count hold zero triangles in every table, which
+// Moller-Trumbore rejects (det = 0), so a walk may test only `count` slots.
 
 #pragma once
 
@@ -207,6 +209,10 @@ struct FatTable {
   __device__ __forceinline__ const float* leaf(const float* node) const {
     return node + kRow;
   }
+  // the leaf block of `node`, whose first slot the caller has read
+  __device__ __forceinline__ const float* leaf(const float* node, int) const {
+    return node + kRow;
+  }
 };
 
 struct SplitTable {
@@ -223,8 +229,11 @@ struct SplitTable {
 };
 
 // Node rows and leaf blocks at strides given at run time (the XLA walks'
-// tables). A stride of 10 or 72 floats is not 16 bytes, so the walks read
-// these rows with scalar loads only.
+// tables). w_rows (40 or 72 floats) and leaf_rows at a leaf size that is a
+// multiple of 4 (72 floats at leaf 8) are 16-byte strides, which the
+// preorder walk reads with float4 loads; u_rows (10 floats) and leaf_rows
+// at other leaf sizes (54 floats at leaf 6) are not, and are read with
+// scalar loads.
 struct RowTable {
   const float* rows;
   const float* leaves;
@@ -235,7 +244,10 @@ struct RowTable {
     return rows + static_cast<size_t>(j) * node_stride;
   }
   __device__ __forceinline__ const float* leaf(const float* node) const {
-    const int first = reinterpret_cast<const int*>(node)[6];
+    return leaf(node, reinterpret_cast<const int*>(node)[6]);
+  }
+  // the leaf block of `node`, whose first slot `first` the caller has read
+  __device__ __forceinline__ const float* leaf(const float*, int first) const {
     return leaves + static_cast<size_t>(first / leaf_size) * leaf_stride;
   }
 };
@@ -436,8 +448,9 @@ __device__ __forceinline__ int binary_step(const Table& tab, int j,
 
 constexpr int kWalkThreads = 128;  // threads a block
 constexpr unsigned kWarpAll = 0xffffffffu;
-// a warp takes new rays when fewer of its lanes than this are live
-// (measured against 8-32 on the H100, PERF.md section 6)
+// the persistent walks refill a warp's idle lanes when fewer than this are
+// live (measured against 8-32 for the ordered walks and 16 and 32 for the
+// preorder walks on the H100, PERF.md section 6)
 constexpr int kRefillBelow = 24;
 
 // The ordered walk's stack, in local memory. With kDist each entry also
@@ -493,33 +506,44 @@ struct ChildFields {
 };
 
 // MT over the first `cnt` triangles of a leaf block in slot order, four
-// triangles (nine float4 loads, none past the last triangle) a turn;
-// keep(l, tt, uu, vv) takes each hit at tt > 1e-4 and returns true to
-// stop. The padding slots past `cnt` are zero triangles, which MT rejects,
-// so the result is that of every slot.
-template <class Keep>
+// triangles (nine float4 loads, none past the last triangle) a turn, or
+// with kVec false one triangle (nine scalar loads) a turn, for a block
+// that is not 16-byte aligned; keep(l, tt, uu, vv) takes each hit at
+// tt > 1e-4 and returns true to stop. The padding slots past `cnt` are
+// zero triangles, which MT rejects, so the result is that of every slot.
+template <bool kVec = true, class Keep>
 __device__ __forceinline__ void leaf_slots(const float* __restrict__ leaf,
                                            int cnt, const Ray& r,
                                            Keep keep) {
-  const float4* p = reinterpret_cast<const float4*>(leaf);
-  for (int g = 0; g < cnt; g += 4) {
-    float f[36];
+  if constexpr (!kVec) {
+    for (int l = 0; l < cnt; ++l) {
+      float tri[9];
 #pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      const int q = 9 * (g / 4) + i;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (4 * q < 9 * cnt) v = __ldg(p + q);
-      f[4 * i + 0] = v.x;
-      f[4 * i + 1] = v.y;
-      f[4 * i + 2] = v.z;
-      f[4 * i + 3] = v.w;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
+      for (int i = 0; i < 9; ++i) tri[i] = __ldg(leaf + 9 * l + i);
       float tt, uu, vv;
-      if (g + j < cnt && mt(f + 9 * j, r, tt, uu, vv) &&
-          keep(g + j, tt, uu, vv)) {
-        return;
+      if (mt(tri, r, tt, uu, vv) && keep(l, tt, uu, vv)) return;
+    }
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(leaf);
+    for (int g = 0; g < cnt; g += 4) {
+      float f[36];
+#pragma unroll
+      for (int i = 0; i < 9; ++i) {
+        const int q = 9 * (g / 4) + i;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (4 * q < 9 * cnt) v = __ldg(p + q);
+        f[4 * i + 0] = v.x;
+        f[4 * i + 1] = v.y;
+        f[4 * i + 2] = v.z;
+        f[4 * i + 3] = v.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float tt, uu, vv;
+        if (g + j < cnt && mt(f + 9 * j, r, tt, uu, vv) &&
+            keep(g + j, tt, uu, vv)) {
+          return;
+        }
       }
     }
   }
@@ -594,19 +618,20 @@ __device__ __forceinline__ int fat_step(const float* __restrict__ fat,
 }
 
 // The persistent loop of one warp over rays [0, n), which it takes from
-// next_ray[0], a counter at 0 when the launch starts: begin(i) starts ray i and returns its first node, step(cur)
-// takes one step and returns the next node, finish(i) writes ray i's
-// result. A ray ends at `end` or after (end - base + 2) steps, as
-// max_iters bounds the TPU kernels. With `counts`, the warp adds the
-// steps its rays took to counts[0] and the lane slots it ran (32 a loop
-// turn) to counts[1]: their ratio is its lane use.
+// next_ray[0], a counter at 0 when the launch starts: begin(i) starts ray
+// i and returns its first node, step(cur) takes one step and returns the
+// next node, finish(i) writes ray i's result. A ray ends at `end` or after
+// max_iters steps, as max_iters bounds the TPU kernels and the XLA walks.
+// The warp takes new rays for its idle lanes when fewer than kRefillBelow
+// are live. With `counts`, the warp adds the steps its rays took to
+// counts[0] and the lane slots it ran (32 a loop turn) to counts[1]: their
+// ratio is its lane use.
 template <class Begin, class Step, class Finish>
 __device__ __forceinline__ void persistent_walk(
-    int n, int base, int end, int* __restrict__ next_ray,
+    int n, int end, int max_iters, int* __restrict__ next_ray,
     unsigned long long* __restrict__ counts, Begin begin, Step step,
     Finish finish) {
   const int lane = threadIdx.x & 31;
-  const int max_iters = end - base + 2;
   int ray = -1, cur = end, it = 0;
   bool drained = false;
   unsigned long long steps = 0, turns = 0;
@@ -663,6 +688,94 @@ __device__ __forceinline__ void persistent_walk(
       atomicExch(next_ray + 1, 0);
     }
   }
+}
+
+// ---- the persistent preorder walk (#4, 4w, #7) -----------------------------
+//
+// closest_hit_preorder.cu and any_hit_preorder.cu run the preorder walk
+// along skip links in the persistent warps of persistent_walk. The walk
+// keeps no stack: a lane that takes a new ray resets its cursor, its best
+// t and its step count. Each step tests the node's own box, as the plain
+// walk does. A step reads what it uses through the read-only path: fields
+// [0, 12) of the node row (own box, first slot, count, skip link) first;
+// at an internal node whose box the ray enters, the child fields up to
+// 9 + 7K; at such a leaf its `count` triangles. Where the table's rows
+// and leaf blocks are 16-byte strides from 16-byte aligned bases (the fat
+// table; w_rows and leaf_rows at leaf 4, 8, 12, ...), float4 loads (kVec);
+// otherwise scalar loads of the same fields.
+
+// blocks an SM that the preorder kernels' __launch_bounds__ ask for, which
+// allows up to 128 registers a thread: with it ptxas spills nothing at
+// K=8, where without it it kept 72-80 registers and spilled 4-8 bytes, the
+// high word of the warp's 64-bit slot count (PERF.md section 6)
+constexpr int kPreorderMinBlocks = 4;
+
+// The fields of a K-wide node row that the preorder walk reads, f[i] =
+// field i: [0, 6) own box, 6 first slot, 7 count (int bits, low byte),
+// 8 skip link, [9, 9 + 6K) child boxes, [9 + 6K, 9 + 7K) child indices.
+template <int K, bool kVec>
+struct PreorderRow {
+  static constexpr int kFields = 9 + 7 * K;
+  static constexpr int kQuads = (kFields + 3) / 4;
+  float f[4 * kQuads];
+
+  // fields [4 q0, 4 q1); scalar loads stop at kFields, the row's end in a
+  // table of exactly 9 + 7K columns
+  template <int q0, int q1>
+  __device__ __forceinline__ void load(const float* __restrict__ row) {
+#pragma unroll
+    for (int q = q0; q < q1; ++q) {
+      if constexpr (kVec) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row) + q);
+        f[4 * q + 0] = v.x;
+        f[4 * q + 1] = v.y;
+        f[4 * q + 2] = v.z;
+        f[4 * q + 3] = v.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * q + j < kFields) f[4 * q + j] = __ldg(row + 4 * q + j);
+        }
+      }
+    }
+  }
+};
+
+// One step of the preorder walk at node `cur`: test its own box against
+// bt; at a leaf the ray enters, leaf(block, first, cnt) tests its
+// triangles and returns true to end the walk; at an internal node the ray
+// enters, go to the hit child of smallest preorder index (packet_descend;
+// absent children carry index 0); otherwise, and where no child is hit,
+// follow the skip link. Returns the next node, `end` when leaf() ended the
+// walk.
+template <int K, bool kVec, class Table, class Leaf>
+__device__ __forceinline__ int preorder_step(const Table& tab, int cur,
+                                             const Ray& r, float bt, int end,
+                                             Leaf leaf) {
+  const float* node = tab.node(cur);
+  PreorderRow<K, kVec> row;
+  row.template load<0, 3>(node);
+  const int skip = __float_as_int(row.f[8]);
+  float tmin, tmax;
+  slab(row.f, r, tmin, tmax);
+  if (!box_hit(tmin, tmax, bt)) return skip;
+  const int cnt = __float_as_int(row.f[7]) & 0xFF;
+  if (cnt > 0) {
+    const int first = __float_as_int(row.f[6]);
+    return leaf(tab.leaf(node, first), first, cnt) ? end : skip;
+  }
+  row.template load<3, PreorderRow<K, kVec>::kQuads>(node);
+  int target = -1;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const int ci = __float_as_int(row.f[9 + 6 * K + c]);
+    float ctmin, ctmax;
+    slab(row.f + 9 + 6 * c, r, ctmin, ctmax);
+    if (box_hit(ctmin, ctmax, bt) && ci > 0 && (target < 0 || ci < target)) {
+      target = ci;
+    }
+  }
+  return target >= 0 ? target : skip;
 }
 
 // Blocks of `kernel` (kWalkThreads threads each) resident at once on the

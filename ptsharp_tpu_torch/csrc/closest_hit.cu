@@ -53,7 +53,7 @@ closest_hit_kernel(const float* __restrict__ fat,
   ptk::Best b;
   ptk::EntryStack<true> st;
   ptk::persistent_walk(
-      n, base, end, next_ray, counts,
+      n, end, end - base + 2, next_ray, counts,
       [&](int i) {
         r = ptk::load_ray(org, dir, i);
         b = ptk::Best{t_max[i], -1, 0.0f, 0.0f};

@@ -13,8 +13,8 @@ ptsharp_tpu/intersect.py dispatches them (kernels/traverse.py):
              (closest_hit_binary);
   "cluster"  per instance, the cluster cull (accel/cluster.py), whose
              unresolved rays take the binary walk.
-Shadow rays of the last three go through the K-wide walk, per instance,
-occluded where it finds a hit before t_cut. Object-space rays are not
+Shadow rays of the last three go through the K-wide any-hit walk over
+w_rows, per instance (any_hit_wide_rows). Object-space rays are not
 normalised: t is parametric in the world ray. Hit records follow Hit.Info
 (Hit.cs:26-55): the shading normal is flipped toward the ray and `inside`
 set on a flip.
@@ -250,8 +250,10 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     """True where any surface intersects the ray at t in (eps, t_cut);
     lanes with t_cut <= 0 are never occluded. Mesh instances go through
     the any-hit kernel of the scene's walk order over the fat table
-    ("pallas"), else, per instance, through the K-wide closest-hit walk
-    bounded by t_cut (as ptsharp_tpu/intersect.py:722-728 runs it)."""
+    ("pallas"), else, per instance, through the K-wide any-hit walk over
+    w_rows. ptsharp_tpu/intersect.py:722-728 runs the K-wide closest-hit
+    bounded by t_cut there and tests t < INF: the same boolean wherever
+    t_cut <= INF, which every cut the integrator passes is."""
     r = org.shape[0]
     tc = _as_rays(t_cut, r, org)
     occ = torch.zeros(r, dtype=torch.bool, device=org.device)
@@ -290,11 +292,10 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     elif scene.has_meshes:
         for i in range(scene.inst_inv.shape[0]):
             o, d = _instance_rays(scene, i, org, dirn)
-            t, _s, _u, _v = traverse.closest_hit_wide_rows(
+            occ = occ | traverse.any_hit_wide_rows(
                 scene.w_rows, scene.leaf_rows, o, d, cut(),
                 scene.w_inst_base[i], scene.w_inst_end[i], scene.max_leaf,
                 scene.wide_k)
-            occ = occ | (t < INF)
     return occ
 
 

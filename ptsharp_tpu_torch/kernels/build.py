@@ -65,9 +65,8 @@ def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # fat, rays, t, n, base, end, leaf_size, k, outputs, stream
     closest = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
-    anyhit = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp]
-    # the persistent walks: fat, rays, t, n, base, end, k, outputs, the
-    # ray counter, [steps, lane slots] or null, stream
+    # the persistent walks over the fat table: fat, rays, t, n, base, end,
+    # k, outputs, the ray counter, [steps, lane slots] or null, stream
     persistent_closest = [vp, vp, vp, vp, ci, ci, ci, ci,
                           vp, vp, vp, vp, vp, vp, vp]
     persistent_any = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
@@ -82,15 +81,20 @@ def _bind(lib):
     split_staged = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                     vp, vp, vp, vp, vp]
     # the XLA walks' row tables: rows, leaf, their strides, rays, t, n,
-    # base, end, leaf_size, [k], max_iters, outputs, stream
+    # base, end, leaf_size, max_iters, outputs, stream
     binary = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
               vp, vp, vp, vp, vp]
-    wide_rows = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                 vp, vp, vp, vp, vp]
+    # the persistent walks over them: rows, leaf, their strides, float4 or
+    # scalar loads, rays, t, n, base, end, leaf_size, k, max_iters, outputs,
+    # the ray counter, [steps, lane slots] or null, stream
+    rows_closest = [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                    vp, vp, vp, vp, vp, vp, vp]
+    rows_any = [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                vp, vp, vp, vp]
     for fn, argtypes in ((lib.pt_closest_hit, persistent_closest),
                          (lib.pt_any_hit, persistent_any),
-                         (lib.pt_closest_hit_preorder, closest),
-                         (lib.pt_any_hit_preorder, anyhit),
+                         (lib.pt_closest_hit_preorder, persistent_closest),
+                         (lib.pt_any_hit_preorder, persistent_any),
                          (lib.pt_closest_hit_split, closest_split),
                          (lib.pt_any_hit_split, anyhit_split),
                          (lib.pt_closest_hit_packet, packet),
@@ -99,7 +103,8 @@ def _bind(lib):
                          (lib.pt_closest_hit_block_cache, split_staged),
                          (lib.pt_closest_hit_row_stage, split_staged),
                          (lib.pt_closest_hit_binary, binary),
-                         (lib.pt_closest_hit_wide_rows, wide_rows)):
+                         (lib.pt_closest_hit_wide_rows, rows_closest),
+                         (lib.pt_any_hit_wide_rows, rows_any)):
         fn.restype = ci
         fn.argtypes = argtypes
     return lib

@@ -1,5 +1,5 @@
 """Closest-hit and any-hit over the BVH tables: wrappers and plain
-versions of the thirteen CUDA kernels in csrc/.
+versions of the CUDA kernels in csrc/ (fourteen entry points).
 
 Over the fat table (the render path):
   `closest_hit` and `any_hit` walk near to far with a per-ray stack (the
@@ -7,7 +7,8 @@ Over the fat table (the render path):
   warps that refill their idle lanes from a ray counter);
   `closest_hit_preorder` and `any_hit_preorder` walk the tree in preorder
   along its skip links, with no stack (csrc/closest_hit_preorder.cu and
-  csrc/any_hit_preorder.cu). intersect.py calls these four.
+  csrc/any_hit_preorder.cu, persistent warps too). intersect.py calls
+  these four.
 Over the split tables `rows` + `leaf` (the kernel-level entry points,
 `accel.tables.split_fat` makes them from the fat table):
   `closest_hit_split` and `any_hit_split`, the ordered walk in either push
@@ -31,9 +32,12 @@ and "cluster"; node rows of any width, leaf blocks (NL, leaf_size * 9)):
   `closest_hit_binary`, the binary skip-link walk over u_rows (N, 10)
   (csrc/closest_hit_binary.cu; its plain version is
   accel.traverse.traverse_packed);
-  `closest_hit_wide_rows`, the preorder walk of closest_hit_preorder over
-  the K-wide w_rows (csrc/closest_hit_preorder.cu; its plain version is
-  accel.traverse.traverse_wide).
+  `closest_hit_wide_rows` and `any_hit_wide_rows`, the preorder walks of
+  closest_hit_preorder and any_hit_preorder over the K-wide w_rows
+  (csrc/closest_hit_preorder.cu, csrc/any_hit_preorder.cu; their plain
+  versions are accel.traverse.traverse_wide and any_hit_wide_rows_plain),
+  with float4 loads where both tables are 16-byte strides from 16-byte
+  aligned bases (`row_loads`), else scalar loads.
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream, adds one to its `launches` count and the launch's rays
 to its `rays`; on a CPU tensor it runs its plain version below; any
@@ -96,27 +100,34 @@ _NO_CHILD = torch.iinfo(torch.int64).max
 
 
 class Work:
-    """What plain walks did, for a kernel's least time on the card
-    (chip_smoke.py): box tests (each visit's own box and, at a hit K-wide
-    internal node, its K children's), Moller-Trumbore tests, and the
-    distinct table rows they read with the float32 columns a read uses."""
+    """What the walks' function needs, counted on the plain walks, for a
+    kernel's least time on the card (chip_smoke.py): box tests (each
+    visit's own box and, at a hit K-wide internal node, its K children's),
+    Moller-Trumbore tests (a leaf's `count` triangles, not its padding
+    slots; an any-hit's up to its first accepted one), and the distinct
+    table rows they read with the float32 columns a read uses (a row read
+    twice counts its widest read)."""
 
     def __init__(self):
         self.boxes = 0
         self.triangles = 0
-        self._rows = {}  # (table, "node" | "leaf") -> (row mask, columns)
+        self._cols = {}  # (table, "node" | "leaf") -> columns read per row
 
     def touch(self, table, what, rows, cols):
+        """Rows `rows` of `table` read, `cols` columns each (an int, or a
+        tensor beside `rows`)."""
         key = (table.data_ptr(), what)
-        if key not in self._rows:
-            self._rows[key] = (torch.zeros(table.shape[0], dtype=torch.bool,
-                                           device=table.device), cols)
-        self._rows[key][0][rows] = True
+        if key not in self._cols:
+            self._cols[key] = torch.zeros(table.shape[0], dtype=torch.int64,
+                                          device=table.device)
+        rows = rows.to(torch.int64)
+        cols = torch.as_tensor(cols, dtype=torch.int64,
+                               device=table.device).expand(rows.shape)
+        self._cols[key].scatter_reduce_(0, rows, cols, "amax")
 
     @property
     def table_bytes(self) -> int:
-        return sum(int(mask.sum()) * cols * 4
-                   for mask, cols in self._rows.values())
+        return sum(int(cols.sum()) * 4 for cols in self._cols.values())
 
 
 _work: Work | None = None
@@ -255,14 +266,27 @@ class _Walk:
             _work.touch(self.nodes, "node", node, 9 + 7 * self.k)
         return act, node, hit & is_leaf, inner
 
-    def leaf_block(self, lanes, node, leaf_size):
+    def leaf_block(self, lanes, node, leaf_size, t_cut=None):
+        """MT of the lanes' rays over the leaf blocks of nodes `node`, all
+        leaf_size slots: (ok, tt, uu, vv), each (A, leaf_size). The padding
+        slots past a leaf's count hold zero triangles, which MT rejects.
+        With t_cut (an any-hit), the work counted stops at each lane's
+        first slot accepted at tt < t_cut."""
         table, rows = self.tab.leaf_at(node)
-        if _work is not None:
-            _work.triangles += lanes.numel() * leaf_size
-            _work.touch(table, "leaf", rows, leaf_size * 9)
         blk = table[rows, :leaf_size * 9]
-        return _mt(blk.reshape(-1, leaf_size, 9), self.org[lanes],
-                   self.dirn[lanes])
+        out = _mt(blk.reshape(-1, leaf_size, 9), self.org[lanes],
+                  self.dirn[lanes])
+        if _work is not None:
+            tested = (self.bits[node, 7] & 0xFF).to(torch.int64)
+            if t_cut is not None:
+                ok, tt = out[0], out[1]
+                hit = ok & (tt < t_cut[lanes][:, None])
+                first = torch.argmax(hit.to(torch.int8), dim=1) + 1
+                tested = torch.where(hit.any(dim=1),
+                                     torch.minimum(first, tested), tested)
+            _work.triangles += int(tested.sum())
+            _work.touch(table, "leaf", rows, tested * 9)
+        return out
 
     def child_hits(self, lanes, node):
         """Slab tests of the K child boxes against the lanes' best t:
@@ -374,8 +398,8 @@ class _SkipWalk(_Walk):
     steps bound the walk (and `max_iters`, where given, caps it)."""
 
     def __init__(self, tab, org, dirn, bt, base, end, k, start,
-                 max_iters=None):
-        super().__init__(tab, org, dirn, bt, base, end, k, start)
+                 max_iters=None, count=False):
+        super().__init__(tab, org, dirn, bt, base, end, k, start, count)
         self.max_iters = (end - base if max_iters is None
                           else min(end - base, max_iters))
 
@@ -450,7 +474,8 @@ def _walk_any(walk, t_cut, leaf_size: int):
         nxt = walk.no_target(node)
         if bool(leaf.any()):
             la = act[leaf]
-            ok, tt, _uu, _vv = walk.leaf_block(la, node[leaf], leaf_size)
+            ok, tt, _uu, _vv = walk.leaf_block(la, node[leaf], leaf_size,
+                                               t_cut)
             got = torch.any(ok & (tt < t_cut[la][:, None]), dim=1)
             occ[la[got]] = True
             # an occluded lane is finished: where it would go next no
@@ -484,11 +509,15 @@ def closest_hit_plain(fat, org, dirn, t_max, base: int, end: int,
 
 
 def closest_hit_preorder_plain(fat, org, dirn, t_max, base: int, end: int,
-                               leaf_size: int, k: int):
-    """Plain PyTorch preorder closest-hit (see the module docstring)."""
-    return _walk_closest(_SkipWalk(_Table(fat), org, dirn, t_max.clone(),
-                                   base, end, k, _all_lanes(org)),
-                         leaf_size)
+                               leaf_size: int, k: int,
+                               return_iters: bool = False):
+    """Plain PyTorch preorder closest-hit (see the module docstring); with
+    return_iters, also each ray's step count (int32 (R,)), the steps
+    csrc/closest_hit_preorder.cu takes."""
+    walk = _SkipWalk(_Table(fat), org, dirn, t_max.clone(), base, end, k,
+                     _all_lanes(org), count=return_iters)
+    out = _walk_closest(walk, leaf_size)
+    return (*out, walk.steps) if return_iters else out
 
 
 def any_hit_plain(fat, org, dirn, t_cut, base: int, end: int,
@@ -504,10 +533,28 @@ def any_hit_plain(fat, org, dirn, t_cut, base: int, end: int,
 
 
 def any_hit_preorder_plain(fat, org, dirn, t_cut, base: int, end: int,
-                           leaf_size: int, k: int):
-    """Plain PyTorch preorder any-hit (see the module docstring)."""
-    return _walk_any(_SkipWalk(_Table(fat), org, dirn, t_cut, base, end, k,
-                               t_cut > 0.0), t_cut, leaf_size)
+                           leaf_size: int, k: int,
+                           return_iters: bool = False):
+    """Plain PyTorch preorder any-hit (see the module docstring); with
+    return_iters, also each ray's step count (int32 (R,))."""
+    walk = _SkipWalk(_Table(fat), org, dirn, t_cut, base, end, k,
+                     t_cut > 0.0, count=return_iters)
+    occ = _walk_any(walk, t_cut, leaf_size)
+    return (occ, walk.steps) if return_iters else occ
+
+
+def any_hit_wide_rows_plain(rows, leaf, org, dirn, t_cut, base: int,
+                            end: int, leaf_size: int, k: int,
+                            return_iters: bool = False):
+    """Plain PyTorch preorder any-hit over the XLA walk's w_rows and
+    leaf_rows, each ray capped at MAX_ITERS steps as traverse_wide caps
+    it; with return_iters, also each ray's step count (int32 (R,)).
+    Equal to traverse_wide(..., t_cut).t < INF wherever t_cut <= INF."""
+    walk = _SkipWalk(_Table(rows, leaf, leaf_size), org, dirn, t_cut,
+                     int(base), int(end), k, t_cut > 0.0, MAX_ITERS,
+                     count=return_iters)
+    occ = _walk_any(walk, t_cut, leaf_size)
+    return (occ, walk.steps) if return_iters else occ
 
 
 def closest_hit_split_plain(rows, leaf, org, dirn, t_max, base: int,
@@ -709,58 +756,75 @@ def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
     return out
 
 
-def _any(wrapper, entry, plain, fat, org, dirn, t_cut, base, end, leaf_size,
-         k):
-    _check(fat, org, dirn, t_cut, base, end, leaf_size, k)
-    if fat.device.type == "cpu":
-        return plain(fat, org, dirn, t_cut, base, end, leaf_size, k)
-    lib = _kernel_lib(fat, k)
-    r = org.shape[0]
-    occ = torch.empty(r, dtype=torch.bool, device=fat.device)
-    if r:
-        _launch(wrapper, entry, lib, _ptr(fat), _ptr(org), _ptr(dirn),
-                _ptr(t_cut), r, base, end, leaf_size, k, _ptr(occ),
-                _stream(fat), rays=r)
-    return occ
-
-
 # (device index, stream) -> the two ints of the persistent walks' ray
 # counter on that stream: zeroed once here, and by the kernel's last warp
 # at the end of each launch, so a launch fills nothing first
 _RAY_COUNTERS = {}
 
 
-def _persistent(wrapper, entry, fat, org, dirn, t, base, end, k, counts,
-                out):
-    """Launch a persistent ordered walk (csrc/closest_hit.cu, any_hit.cu)
-    over the rays, writing `out`: its warps take rays from the counter of
-    the current stream, which is at 0 between launches."""
-    lib = _kernel_lib(fat, k)
-    if fat.data_ptr() % 16:
-        raise ValueError("fat must start on a 16-byte boundary (float4 "
-                         "loads)")
+def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
+                counts, out):
+    """Launch a persistent walk (csrc/closest_hit.cu, any_hit.cu,
+    closest_hit_preorder.cu, any_hit_preorder.cu) over the rays, writing
+    `out`: its warps take rays from the counter of the current stream,
+    which is at 0 between launches. `x` is a table (its device and
+    stream), `lead` the C entry's arguments before the rays (the tables
+    and their geometry), `tail` those after the node range."""
     if counts is not None and (counts.dtype != torch.int64
                                or tuple(counts.shape) != (2,)
-                               or counts.device != fat.device
+                               or counts.device != x.device
                                or not counts.is_contiguous()):
         raise ValueError("counts must be a contiguous (2,) int64 tensor on "
                          "the tables' device")
     r = org.shape[0]
     if r:
-        stream = _stream(fat)
-        key = (fat.device.index, stream)
+        stream = _stream(x)
+        key = (x.device.index, stream)
         if key not in _RAY_COUNTERS:
             _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32,
-                                             device=fat.device)
+                                             device=x.device)
         try:
-            _launch(wrapper, entry, lib, _ptr(fat), _ptr(org), _ptr(dirn),
-                    _ptr(t), r, base, end, k, *map(_ptr, out),
-                    _ptr(_RAY_COUNTERS[key]),
+            _launch(wrapper, entry, _kernel_lib(x), *lead, _ptr(org),
+                    _ptr(dirn), _ptr(t), r, base, end, *tail,
+                    *map(_ptr, out), _ptr(_RAY_COUNTERS[key]),
                     None if counts is None else _ptr(counts), stream, rays=r)
         except RuntimeError:
             del _RAY_COUNTERS[key]  # a launch that failed may leave it set
             raise
     return out
+
+
+def _persistent_fat(wrapper, entry, fat, org, dirn, t, base, end, k, counts,
+                    out):
+    """A persistent walk over the fat table, which it reads with float4
+    loads."""
+    _kernel_lib(fat, k)
+    if fat.data_ptr() % 16:
+        raise ValueError("fat must start on a 16-byte boundary (float4 "
+                         "loads)")
+    return _persistent(wrapper, entry, fat, (_ptr(fat),), org, dirn, t, base,
+                       end, (k,), counts, out)
+
+
+def row_loads(rows, leaf) -> str:
+    """How the preorder kernels read the XLA walk's row tables: "float4"
+    where both start on 16-byte boundaries and both strides are multiples
+    of 4 floats (w_rows at any K; leaf_rows at leaf 4, 8, 12, ...), else
+    "scalar"."""
+    aligned = all(x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0
+                  for x in (rows, leaf))
+    return "float4" if aligned else "scalar"
+
+
+def _persistent_rows(wrapper, entry, rows, leaf, org, dirn, t, base, end,
+                     leaf_size, k, counts, out):
+    """A persistent preorder walk over w_rows and leaf_rows, each ray
+    capped at MAX_ITERS steps, in the load width row_loads names."""
+    _kernel_lib(rows, k)
+    lead = (_ptr(rows), _ptr(leaf), rows.shape[1], leaf.shape[1],
+            int(row_loads(rows, leaf) == "float4"))
+    return _persistent(wrapper, entry, rows, lead, org, dirn, t, base, end,
+                       (leaf_size, k, MAX_ITERS), counts, out)
 
 
 def _plain_counts(counts):
@@ -781,19 +845,25 @@ def closest_hit(fat, org, dirn, t_max, base: int, end: int, leaf_size: int,
         _plain_counts(counts)
         return closest_hit_plain(fat, org, dirn, t_max, base, end,
                                  leaf_size, k)
-    return _persistent(closest_hit, "pt_closest_hit", fat, org, dirn, t_max,
-                       base, end, k, counts,
-                       _hit_outputs(org.shape[0], fat.device))
+    return _persistent_fat(closest_hit, "pt_closest_hit", fat, org, dirn,
+                           t_max, base, end, k, counts,
+                           _hit_outputs(org.shape[0], fat.device))
 
 
 def closest_hit_preorder(fat, org, dirn, t_max, base: int, end: int,
-                         leaf_size: int, k: int):
+                         leaf_size: int, k: int, counts=None):
     """Closest hit per ray by the preorder walk: (t, slot, u, v).
     csrc/closest_hit_preorder.cu on CUDA tensors,
-    closest_hit_preorder_plain on CPU tensors."""
-    return _closest(closest_hit_preorder, "pt_closest_hit_preorder",
-                    closest_hit_preorder_plain, fat, org, dirn, t_max, base,
-                    end, leaf_size, k)
+    closest_hit_preorder_plain on CPU tensors; `counts` as in
+    closest_hit."""
+    _check(fat, org, dirn, t_max, base, end, leaf_size, k)
+    if fat.device.type == "cpu":
+        _plain_counts(counts)
+        return closest_hit_preorder_plain(fat, org, dirn, t_max, base, end,
+                                          leaf_size, k)
+    return _persistent_fat(closest_hit_preorder, "pt_closest_hit_preorder",
+                           fat, org, dirn, t_max, base, end, k, counts,
+                           _hit_outputs(org.shape[0], fat.device))
 
 
 def any_hit(fat, org, dirn, t_cut, base: int, end: int, leaf_size: int,
@@ -806,18 +876,23 @@ def any_hit(fat, org, dirn, t_cut, base: int, end: int, leaf_size: int,
         _plain_counts(counts)
         return any_hit_plain(fat, org, dirn, t_cut, base, end, leaf_size, k)
     occ = torch.empty(org.shape[0], dtype=torch.bool, device=fat.device)
-    return _persistent(any_hit, "pt_any_hit", fat, org, dirn, t_cut, base,
-                       end, k, counts, (occ,))[0]
+    return _persistent_fat(any_hit, "pt_any_hit", fat, org, dirn, t_cut,
+                           base, end, k, counts, (occ,))[0]
 
 
 def any_hit_preorder(fat, org, dirn, t_cut, base: int, end: int,
-                     leaf_size: int, k: int):
+                     leaf_size: int, k: int, counts=None):
     """Occlusion per ray by the preorder walk: (R,) bool.
     csrc/any_hit_preorder.cu on CUDA tensors, any_hit_preorder_plain on
-    CPU tensors."""
-    return _any(any_hit_preorder, "pt_any_hit_preorder",
-                any_hit_preorder_plain, fat, org, dirn, t_cut, base, end,
-                leaf_size, k)
+    CPU tensors; `counts` as in closest_hit."""
+    _check(fat, org, dirn, t_cut, base, end, leaf_size, k)
+    if fat.device.type == "cpu":
+        _plain_counts(counts)
+        return any_hit_preorder_plain(fat, org, dirn, t_cut, base, end,
+                                      leaf_size, k)
+    occ = torch.empty(org.shape[0], dtype=torch.bool, device=fat.device)
+    return _persistent_fat(any_hit_preorder, "pt_any_hit_preorder", fat, org,
+                           dirn, t_cut, base, end, k, counts, (occ,))[0]
 
 
 def closest_hit_split(rows, leaf, org, dirn, t_max, base: int, end: int,
@@ -952,22 +1027,6 @@ def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
                           t_max, base, end, leaf_size, k, staged=True)
 
 
-def _closest_rows(wrapper, entry, rows, leaf, org, dirn, t_max, base, end,
-                  leaf_size, *k):
-    """Launch a closest-hit kernel over the XLA walks' row tables; the
-    strides are the tables' widths, and each ray's walk is capped at
-    MAX_ITERS steps."""
-    lib = _kernel_lib(rows, *k)
-    r = org.shape[0]
-    out = _hit_outputs(r, rows.device)
-    if r:
-        _launch(wrapper, entry, lib, _ptr(rows), _ptr(leaf), rows.shape[1],
-                leaf.shape[1], _ptr(org), _ptr(dirn), _ptr(t_max), r, base,
-                end, leaf_size, *k, MAX_ITERS, *map(_ptr, out),
-                _stream(rows), rays=r)
-    return out
-
-
 def closest_hit_binary(rows, leaf, org, dirn, t_max, base: int, end: int,
                        leaf_size: int):
     """Closest hit per ray by the binary skip-link walk over u_rows
@@ -984,35 +1043,72 @@ def closest_hit_binary(rows, leaf, org, dirn, t_max, base: int, end: int,
     if rows.device.type == "cpu":
         return walks.traverse_packed(rows, leaf, org, dirn, t_max, base, end,
                                      leaf_size)
-    return _closest_rows(closest_hit_binary, "pt_closest_hit_binary", rows,
-                         leaf, org, dirn, t_max, base, end, leaf_size)
+    lib = _kernel_lib(rows)
+    r = org.shape[0]
+    out = _hit_outputs(r, rows.device)
+    if r:
+        _launch(closest_hit_binary, "pt_closest_hit_binary", lib, _ptr(rows),
+                _ptr(leaf), rows.shape[1], leaf.shape[1], _ptr(org),
+                _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, MAX_ITERS,
+                *map(_ptr, out), _stream(rows), rays=r)
+    return out
+
+
+def _check_wide_rows(rows, leaf, org, dirn, t, base, end, leaf_size, k):
+    if k < 2:
+        raise ValueError(f"k={k}")
+    _check_row_tables(rows, leaf, org, dirn, t, base, end, leaf_size, k)
 
 
 def closest_hit_wide_rows(rows, leaf, org, dirn, t_max, base: int, end: int,
-                          leaf_size: int, k: int):
+                          leaf_size: int, k: int, counts=None):
     """Closest hit per ray by the K-wide preorder walk over w_rows
     (Nw, row_width(K)) and leaf_rows (NL, leaf_size * 9): (t, slot, u, v).
-    The walk body of closest_hit_preorder over another table view.
-    csrc/closest_hit_preorder.cu (K in KERNEL_K) on CUDA tensors; on CPU
-    tensors its plain version, accel.traverse.traverse_wide (any K)."""
+    The walk of closest_hit_preorder over another table view, each ray
+    capped at MAX_ITERS steps. csrc/closest_hit_preorder.cu (K in
+    KERNEL_K; float4 or scalar loads, row_loads) on CUDA tensors; on CPU
+    tensors its plain version, accel.traverse.traverse_wide (any K).
+    `counts` as in closest_hit."""
     from ptsharp_tpu_torch.accel import traverse as walks
 
     base, end = int(base), int(end)
-    if k < 2:
-        raise ValueError(f"k={k}")
-    _check_row_tables(rows, leaf, org, dirn, t_max, base, end, leaf_size, k)
+    _check_wide_rows(rows, leaf, org, dirn, t_max, base, end, leaf_size, k)
     if rows.device.type == "cpu":
+        _plain_counts(counts)
         return walks.traverse_wide(rows, leaf, org, dirn, t_max, base, end,
                                    leaf_size, k)
-    return _closest_rows(closest_hit_wide_rows, "pt_closest_hit_wide_rows",
-                         rows, leaf, org, dirn, t_max, base, end, leaf_size,
-                         k)
+    return _persistent_rows(closest_hit_wide_rows, "pt_closest_hit_wide_rows",
+                            rows, leaf, org, dirn, t_max, base, end,
+                            leaf_size, k, counts,
+                            _hit_outputs(org.shape[0], rows.device))
+
+
+def any_hit_wide_rows(rows, leaf, org, dirn, t_cut, base: int, end: int,
+                      leaf_size: int, k: int, counts=None):
+    """Occlusion per ray by the K-wide preorder walk over w_rows and
+    leaf_rows: (R,) bool, True where a triangle lies at t in (1e-4, t_cut),
+    each ray capped at MAX_ITERS steps; the same boolean as
+    closest_hit_wide_rows(..., t_cut).t < INF wherever t_cut <= INF.
+    csrc/any_hit_preorder.cu (K in KERNEL_K; row_loads) on CUDA tensors;
+    on CPU tensors its plain version, any_hit_wide_rows_plain (any K).
+    `counts` as in closest_hit."""
+    base, end = int(base), int(end)
+    _check_wide_rows(rows, leaf, org, dirn, t_cut, base, end, leaf_size, k)
+    if rows.device.type == "cpu":
+        _plain_counts(counts)
+        return any_hit_wide_rows_plain(rows, leaf, org, dirn, t_cut, base,
+                                       end, leaf_size, k)
+    occ = torch.empty(org.shape[0], dtype=torch.bool, device=rows.device)
+    return _persistent_rows(any_hit_wide_rows, "pt_any_hit_wide_rows", rows,
+                            leaf, org, dirn, t_cut, base, end, leaf_size, k,
+                            counts, (occ,))[0]
 
 
 WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder,
             closest_hit_split, any_hit_split, closest_hit_packet,
             closest_hit_dual, closest_hit_fat_cache, closest_hit_block_cache,
-            closest_hit_row_stage, closest_hit_binary, closest_hit_wide_rows)
+            closest_hit_row_stage, closest_hit_binary, closest_hit_wide_rows,
+            any_hit_wide_rows)
 for _w in WRAPPERS:
     _w.launches = _w.rays = 0
 

@@ -22,8 +22,11 @@ Tolerances:
     where two triangles hit within rtol 1e-5, atol 1e-5 of each other
     (ties).
 
-The card-marked test runs the two preorder CUDA kernels against their
-plain versions; it skips on a machine without a card.
+The plain versions' step counts (return_iters, the steps the persistent
+CUDA kernels count) and the wrappers' `counts`, which only the kernels
+keep, are checked on the CPU. The card-marked test runs the two preorder
+CUDA kernels against their plain versions, every lane and the step counts
+equal; it skips on a machine without a card.
 """
 
 import jax.numpy as jnp
@@ -175,6 +178,81 @@ def test_preorder_wrappers_take_the_plain_version_on_cpu(ref):
                                       *ref["args"])
 
 
+def test_preorder_plain_versions_count_their_steps(ref):
+    """return_iters adds each ray's steps and changes no result: every
+    ray visits the root, at most end - base nodes; an any-hit lane with
+    t_cut <= 0 takes none and no any-hit lane takes more than its
+    closest-hit walk bounded by the same t_cut."""
+    fat, org, d, args = ref["fat"], ref["org"], ref["dirn"], ref["args"]
+    *got, steps = traverse.closest_hit_preorder_plain(
+        fat, org, d, ref["t_cut"], *args, return_iters=True)
+    want = traverse.closest_hit_preorder_plain(fat, org, d, ref["t_cut"],
+                                               *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(steps.min()) >= 1 and int(steps.max()) <= args[1] - args[0]
+    occ, any_steps = traverse.any_hit_preorder_plain(
+        fat, org, d, ref["t_cut"], *args, return_iters=True)
+    assert torch.equal(occ, traverse.any_hit_preorder_plain(
+        fat, org, d, ref["t_cut"], *args))
+    inactive = ref["t_cut"] <= 0
+    assert (any_steps[inactive] == 0).all()
+    assert (any_steps[~inactive] <= steps[~inactive]).all()
+    assert (any_steps[~inactive] >= 1).all()
+
+
+def test_work_counts_a_leafs_triangles_not_its_padding(ref):
+    """count_work (the kernels' bound) counts a leaf visit's `count`
+    triangles and its count * 9 columns, not its leaf_size slots; with
+    t_cut, each lane's triangles up to its first one accepted below the
+    cut, as the any-hit kernels stop there."""
+    fat, org, d, args = ref["fat"], ref["org"], ref["dirn"], ref["args"]
+    leaf_size = args[2]
+    bits = fat.view(torch.int32)
+    count = (bits[0::2, 7] & 0xFF).to(torch.int64)
+    first = bits[0::2, 6].to(torch.int64)
+    leaves = torch.nonzero(count > 0).squeeze(1)
+    assert int(count[leaves].min()) < leaf_size  # some padding to skip
+    # each lane at the leaf of its nearest hit, a lane that hits nothing
+    # at some leaf
+    _t, slot, _u, _v = traverse.closest_hit_preorder_plain(
+        fat, org, d, torch.full((N,), 1e9), *args)
+    lanes = torch.arange(N)
+    at = leaves[lanes % leaves.numel()]
+    own = (first[leaves][None, :] <= slot[:, None].long()) \
+        & (slot[:, None].long() < (first + count)[leaves][None, :])
+    at = torch.where(slot >= 0, leaves[own.long().argmax(dim=1)], at)
+    node = 2 * at  # fat rows of the leaves
+    walk = traverse._SkipWalk(traverse._Table(fat), org, d,
+                              ref["t_cut"].clone(), args[0], args[1],
+                              args[3], torch.ones(N, dtype=torch.bool))
+    cnt = count[node // 2]
+    with traverse.count_work() as work:
+        ok, tt, _u, _v = walk.leaf_block(lanes, node, leaf_size)
+    assert work.triangles == int(cnt.sum())
+    distinct = torch.unique(node)
+    assert work.table_bytes == int(count[distinct // 2].sum()) * 9 * 4
+    assert not (ok & (torch.arange(leaf_size) >= cnt[:, None])).any()
+
+    t_cut = torch.full((N,), 1e9)
+    with traverse.count_work() as work:
+        walk.leaf_block(lanes, node, leaf_size, t_cut)
+    acc = ok & (tt < t_cut[:, None])
+    want = sum(int(np.argmax(a)) + 1 if a.any() else int(c)
+               for a, c in zip(acc.numpy(), cnt.numpy()))
+    assert acc.any() and work.triangles == want < int(cnt.sum())
+
+
+def test_preorder_wrappers_take_no_counts_on_the_cpu(ref):
+    """`counts` is kept by the CUDA kernels; on CPU tensors both preorder
+    wrappers raise on it."""
+    counts = torch.zeros(2, dtype=torch.int64)
+    for wrapper, t in ((traverse.closest_hit_preorder, ref["t_max"]),
+                       (traverse.any_hit_preorder, ref["t_cut"])):
+        with pytest.raises(ValueError, match="counts"):
+            wrapper(ref["fat"], ref["org"], ref["dirn"], t, *ref["args"],
+                    counts=counts)
+
+
 @pytest.mark.cuda
 def test_cuda_preorder_kernels_match_plain_versions(ref):
     """Runs on a machine with a card: both preorder CUDA kernels against
@@ -186,16 +264,19 @@ def test_cuda_preorder_kernels_match_plain_versions(ref):
     org, d = ref["org"].to(dev), ref["dirn"].to(dev)
     tm, tc = ref["t_max"].to(dev), ref["t_cut"].to(dev)
     traverse.reset_launch_counts()
-    t, s, _u, _v = traverse.closest_hit_preorder(fat, org, d, tm,
-                                                 *ref["args"])
-    occ = traverse.any_hit_preorder(fat, org, d, tc, *ref["args"])
+    counts = torch.zeros((2, 2), dtype=torch.int64, device=dev)
+    got = traverse.closest_hit_preorder(fat, org, d, tm, *ref["args"],
+                                        counts=counts[0])
+    occ = traverse.any_hit_preorder(fat, org, d, tc, *ref["args"],
+                                    counts=counts[1])
     torch.cuda.synchronize()
     assert traverse.closest_hit_preorder.launches == 1
     assert traverse.any_hit_preorder.launches == 1
     assert traverse.closest_hit.launches == traverse.any_hit.launches == 0
-    tp, sp, _up, _vp = traverse.closest_hit_preorder_plain(
-        fat, org, d, tm, *ref["args"])
-    np.testing.assert_array_equal(t.cpu().numpy(), tp.cpu().numpy())
-    np.testing.assert_array_equal(s.cpu().numpy(), sp.cpu().numpy())
-    occ_p = traverse.any_hit_preorder_plain(fat, org, d, tc, *ref["args"])
-    np.testing.assert_array_equal(occ.cpu().numpy(), occ_p.cpu().numpy())
+    *want, steps = traverse.closest_hit_preorder_plain(
+        fat, org, d, tm, *ref["args"], return_iters=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    occ_p, any_steps = traverse.any_hit_preorder_plain(
+        fat, org, d, tc, *ref["args"], return_iters=True)
+    assert torch.equal(occ, occ_p)
+    assert counts[:, 0].tolist() == [int(steps.sum()), int(any_steps.sum())]

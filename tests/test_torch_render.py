@@ -50,38 +50,49 @@ CASES = {  # name: (width, height, JAX example)
 }
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def case(request):
-    w, h, make = CASES[request.param]
+def _port_renderer(sj, cam, w, h, icfg):
+    """The port's renderer over the JAX scene, carried over with
+    convert.scene_from_reference (its walk order included)."""
+    st = convert.scene_from_reference(*convert.reference_arrays(sj),
+                                       device="cpu")
+    assert st.p_ordered == bool(sj.p_ordered)
+    return Renderer(st, convert.camera_from_reference(cam._asdict(),
+                                                      device="cpu"),
+                    RenderConfig(width=w, height=h, spp=1), port_config(icfg))
+
+
+# Each test builds its case itself rather than sharing a module-scoped
+# fixture: a worker then holds no JAX renderer, compiled programs or port
+# scene from one test to the next, and no case depends on what an earlier
+# test or file left in the worker.
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_render_film_matches(case):
+    w, h, make = CASES[case]
     sj, cam, _rc, icfg = make(w, h)
     walk = (dataclasses.replace(sj, intersector="wide")
             if sj.inst_inv.shape[0] else sj)
     rj = JRenderer(walk, cam, JRenderConfig(width=w, height=h, spp=1), icfg)
-    film = rj.render(key=jax.random.PRNGKey(1))
-    st = convert.scene_from_reference(*convert.reference_arrays(sj),
-                                       device="cpu")
-    assert st.p_ordered == bool(sj.p_ordered)
-    rt = Renderer(st, convert.camera_from_reference(cam._asdict(),
-                                                    device="cpu"),
-                  RenderConfig(width=w, height=h, spp=1), port_config(icfg))
-    return dict(rj=rj, rt=rt, film=film._asdict())
-
-
-def test_render_film_matches(case):
-    film = case["rt"].render(key=rng.PRNGKey(1))
-    ref = {k: np.asarray(v) for k, v in case["film"].items()}
+    ref = {k: np.asarray(v)
+           for k, v in rj.render(key=jax.random.PRNGKey(1))._asdict().items()}
+    rt = _port_renderer(sj, cam, w, h, icfg)
+    film = rt.render(key=rng.PRNGKey(1))
     assert_radiance_parity(film.mean.numpy().reshape(-1, 3),
-                           ref["mean"].reshape(-1, 3),
-                           case["rt"].rays_traced, case["rj"].rays_traced)
+                           ref["mean"].reshape(-1, 3), rt.rays_traced,
+                           rj.rays_traced)
     np.testing.assert_array_equal(film.n.numpy(), ref["n"])
     close = np.isclose(film.albedo.numpy(), ref["albedo"], atol=1e-4)
     assert close.all(axis=-1).mean() >= 0.995
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_film_accumulates_across_renders(case):
     """A second render merges into the same film: counts double and the
     variance becomes defined."""
-    rt = case["rt"]
+    w, h, make = CASES[case]
+    sj, cam, _rc, icfg = make(w, h)
+    rt = _port_renderer(sj, cam, w, h, icfg)
     film = rt.render(key=rng.PRNGKey(1))
     film = rt.render(film, key=rng.PRNGKey(2))
     assert (film.n.numpy() == 2.0).all()

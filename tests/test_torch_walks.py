@@ -19,15 +19,26 @@ their plain versions.
            small enough that the fallback walk resolves most rays, and on
            the one-cluster cube of tests/test_bvh.py;
   render   examples.bunny(32, 24, subdivisions=3) at 1 spp through both
-           packages, each intersector (768 rays: no compaction engages).
+           packages, each intersector (768 rays: no compaction engages);
+  shadows  the K-wide any-hit over w_rows (any_hit_wide_rows_plain, the
+           XLA intersectors' shadow walk) against traverse_wide bounded by
+           t_cut, t < INF, on every lane of the bunny and dragon_hd
+           (subdivision 3) and the two-mesh scene at K 4 and 8, on shadow
+           rays formed as chip_smoke.py forms them (from the hit points of
+           scattered rays toward the lights); occlusion_query on a "wide"
+           scene against the JAX package's on the converted scene, on
+           every lane; the leaf blocks' padding slots hold zero triangles
+           (the kernels test only a leaf's `count` slots); and the load
+           width the row kernels take from the tables' geometry.
 
 Tolerances: t within rtol 1e-5, atol 1e-5 on every lane and within 1e-6
 on at least 99.5% of lanes (XLA contracts multiply-adds on the CPU; torch
 rounds each operation, ROADMAP.md Queue 3); slots equal on every lane
 except where two triangles tie within the t tolerance or the hit triangle
 is grazing (|det| below 1e-3), where that rounding decides. Renders: the
-tolerances of tests/test_torch_render.py. The card-marked test holds the
-two CUDA kernels against their plain versions; it skips without a card.
+tolerances of tests/test_torch_render.py. Shadows: equal on every lane.
+The card-marked test holds the three CUDA kernels against their plain
+versions; it skips without a card.
 """
 
 import jax
@@ -40,6 +51,7 @@ from ptsharp_tpu import examples as jex
 from ptsharp_tpu.core import transform as jtransform
 from ptsharp_tpu.accel import cluster as jcluster
 from ptsharp_tpu.accel import traverse as jtraverse
+from ptsharp_tpu import intersect as jintersect
 from ptsharp_tpu.geometry import mesh as jmesh
 from ptsharp_tpu.materials import diffuse_material as jdiffuse
 from ptsharp_tpu.materials import light_material as jlight
@@ -48,7 +60,9 @@ from ptsharp_tpu.renderer import RenderConfig as JRenderConfig
 from ptsharp_tpu.renderer import Renderer as JRenderer
 from ptsharp_tpu.scene import SceneBuilder as JBuilder
 
+from ptsharp_tpu_torch import convert
 from ptsharp_tpu_torch import examples as tex
+from ptsharp_tpu_torch import intersect as tintersect
 from ptsharp_tpu_torch.accel import cluster as tcluster
 from ptsharp_tpu_torch.accel import traverse as ttraverse
 from ptsharp_tpu_torch.core import rng
@@ -59,6 +73,7 @@ from ptsharp_tpu_torch.materials import light_material as tlight
 from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
 from ptsharp_tpu_torch.scene import SceneBuilder as TBuilder
 
+import chip_smoke
 from tests.test_torch_integrator import assert_radiance_parity, port_config
 
 INTERSECTORS = ("wide", "walk", "cluster")
@@ -329,13 +344,47 @@ def test_wrappers_take_their_plain_versions_on_the_cpu(walk_case):
                                    r["w_inst_base"][0], r["w_inst_end"][0],
                                    8, c["k"])
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    t_cut = torch.where(tm > INF / 2, torch.full_like(tm, 3.0), tm)
+    occ = traverse.any_hit_wide_rows(c["w_rows"], c["leaf"], org, d, t_cut,
+                                     r["w_inst_base"][0], r["w_inst_end"][0],
+                                     8, c["k"])
+    want_occ = traverse.any_hit_wide_rows_plain(
+        c["w_rows"], c["leaf"], org, d, t_cut, r["w_inst_base"][0],
+        r["w_inst_end"][0], 8, c["k"])
+    assert occ.dtype == torch.bool and torch.equal(occ, want_occ)
+    assert 0 < int(occ.sum()) < occ.shape[0]
     assert traverse.closest_hit_binary.launches == 0
     assert traverse.closest_hit_wide_rows.launches == 0
+    assert traverse.any_hit_wide_rows.launches == 0
     # the binary walk and the K-wide walk find the same hits
     tb = traverse.closest_hit_binary(c["u_rows"], c["leaf"], org, d, tm,
                                      r["u_inst_base"][0], r["u_inst_end"][0],
                                      8)[0]
     np.testing.assert_array_equal(tb.numpy(), got[0].numpy())
+
+
+def test_row_wrappers_take_no_counts_on_the_cpu(walk_case):
+    """`counts` is the kernels' own count: on CPU tensors the persistent
+    row wrappers raise on it (the plain versions give each ray's steps,
+    return_iters)."""
+    c = walk_case
+    org, d = torch.from_numpy(c["org"]), torch.from_numpy(c["d"])
+    tm = torch.from_numpy(c["t_max"])
+    r = c["ranges"]
+    args = (r["w_inst_base"][0], r["w_inst_end"][0], 8, c["k"])
+    counts = torch.zeros(2, dtype=torch.int64)
+    for wrapper in (traverse.closest_hit_wide_rows,
+                    traverse.any_hit_wide_rows):
+        with pytest.raises(ValueError, match="counts"):
+            wrapper(c["w_rows"], c["leaf"], org, d, tm, *args, counts=counts)
+    t, _s, _u, _v, steps = ttraverse.traverse_wide(
+        c["w_rows"], c["leaf"], org, d, tm, *args, return_iters=True)
+    assert torch.equal(t, ttraverse.traverse_wide(c["w_rows"], c["leaf"], org,
+                                                  d, tm, *args)[0])
+    occ, any_steps = traverse.any_hit_wide_rows_plain(
+        c["w_rows"], c["leaf"], org, d, tm, *args, return_iters=True)
+    assert int(steps.min()) >= 1 and int(steps.max()) <= args[1] - args[0]
+    assert (any_steps[tm <= 0] == 0).all() and (any_steps <= steps).all()
 
 
 def test_row_wrappers_check_their_tables(walk_case):
@@ -538,9 +587,9 @@ def test_default_bunny_is_the_wide_walk():
 
 @pytest.mark.cuda
 def test_cuda_row_kernels_match_plain_versions(walk_case):
-    """Runs on a machine with a card: both row-table kernels against their
-    plain versions on the same inputs, every lane equal, and their launch
-    counts; K=2 has no kernel."""
+    """Runs on a machine with a card: the three row-table kernels against
+    their plain versions on the same inputs, every lane and the step
+    counts equal, and their launch counts; K=2 has no kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     c = walk_case
@@ -562,9 +611,134 @@ def test_cuda_row_kernels_match_plain_versions(walk_case):
             traverse.closest_hit_wide_rows(w_rows, leaf, org, d, tm, wb, we,
                                            8, c["k"])
         return
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
     got = traverse.closest_hit_wide_rows(w_rows, leaf, org, d, tm, wb, we, 8,
-                                         c["k"])
-    want = ttraverse.traverse_wide(w_rows, leaf, org, d, tm, wb, we, 8,
-                                   c["k"])
+                                         c["k"], counts=counts)
+    *want, steps = ttraverse.traverse_wide(w_rows, leaf, org, d, tm, wb, we,
+                                           8, c["k"], return_iters=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(counts[0]) == int(steps.sum())
     assert traverse.closest_hit_wide_rows.launches == 1
+    counts.zero_()
+    occ = traverse.any_hit_wide_rows(w_rows, leaf, org, d, tm, wb, we, 8,
+                                     c["k"], counts=counts)
+    want, steps = traverse.any_hit_wide_rows_plain(
+        w_rows, leaf, org, d, tm, wb, we, 8, c["k"], return_iters=True)
+    assert torch.equal(occ, want) and int(counts[0]) == int(steps.sum())
+    assert traverse.any_hit_wide_rows.launches == 1
+
+
+# ---- the K-wide any-hit ------------------------------------------------------
+
+
+SHADOW_SCENES = {
+    "bunny3": lambda k: tex.bunny(32, 24, subdivisions=3, intersector="wide",
+                                  wide_k=k, device="cpu")[0],
+    "dragon_hd3": lambda k: tex.dragon_hd(30, 17, subdivisions=3,
+                                          intersector="wide", wide_k=k,
+                                          device="cpu")[0],
+    "two_mesh": lambda k: _two_mesh(TBuilder, tmesh, tdiffuse, tlight,
+                                    "wide", k=k, device="cpu"),
+}
+
+
+def _shadow_rays(st, seed):
+    """N shadow rays as chip_smoke.py's kernel phases form them: from the
+    hit points of scattered rays (bounce_rays) toward the scene's lights,
+    t_cut as sample_lights forms it (shadow_cut; -INF where the light is
+    missed), and every tenth lane's t_cut -INF, as occlusion_query bounds
+    a lane that an earlier object already occludes."""
+    org, d = _rays(N, seed)
+    o, _d = chip_smoke.bounce_rays(st, torch.from_numpy(org),
+                                   torch.from_numpy(d), N, seed)
+    ds, t_cut = chip_smoke.shadow_cut(st, o, seed)
+    t_cut[::10] = -INF
+    return o, ds, t_cut
+
+
+@pytest.mark.parametrize("k", [4, 8])
+@pytest.mark.parametrize("scene", sorted(SHADOW_SCENES))
+def test_any_hit_wide_rows_equals_the_bounded_closest_hit(scene, k):
+    """The route of the XLA intersectors' shadow rays: the any-hit over
+    w_rows gives the boolean the JAX package takes from the closest-hit
+    bounded by t_cut (t < INF), on every lane of every instance."""
+    st = SHADOW_SCENES[scene](k)
+    assert st.intersector == "wide" and st.wide_k == k
+    o, d, t_cut = _shadow_rays(st, seed=k)
+    assert (t_cut <= INF).all() and 0 < int((t_cut > 0).sum()) < N
+    tab = (st.w_rows, st.leaf_rows)
+    occluded = torch.zeros(N, dtype=torch.bool)
+    for i in range(st.inst_inv.shape[0]):
+        oi, di = tintersect._instance_rays(st, i, o, d)
+        args = (st.w_inst_base[i], st.w_inst_end[i], st.max_leaf, k)
+        occ = traverse.any_hit_wide_rows_plain(*tab, oi, di, t_cut, *args)
+        t = ttraverse.traverse_wide(*tab, oi, di, t_cut, *args)[0]
+        np.testing.assert_array_equal(occ.numpy(), (t < INF).numpy())
+        occluded |= occ
+    assert 0 < int(occluded.sum()) < int((t_cut > 0).sum())
+
+
+@pytest.mark.parametrize("scene", ["bunny3", "two_mesh"])
+def test_occlusion_query_wide_matches_jax(scene):
+    """occlusion_query on a "wide" scene (the any-hit over w_rows per
+    instance) against the JAX package's on the same scene (its bounded
+    closest-hit), converted with convert.scene_from_reference."""
+    sj = SCENES[scene][0]("wide")
+    st = convert.scene_from_reference(*convert.reference_arrays(sj),
+                                       device="cpu")
+    assert st.intersector == "wide"
+    o, d, t_cut = _shadow_rays(st, seed=5)
+    ref = jax.jit(lambda a, b, c: jintersect.occlusion_query(sj, a, b, c))(
+        *(jnp.asarray(x.numpy()) for x in (o, d, t_cut)))
+    traverse.reset_launch_counts()
+    occ = tintersect.occlusion_query(st, o, d, t_cut)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(ref))
+    assert 0.02 < float(occ.float().mean()) < 0.98
+    assert all(w.launches == 0 for w in traverse.WRAPPERS)
+
+
+@pytest.mark.parametrize("intersector", ["wide", "pallas"])
+def test_leaf_padding_slots_are_zero_triangles(intersector):
+    """The persistent preorder kernels run Moller-Trumbore on a leaf's
+    first `count` slots only; the plain walks on all of them. They agree
+    because every slot past `count` holds a zero triangle, which MT
+    rejects (det = 0): in leaf_rows and in the fat table's leaf rows."""
+    st = tex.bunny(16, 12, subdivisions=3, intersector=intersector,
+                   wide_k=4 if intersector == "wide" else 8, device="cpu")[0]
+    ls = st.max_leaf
+    if intersector == "wide":
+        # the mesh's rows: the TLAS head's leaves index objects, not slots
+        bits = st.w_rows[st.w_inst_base[0]:st.w_inst_end[0]].view(torch.int32)
+        leaf = (bits[:, 7] & 0xFF) > 0
+        count = (bits[leaf, 7] & 0xFF).long()
+        blocks = st.leaf_rows[bits[leaf, 6].long() // ls]
+    else:
+        bits = st.p_fat[0::2].view(torch.int32)
+        leaf = (bits[:, 7] & 0xFF) > 0
+        count = (bits[leaf, 7] & 0xFF).long()
+        blocks = st.p_fat[1::2][leaf]
+    assert int(leaf.sum()) > 10 and int((count < ls).sum()) > 0
+    tri = blocks[:, :ls * 9].reshape(-1, ls, 9)
+    pad = torch.arange(ls)[None, :] >= count[:, None]
+    assert (tri[pad] == 0).all() and (tri[~pad].abs().sum(1) > 0).all()
+    ok, _t, _u, _v = traverse._mt(torch.zeros(1, 1, 9),
+                                  torch.tensor([[0.1, 0.2, -1.0]]),
+                                  torch.tensor([[0.0, 0.0, 1.0]]))
+    assert not bool(ok.any())
+
+
+def test_row_loads_follow_the_tables_geometry():
+    """The row kernels take float4 loads where both tables are 16-byte
+    strides from 16-byte aligned bases (the default "wide" build: w_rows
+    of 40 floats, leaf_rows of 72), scalar loads otherwise."""
+    st = tex.bunny(8, 6, subdivisions=2, device="cpu")[0]
+    assert traverse.row_loads(st.w_rows, st.leaf_rows) == "float4"
+    assert traverse.row_loads(st.u_rows, st.leaf_rows) == "scalar"
+    leaf6 = TBuilder()
+    leaf6.add_mesh(tmesh.sphere_mesh([0, 0, 0], 1.0, subdivisions=2),
+                   tdiffuse([0.5, 0.5, 0.5]))
+    s6 = leaf6.build(leaf_size=6, intersector="wide", wide_k=4, device="cpu")
+    assert s6.leaf_rows.shape[1] == 54
+    assert traverse.row_loads(s6.w_rows, s6.leaf_rows) == "scalar"
+    shifted = torch.zeros(st.w_rows.numel() + 1)[1:].view(st.w_rows.shape)
+    assert traverse.row_loads(shifted, st.leaf_rows) == "scalar"
