@@ -9,9 +9,9 @@ Run from the repository root on a machine with a CUDA card and nvcc;
 unpacked parent commit, to compare two commits in one call). For each
 render of RENDERS (the main path: "pallas" with the ordered walk, the
 bunny at 1920x1080 and dragon_hd at 960x540; the bunny's "pallas" build
-with the preorder walk; and the bunny's default build, "wide"), at 1
-spp: one warm-up render; `reps` unprofiled renders, wall seconds each
-(host clock, ending in
+with the preorder walk; the bunny's default build, "wide"; and its
+"walk" build, the binary walk), at 1 spp: one warm-up render; `reps`
+unprofiled renders, wall seconds each (host clock, ending in
 torch.cuda.synchronize()), in turns across the renders; then one render
 under torch.profiler (CPU and CUDA activities), whose device kernels are
 summed by kind from key_averages(). Prints per build: rays traced, the
@@ -45,6 +45,7 @@ RENDERS = {
     "dragon_hd/pallas": ("dragon_hd", PALLAS),
     "bunny/pallas_preorder": ("bunny", dict(PALLAS, pallas_ordered=False)),
     "bunny/wide": ("bunny", dict()),  # examples.bunny()'s default build
+    "bunny/walk": ("bunny", dict(intersector="walk")),
 }
 # kernel-name fragments -> kind; the first match wins
 KINDS = (("traversal", ("closest_hit", "any_hit")),

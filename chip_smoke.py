@@ -42,17 +42,19 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               rays of 4 at the 1080p main-path width, driven once with
               every launch count set to 0 just before and read just
               after: ordered closest-hit in both push orders with each
-              ray's step count, ordered any-hit, and the warp-packet
-              closest-hit; then each against its plain version (the
-              tolerances of 4; the packet's slots equal on every lane;
-              the step counts equal) and against its fat-table twin on
-              the same rays (ordered "near" closest-hit and the packet
-              walk equal to the fat ordered and preorder kernels on every
-              lane, ordered any-hit equal to the fat one); step-count
-              mean, p50, p99 and lane use (steps taken over the steps
-              each warp runs, one and two rays a thread) per ray kind and
-              order; times against the plain versions and, per ray kind,
-              against the twins;
+              ray's step count, ordered any-hit, and the persistent
+              preorder closest-hit over the split tables (#13, with its
+              kernel-counted steps); then each against its plain version
+              (the tolerances of 4; #13 every output and the step count
+              on every lane; the step counts equal) and against its
+              fat-table twin on the same rays (ordered "near" closest-hit
+              and #13 equal to the fat ordered and preorder kernels on
+              every lane, ordered any-hit equal to the fat one);
+              step-count mean, p50, p99 and lane use (steps taken over
+              the steps each warp runs, one and two rays a thread) per
+              ray kind and order; times against the plain versions and,
+              per ray kind, against the twins, with #13's kernel-counted
+              lane use and steps;
   5c. stack   the ordered kernels, fat and split, on hand-built chains
               whose max_stack_bound lies in (64, 128], against the
               preorder walk;
@@ -74,25 +76,33 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
   5e. rows    the XLA walks' kernels over the row tables of
               examples.build("bunny", intersector="walk") (leaf 8, K=4) on
               the rays of 4 at the 1080p main-path width, and of dragon_hd
-              built once with intersector="walk" on the rays of 5: the
-              binary walk over u_rows (#14) and the persistent K-wide
-              closest-hit over w_rows (4w, #4's walk) on the closest-hit
-              rays, the persistent K-wide any-hit over w_rows (#7's walk)
-              on the shadow rays, driven once with every launch count set
-              to 0 just before and read just after; each against its plain
-              version (#14: t within CLOSEST_TOL and slots equal on every
-              lane; the K-wide walks: every output on every lane), the two
-              closest-hits against each other (the wide tree collapses the
-              same binary tree over the same leaf_rows: t within
-              CLOSEST_TOL, slots equal except ties, bit-equal lanes
-              counted), and the any-hit against the bounded closest-hit's
-              t < INF on every shadow lane (the JAX package's route for
-              these shadow rays); times per ray kind beside the plain
-              versions, with kernel-counted lane use and steps of the
-              K-wide walks; then the K-wide walks' scalar-load instance on
-              a leaf-6 "wide" build of the bunny (leaf_rows of 54 floats,
-              not a 16-byte stride), each held against its plain version
-              on every lane and in its step count;
+              built once with intersector="cluster" (the same u_rows,
+              w_rows and leaf_rows as a "walk" build, which the bunny's
+              two builds show, plus the cluster tables) on the rays of 5:
+              the persistent binary walk over u_rows (#14) and the
+              persistent K-wide closest-hit over w_rows (4w, #4's walk) on
+              the closest-hit rays, the persistent K-wide any-hit over
+              w_rows (#7's walk) on the shadow rays, driven once with
+              every launch count set to 0 just before and read just after;
+              each against its plain version (every output on every
+              lane), the two closest-hits against each other (the wide
+              tree collapses the same binary tree over the same
+              leaf_rows: t within CLOSEST_TOL, slots equal except ties,
+              bit-equal lanes counted), and the any-hit against the
+              bounded closest-hit's t < INF on every shadow lane (the JAX
+              package's route for these shadow rays); times per ray kind
+              beside the plain versions, with kernel-counted lane use and
+              steps (equal to the plain versions' counts); then one
+              "cluster" chunk of each scene: its first 8,192 bounce rays
+              through the plain cull of a "cluster" build, and #14 on the
+              chunk with t_max the cull's best t where unresolved, else
+              -INF, as intersect_clustered calls it, held against its
+              plain version in every output and step count, with its time,
+              lane use and steps; then the row walks' scalar-load
+              instances on a leaf-6 "wide" build of the bunny (leaf_rows
+              of 54 floats, not a 16-byte stride): the K-wide walks, and
+              #14 over its u_rows, each held against its plain version on
+              every lane and in its step count;
   6. render   Renderer.render() at 1 spp of the bunny at 1920x1080 in both
               walk orders, of dragon_hd at 960x540 in both walk orders,
               and of the bunny at 1920x1080 with the XLA intersectors
@@ -171,7 +181,7 @@ KERNELS = {
                           ["ptsharp_tpu/pallas/ordered_kernel.py:875"]),
     "any_hit_split": ("ptsharp_tpu_torch/csrc/any_hit_split.cu",
                       ["ptsharp_tpu/pallas/ordered_kernel.py:816"]),
-    "closest_hit_packet": ("ptsharp_tpu_torch/csrc/closest_hit_packet.cu",
+    "closest_hit_packet": ("ptsharp_tpu_torch/csrc/closest_hit_preorder.cu",
                            ["ptsharp_tpu/pallas/wide_kernel.py:304"]),
     "closest_hit_dual": ("ptsharp_tpu_torch/csrc/closest_hit_dual.cu",
                          ["ptsharp_tpu/pallas/ordered_kernel.py:1117"]),
@@ -218,6 +228,10 @@ STAGED = ("closest_hit_dual", "closest_hit_fat_cache",
 # dynamic shared memory a launch asks for: 32 fat pairs; two 64-row caches
 DYNAMIC_SMEM = {"closest_hit_fat_cache": 2 * 32 * 128 * 4,
                 "closest_hit_block_cache": 2 * 64 * 128 * 4}
+# rays a chunk and candidate clusters a ray takes, intersect_clustered's
+# defaults (which intersect.py takes)
+CLUSTER_CHUNK = 8192
+CLUSTER_K_CAND = 12
 # (K, chain depth) of the hand-built trees whose stack bound lies in
 # (64, 128]
 STACK_CHAINS = ((4, 25), (8, 12))
@@ -276,6 +290,38 @@ def time_ms(fn, device, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# clock cycles of the spin kernel that holds the card while the host queues
+# a call for device_ms: about 2.5 ms on an H100, over ten times the
+# host's work of a wrapper call
+SPIN_CYCLES = 5_000_000
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Median device milliseconds of fn's launches over `reps` calls after
+    one warm-up, for a call shorter than the host's work of making it
+    (CUDA events around the call would time the host): a spin kernel
+    (torch.cuda._sleep) holds the card while the host queues the first
+    event, fn's launches and the second event, so the card runs the three
+    back to back. Raises if the card reached the first event before the
+    second was queued: then the events would have timed the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        if a.query():
+            raise AssertionError("the card ran out of queued work before "
+                                 "the timed call was queued")
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
 def bound(work, n_rays: int, kind: str) -> dict:
     """The least time of the work a plain walk counted (kernels.traverse.
     count_work) on n_rays rays: the larger of its operations over
@@ -300,7 +346,7 @@ def ptxas_report(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"([a-z_]+)_kernel(?:ILi(\d+)E)?(?:Lb(\d)E)?"
+            k = re.search(r"([a-z_]+)_kernel(?:I(?:Li(\d+)E)?)?(?:Lb(\d)E)?"
                           r"(?:LN3ptk4PushE(\d)E)?(?:N3ptk\d+([A-Z][a-z]+Table)E)?",
                           m.group(1))
             loads = {None: None, "0": "scalar", "1": "float4"}
@@ -770,7 +816,9 @@ def split_phase(scene, rays, label):
                                              order_mode=m, return_iters=True)
                for m in traverse.ORDER_MODES}
     occ = traverse.any_hit_split(*tab, ob, ds, t_cut, *args)
-    packet = traverse.closest_hit_packet(*tab, org, dirn, tmax, *args)
+    packet_counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    packet = traverse.closest_hit_packet(*tab, org, dirn, tmax, *args,
+                                         counts=packet_counts)
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
     launch_rays = {w.__name__: w.rays for w in traverse.WRAPPERS}
@@ -845,16 +893,18 @@ def split_phase(scene, rays, label):
     out["any_hit_split"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 **bnd)
 
-    # #13 against its plain version and #4, slots on every lane
+    # #13 against its plain version (every output and the step count) and
+    # against #4, on every lane
     with traverse.count_work() as work:
-        pp = traverse.closest_hit_packet_plain(*tab, org, dirn, tmax, *args)
+        *pp, psteps = traverse.closest_hit_packet_plain(
+            *tab, org, dirn, tmax, *args, return_iters=True)
     sync(dev)
     bnd = bound(work, org.shape[0], "closest")
-    close = torch.isclose(packet[0], pp[0], **CLOSEST_TOL)
-    if not bool(close.all()):
-        raise AssertionError(f"closest_hit_packet t differs on "
-                             f"{int((~close).sum())} lanes")
-    _equal("closest_hit_packet slot", packet[1:2], pp[1:2])
+    _equal("closest_hit_packet against its plain version", packet, pp)
+    if int(packet_counts[0]) != int(psteps.sum()):
+        raise AssertionError(f"closest_hit_packet took "
+                             f"{int(packet_counts[0])} steps, its plain "
+                             f"version {int(psteps.sum())}")
     _equal("closest_hit_packet against closest_hit_preorder", packet,
            traverse.closest_hit_preorder(scene.p_fat, org, dirn, tmax,
                                          *args))
@@ -864,9 +914,10 @@ def split_phase(scene, rays, label):
     plain_ms = time_ms(lambda: traverse.closest_hit_packet_plain(
         *tab, org, dirn, tmax, *args), dev, PLAIN_REPS)
     log(f"closest_hit_packet [{label}] rays={org.shape[0]} "
-        f"max_abs_err_t={err:.3e} slot_mismatches=0, equal to "
-        f"closest_hit_preorder; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"{bound_text(bnd)}")
+        f"max_abs_err_t={err:.3e}, every output and the step count equal to "
+        f"its plain version, equal to closest_hit_preorder; lane_use="
+        f"{int(packet_counts[0]) / int(packet_counts[1]):.3f} "
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
     out["closest_hit_packet"] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, **bnd)
 
@@ -889,6 +940,12 @@ def split_phase(scene, rays, label):
         }
         log(f"  {kind} rays ({o.shape[0]}) kernel ms: " + ", ".join(
             f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
+        ms, use, steps = _kind_stats(
+            traverse.closest_hit_packet, traverse.closest_hit_packet_plain,
+            tab, o, d, tm, args, f"the {kind} rays", dev)
+        log(f"closest_hit_packet [{label}] {kind} rays={o.shape[0]} "
+            f"kernel_ms={ms:.4f} lane_use={use:.3f} {_steps_text(steps)} "
+            f"(kernel's step count equal)")
     return out, {name: (launches[name], launch_rays[name])
                  for name in SPLIT}
 
@@ -995,17 +1052,16 @@ def staged_phase(scene, rays, label):
 
 def rows_phase(scene, rays, label):
     """The XLA walks' kernels on the rays of the main path, over the row
-    tables of a "walk" build (object-space rays of its one instance): the
-    binary walk over u_rows (#14) and the K-wide closest-hit over w_rows
-    (4w) on the closest-hit rays, the K-wide any-hit over w_rows on the
-    shadow rays; driven once with every launch count set to 0 just before
-    and read just after; each held against its plain version (#14: t
-    within CLOSEST_TOL and slots equal on every lane; the persistent K-wide
-    walks: every output on every lane), the two closest-hits against each
-    other (t within CLOSEST_TOL, slots equal except ties), and the any-hit
-    against the bounded closest-hit's t < INF on every shadow lane (the
-    route the JAX package takes); per ray kind the times beside the plain
-    versions, and for the K-wide walks lane use and steps counted in the
+    tables of a "walk" (or "cluster") build (object-space rays of its one
+    instance): the binary walk over u_rows (#14) and the K-wide
+    closest-hit over w_rows (4w) on the closest-hit rays, the K-wide
+    any-hit over w_rows on the shadow rays; driven once with every launch
+    count set to 0 just before and read just after; each held against its
+    plain version (every output on every lane), the two closest-hits
+    against each other (t within CLOSEST_TOL, slots equal except ties),
+    and the any-hit against the bounded closest-hit's t < INF on every
+    shadow lane (the route the JAX package takes); per ray kind the times
+    beside the plain versions, with lane use and steps counted in the
     kernels (equal to the plain versions'). Returns ({wrapper name:
     {max_abs_err, ms, plain_ms, bound_ms, bound_by}}, {wrapper name:
     launches})."""
@@ -1074,15 +1130,7 @@ def rows_phase(scene, rays, label):
         bnd = bound(work, inputs[0].shape[0], kind)
         if kind == "any":
             got[name], want = (got[name],), (want,)
-        elif name == "closest_hit_binary":
-            close = torch.isclose(got[name][0], want[0], **CLOSEST_TOL)
-            if not bool(close.all()):
-                raise AssertionError(f"{name} t differs on "
-                                     f"{int((~close).sum())} lanes")
-            _equal(f"{name} slot", got[name][1:2], want[1:2])
-        else:
-            _equal(f"{name} against its plain version", got[name], want)
-        same = all(bool(torch.equal(a, b)) for a, b in zip(got[name], want))
+        _equal(f"{name} against its plain version", got[name], want)
         err = float((got[name][0].float() - want[0].float()).abs().max())
         ms = time_ms(lambda: kernel(*inputs), dev)
         plain_ms = time_ms(lambda: plain(*inputs), dev, PLAIN_REPS)
@@ -1090,9 +1138,9 @@ def rows_phase(scene, rays, label):
                 if kind == "any" else
                 f"hit_frac={float((want[0] < INF).float().mean()):.4f}")
         log(f"{name} [{label}] rays={inputs[0].shape[0]} {what} "
-            f"max_abs_err={err:.3e} equal to its plain version "
-            f"(all outputs bit-equal: {same}); kernel_ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f} {bound_text(bnd)}")
+            f"max_abs_err={err:.3e} every output equal to its plain version "
+            f"on every lane; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"{bound_text(bnd)}")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
     a, b = got["closest_hit_binary"], got["closest_hit_wide_rows"]
@@ -1121,30 +1169,94 @@ def rows_phase(scene, rays, label):
              "bounce": (org[n_cam:].contiguous(), dirn[n_cam:].contiguous(),
                         tmax[n_cam:].contiguous()),
              "shadow": (so, sd, t_cut)}
-    counted = {"closest_hit_wide_rows": (traverse.closest_hit_wide_rows,
-                                         walks.traverse_wide),
+    # wrapper -> (kernel, plain version, tables, arguments after the rays)
+    counted = {"closest_hit_binary": (traverse.closest_hit_binary,
+                                      walks.traverse_packed, binary,
+                                      binary_args),
+               "closest_hit_wide_rows": (traverse.closest_hit_wide_rows,
+                                         walks.traverse_wide, wide,
+                                         wide_args),
                "any_hit_wide_rows": (traverse.any_hit_wide_rows,
-                                     traverse.any_hit_wide_rows_plain)}
+                                     traverse.any_hit_wide_rows_plain, wide,
+                                     wide_args)}
     for kind, rk in kinds.items():
         names = [n for n, r in runs.items() if (r[3] == "any") ==
                  (kind == "shadow")]
         times = []
         for name in names:
-            if name in counted:
-                ms, use, steps = _kind_stats(*counted[name], wide, *rk,
-                                             wide_args, f"the {kind} rays",
-                                             dev)
-                log(f"{name} [{label}] {kind} rays={rk[0].shape[0]} "
-                    f"kernel_ms={ms:.4f} lane_use={use:.3f} "
-                    f"{_steps_text(steps)} (kernel's step count equal)")
-            else:
-                ms = time_ms(lambda: runs[name][0](*rk), dev)
+            kernel, plain, tabs, kargs = counted[name]
+            ms, use, steps = _kind_stats(kernel, plain, tabs, *rk, kargs,
+                                         f"the {kind} rays", dev)
+            log(f"{name} [{label}] {kind} rays={rk[0].shape[0]} "
+                f"kernel_ms={ms:.4f} lane_use={use:.3f} "
+                f"{_steps_text(steps)} (kernel's step count equal)")
             times.append(f"{name} {ms:.3f}")
             times.append(f"{name}_plain "
                          f"{time_ms(lambda: runs[name][1](*rk), dev, PLAIN_REPS):.3f}")
         log(f"  {kind} rays ({rk[0].shape[0]}) ms: " + ", ".join(times))
     return out, {name: (launches[name], launch_rays[name])
                  for name in runs}
+
+
+def cluster_chunk(scene, rays, chunk=CLUSTER_CHUNK):
+    """#14's inputs in one chunk of the "cluster" intersector's
+    closest-hit on a "cluster" build (accel/cluster.py intersect_clustered
+    at its default chunk and k_cand): the first `chunk` bounce rays of
+    `rays` in the instance's object space through the plain cull, and
+    t_max the cull's best t where it left the ray unresolved, else -INF,
+    as intersect_clustered calls #14. Returns (org, dirn, t_max,
+    unresolved)."""
+    from ptsharp_tpu_torch.accel import cluster
+    from ptsharp_tpu_torch.intersect import _instance_rays
+
+    n_cam = rays["n_cam"]
+    o, d = _instance_rays(scene, 0, rays["org"][n_cam:n_cam + chunk],
+                          rays["dirn"][n_cam:n_cam + chunk])
+    tpc = scene.cluster_rows.shape[1] // 9
+    bt, _s, _u, _v, unresolved = cluster._cull_and_intersect(
+        scene.cluster_bmin, scene.cluster_bmax, scene.cluster_rows, tpc, o,
+        d, torch.full((o.shape[0],), INF, device=scene.device),
+        scene.inst_cluster_base[0], scene.inst_cluster_end[0],
+        CLUSTER_K_CAND)
+    t_walk = torch.where(unresolved, bt, torch.full_like(bt, -INF))
+    return o, d, t_walk, unresolved
+
+
+def cluster_chunk_phase(scene, rays, label):
+    """#14 on one "cluster" chunk (cluster_chunk), held against its plain
+    version in every output and in its kernel-counted steps, and timed on
+    the card (kernel device time)."""
+    from ptsharp_tpu_torch.accel import traverse as walks
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.device
+    o, d, t_walk, unresolved = cluster_chunk(scene, rays)
+    chunk = o.shape[0]
+    tabs = (scene.u_rows, scene.leaf_rows)
+    args = (scene.u_inst_base[0], scene.u_inst_end[0], scene.max_leaf)
+    got = traverse.closest_hit_binary(*tabs, o, d, t_walk, *args)
+    with traverse.count_work() as work:
+        want = walks.traverse_packed(*tabs, o, d, t_walk, *args)
+    sync(dev)
+    _equal("closest_hit_binary on a cluster chunk against its plain version",
+           got, want)
+    call_ms, use, steps = _kind_stats(
+        traverse.closest_hit_binary, walks.traverse_packed, tabs, o, d,
+        t_walk, args, "a cluster chunk", dev)
+    ms = device_ms(lambda: traverse.closest_hit_binary(
+        *tabs, o, d, t_walk, *args))
+    plain_ms = time_ms(lambda: walks.traverse_packed(*tabs, o, d, t_walk,
+                                                     *args), dev, PLAIN_REPS)
+    walked = steps[unresolved]
+    log(f"closest_hit_binary [{label}] cluster chunk of {chunk} bounce rays: "
+        f"unresolved={int(unresolved.sum())} (their steps mean="
+        f"{float(walked.float().mean()) if walked.numel() else 0.0:.3f} max="
+        f"{int(walked.max()) if walked.numel() else 0}); every output equal "
+        f"to its plain version; kernel device_ms={ms:.4f} (CUDA events "
+        f"queued behind a spin kernel, median of 20 calls; call_ms="
+        f"{call_ms:.4f} by CUDA events around the call) plain_ms="
+        f"{plain_ms:.3f} lane_use={use:.3f} {_steps_text(steps)} (kernel's "
+        f"step count equal) {bound_text(bound(work, chunk, 'closest'))}")
 
 
 def leaf6_bunny(device):
@@ -1162,39 +1274,45 @@ def leaf6_bunny(device):
 
 
 def scalar_rows_phase(scene, rays, label):
-    """The K-wide row kernels' scalar-load instance, which the wrappers
-    take on tables that are not 16-byte strides: on a leaf-6 "wide" build
-    (leaf_rows of 54 floats), closest-hit on the closest-hit rays and
-    any-hit on the shadow rays, each held against its plain version on
-    every lane and in its kernel-counted steps, and timed."""
+    """The row kernels' scalar-load instances, which the wrappers take on
+    leaf tables that are not 16-byte strides: on a leaf-6 "wide" build
+    (leaf_rows of 54 floats), the K-wide closest-hit and the binary walk
+    over its u_rows on the closest-hit rays and the K-wide any-hit on the
+    shadow rays, each held against its plain version on every lane and in
+    its kernel-counted steps, and timed."""
     from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.intersect import _instance_rays
     from ptsharp_tpu_torch.kernels import traverse
 
     dev = scene.device
     wide = (scene.w_rows, scene.leaf_rows)
+    binary = (scene.u_rows, scene.leaf_rows)
     args = (scene.w_inst_base[0], scene.w_inst_end[0], scene.max_leaf,
             scene.wide_k)
-    if traverse.row_loads(*wide) != "scalar":
+    binary_args = (scene.u_inst_base[0], scene.u_inst_end[0],
+                   scene.max_leaf)
+    if traverse.row_loads(scene.leaf_rows) != "scalar":
         raise AssertionError("a leaf-6 build must take scalar loads")
     org, dirn = _instance_rays(scene, 0, rays["org"], rays["dirn"])
     so, sd = _instance_rays(scene, 0, rays["shadow_org"], rays["shadow_dirn"])
     tmax = torch.full((org.shape[0],), INF, device=dev)
-    for kernel, plain, rk in (
-            (traverse.closest_hit_wide_rows, walks.traverse_wide,
-             (org, dirn, tmax)),
+    for kernel, plain, tabs, rk, kargs in (
+            (traverse.closest_hit_wide_rows, walks.traverse_wide, wide,
+             (org, dirn, tmax), args),
             (traverse.any_hit_wide_rows, traverse.any_hit_wide_rows_plain,
-             (so, sd, rays["t_cut"]))):
-        got = kernel(*wide, *rk, *args)
-        want = plain(*wide, *rk, *args)
+             wide, (so, sd, rays["t_cut"]), args),
+            (traverse.closest_hit_binary, walks.traverse_packed, binary,
+             (org, dirn, tmax), binary_args)):
+        got = kernel(*tabs, *rk, *kargs)
+        want = plain(*tabs, *rk, *kargs)
         if kernel is traverse.any_hit_wide_rows:
             got, want = (got,), (want,)
         _equal(f"{kernel.__name__} (scalar loads) against its plain "
                f"version", got, want)
-        ms, use, steps = _kind_stats(kernel, plain, wide, *rk, args,
+        ms, use, steps = _kind_stats(kernel, plain, tabs, *rk, kargs,
                                      "leaf-6 rays", dev)
-        log(f"{kernel.__name__} [{label}] leaf 6, scalar loads, w_rows "
-            f"{tuple(scene.w_rows.shape)} leaf_rows "
+        log(f"{kernel.__name__} [{label}] leaf 6, scalar leaf loads, node "
+            f"rows {tuple(tabs[0].shape)} leaf_rows "
             f"{tuple(scene.leaf_rows.shape)}: rays={rk[0].shape[0]} equal "
             f"to its plain version on every lane; kernel_ms={ms:.4f} "
             f"lane_use={use:.3f} {_steps_text(steps)} (kernel's step count "
@@ -1459,6 +1577,16 @@ def main() -> int:
         raise AssertionError("the walk bunny must have 81,920 triangles")
     rows, _rows_launches = rows_phase(wscene, main_rays, main_label)
     main_width.update(rows)
+    t0 = time.perf_counter()
+    cluster_bunny = examples.build("bunny", intersector="cluster",
+                                   device=device)
+    scene_line("bunny", cluster_bunny[0], time.perf_counter() - t0)
+    for name in ("u_rows", "w_rows", "leaf_rows"):
+        if not torch.equal(getattr(wscene, name),
+                           getattr(cluster_bunny[0], name)):
+            raise AssertionError(f"the walk and cluster builds' {name} "
+                                 f"differ")
+    cluster_chunk_phase(cluster_bunny[0], main_rays, main_label)
     scalar_rows_phase(leaf6_bunny(device), main_rays, main_label)
     del main_rays
     stack_phase(device)
@@ -1484,14 +1612,17 @@ def main() -> int:
     bench_shape_phase(dscene, dcam, "dragon_hd")
     dstaged, dstaged_launches = staged_phase(dscene, drays, dlabel)
     phases.append(dstaged)
+    # one "cluster" build serves the rows phase (its row tables are a
+    # "walk" build's) and the cluster chunk
     t0 = time.perf_counter()
-    dwscene = examples.build("dragon_hd", intersector="walk",
+    dwscene = examples.build("dragon_hd", intersector="cluster",
                              device=device)[0]
     if scene_line("dragon_hd", dwscene, time.perf_counter() - t0) \
             != DRAGON_TRIANGLES:
         raise AssertionError("dragon_hd must have 1,310,720 triangles")
     drows, _drows_launches = rows_phase(dwscene, drays, dlabel)
     phases.append(drows)
+    cluster_chunk_phase(dwscene, drays, dlabel)
     del drays, dwscene
 
     # the main path, each render with its own launch counts
@@ -1513,15 +1644,14 @@ def main() -> int:
     # the XLA intersectors: "wide" is examples.bunny()'s default build
     xla = {"wide": examples.bunny(device=device),
            "walk": (wscene, wcam, _wrc, wicfg),
-           "cluster": examples.build("bunny", intersector="cluster",
-                                     device=device)}
+           "cluster": cluster_bunny}
     if xla["wide"][0].intersector != "wide":
         raise AssertionError("examples.bunny() must build the wide walk")
     for name in XLA_INTERSECTORS:
         xs, xc, xrc, xic = xla.pop(name)
         runs.append(render_main("bunny", xs, xc, replace(xrc, spp=1), xic,
                                 card))
-    del wscene
+    del wscene, cluster_bunny
     cs, cc, crc, cic = examples.build("cornell", device=device)
     film, rays, sec = render(cs, cc, crc, cic)
     log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "

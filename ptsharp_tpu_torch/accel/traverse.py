@@ -175,15 +175,20 @@ class _BinaryWalk(_SkipWalk):
 
 
 def traverse_packed(rows, leaf_rows, org, dirn, t_max, base, end,
-                    leaf_size: int, max_iters: int = MAX_ITERS):
+                    leaf_size: int, max_iters: int = MAX_ITERS,
+                    return_iters: bool = False):
     """Closest hit by the binary skip-link walk over packed node rows
-    (N, 10) and leaf_rows (NL, leaf_size * 9), nodes [base, end)."""
+    (N, 10) and leaf_rows (NL, leaf_size * 9), nodes [base, end); with
+    return_iters, also each ray's step count (int32 (R,)), the steps
+    kernels.traverse.closest_hit_binary takes."""
     base, end = int(base), int(end)
     walk = _BinaryWalk(_Table(rows, leaf_rows, leaf_size), org, dirn,
                        _rays_t(t_max, org), base, end, 0,
                        torch.ones(org.shape[0], dtype=torch.bool,
-                                  device=org.device), max_iters)
-    return _walk_closest(walk, leaf_size)
+                                  device=org.device), max_iters,
+                       count=return_iters)
+    out = _walk_closest(walk, leaf_size)
+    return (*out, walk.steps) if return_iters else out
 
 
 def traverse_wide(rows, leaf_rows, org, dirn, t_max, base, end,

@@ -223,17 +223,20 @@ struct SplitTable {
     return rows + static_cast<size_t>(j) * kRow;
   }
   __device__ __forceinline__ const float* leaf(const float* node) const {
-    const int first = reinterpret_cast<const int*>(node)[6];
+    return leaf(node, reinterpret_cast<const int*>(node)[6]);
+  }
+  // the leaf block of `node`, whose first slot `first` the caller has read
+  __device__ __forceinline__ const float* leaf(const float*, int first) const {
     return leaves + static_cast<size_t>(first / leaf_size) * kRow;
   }
 };
 
 // Node rows and leaf blocks at strides given at run time (the XLA walks'
 // tables). w_rows (40 or 72 floats) and leaf_rows at a leaf size that is a
-// multiple of 4 (72 floats at leaf 8) are 16-byte strides, which the
-// preorder walk reads with float4 loads; u_rows (10 floats) and leaf_rows
-// at other leaf sizes (54 floats at leaf 6) are not, and are read with
-// scalar loads.
+// multiple of 4 (72 floats at leaf 8) are 16-byte strides, which the walks
+// read with float4 loads; leaf_rows at other leaf sizes (54 floats at leaf
+// 6) are not, and are read with scalar loads. u_rows (10 floats) is an
+// 8-byte stride, which the binary walk reads with float2 loads.
 struct RowTable {
   const float* rows;
   const float* leaves;
@@ -408,26 +411,6 @@ __device__ __forceinline__ bool ordered_any(const Table& tab, const Ray& r,
   return false;
 }
 
-// One step of the binary skip-link walk (traverse_packed) at node j: test
-// the node's own box against the best t; at a leaf (count = bits[7] &
-// 0xFF > 0) run MT over its block in slot order; go to j + 1, the left
-// child in preorder, where an internal box is hit, else to the skip link
-// bits[8]. Returns the next node.
-template <class Table>
-__device__ __forceinline__ int binary_step(const Table& tab, int j,
-                                           const Ray& r, int leaf_size,
-                                           Best& b) {
-  const float* node = tab.node(j);
-  const int* bits = reinterpret_cast<const int*>(node);
-  float tmin, tmax;
-  slab(node, r, tmin, tmax);
-  if (box_hit(tmin, tmax, b.t)) {
-    if ((bits[7] & 0xFF) == 0) return j + 1;
-    leaf_closest(tab.leaf(node), bits[6], leaf_size, r, b);
-  }
-  return bits[8];
-}
-
 // ---- the persistent ordered walk over the fat table (#1, #2) --------------
 //
 // closest_hit.cu and any_hit.cu run the ordered walk in persistent warps:
@@ -450,7 +433,7 @@ constexpr int kWalkThreads = 128;  // threads a block
 constexpr unsigned kWarpAll = 0xffffffffu;
 // the persistent walks refill a warp's idle lanes when fewer than this are
 // live (measured against 8-32 for the ordered walks and 16 and 32 for the
-// preorder walks on the H100, PERF.md section 6)
+// preorder and binary walks on the H100, PERF.md section 6)
 constexpr int kRefillBelow = 24;
 
 // The ordered walk's stack, in local memory. With kDist each entry also
@@ -547,6 +530,18 @@ __device__ __forceinline__ void leaf_slots(const float* __restrict__ leaf,
       }
     }
   }
+}
+
+// leaf_slots keeping the closest accepted hit in b: strict tt < best t, so
+// the first slot wins among equal t.
+template <bool kVec>
+__device__ __forceinline__ void closest_in_leaf(const float* __restrict__ leaf,
+                                                int first, int cnt,
+                                                const Ray& r, Best& b) {
+  leaf_slots<kVec>(leaf, cnt, r, [&](int l, float tt, float uu, float vv) {
+    if (tt < b.t) b = Best{tt, first + l, uu, vv};
+    return false;
+  });
 }
 
 // Where a ray starts over nodes [base, end): the root, or `end` when the
@@ -690,10 +685,11 @@ __device__ __forceinline__ void persistent_walk(
   }
 }
 
-// ---- the persistent preorder walk (#4, 4w, #7) -----------------------------
+// ---- the persistent preorder walk (#4, 4w, #7, #13) -------------------------
 //
 // closest_hit_preorder.cu and any_hit_preorder.cu run the preorder walk
-// along skip links in the persistent warps of persistent_walk. The walk
+// along skip links in the persistent warps of persistent_walk, over the
+// fat table, the split tables and the XLA walk's row tables. The walk
 // keeps no stack: a lane that takes a new ray resets its cursor, its best
 // t and its step count. Each step tests the node's own box, as the plain
 // walk does. A step reads what it uses through the read-only path: fields
@@ -776,6 +772,43 @@ __device__ __forceinline__ int preorder_step(const Table& tab, int cur,
     }
   }
   return target >= 0 ? target : skip;
+}
+
+// ---- the persistent binary walk (#14) ---------------------------------------
+//
+// closest_hit_binary.cu runs the binary skip-link walk (traverse_packed)
+// over u_rows in the persistent warps of persistent_walk, with no stack,
+// as the preorder walk runs. A step reads fields [0, 10) of the node row
+// with five float2 loads through the read-only path: u_rows rows are 40
+// bytes, so each lies on an 8-byte boundary where the table's base does
+// (the wrapper checks it).
+
+// One step of the binary walk at node `cur`: test its own box against bt;
+// at a leaf the ray enters, leaf(block, first, cnt) tests its triangles;
+// at an internal node it enters, go to cur + 1, its left child in
+// preorder; otherwise, and after a leaf, follow the skip link. Returns the
+// next node.
+template <class Leaf>
+__device__ __forceinline__ int binary_step(const RowTable& tab, int cur,
+                                           const Ray& r, float bt,
+                                           Leaf leaf) {
+  const float2* row = reinterpret_cast<const float2*>(tab.node(cur));
+  float f[10];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const float2 v = __ldg(row + i);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+  float tmin, tmax;
+  slab(f, r, tmin, tmax);
+  const int skip = __float_as_int(f[8]);
+  if (!box_hit(tmin, tmax, bt)) return skip;
+  const int cnt = __float_as_int(f[7]) & 0xFF;
+  if (cnt == 0) return cur + 1;
+  const int first = __float_as_int(f[6]);
+  leaf(tab.leaf(nullptr, first), first, cnt);
+  return skip;
 }
 
 // Blocks of `kernel` (kWalkThreads threads each) resident at once on the

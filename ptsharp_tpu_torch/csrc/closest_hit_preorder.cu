@@ -1,22 +1,27 @@
 // Closest-hit by the K-wide preorder walk along skip links, no stack, one
 // ray a lane in persistent warps that refill their idle lanes: over the
-// fat BVH table (pt_closest_hit_preorder) or over the XLA walk's row
-// tables w_rows + leaf_rows (pt_closest_hit_wide_rows).
+// fat BVH table (pt_closest_hit_preorder), over the split tables rows +
+// leaf (pt_closest_hit_packet) or over the XLA walk's row tables w_rows +
+// leaf_rows (pt_closest_hit_wide_rows).
 //
-// Replaces two TPU kernels that compute the same preorder closest-hit:
+// Replaces three TPU kernels that compute the same preorder closest-hit:
 // ptsharp_tpu/pallas/wide_kernel.py pallas_traverse_wide8 (body _kernel8,
-// over separate node and leaf tables held in VMEM) and
+// over separate node and leaf tables held in VMEM),
 // ptsharp_tpu/pallas/hbm_kernel.py pallas_traverse_hbm8_fat (body
-// _kernel8_hbm_fat, over the fat interleave streamed from HBM). pack_fat
-// puts node i's leaf block beside node i, so both read the same data and
-// one kernel over the port's single fat table serves both. The TPU
-// kernels move a 128-ray group's shared cursor to the minimum of its
-// lanes' next nodes; a lane then also tests nodes inside boxes it missed
-// or pruned, misses them again (a child box lies inside its parent's, and
-// best t only shrinks), and so accepts the same triangles in the same
-// order as this one-ray walk: slots agree exactly, ties included.
+// _kernel8_hbm_fat, over the fat interleave streamed from HBM), and
+// wide_kernel.py pallas_traverse_wide (body _kernel, the shared-cursor
+// tile over the split tables). pack_fat puts node i's leaf block beside
+// node i, so the first two read the same data and one kernel over the
+// port's single fat table serves both; the third reads the split tables
+// that pack_fat interleaves, and runs here over them (ptk::SplitTable). The
+// TPU kernels move a tile's shared cursor to the minimum of its lanes' next
+// nodes; a lane then also tests nodes inside boxes it missed or pruned,
+// misses them again (a child box lies inside its parent's, and best t only
+// shrinks), and so accepts the same triangles in the same order as this
+// one-ray walk: slots agree exactly, ties included. No packet is walked
+// here: the tile (and pallas_traverse_wide's `tile`) is a TPU schedule.
 //
-// The same walk over a second table view (ptk::RowTable: node rows of
+// The same walk over a third table view (ptk::RowTable: node rows of
 // row_width(K) floats, leaf blocks of leaf_size * 9) is the XLA "wide"
 // intersector's traverse_wide (ptsharp_tpu/accel/traverse.py), the JAX
 // package's default mesh walk. It is no TPU kernel of its own: only the
@@ -36,18 +41,19 @@
 //   - loads of what a step uses through the read-only path: fields [0, 12)
 //     first, the child fields only at an internal node the ray enters, and
 //     only a leaf's `count` triangles; float4 loads on 16-byte strides (the
-//     fat table, and w_rows + leaf_rows at leaf 4, 8, ...), scalar loads of
-//     the same fields otherwise, the instance chosen by the wrapper from
-//     the tables' geometry.
+//     fat table, the split tables, and w_rows + leaf_rows at leaf 4, 8,
+//     ...), scalar loads of the same fields otherwise, the instance chosen
+//     by the wrapper from the tables' geometry.
 // ptxas (nvcc 12.8, sm_90a; chip_smoke.py's ptxas lines): 79 registers at
-// K=4 and 83 at K=8 with float4 loads, 56 and 96 with scalar loads, no
+// K=4 and 83 at K=8 with float4 loads over each table view, 56 and 96 with
+// scalar loads, no
 // stack frame and no spills; __launch_bounds__ asks for 4 blocks an SM,
 // without which ptxas kept 80 registers at K=8 and spilled 4-8 bytes
 // (PERF.md section 6). The one-thread-a-ray design it replaces had 40 and
 // 48. The plain versions
-// (kernels/traverse.py closest_hit_preorder_plain, accel/traverse.py
-// traverse_wide) take the same steps in the same order, so the kernel
-// equals them in t, slot, u and v on every lane.
+// (kernels/traverse.py closest_hit_preorder_plain, closest_hit_packet_plain,
+// accel/traverse.py traverse_wide) take the same steps in the same order,
+// so the kernel equals them in t, slot, u and v on every lane.
 //
 // Per step: test the node's own box against the best t; at a leaf run MT
 // over its triangles in slot order (strict tt < best t) and follow the
@@ -86,13 +92,7 @@ closest_hit_preorder_kernel(Table tab, const float* __restrict__ org,
         return ptk::preorder_step<K, kVec>(
             tab, cur, r, b.t, end,
             [&](const float* leaf, int first, int cnt) {
-              ptk::leaf_slots<kVec>(leaf, cnt, r,
-                                    [&](int l, float tt, float uu, float vv) {
-                                      if (tt < b.t) {  // the first slot wins
-                                        b = ptk::Best{tt, first + l, uu, vv};
-                                      }
-                                      return false;
-                                    });
+              ptk::closest_in_leaf<kVec>(leaf, first, cnt, r, b);
               return false;
             });
       },
@@ -154,6 +154,24 @@ extern "C" int pt_closest_hit_preorder(const float* fat, const float* org,
   return launch_k<true>(k, ptk::FatTable{fat}, org, dir, t_max, n, base, end,
                         end - base, t_out, slot_out, u_out, v_out, next_ray,
                         counts, stream);
+}
+
+// The split tables (node j at rows[j], its leaf block at leaf[first /
+// leaf_size]), both starting on 16-byte boundaries (the wrapper checks
+// it); next_ray and counts as in pt_closest_hit. Each ray takes at most
+// end - base steps.
+extern "C" int pt_closest_hit_packet(const float* rows, const float* leaf,
+                                     const float* org, const float* dir,
+                                     const float* t_max, int n, int base,
+                                     int end, int leaf_size, int k,
+                                     float* t_out, int* slot_out,
+                                     float* u_out, float* v_out,
+                                     int* next_ray,
+                                     unsigned long long* counts,
+                                     void* stream) {
+  return launch_k<true>(k, ptk::SplitTable{rows, leaf, leaf_size}, org, dir,
+                        t_max, n, base, end, end - base, t_out, slot_out,
+                        u_out, v_out, next_ray, counts, stream);
 }
 
 // vec: 1 where both tables start on 16-byte boundaries and both strides are

@@ -75,18 +75,21 @@ def _bind(lib):
     closest_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                      vp, vp, vp, vp, vp, vp]
     anyhit_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
-    packet = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
     # the staged kernels: their tables' row counts after the tables
     fat_staged = [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
     split_staged = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                     vp, vp, vp, vp, vp]
-    # the XLA walks' row tables: rows, leaf, their strides, rays, t, n,
-    # base, end, leaf_size, max_iters, outputs, stream
-    binary = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
-              vp, vp, vp, vp, vp]
-    # the persistent walks over them: rows, leaf, their strides, float4 or
-    # scalar loads, rays, t, n, base, end, leaf_size, k, max_iters, outputs,
-    # the ray counter, [steps, lane slots] or null, stream
+    # the persistent walk over the split tables: rows, leaf, rays, t, n,
+    # base, end, leaf_size, k, outputs, the ray counter, [steps, lane
+    # slots] or null, stream
+    split_persistent = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                        vp, vp, vp, vp, vp, vp, vp]
+    # the persistent walks over the XLA walks' row tables: rows, leaf,
+    # their strides, float4 or scalar loads, rays, t, n, base, end,
+    # leaf_size, [k], max_iters, outputs, the ray counter, [steps, lane
+    # slots] or null, stream
+    binary = [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+              vp, vp, vp, vp, vp, vp, vp]
     rows_closest = [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                     vp, vp, vp, vp, vp, vp, vp]
     rows_any = [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
@@ -97,7 +100,7 @@ def _bind(lib):
                          (lib.pt_any_hit_preorder, persistent_any),
                          (lib.pt_closest_hit_split, closest_split),
                          (lib.pt_any_hit_split, anyhit_split),
-                         (lib.pt_closest_hit_packet, packet),
+                         (lib.pt_closest_hit_packet, split_persistent),
                          (lib.pt_closest_hit_dual, closest),
                          (lib.pt_closest_hit_fat_cache, fat_staged),
                          (lib.pt_closest_hit_block_cache, split_staged),

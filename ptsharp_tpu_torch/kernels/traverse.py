@@ -14,8 +14,9 @@ Over the split tables `rows` + `leaf` (the kernel-level entry points,
   `closest_hit_split` and `any_hit_split`, the ordered walk in either push
   order, closest-hit with an optional count of each ray's steps
   (csrc/closest_hit_split.cu, csrc/any_hit_split.cu);
-  `closest_hit_packet`, the preorder walk with one cursor per warp of 32
-  rays (csrc/closest_hit_packet.cu).
+  `closest_hit_packet`, the persistent preorder walk of
+  closest_hit_preorder over the split tables (csrc/closest_hit_preorder.cu;
+  its TPU kernel walks a packet with one shared cursor, this one does not).
 Memory schedules of the same two walks (kernel-level entry points too):
   `closest_hit_dual`, the ordered walk over the fat table with two rays
   a thread (csrc/closest_hit_dual.cu);
@@ -29,15 +30,16 @@ Memory schedules of the same two walks (kernel-level entry points too):
   closest_hit_row_stage.cu).
 Over the XLA walks' row tables (intersect.py, intersector "walk", "wide"
 and "cluster"; node rows of any width, leaf blocks (NL, leaf_size * 9)):
-  `closest_hit_binary`, the binary skip-link walk over u_rows (N, 10)
-  (csrc/closest_hit_binary.cu; its plain version is
-  accel.traverse.traverse_packed);
+  `closest_hit_binary`, the binary skip-link walk over u_rows (N, 10) in
+  persistent warps (csrc/closest_hit_binary.cu; float2 loads of the node
+  rows, float4 or scalar loads of the leaf blocks, `row_loads(leaf)`; its
+  plain version is accel.traverse.traverse_packed);
   `closest_hit_wide_rows` and `any_hit_wide_rows`, the preorder walks of
   closest_hit_preorder and any_hit_preorder over the K-wide w_rows
   (csrc/closest_hit_preorder.cu, csrc/any_hit_preorder.cu; their plain
   versions are accel.traverse.traverse_wide and any_hit_wide_rows_plain),
   with float4 loads where both tables are 16-byte strides from 16-byte
-  aligned bases (`row_loads`), else scalar loads.
+  aligned bases (`row_loads(rows, leaf)`), else scalar loads.
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream, adds one to its `launches` count and the launch's rays
 to its `rays`; on a CPU tensor it runs its plain version below; any
@@ -580,13 +582,17 @@ def any_hit_split_plain(rows, leaf, org, dirn, t_cut, base: int, end: int,
 
 
 def closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base: int,
-                             end: int, leaf_size: int, k: int):
-    """Plain PyTorch version of the shared-cursor packet walk: per lane
-    the preorder walk over the split tables, which gives every lane the
-    slot the packet gives it (csrc/closest_hit_packet.cu)."""
-    return _walk_closest(_SkipWalk(_Table(rows, leaf, leaf_size), org, dirn,
-                                   t_max.clone(), base, end, k,
-                                   _all_lanes(org)), leaf_size)
+                             end: int, leaf_size: int, k: int,
+                             return_iters: bool = False):
+    """Plain PyTorch preorder closest-hit over the split tables, which
+    gives every lane of the JAX kernel's shared-cursor packet the slot the
+    packet gives it; with return_iters, also each ray's step count (int32
+    (R,)), the steps closest_hit_packet's kernel takes."""
+    walk = _SkipWalk(_Table(rows, leaf, leaf_size), org, dirn,
+                     t_max.clone(), base, end, k, _all_lanes(org),
+                     count=return_iters)
+    out = _walk_closest(walk, leaf_size)
+    return (*out, walk.steps) if return_iters else out
 
 
 def closest_hit_dual_plain(fat, org, dirn, t_max, base: int, end: int,
@@ -730,14 +736,21 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _aligned(nbytes, *tables):
+    """Raise unless every table starts on an nbytes boundary, as the
+    kernels' wide loads and 16-byte copies need."""
+    if any(x.data_ptr() % nbytes for x in tables):
+        raise ValueError(f"the tables must start on a {nbytes}-byte "
+                         f"boundary")
+
+
 def _tables(staged, *tables):
     """The C entry's table arguments: the pointers, and for a kernel that
     stages rows into shared memory (16 bytes a copy) also the tables' row
     counts, which bound its block copies."""
     if not staged:
         return tuple(map(_ptr, tables))
-    if any(x.data_ptr() % 16 for x in tables):
-        raise ValueError("the tables must start on a 16-byte boundary")
+    _aligned(16, *tables)
     return (*map(_ptr, tables), *(x.shape[0] for x in tables))
 
 
@@ -765,7 +778,8 @@ _RAY_COUNTERS = {}
 def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
                 counts, out):
     """Launch a persistent walk (csrc/closest_hit.cu, any_hit.cu,
-    closest_hit_preorder.cu, any_hit_preorder.cu) over the rays, writing
+    closest_hit_preorder.cu, any_hit_preorder.cu, closest_hit_binary.cu)
+    over the rays, writing
     `out`: its warps take rays from the counter of the current stream,
     which is at 0 between launches. `x` is a table (its device and
     stream), `lead` the C entry's arguments before the rays (the tables
@@ -799,20 +813,19 @@ def _persistent_fat(wrapper, entry, fat, org, dirn, t, base, end, k, counts,
     """A persistent walk over the fat table, which it reads with float4
     loads."""
     _kernel_lib(fat, k)
-    if fat.data_ptr() % 16:
-        raise ValueError("fat must start on a 16-byte boundary (float4 "
-                         "loads)")
+    _aligned(16, fat)
     return _persistent(wrapper, entry, fat, (_ptr(fat),), org, dirn, t, base,
                        end, (k,), counts, out)
 
 
-def row_loads(rows, leaf) -> str:
-    """How the preorder kernels read the XLA walk's row tables: "float4"
-    where both start on 16-byte boundaries and both strides are multiples
-    of 4 floats (w_rows at any K; leaf_rows at leaf 4, 8, 12, ...), else
-    "scalar"."""
+def row_loads(*tables) -> str:
+    """How the kernels read the XLA walk's row tables: "float4" where
+    every table given starts on a 16-byte boundary and is a stride of a
+    multiple of 4 floats (w_rows at any K; leaf_rows at leaf 4, 8, 12,
+    ...), else "scalar". The K-wide walks ask of w_rows and leaf_rows, the
+    binary walk of leaf_rows alone (it reads u_rows with float2 loads)."""
     aligned = all(x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0
-                  for x in (rows, leaf))
+                  for x in tables)
     return "float4" if aligned else "scalar"
 
 
@@ -945,7 +958,8 @@ def any_hit_split(rows, leaf, org, dirn, t_cut, base: int, end: int,
 
 
 def _closest_split(wrapper, entry, plain, rows, leaf, org, dirn, t_max,
-                   base, end, leaf_size, k, staged=False):
+                   base, end, leaf_size, k):
+    """A staged packet walk over the split tables."""
     _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
     if rows.device.type == "cpu":
         return plain(rows, leaf, org, dirn, t_max, base, end, leaf_size, k)
@@ -953,22 +967,33 @@ def _closest_split(wrapper, entry, plain, rows, leaf, org, dirn, t_max,
     r = org.shape[0]
     out = _hit_outputs(r, rows.device)
     if r:
-        _launch(wrapper, entry, lib, *_tables(staged, rows, leaf), _ptr(org),
+        _launch(wrapper, entry, lib, *_tables(True, rows, leaf), _ptr(org),
                 _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, k,
                 *map(_ptr, out), _stream(rows), rays=r)
     return out
 
 
 def closest_hit_packet(rows, leaf, org, dirn, t_max, base: int, end: int,
-                       leaf_size: int, k: int):
-    """Closest hit per ray by the shared-cursor packet walk over the split
-    tables, one cursor per warp of 32 rays: (t, slot, u, v). The JAX
-    kernel's `tile` is its packet size; the card's packet is a warp, and
-    no result depends on it. csrc/closest_hit_packet.cu on CUDA tensors,
-    closest_hit_packet_plain on CPU tensors."""
-    return _closest_split(closest_hit_packet, "pt_closest_hit_packet",
-                          closest_hit_packet_plain, rows, leaf, org, dirn,
-                          t_max, base, end, leaf_size, k)
+                       leaf_size: int, k: int, counts=None):
+    """Closest hit per ray by the preorder walk over the split tables:
+    (t, slot, u, v), equal to closest_hit_preorder's on the fat table they
+    split. The JAX kernel (pallas_traverse_wide) walks a packet of `tile`
+    rays with one shared cursor, and every lane gets its own walk's
+    result; no packet is walked here (the persistent preorder walk of
+    csrc/closest_hit_preorder.cu over the split tables, float4 loads, both
+    tables on 16-byte boundaries) on CUDA tensors; closest_hit_packet_plain
+    on CPU tensors. `counts` as in closest_hit."""
+    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
+    if rows.device.type == "cpu":
+        _plain_counts(counts)
+        return closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base,
+                                        end, leaf_size, k)
+    _kernel_lib(rows, k)
+    _aligned(16, rows, leaf)
+    return _persistent(closest_hit_packet, "pt_closest_hit_packet", rows,
+                       (_ptr(rows), _ptr(leaf)), org, dirn, t_max, base, end,
+                       (leaf_size, k), counts,
+                       _hit_outputs(org.shape[0], rows.device))
 
 
 def closest_hit_dual(fat, org, dirn, t_max, base: int, end: int,
@@ -1012,7 +1037,7 @@ def closest_hit_block_cache(rows, leaf, org, dirn, t_max, base: int,
     return _closest_split(closest_hit_block_cache,
                           "pt_closest_hit_block_cache",
                           closest_hit_block_cache_plain, rows, leaf, org,
-                          dirn, t_max, base, end, leaf_size, k, staged=True)
+                          dirn, t_max, base, end, leaf_size, k)
 
 
 def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
@@ -1024,34 +1049,40 @@ def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
     closest_hit_row_stage_plain on CPU tensors."""
     return _closest_split(closest_hit_row_stage, "pt_closest_hit_row_stage",
                           closest_hit_row_stage_plain, rows, leaf, org, dirn,
-                          t_max, base, end, leaf_size, k, staged=True)
+                          t_max, base, end, leaf_size, k)
 
 
 def closest_hit_binary(rows, leaf, org, dirn, t_max, base: int, end: int,
-                       leaf_size: int):
+                       leaf_size: int, counts=None):
     """Closest hit per ray by the binary skip-link walk over u_rows
     (N, 10) and leaf_rows (NL, leaf_size * 9): (t, slot, u, v), slot
-    indexing the scene's slot-ordered triangles. The JAX kernel
-    (pallas_traverse) walks a 1,024-ray tile with one cursor; every lane
-    gets this per-ray walk's result, so the tile changes nothing.
-    csrc/closest_hit_binary.cu on CUDA tensors; on CPU tensors its plain
-    version, accel.traverse.traverse_packed."""
+    indexing the scene's slot-ordered triangles, each ray capped at
+    MAX_ITERS steps. The JAX kernel (pallas_traverse) walks a 1,024-ray
+    tile with one cursor; every lane gets this per-ray walk's result, so
+    the tile changes nothing. csrc/closest_hit_binary.cu on CUDA tensors
+    (u_rows an 8-byte stride from an 8-byte aligned base, read with float2
+    loads; leaf_rows with the loads row_loads(leaf) names); on CPU tensors
+    its plain version, accel.traverse.traverse_packed. `counts` as in
+    closest_hit."""
     from ptsharp_tpu_torch.accel import traverse as walks
 
     base, end = int(base), int(end)
     _check_row_tables(rows, leaf, org, dirn, t_max, base, end, leaf_size, 0)
     if rows.device.type == "cpu":
+        _plain_counts(counts)
         return walks.traverse_packed(rows, leaf, org, dirn, t_max, base, end,
                                      leaf_size)
-    lib = _kernel_lib(rows)
-    r = org.shape[0]
-    out = _hit_outputs(r, rows.device)
-    if r:
-        _launch(closest_hit_binary, "pt_closest_hit_binary", lib, _ptr(rows),
-                _ptr(leaf), rows.shape[1], leaf.shape[1], _ptr(org),
-                _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, MAX_ITERS,
-                *map(_ptr, out), _stream(rows), rays=r)
-    return out
+    _kernel_lib(rows)
+    if rows.shape[1] % 2:
+        raise ValueError("rows must be a stride of an even number of floats "
+                         "(float2 loads)")
+    _aligned(8, rows)
+    lead = (_ptr(rows), _ptr(leaf), rows.shape[1], leaf.shape[1],
+            int(row_loads(leaf) == "float4"))
+    return _persistent(closest_hit_binary, "pt_closest_hit_binary", rows,
+                       lead, org, dirn, t_max, base, end,
+                       (leaf_size, MAX_ITERS), counts,
+                       _hit_outputs(org.shape[0], rows.device))
 
 
 def _check_wide_rows(rows, leaf, org, dirn, t, base, end, leaf_size, k):

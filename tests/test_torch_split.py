@@ -3,7 +3,9 @@ kernels over `rows` + `leaf` (interpret mode, as the JAX package's own
 tests run them on the CPU): ordered closest-hit against
 pallas_traverse_ordered8 in both push orders and with its packet
 schedules, ordered any-hit against pallas_occluded_ordered8, and the
-shared-cursor packet walk against pallas_traverse_wide. The sphere + cube
+shared-cursor packet walk against pallas_traverse_wide (whose plain
+version, the preorder walk over the split tables, is what the port's
+persistent kernel #13 computes). The sphere + cube
 scene of tests/test_tpu_compiled.py at leaf 8, with the sphere at
 subdivisions 2 (K=4) and 3 (K=8). The port's tables are split_fat of its
 own fat table. 1,000 rays, not a multiple of the ordered kernels'
@@ -23,8 +25,10 @@ Tolerances:
     1e-5 * t_cut of t_cut.
   split against fat (both plain, on the same rays): bit-equal.
 
-The card-marked test runs the three split-table CUDA kernels against
-their plain versions; it skips on a machine without a card.
+The card-marked tests run the three split-table CUDA kernels against
+their plain versions, and #13 also at 17, 1,024 and 2^19 rays and on a
+chunk of rays most of which start at t_max = -INF; they skip on a machine
+without a card.
 """
 
 import jax.numpy as jnp
@@ -40,7 +44,7 @@ from ptsharp_tpu.scene import SceneBuilder
 from ptsharp_tpu_torch.accel import tables
 from ptsharp_tpu_torch.kernels import traverse
 
-from tests.test_torch_kernels import _rays, _tied
+from tests.test_torch_kernels import CUDA_RAYS, _rays, _tied
 
 N = 1000
 SCENES = {"sphere2_k4": (2, 4), "sphere3_k8": (3, 8)}
@@ -194,6 +198,27 @@ def test_step_counts(ref, mode):
         assert torch.equal(a, b)
 
 
+def test_packet_walk_counts_its_steps(ref):
+    """closest_hit_packet_plain(return_iters=True) changes no output; its
+    steps (the steps closest_hit_packet's kernel counts) are the preorder
+    walk's over the fat table, one for a ray that misses the root at
+    t_max <= 0; on CPU tensors the wrapper raises on `counts`, which only
+    the kernel keeps."""
+    fat, org, d, tm = ref["fat"], ref["org"], ref["dirn"], ref["t_max"]
+    *out, steps = traverse.closest_hit_packet_plain(
+        *_split(ref), tm, *ref["args"], return_iters=True)
+    plain = traverse.closest_hit_packet_plain(*_split(ref), tm, *ref["args"])
+    assert all(torch.equal(a, b) for a, b in zip(out, plain))
+    fat_steps = traverse.closest_hit_preorder_plain(
+        fat, org, d, tm, *ref["args"], return_iters=True)[-1]
+    assert torch.equal(steps, fat_steps)
+    np.testing.assert_array_equal(steps.numpy()[tm.numpy() <= 0], 1)
+    assert float(steps.float().mean()) > 2
+    with pytest.raises(ValueError, match="counts"):
+        traverse.closest_hit_packet(*_split(ref), tm, *ref["args"],
+                                    counts=torch.zeros(2, dtype=torch.int64))
+
+
 def test_split_wrappers_take_the_plain_version_on_cpu(ref):
     traverse.reset_launch_counts()
     rows, leaf, org, d = _split(ref)
@@ -274,4 +299,39 @@ def test_cuda_split_kernels_match_plain_versions(ref):
     torch.cuda.synchronize()
     assert traverse.closest_hit_split.launches == 2
     assert traverse.any_hit_split.launches == 2
+    assert traverse.closest_hit_packet.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [*CUDA_RAYS, "chunk"])
+def test_cuda_packet_walk_matches_plain_version(ref, n):
+    """Runs on a machine with a card: the persistent preorder walk over
+    the split tables (#13) against its plain version and against its twin
+    over the fat table (#4), on the test's rays repeated or cut to n, and
+    on a chunk of 8,192 rays with all but about 5% at t_max = -INF: every
+    output on every lane, and the kernel's step count equal to the plain
+    version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    m = 8192 if n == "chunk" else n
+    rep = -(-m // N)
+    org, d, tm = (ref[x].repeat(rep, *([1] * (ref[x].dim() - 1)))[:m]
+                  .contiguous().to(dev) for x in ("org", "dirn", "t_max"))
+    if n == "chunk":
+        g = np.random.default_rng(3)
+        live = torch.from_numpy(g.random(m) < 0.05).to(dev)
+        tm = torch.where(live, tm, torch.full_like(tm, -1e9)).contiguous()
+    rows, leaf, fat = (ref[x].to(dev) for x in ("rows", "leaf", "fat"))
+    args = ref["args"]
+    traverse.reset_launch_counts()
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = traverse.closest_hit_packet(rows, leaf, org, d, tm, *args,
+                                      counts=counts)
+    *want, steps = traverse.closest_hit_packet_plain(rows, leaf, org, d, tm,
+                                                     *args, return_iters=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    twin = traverse.closest_hit_preorder(fat, org, d, tm, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, twin))
+    assert int(counts[0]) == int(steps.sum()) <= int(counts[1])
     assert traverse.closest_hit_packet.launches == 1

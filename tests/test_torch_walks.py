@@ -10,7 +10,8 @@ their plain versions.
   walks    accel.traverse.traverse_packed and traverse_wide (K = 2, 4, 8)
            against the JAX functions on 1,000 rays, finite and scalar
            t_max, and their step helpers (unpack_bits, unpack_wide_bits,
-           wide_child_step, leaf_intersect); the MeshArrays walk;
+           wide_child_step, leaf_intersect); traverse_packed's step
+           counts against a per-ray loop; the MeshArrays walk;
            kernels.traverse.closest_hit_binary (plain) against
            pallas_traverse in interpret mode, with the tiles and the
            300-ray padding of tests/test_pallas_kernel.py;
@@ -28,8 +29,9 @@ their plain versions.
            scattered rays toward the lights); occlusion_query on a "wide"
            scene against the JAX package's on the converted scene, on
            every lane; the leaf blocks' padding slots hold zero triangles
-           (the kernels test only a leaf's `count` slots); and the load
-           width the row kernels take from the tables' geometry.
+           in leaf_rows, the fat table and the split tables (the kernels
+           test only a leaf's `count` slots); and the load width the row
+           kernels take from the tables' geometry.
 
 Tolerances: t within rtol 1e-5, atol 1e-5 on every lane and within 1e-6
 on at least 99.5% of lanes (XLA contracts multiply-adds on the CPU; torch
@@ -37,8 +39,9 @@ rounds each operation, ROADMAP.md Queue 3); slots equal on every lane
 except where two triangles tie within the t tolerance or the hit triangle
 is grazing (|det| below 1e-3), where that rounding decides. Renders: the
 tolerances of tests/test_torch_render.py. Shadows: equal on every lane.
-The card-marked test holds the three CUDA kernels against their plain
-versions; it skips without a card.
+The card-marked tests hold the three CUDA kernels against their plain
+versions, the binary walk also at 17, 1,024 and 2^19 rays and on a
+cluster-pattern chunk; they skip without a card.
 """
 
 import jax
@@ -65,6 +68,7 @@ from ptsharp_tpu_torch import examples as tex
 from ptsharp_tpu_torch import intersect as tintersect
 from ptsharp_tpu_torch.accel import cluster as tcluster
 from ptsharp_tpu_torch.accel import traverse as ttraverse
+from ptsharp_tpu_torch.accel.tables import split_fat
 from ptsharp_tpu_torch.core import rng
 from ptsharp_tpu_torch.geometry import mesh as tmesh
 from ptsharp_tpu_torch.kernels import traverse
@@ -75,6 +79,7 @@ from ptsharp_tpu_torch.scene import SceneBuilder as TBuilder
 
 import chip_smoke
 from tests.test_torch_integrator import assert_radiance_parity, port_config
+from tests.test_torch_kernels import CUDA_RAYS
 
 INTERSECTORS = ("wide", "walk", "cluster")
 N = 1000
@@ -387,6 +392,71 @@ def test_row_wrappers_take_no_counts_on_the_cpu(walk_case):
     assert (any_steps[tm <= 0] == 0).all() and (any_steps <= steps).all()
 
 
+def _scalar_binary_steps(u_rows, leaf, org, d, t_max, base, end, ls):
+    """Each ray's steps by a per-ray loop of the binary skip-link walk:
+    own box against the best t, j + 1 at a hit internal node, MT over the
+    leaf's slots (strict tt < best t) and the skip link at a hit leaf, the
+    skip link where the box is missed."""
+    bits = u_rows.view(torch.int32)
+    inv = traverse._safe_inv(d)
+    steps = []
+    for i in range(org.shape[0]):
+        o, iv, bt = org[i:i + 1], inv[i:i + 1], t_max[i:i + 1].clone()
+        cur, n = base, 0
+        while cur < end:
+            n += 1
+            tmin, tmax = traverse._slab(u_rows[cur:cur + 1, 0:6], o, iv)
+            skip = int(bits[cur, 8])
+            if not bool(traverse._box_hit(tmin, tmax, bt)):
+                cur = skip
+            elif int(bits[cur, 7]) & 0xFF == 0:
+                cur += 1
+            else:
+                blk = leaf[int(bits[cur, 6]) // ls, :ls * 9].reshape(1, ls, 9)
+                ok, tt, _u, _v = traverse._mt(blk, o, d[i:i + 1])
+                tt = torch.where(ok & (tt < bt[:, None]), tt, bt[:, None])
+                bt = tt.min(dim=1).values
+                cur = skip
+        steps.append(n)
+    return torch.tensor(steps, dtype=torch.int32)
+
+
+def test_traverse_packed_counts_its_steps(walk_case):
+    """traverse_packed(return_iters=True) changes no output; its steps
+    (the steps closest_hit_binary's kernel counts) are a per-ray loop's,
+    and a ray at t_max = -INF takes one step, the root's box test."""
+    c = walk_case
+    org, d = torch.from_numpy(c["org"]), torch.from_numpy(c["d"])
+    tm = torch.from_numpy(c["t_max"])
+    r = c["ranges"]
+    args = (r["u_inst_base"][0], r["u_inst_end"][0], 8)
+    *out, steps = ttraverse.traverse_packed(c["u_rows"], c["leaf"], org, d, tm,
+                                            *args, return_iters=True)
+    want = ttraverse.traverse_packed(c["u_rows"], c["leaf"], org, d, tm, *args)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert steps.dtype == torch.int32
+    np.testing.assert_array_equal(steps[tm == -INF].numpy(), 1)
+    assert float(steps.float().mean()) > 5
+    few = slice(0, 200)
+    np.testing.assert_array_equal(
+        steps[few].numpy(),
+        _scalar_binary_steps(c["u_rows"], c["leaf"], org[few], d[few],
+                             tm[few], *args).numpy())
+
+
+def test_binary_walk_takes_no_counts_on_the_cpu(walk_case):
+    """`counts` is the kernel's own count: on CPU tensors closest_hit_binary
+    raises on it, as the persistent row wrappers do."""
+    c = walk_case
+    org, d = torch.from_numpy(c["org"]), torch.from_numpy(c["d"])
+    tm = torch.from_numpy(c["t_max"])
+    r = c["ranges"]
+    with pytest.raises(ValueError, match="counts"):
+        traverse.closest_hit_binary(c["u_rows"], c["leaf"], org, d, tm,
+                                    r["u_inst_base"][0], r["u_inst_end"][0], 8,
+                                    counts=torch.zeros(2, dtype=torch.int64))
+
+
 def test_row_wrappers_check_their_tables(walk_case):
     c = walk_case
     org, d = torch.from_numpy(c["org"]), torch.from_numpy(c["d"])
@@ -628,6 +698,43 @@ def test_cuda_row_kernels_match_plain_versions(walk_case):
     assert traverse.any_hit_wide_rows.launches == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [*CUDA_RAYS, "chunk"])
+def test_cuda_binary_walk_matches_plain_version(walk_case, n):
+    """Runs on a machine with a card: the persistent binary walk (#14)
+    against traverse_packed on the walk tests' rays repeated or cut to n
+    (fewer than a warp; about a thousand; more than the persistent grid
+    holds at once), and on a cluster-pattern chunk of 8,192 rays with all
+    but about 5% at t_max = -INF, as intersect_clustered sends its
+    resolved rays: every output on every lane, and the kernel's step count
+    equal to the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    c = walk_case
+    dev = torch.device("cuda")
+    m = 8192 if n == "chunk" else n
+    rep = -(-m // N)
+    org, d, tm = (torch.from_numpy(x).repeat(rep, *([1] * (x.ndim - 1)))[:m]
+                  .contiguous().to(dev)
+                  for x in (c["org"], c["d"], c["t_max"]))
+    if n == "chunk":
+        g = np.random.default_rng(3)
+        live = torch.from_numpy(g.random(m) < 0.05).to(dev)
+        tm = torch.where(live, tm, torch.full_like(tm, -INF)).contiguous()
+    u_rows, leaf = c["u_rows"].to(dev), c["leaf"].to(dev)
+    r = c["ranges"]
+    args = (r["u_inst_base"][0], r["u_inst_end"][0], 8)
+    traverse.reset_launch_counts()
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = traverse.closest_hit_binary(u_rows, leaf, org, d, tm, *args,
+                                      counts=counts)
+    *want, steps = ttraverse.traverse_packed(u_rows, leaf, org, d, tm, *args,
+                                             return_iters=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(counts[0]) == int(steps.sum()) <= int(counts[1])
+    assert traverse.closest_hit_binary.launches == 1
+
+
 # ---- the K-wide any-hit ------------------------------------------------------
 
 
@@ -697,21 +804,29 @@ def test_occlusion_query_wide_matches_jax(scene):
     assert all(w.launches == 0 for w in traverse.WRAPPERS)
 
 
-@pytest.mark.parametrize("intersector", ["wide", "pallas"])
-def test_leaf_padding_slots_are_zero_triangles(intersector):
-    """The persistent preorder kernels run Moller-Trumbore on a leaf's
-    first `count` slots only; the plain walks on all of them. They agree
-    because every slot past `count` holds a zero triangle, which MT
-    rejects (det = 0): in leaf_rows and in the fat table's leaf rows."""
+@pytest.mark.parametrize("tables", ["wide", "pallas", "split"])
+def test_leaf_padding_slots_are_zero_triangles(tables):
+    """The persistent kernels run Moller-Trumbore on a leaf's first
+    `count` slots only; the plain walks on all of them. They agree because
+    every slot past `count` holds a zero triangle, which MT rejects
+    (det = 0): in leaf_rows (the binary and K-wide walks' leaf blocks), in
+    the fat table's leaf rows and in the split tables' leaf rows."""
+    intersector = "wide" if tables == "wide" else "pallas"
     st = tex.bunny(16, 12, subdivisions=3, intersector=intersector,
                    wide_k=4 if intersector == "wide" else 8, device="cpu")[0]
     ls = st.max_leaf
-    if intersector == "wide":
+    if tables == "wide":
         # the mesh's rows: the TLAS head's leaves index objects, not slots
         bits = st.w_rows[st.w_inst_base[0]:st.w_inst_end[0]].view(torch.int32)
         leaf = (bits[:, 7] & 0xFF) > 0
         count = (bits[leaf, 7] & 0xFF).long()
         blocks = st.leaf_rows[bits[leaf, 6].long() // ls]
+    elif tables == "split":
+        rows, leaf_tab = map(torch.from_numpy, split_fat(st.p_fat.numpy(), ls))
+        bits = rows.view(torch.int32)
+        leaf = (bits[:, 7] & 0xFF) > 0
+        count = (bits[leaf, 7] & 0xFF).long()
+        blocks = leaf_tab[bits[leaf, 6].long() // ls]
     else:
         bits = st.p_fat[0::2].view(torch.int32)
         leaf = (bits[:, 7] & 0xFF) > 0
@@ -728,17 +843,21 @@ def test_leaf_padding_slots_are_zero_triangles(intersector):
 
 
 def test_row_loads_follow_the_tables_geometry():
-    """The row kernels take float4 loads where both tables are 16-byte
+    """The row kernels take float4 loads where their tables are 16-byte
     strides from 16-byte aligned bases (the default "wide" build: w_rows
-    of 40 floats, leaf_rows of 72), scalar loads otherwise."""
+    of 40 floats, leaf_rows of 72), scalar loads otherwise; the binary
+    walk asks of leaf_rows alone (it reads u_rows, 10 floats, with float2
+    loads)."""
     st = tex.bunny(8, 6, subdivisions=2, device="cpu")[0]
     assert traverse.row_loads(st.w_rows, st.leaf_rows) == "float4"
     assert traverse.row_loads(st.u_rows, st.leaf_rows) == "scalar"
+    assert traverse.row_loads(st.leaf_rows) == "float4"
     leaf6 = TBuilder()
     leaf6.add_mesh(tmesh.sphere_mesh([0, 0, 0], 1.0, subdivisions=2),
                    tdiffuse([0.5, 0.5, 0.5]))
     s6 = leaf6.build(leaf_size=6, intersector="wide", wide_k=4, device="cpu")
     assert s6.leaf_rows.shape[1] == 54
     assert traverse.row_loads(s6.w_rows, s6.leaf_rows) == "scalar"
+    assert traverse.row_loads(s6.leaf_rows) == "scalar"
     shifted = torch.zeros(st.w_rows.numel() + 1)[1:].view(st.w_rows.shape)
     assert traverse.row_loads(shifted, st.leaf_rows) == "scalar"
