@@ -62,17 +62,25 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               4 at the bunny's 1080p main-path width and of 5 on
               dragon_hd (whose table does not fit the card's L2), over
               split_fat tables padded with pad_rows once per scene: the
-              two-rays-a-thread ordered walk over the fat table, and the
-              preorder packet walks of 128 rays that stage rows into
-              shared memory (fat block cache; two 64-row caches over the
-              padded split tables; a row a step over the unpadded ones);
-              driven once with every launch count set to 0 just before
-              and read just after; each against its plain version (the
-              dual walk as 4 holds the ordered kernel, with slots equal;
-              the others t, slot, u and v equal on every lane) and its
-              twin on every lane (dual = closest_hit; the staged walks =
-              closest_hit_preorder); times per ray kind beside the plain
-              versions and #1, #4 and #13;
+              two-rays-a-thread ordered walk over the fat table, the
+              preorder walk in warp packets of 32 rays through TMA-filled
+              shared-memory rings (#12 over the fat table, #10 over the
+              padded split tables, each with its packet counts), and the
+              preorder packet walk of 128 rays that stages a row a step
+              (#11, over the unpadded split tables); driven once with
+              every launch count set to 0 just before and read just
+              after; each against its plain version (the dual walk as 4
+              holds the ordered kernel, with slots equal; the others t,
+              slot, u and v equal on every lane) and its twin on every
+              lane (dual = closest_hit; the staged walks =
+              closest_hit_preorder); #10's and #12's counts (packet
+              steps, lane steps, demand copies, prefetches used and
+              discarded) equal to the plain model of their schedule
+              (warp_packet_plain) and their lane steps to #4's steps;
+              times per ray kind beside the plain versions and #1, #4 and
+              #13, with #10's and #12's lane use, copies a packet step and
+              prefetch hit rate; their ptxas lines and dynamic shared
+              memory;
   5e. rows    the XLA walks' kernels over the row tables of
               examples.build("bunny", intersector="walk") (leaf 8, K=4) on
               the rays of 4 at the 1080p main-path width, and of dragon_hd
@@ -225,9 +233,9 @@ SPLIT = ("closest_hit_split", "any_hit_split", "closest_hit_packet")
 # the memory-schedule kernels: no render launches them either
 STAGED = ("closest_hit_dual", "closest_hit_fat_cache",
           "closest_hit_block_cache", "closest_hit_row_stage")
-# dynamic shared memory a launch asks for: 32 fat pairs; two 64-row caches
-DYNAMIC_SMEM = {"closest_hit_fat_cache": 2 * 32 * 128 * 4,
-                "closest_hit_block_cache": 2 * 64 * 128 * 4}
+# the warp-packet kernels (#12, #10), whose launches ask for dynamic shared
+# memory (traverse.cache_layout) and count their packets and copies
+PACKETS = ("closest_hit_fat_cache", "closest_hit_block_cache")
 # rays a chunk and candidate clusters a ray takes, intersect_clustered's
 # defaults (which intersect.py takes)
 CLUSTER_CHUNK = 8192
@@ -950,17 +958,39 @@ def split_phase(scene, rays, label):
                  for name in SPLIT}
 
 
-def staged_phase(scene, rays, label):
-    """The four memory-schedule kernels (two rays a thread, and the three
-    packet walks that stage rows into shared memory), driven once on the
-    closest-hit rays of the main path with every launch count set to 0
-    just before and read just after; then each held against its plain
-    version and its twin (#9 = #1, #10-#12 = #4) on every lane, and timed
-    per ray kind beside its plain version and #1, #4 and #13. Returns
-    ({wrapper name: {max_abs_err, ms, plain_ms}}, {wrapper name:
-    launches})."""
-    from ptsharp_tpu_torch.accel import tables
+def dynamic_smem(name: str) -> int:
+    """Dynamic shared memory a launch of the staged kernel `name` asks for
+    (the warp packets' rings; the others use none)."""
     from ptsharp_tpu_torch.kernels import traverse
+
+    if name not in PACKETS:
+        return 0
+    return traverse.cache_layout(getattr(traverse, name))[1]
+
+
+def _packet_text(c) -> str:
+    """Lane use, copies a packet step and prefetch hit rate from a warp
+    packet's counts (traverse.PACKET_COUNTS)."""
+    steps, lanes, demand, used, discarded = c
+    return (f"packet_steps={steps} lane_use={lanes / (32 * steps):.3f} "
+            f"copies/packet_step={(demand + used + discarded) / steps:.4f} "
+            f"(demand {demand / steps:.4f}) prefetch_hit_rate="
+            f"{used / max(used + discarded, 1):.3f} (used {used}, discarded "
+            f"{discarded}, demand {demand})")
+
+
+def staged_phase(scene, rays, label):
+    """The four memory-schedule kernels (two rays a thread, the two warp
+    packets and the 128-ray packet that stages a row a step), driven once
+    on the closest-hit rays of the main path with every launch count set
+    to 0 just before and read just after, the warp packets with their
+    counts; then each held against its plain version and its twin (#9 =
+    #1, #10-#12 = #4) on every lane, the warp packets' counts against the
+    plain model of their schedule, and timed per ray kind beside its plain
+    version and #1, #4 and #13. Returns ({wrapper name: {max_abs_err, ms,
+    plain_ms}}, {wrapper name: launches})."""
+    from ptsharp_tpu_torch.accel import tables
+    from ptsharp_tpu_torch.kernels import build, traverse
 
     dev = scene.p_fat.device
     fat = scene.p_fat
@@ -985,14 +1015,22 @@ def staged_phase(scene, rays, label):
         "closest_hit_row_stage": (split, "closest_hit_preorder"),
     }
 
-    def run(name, o, d, tm, plain=False):
+    def run(name, o, d, tm, plain=False, counts=None):
         fn = getattr(traverse, f"{name}_plain" if plain else name)
+        if counts is not None:
+            return fn(*kernels[name][0], o, d, tm, *args, counts=counts)
         return fn(*kernels[name][0], o, d, tm, *args)
 
+    def new_counts():
+        return torch.zeros(len(traverse.PACKET_COUNTS), dtype=torch.int64,
+                           device=dev)
+
     # the path: each entry point once, as a caller of the kernel-level
-    # API calls it
+    # API calls it, the warp packets with their counts
+    packet_counts = {name: new_counts() for name in PACKETS}
     traverse.reset_launch_counts()
-    got = {name: run(name, org, dirn, tmax) for name in kernels}
+    got = {name: run(name, org, dirn, tmax, counts=packet_counts.get(name))
+           for name in kernels}
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
     launch_rays = {w.__name__: w.rays for w in traverse.WRAPPERS}
@@ -1029,6 +1067,44 @@ def staged_phase(scene, rays, label):
             f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
+    # the warp packets' counts against the plain model of their schedule,
+    # and their lanes' steps against #4's
+    totals = {}
+    pre_counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    traverse.closest_hit_preorder(fat, org, dirn, tmax, *args,
+                                  counts=pre_counts)
+    report = ptxas_report(build.build_info.get("ptxas", ""))
+    for name in PACKETS:
+        wrapper = getattr(traverse, name)
+        block_rows, smem = traverse.cache_layout(wrapper)
+        tabs = kernels[name][0]
+        *model, mc = traverse.warp_packet_plain(
+            tabs[0], tabs[1] if len(tabs) > 1 else None, org, dirn, tmax,
+            *args, block_rows=block_rows)
+        _equal(f"{name} against the plain model of its schedule", got[name],
+               model)
+        want = [int(mc[key].sum()) for key in traverse.PACKET_COUNTS]
+        counted = totals[name] = packet_counts[name].tolist()
+        if counted != want:
+            raise AssertionError(f"{name} counted {counted}, the plain model "
+                                 f"of its schedule {want} "
+                                 f"({traverse.PACKET_COUNTS})")
+        if counted[1] != int(pre_counts[0]):
+            raise AssertionError(f"{name}'s lanes took {counted[1]} steps, "
+                                 f"closest_hit_preorder's rays "
+                                 f"{int(pre_counts[0])}")
+        log(f"{name} [{label}] counts equal to warp_packet_plain's and lane "
+            f"steps to closest_hit_preorder's: {_packet_text(counted)}; "
+            f"ring block {block_rows} rows, dynamic smem {smem} B")
+        for kname, row in sorted(report.items()):
+            if kname.startswith(name + "<"):
+                log(f"  ptxas {kname}: {row.get('registers')} registers, "
+                    f"stack frame {row.get('stack')} B, spill stores "
+                    f"{row.get('spill_stores')} B, spill loads "
+                    f"{row.get('spill_loads')} B, static smem {row['smem']} "
+                    f"B, dynamic smem {smem} B")
+
+    kind_counts = {name: [] for name in PACKETS}
     for kind, sl in (("camera", slice(0, n_cam)),
                      ("bounce", slice(n_cam, None))):
         o, d = org[sl].contiguous(), dirn[sl].contiguous()
@@ -1046,6 +1122,19 @@ def staged_phase(scene, rays, label):
         log(f"  {kind} rays ({o.shape[0]}) ms: " + ", ".join(
             f"{name} {time_ms(fn, dev, _reps(name)):.3f}"
             for name, fn in times.items()))
+        for name in PACKETS:
+            c = new_counts()
+            run(name, o, d, tm, counts=c)
+            kind_counts[name].append(c.tolist())
+            log(f"{name} [{label}] {kind} rays={o.shape[0]} "
+                f"{_packet_text(kind_counts[name][-1])}")
+    # the two kinds' packets make up the whole run's where n_cam is a
+    # multiple of the packet width
+    for name in PACKETS:
+        both = [sum(x) for x in zip(*kind_counts[name])]
+        if n_cam % traverse.PACKET_WIDTH == 0 and both != totals[name]:
+            raise AssertionError(f"{name}'s counts per ray kind do not add "
+                                 f"up to the whole run's")
     return out, {name: (launches[name], launch_rays[name])
                  for name in kernels}
 
@@ -1546,7 +1635,7 @@ def main() -> int:
             f"{row.get('spill_stores')} B, spill loads "
             f"{row.get('spill_loads')} B, static smem {row['smem']} B")
     log("  dynamic smem a launch: " + ", ".join(
-        f"{name} {DYNAMIC_SMEM.get(name, 0)} B" for name in STAGED))
+        f"{name} {dynamic_smem(name)} B" for name in STAGED))
 
     # bunny: the four kernels at two widths
     t0 = time.perf_counter()

@@ -488,16 +488,30 @@ struct ChildFields {
   }
 };
 
+// A float4 from device memory through the read-only path, or with kShared
+// a plain load from shared memory (in a warp packet every lane reads the
+// same address: a broadcast).
+template <bool kShared>
+__device__ __forceinline__ float4 load4(const float4* p) {
+  if constexpr (kShared) {
+    return *p;
+  } else {
+    return __ldg(p);
+  }
+}
+
 // MT over the first `cnt` triangles of a leaf block in slot order, four
 // triangles (nine float4 loads, none past the last triangle) a turn, or
 // with kVec false one triangle (nine scalar loads) a turn, for a block
 // that is not 16-byte aligned; keep(l, tt, uu, vv) takes each hit at
 // tt > 1e-4 and returns true to stop. The padding slots past `cnt` are
 // zero triangles, which MT rejects, so the result is that of every slot.
-template <bool kVec = true, class Keep>
+// kShared: the block lies in shared memory (float4 loads only).
+template <bool kVec = true, bool kShared = false, class Keep>
 __device__ __forceinline__ void leaf_slots(const float* __restrict__ leaf,
                                            int cnt, const Ray& r,
                                            Keep keep) {
+  static_assert(kVec || !kShared, "shared blocks are read with float4");
   if constexpr (!kVec) {
     for (int l = 0; l < cnt; ++l) {
       float tri[9];
@@ -514,7 +528,7 @@ __device__ __forceinline__ void leaf_slots(const float* __restrict__ leaf,
       for (int i = 0; i < 9; ++i) {
         const int q = 9 * (g / 4) + i;
         float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (4 * q < 9 * cnt) v = __ldg(p + q);
+        if (4 * q < 9 * cnt) v = load4<kShared>(p + q);
         f[4 * i + 0] = v.x;
         f[4 * i + 1] = v.y;
         f[4 * i + 2] = v.z;
@@ -534,11 +548,12 @@ __device__ __forceinline__ void leaf_slots(const float* __restrict__ leaf,
 
 // leaf_slots keeping the closest accepted hit in b: strict tt < best t, so
 // the first slot wins among equal t.
-template <bool kVec>
+template <bool kVec, bool kShared = false>
 __device__ __forceinline__ void closest_in_leaf(const float* __restrict__ leaf,
                                                 int first, int cnt,
                                                 const Ray& r, Best& b) {
-  leaf_slots<kVec>(leaf, cnt, r, [&](int l, float tt, float uu, float vv) {
+  leaf_slots<kVec, kShared>(leaf, cnt, r, [&](int l, float tt, float uu,
+                                              float vv) {
     if (tt < b.t) b = Best{tt, first + l, uu, vv};
     return false;
   });
@@ -612,6 +627,21 @@ __device__ __forceinline__ int fat_step(const float* __restrict__ fat,
   }
 }
 
+// The end of a persistent warp's work: the last warp of the grid to finish
+// sets next_ray[0] (the ray counter) and next_ray[1] (the warps finished)
+// back to 0 for the next launch on the stream; every other warp took its
+// last rays before it counted itself.
+__device__ __forceinline__ void finish_launch(int* __restrict__ next_ray) {
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence();
+    const int warps = static_cast<int>(gridDim.x * (blockDim.x / 32));
+    if (atomicAdd(next_ray + 1, 1) == warps - 1) {
+      atomicExch(next_ray, 0);
+      atomicExch(next_ray + 1, 0);
+    }
+  }
+}
+
 // The persistent loop of one warp over rays [0, n), which it takes from
 // next_ray[0], a counter at 0 when the launch starts: begin(i) starts ray
 // i and returns its first node, step(cur) takes one step and returns the
@@ -672,17 +702,7 @@ __device__ __forceinline__ void persistent_walk(
       atomicAdd(counts + 1, 32ull * turns);
     }
   }
-  // The last warp of the grid to finish sets next_ray[0] (the counter) and
-  // next_ray[1] (the warps finished) back to 0 for the next launch on the
-  // stream: every other warp took its last rays before it counted itself.
-  if (lane == 0) {
-    __threadfence();
-    const int warps = static_cast<int>(gridDim.x * (blockDim.x / 32));
-    if (atomicAdd(next_ray + 1, 1) == warps - 1) {
-      atomicExch(next_ray, 0);
-      atomicExch(next_ray + 1, 0);
-    }
-  }
+  finish_launch(next_ray);
 }
 
 // ---- the persistent preorder walk (#4, 4w, #7, #13) -------------------------
@@ -709,8 +729,10 @@ constexpr int kPreorderMinBlocks = 4;
 // The fields of a K-wide node row that the preorder walk reads, f[i] =
 // field i: [0, 6) own box, 6 first slot, 7 count (int bits, low byte),
 // 8 skip link, [9, 9 + 6K) child boxes, [9 + 6K, 9 + 7K) child indices.
-template <int K, bool kVec>
+// kShared: the row lies in shared memory (float4 loads only).
+template <int K, bool kVec, bool kShared = false>
 struct PreorderRow {
+  static_assert(kVec || !kShared, "shared rows are read with float4");
   static constexpr int kFields = 9 + 7 * K;
   static constexpr int kQuads = (kFields + 3) / 4;
   float f[4 * kQuads];
@@ -722,7 +744,8 @@ struct PreorderRow {
 #pragma unroll
     for (int q = q0; q < q1; ++q) {
       if constexpr (kVec) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(row) + q);
+        const float4 v =
+            load4<kShared>(reinterpret_cast<const float4*>(row) + q);
         f[4 * q + 0] = v.x;
         f[4 * q + 1] = v.y;
         f[4 * q + 2] = v.z;
@@ -811,16 +834,17 @@ __device__ __forceinline__ int binary_step(const RowTable& tab, int cur,
   return skip;
 }
 
-// Blocks of `kernel` (kWalkThreads threads each) resident at once on the
-// current card: its blocks an SM times the card's SMs. A launcher asks
-// once and keeps the answer.
+// Blocks of `kernel` (kWalkThreads threads each, `smem` bytes of dynamic
+// shared memory each) resident at once on the current card: its blocks an
+// SM times the card's SMs. A launcher asks once and keeps the answer; one
+// that asks for more than 48 KB raises the kernel's limit first.
 template <class Kernel>
-__host__ inline int resident_blocks(Kernel kernel) {
+__host__ inline int resident_blocks(Kernel kernel, size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                kWalkThreads, 0);
+                                                kWalkThreads, smem);
   return per_sm * sms;
 }
 
@@ -831,13 +855,307 @@ __host__ inline int persistent_blocks(int n, int resident) {
   return need < resident ? need : resident;
 }
 
-// ---- the staged packet walk -------------------------------------------------
+// ---- the warp packet walk (#10, #12) ---------------------------------------
 //
-// A packet is one block of kPacket threads, one ray each, the TPU kernels'
-// lane width, sharing one cursor. The kernels that stage rows into shared
-// memory (closest_hit_row_stage.cu, closest_hit_block_cache.cu,
-// closest_hit_fat_cache.cu) differ only in their stager: the object that
-// makes node j's row and its leaf block available in shared memory.
+// closest_hit_fat_cache.cu and closest_hit_block_cache.cu walk packets of
+// 32 rays, one warp each, in persistent warps: a warp takes 32 consecutive
+// rays from next_ray[0] (persistent_walk's counter, one atomicAdd a packet)
+// and walks them all to their ends before it takes more. Each lane keeps
+// its own preorder cursor; the packet's cursor is their minimum
+// (__reduce_min_sync), and the lanes whose cursor it is take their own
+// preorder step there while the others wait. Child indices and skip links
+// point forward, so every lane's cursor only grows, the packet's cursor only
+// grows, and the packet visits the union of its lanes' walks in node
+// order: each lane takes exactly the steps of its own walk and gets its
+// (t, slot, u, v). No lane takes a new ray inside a packet: the new ray
+// would start at `base`, behind the packet's cursor, and break both the
+// growing cursor and the ring's prefetch, which follows it.
+//
+// The cursor is the same on every lane, so the warp reads one node row and
+// at most one leaf block a step, from a ring of two cache blocks of the
+// table in the warp's share of dynamic shared memory (TmaRing): every lane
+// reads the same address, a broadcast. One lane fills the ring with TMA
+// bulk copies that report to an mbarrier per buffer; no thread spends
+// registers or instructions on a copy beyond its issue, and nothing wider
+// than the warp synchronises. When the cursor enters block b, the ring
+// starts the copy of block b + 1 into its other buffer, where the next
+// steps most often go (a descent goes to the next node in preorder), so the
+// copy overlaps the tests of block b.
+
+// The shared-memory address of a pointer into shared memory.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Whether the phase of the mbarrier at `bar` with parity `parity` has
+// completed (the copies it tracks have landed and are visible).
+__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// A ring of two buffers of kRows table rows each in shared memory, over a
+// table of `rows` rows: buffer `cur` holds the block the cursor is in, the
+// other one the next block (a prefetch) or nothing. Every lane of the warp
+// holds the same state and makes the same calls; lane 0 issues the copies.
+// A demand copy takes the current buffer (the cursor only grows, so its
+// block is done with); a prefetch takes the other one. Blocks whose first
+// row lies at or past `limit` (rows no walk reads) are never prefetched,
+// and the last block is copied only up to the table's end.
+template <int kRows>
+struct TmaRing {
+  static constexpr int kFloats = kRows * kRow;  // a buffer
+  static constexpr int kBytes = 2 * kFloats * 4;
+
+  const float* table;
+  int rows, limit;
+  float* buf;    // shared, 2 kFloats floats, 128-byte aligned
+  unsigned bar;  // shared address of two 8-byte mbarriers
+  int tag0, tag1;  // the block each buffer holds or is loading, -1 none
+  int cur;
+  unsigned parity;      // bit s: the parity buffer s's next wait waits for
+  unsigned pending;     // bit s: a copy into buffer s not yet waited for
+  unsigned prefetched;  // bit s: buffer s holds a prefetch not yet used
+  unsigned demand, used, discarded;
+
+  // Every lane calls it, before any copy; `bars` is 8-byte aligned.
+  __device__ __forceinline__ void init(const float* t, int n_rows, int lim,
+                                       float* shared_buf,
+                                       unsigned long long* bars) {
+    table = t;
+    rows = n_rows;
+    limit = lim;
+    buf = shared_buf;
+    bar = smem_addr(bars);
+    tag0 = tag1 = -1;
+    cur = 0;
+    parity = pending = prefetched = 0;
+    demand = used = discarded = 0;
+    if ((threadIdx.x & 31) == 0) {
+      asm volatile(
+          "mbarrier.init.shared::cta.b64 [%0], 1;\n\t"
+          "mbarrier.init.shared::cta.b64 [%1], 1;\n\t"
+          "fence.mbarrier_init.release.cluster;\n" ::"r"(bar),
+          "r"(bar + 8)
+          : "memory");
+    }
+    __syncwarp();
+  }
+
+  __device__ __forceinline__ int tag(int s) const { return s ? tag1 : tag0; }
+  __device__ __forceinline__ void set_tag(int s, int b) {
+    tag0 = s ? tag0 : b;
+    tag1 = s ? b : tag1;
+  }
+
+  // Start the copy of block blk into buffer s, whose earlier copy the warp
+  // has waited for and whose rows it has finished reading: __syncwarp
+  // orders those reads before the issue, and the proxy fence orders them
+  // before the copy engine's writes.
+  __device__ __forceinline__ void issue(int s, int blk) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      const unsigned b = bar + 8 * s;
+      const int n = min(kRows, rows - blk * kRows);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (n > 0) {
+        const unsigned bytes = static_cast<unsigned>(n) * kRow * 4;
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n\t"
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%2], [%3], %1, [%0];\n" ::"r"(b),
+            "r"(bytes), "r"(smem_addr(buf + s * kFloats)),
+            "l"(table + static_cast<size_t>(blk) * kFloats)
+            : "memory");
+      } else {  // a row past the table (no table of the port has one)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(b)
+                     : "memory");
+      }
+    }
+    set_tag(s, blk);
+    pending |= 1u << s;
+  }
+
+  __device__ __forceinline__ void wait(int s) {
+    if ((pending >> s) & 1u) {
+      while (!mbar_try_wait(bar + 8 * s, (parity >> s) & 1u)) {
+      }
+      parity ^= 1u << s;
+      pending &= ~(1u << s);
+    }
+  }
+
+  __device__ __forceinline__ void prefetch(int s, int blk) {
+    if (blk * kRows < limit) {
+      issue(s, blk);
+      prefetched |= 1u << s;
+    } else {
+      set_tag(s, -1);
+    }
+  }
+
+  // Make block blk the current one without waiting for it: a prefetch
+  // the ring holds, or a demand copy (which discards the prefetch); then
+  // start the prefetch of blk + 1.
+  __device__ __forceinline__ void fetch(int blk) {
+    if (tag(cur) == blk) return;
+    const int o = cur ^ 1;
+    if (tag(o) == blk) {
+      ++used;
+      prefetched &= ~(1u << o);
+      cur = o;
+      prefetch(o ^ 1, blk + 1);
+    } else {
+      ++demand;
+      issue(cur, blk);
+      wait(o);
+      if ((prefetched >> o) & 1u) {
+        ++discarded;
+        prefetched &= ~(1u << o);
+      }
+      prefetch(o, blk + 1);
+    }
+  }
+
+  // Start the copy of row r's block, if the ring has not.
+  __device__ __forceinline__ void start(int r) { fetch(r / kRows); }
+
+  // Row r of the table, in shared memory.
+  __device__ __forceinline__ const float* row(int r) {
+    fetch(r / kRows);
+    wait(cur);
+    return buf + cur * kFloats + (r % kRows) * kRow;
+  }
+
+  // The packet is over: wait for the copies in flight and count the
+  // prefetch no step used. The next packet starts empty, so a packet's
+  // copies depend on its own rays only.
+  __device__ __forceinline__ void end_packet() {
+    wait(0);
+    wait(1);
+    discarded += __popc(prefetched);
+    prefetched = 0;
+    tag0 = tag1 = -1;
+  }
+};
+
+// Add a ring's demand copies, prefetches used and prefetches discarded to
+// c[2], c[3] and c[4] (one lane calls it).
+template <class Ring>
+__device__ __forceinline__ void add_ring_counts(const Ring& ring,
+                                                unsigned long long* c) {
+  atomicAdd(c + 2, static_cast<unsigned long long>(ring.demand));
+  atomicAdd(c + 3, static_cast<unsigned long long>(ring.used));
+  atomicAdd(c + 4, static_cast<unsigned long long>(ring.discarded));
+}
+
+// Dynamic shared memory of one warp whose rings take `ring_bytes`: 128
+// bytes of mbarriers (two a ring), then the buffers, 128-byte aligned.
+constexpr int warp_smem(int ring_bytes) { return 128 + ring_bytes; }
+
+// The preorder closest-hit of rays [0, n) over nodes [base, end) in warp
+// packets (see above). `tab` reads through its rings: start(j) begins the
+// copy of node j's block, node(j) gives node j's row and leaf(node, first)
+// its leaf block (both in shared memory; every lane calls them with the
+// same arguments), end_packet() closes the packet, and add_counts(c) adds
+// its rings' copies to c[2], c[3] and c[4]. A lane ends its walk at `end` or after end - base
+// steps, as the per-ray walk does. With `counts`, the warp adds its
+// packet steps to counts[0], its lanes' steps to counts[1] and its copies
+// to counts[2..4] (demand, prefetches used, prefetches discarded), the
+// order of traverse.PACKET_COUNTS.
+template <int K, class Tables>
+__device__ __forceinline__ void warp_packet_closest(
+    Tables& tab, const float* __restrict__ org, const float* __restrict__ dir,
+    const float* __restrict__ t_max, int n, int base, int end,
+    float* __restrict__ t_out, int* __restrict__ slot_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ next_ray, unsigned long long* __restrict__ counts) {
+  using Row = PreorderRow<K, true, true>;
+  const int lane = threadIdx.x & 31;
+  const int max_iters = end - base;
+  unsigned long long packet_steps = 0, lane_steps = 0;
+  for (;;) {
+    int first = 0;
+    if (lane == 0) first = atomicAdd(next_ray, 32);
+    first = __shfl_sync(kWarpAll, first, 0);
+    if (first >= n) break;
+    if (base < end) tab.start(base);  // copied while the rays load
+    const int i = first + lane;
+    const bool live = i < n;
+    const Ray r = load_ray(org, dir, live ? i : first);
+    Best b{live ? t_max[i] : -kInf, -1, 0.0f, 0.0f};
+    int cur = live ? base : end;  // the lane's own cursor
+    int it = 0;
+    for (;;) {
+      const int c = __reduce_min_sync(kWarpAll, cur);
+      if (c >= end) break;
+      ++packet_steps;
+      const bool mine = cur == c;
+      const float* node = tab.node(c);
+      Row row;
+      row.template load<0, 3>(node);
+      const int cnt = __float_as_int(row.f[7]) & 0xFF;
+      float tmin, tmax;
+      slab(row.f, r, tmin, tmax);
+      const bool hit = mine && box_hit(tmin, tmax, b.t);
+      int next = __float_as_int(row.f[8]);  // skip link
+      if (__any_sync(kWarpAll, hit)) {
+        if (cnt > 0) {
+          const int f = __float_as_int(row.f[6]);
+          const float* leaf = tab.leaf(node, f);
+          if (hit) closest_in_leaf<true, true>(leaf, f, cnt, r, b);
+        } else {
+          row.template load<3, Row::kQuads>(node);
+          int target = -1;
+#pragma unroll
+          for (int ch = 0; ch < K; ++ch) {
+            const int ci = __float_as_int(row.f[9 + 6 * K + ch]);
+            float ctmin, ctmax;
+            slab(row.f + 9 + 6 * ch, r, ctmin, ctmax);
+            if (box_hit(ctmin, ctmax, b.t) && ci > 0 &&
+                (target < 0 || ci < target)) {
+              target = ci;
+            }
+          }
+          if (hit && target >= 0) next = target;
+        }
+      }
+      if (mine) cur = ++it < max_iters ? next : end;
+    }
+    if (live) {
+      t_out[i] = b.slot >= 0 ? b.t : kInf;
+      slot_out[i] = b.slot;
+      u_out[i] = b.u;
+      v_out[i] = b.v;
+    }
+    lane_steps += it;
+    tab.end_packet();
+  }
+  if (counts != nullptr) {
+    for (int o = 16; o > 0; o >>= 1) {
+      lane_steps += __shfl_down_sync(kWarpAll, lane_steps, o);
+    }
+    if (lane == 0) {
+      atomicAdd(counts, packet_steps);
+      atomicAdd(counts + 1, lane_steps);
+      tab.add_counts(counts);
+    }
+  }
+  finish_launch(next_ray);
+}
+
+// ---- the staged packet walk of #11 ------------------------------------------
+//
+// A packet is one block of kPacket threads, one ray each, the TPU kernel's
+// lane width, sharing one cursor; closest_hit_row_stage.cu's stager copies
+// node j's row and its leaf block into shared memory with cp.async.
 
 constexpr int kPacket = 128;
 constexpr int kPacketWarps = kPacket / 32;
@@ -922,8 +1240,11 @@ __device__ __forceinline__ int packet_step(Stager& st, int j, const Ray& r,
 // minimum over its lanes' next nodes. Child indices and skip links point
 // forward, so the cursor only grows and end - base steps bound the walk;
 // the block leaves when every lane wants a node at or past `end`. Each
-// lane gets the slot its own preorder walk gives (closest_hit_packet.cu
-// says why). Launched with kPacket threads a block.
+// lane gets the slot its own preorder walk gives: where it tests a node
+// inside a box it missed or pruned, it misses it again (a child's box lies
+// inside its parent's, and its best t only shrinks), so it accepts the
+// triangles its own walk accepts, in the same order. Launched with kPacket
+// threads a block.
 template <int K, class Stager>
 __device__ __forceinline__ void packet_closest(
     Stager& st, const float* __restrict__ org, const float* __restrict__ dir,

@@ -1,75 +1,90 @@
-// Closest-hit over the split node and leaf tables: a preorder packet walk
-// of 128 rays through two 64-row block caches in shared memory, one for
-// node rows and one for leaf blocks.
+// Closest-hit over the split node and leaf tables: the preorder walk in
+// warp packets of 32 rays, persistent warps, reading node rows from one
+// ring of two cache blocks and leaf blocks from another, both filled by
+// TMA bulk copies.
 //
 // Replaces the TPU kernel ptsharp_tpu/pallas/hbm_kernel.py
 // pallas_traverse_hbm8 (body _kernel8_hbm), the block-cache design over
 // `rows` + `leaf` in HBM, each a multiple of BLK = 64 rows: every group of
-// 128 rays keeps a node cache and a leaf cache of 64 rows (32 KB) each,
-// with their own tags; a step whose node row lies outside the node
-// cache's block copies that block, and a leaf node whose leaf row lies
-// outside the leaf cache's block copies that one. Its `leaf_mode` (0/1/2)
-// only chooses how the TPU schedules the leaf copies and changes no
-// result, so it has no counterpart here.
+// 128 rays shares one cursor and keeps a node cache and a leaf cache of 64
+// rows (32 KB, the TPU's DMA size) each, with their own tags; a miss of
+// either copies its whole block. Its `leaf_mode` (0/1/2) only chooses how
+// the TPU schedules the leaf copies and changes no result, so it has no
+// counterpart here. The wrapper keeps the JAX contract that both tables
+// are multiples of 64 rows; any block size that divides 64 stays inside
+// the tables, and the last block is copied only up to a table's end.
 //
-// Per step, the block of 128 threads (ptk::packet_closest with
-// BlockCacheStager):
-//   - on a node-cache miss (j / 64 != node tag) the block copies rows
-//     [64 b, 64 b + 64) into the first 32 KB of dynamic shared memory,
-//     2,048 16-byte cp.async copies, 16 a thread, waits and syncs;
-//   - at a leaf, the same for leaf row first / leaf_size and the leaf
-//     cache, the second 32 KB;
-//   - the shared preorder step against the cached rows, then the block
-//     minimum of the lanes' next nodes as the cursor.
-// The tags are the same for every thread of the block, so each holds
-// them in registers. Each lane gets the slot its own preorder walk gives,
-// so the results equal closest_hit_preorder.cu's on every lane and do not
-// depend on the packet width.
-//
-// What bounds it on an H100: the dependent loads of the walk, now block
-// copies of 32 KB on each miss of either cache, one __syncthreads() a
-// step plus one a miss, and the union of 128 lanes' nodes a step. 64 KB
-// of dynamic shared memory a block, above the 48 KB default, so the entry
-// raises the kernel's limit; it leaves room for three blocks (12 warps) an
-// SM, few to hide latency with. What the design does about it: a hit
-// costs no device-memory read, and one copy serves 128 rays.
+// What bounds it on an H100: each step is a dependent read of a node row,
+// and at a leaf of a leaf block found from the row (the next cursor is
+// known only after the lanes' tests), and a packet visits the union of its
+// lanes' walks. The first design (a block of 128 rays sharing a cursor, two
+// 32 KB cp.async caches, 64 KB of shared memory a block) had four faults,
+// and this design answers each (ptk::warp_packet_closest, ptk::TmaRing in
+// bvh_common.cuh):
+//   1. a packet of 128 lanes walked the union of 128 rays' walks: the
+//      packet is one warp of 32 rays, and the cursor a __reduce_min_sync;
+//   2. two __syncthreads() a step on a miss of either cache and a
+//      synchronous copy of the whole block before any test: nothing wider
+//      than the warp synchronises, one lane issues TMA bulk copies that
+//      report to an mbarrier a buffer, and each ring copies the block after
+//      the one in use while the warp tests it (the cursor only grows, and
+//      in these tables so do the leaf rows it reaches: tests/
+//      test_torch_staged.py checks it on the test scenes);
+//   3. 64 rows a copy, the TPU's DMA size, and 64 KB a block (three blocks
+//      an SM): kBlockRows rows a buffer, sized for the card by measurement
+//      (PERF.md section 6), two buffers a ring, two rings a warp;
+//   4. one block per 128 rays: a persistent grid of the resident blocks
+//      (counted with this dynamic shared memory), each warp taking 32
+//      consecutive (Morton-ordered) rays from the ray counter at a time.
+// The leaf ring is touched only at a leaf some lane at the cursor enters,
+// at leaf row first / leaf_size. Every lane reads the same rows from shared
+// memory, a broadcast, and only the fields a step uses. Each lane takes
+// exactly the steps of its own preorder walk, so the results equal
+// closest_hit_preorder.cu's in t, slot, u and v on every lane.
+// On the card (PERF.md section 6) it beats closest_hit_preorder.cu on
+// coherent camera rays, where one shared row serves most lanes, and stays
+// about four times slower on scattered bounce rays: there a packet walks
+// the union of 32 walks, moving under two lanes a step, and a step costs
+// the warp's instructions however few lanes it moves.
 
 #include "bvh_common.cuh"
 
 namespace {
 
-constexpr int kBlk = 64;  // rows a cache block (BLK)
-constexpr size_t kSmem = 2 * kBlk * ptk::kRow * sizeof(float);
+// table rows (512 B each) a ring buffer holds, in both rings: the block a
+// copy moves; it divides 64, the tables' row multiple. Measured at 1, 2,
+// 4, 8 and 16 rows (PERF.md section 6): one row, a node row or a leaf
+// block a copy with the next one prefetched, is the fastest (4 rows within
+// 2%, 16 rows 2.5x slower)
+constexpr int kBlockRows = 1;
+static_assert(64 % kBlockRows == 0, "a block must divide the 64-row tables");
+using Ring = ptk::TmaRing<kBlockRows>;
+constexpr int kWarpSmem = ptk::warp_smem(2 * Ring::kBytes);
+constexpr int kSmem = (ptk::kWalkThreads / 32) * kWarpSmem;
 
-struct BlockCacheStager {
-  const float* rows;
-  const float* leaves;
-  int n_rows, n_leaf, leaf_size;
-  float* node_cache;  // shared, kBlk rows
-  float* leaf_cache;  // shared, kBlk rows
-  int node_tag, leaf_tag;
+// The split tables through two rings: node j at rows[j], its leaf block at
+// leaf[first / leaf_size].
+struct SplitRings {
+  Ring nodes, leaves;
+  int leaf_size;
 
-  __device__ __forceinline__ const float* node(int j) {
-    const int blk = j / kBlk;
-    if (blk != node_tag) {
-      ptk::stage_rows(node_cache, rows, kBlk * blk, kBlk, n_rows);
-      node_tag = blk;
-    }
-    return node_cache + static_cast<size_t>(j % kBlk) * ptk::kRow;
+  __device__ __forceinline__ void start(int j) { nodes.start(j); }
+  __device__ __forceinline__ const float* node(int j) { return nodes.row(j); }
+  __device__ __forceinline__ const float* leaf(const float*, int first) {
+    return leaves.row(first / leaf_size);
   }
-  __device__ __forceinline__ const float* leaf(const float* row) {
-    const int lj = reinterpret_cast<const int*>(row)[6] / leaf_size;
-    const int blk = lj / kBlk;
-    if (blk != leaf_tag) {
-      ptk::stage_rows(leaf_cache, leaves, kBlk * blk, kBlk, n_leaf);
-      leaf_tag = blk;
-    }
-    return leaf_cache + static_cast<size_t>(lj % kBlk) * ptk::kRow;
+  __device__ __forceinline__ void end_packet() {
+    nodes.end_packet();
+    leaves.end_packet();
+  }
+  __device__ __forceinline__ void add_counts(unsigned long long* c) const {
+    ptk::add_ring_counts(nodes, c);
+    ptk::add_ring_counts(leaves, c);
   }
 };
 
 template <int K>
-__global__ void __launch_bounds__(ptk::kPacket)
+__global__ void __launch_bounds__(ptk::kWalkThreads, ptk::kPreorderMinBlocks)
 closest_hit_block_cache_kernel(const float* __restrict__ rows,
                                const float* __restrict__ leaf, int n_rows,
                                int n_leaf, const float* __restrict__ org,
@@ -79,33 +94,46 @@ closest_hit_block_cache_kernel(const float* __restrict__ rows,
                                float* __restrict__ t_out,
                                int* __restrict__ slot_out,
                                float* __restrict__ u_out,
-                               float* __restrict__ v_out) {
-  extern __shared__ __align__(16) float caches[];
-  BlockCacheStager st{rows,   leaf,   n_rows, n_leaf, leaf_size,
-                      caches, caches + kBlk * ptk::kRow, -1, -1};
-  ptk::packet_closest<K>(st, org, dir, t_max, n, base, end, leaf_size, t_out,
-                         slot_out, u_out, v_out);
+                               float* __restrict__ v_out,
+                               int* __restrict__ next_ray,
+                               unsigned long long* __restrict__ counts) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* own = smem + (threadIdx.x / 32) * kWarpSmem;
+  auto* bars = reinterpret_cast<unsigned long long*>(own);
+  auto* bufs = reinterpret_cast<float*>(own + 128);
+  SplitRings tab;
+  tab.leaf_size = leaf_size;
+  tab.nodes.init(rows, n_rows, end, bufs, bars);
+  tab.leaves.init(leaf, n_leaf, n_leaf, bufs + 2 * Ring::kFloats, bars + 2);
+  ptk::warp_packet_closest<K>(tab, org, dir, t_max, n, base, end, t_out,
+                              slot_out, u_out, v_out, next_ray, counts);
 }
 
 template <int K>
 int launch(const float* rows, const float* leaf, int n_rows, int n_leaf,
            const float* org, const float* dir, const float* t_max, int n,
            int base, int end, int leaf_size, float* t_out, int* slot_out,
-           float* u_out, float* v_out, cudaStream_t s) {
-  const cudaError_t err = cudaFuncSetAttribute(
+           float* u_out, float* v_out, int* next_ray,
+           unsigned long long* counts, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
       closest_hit_block_cache_kernel<K>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + ptk::kPacket - 1) / ptk::kPacket;
-  closest_hit_block_cache_kernel<K><<<blocks, ptk::kPacket, kSmem, s>>>(
-      rows, leaf, n_rows, n_leaf, org, dir, t_max, n, base, end, leaf_size,
-      t_out, slot_out, u_out, v_out);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static const int resident =
+      ptk::resident_blocks(closest_hit_block_cache_kernel<K>, kSmem);
+  closest_hit_block_cache_kernel<K>
+      <<<ptk::persistent_blocks(n, resident), ptk::kWalkThreads, kSmem, s>>>(
+          rows, leaf, n_rows, n_leaf, org, dir, t_max, n, base, end,
+          leaf_size, t_out, slot_out, u_out, v_out, next_ray, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// n_rows and n_leaf are multiples of 64 (the wrapper checks).
+// n_rows and n_leaf are multiples of 64 and both tables start on 16-byte
+// boundaries (the wrapper checks both); next_ray as in pt_closest_hit;
+// counts, if not null, (5,) as ptk::warp_packet_closest fills it, both
+// rings' copies summed.
 extern "C" int pt_closest_hit_block_cache(const float* rows, const float* leaf,
                                           int n_rows, int n_leaf,
                                           const float* org, const float* dir,
@@ -113,16 +141,25 @@ extern "C" int pt_closest_hit_block_cache(const float* rows, const float* leaf,
                                           int end, int leaf_size, int k,
                                           float* t_out, int* slot_out,
                                           float* u_out, float* v_out,
+                                          int* next_ray,
+                                          unsigned long long* counts,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
     case 4:
       return launch<4>(rows, leaf, n_rows, n_leaf, org, dir, t_max, n, base,
-                       end, leaf_size, t_out, slot_out, u_out, v_out, s);
+                       end, leaf_size, t_out, slot_out, u_out, v_out,
+                       next_ray, counts, s);
     case 8:
       return launch<8>(rows, leaf, n_rows, n_leaf, org, dir, t_max, n, base,
-                       end, leaf_size, t_out, slot_out, u_out, v_out, s);
+                       end, leaf_size, t_out, slot_out, u_out, v_out,
+                       next_ray, counts, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// Table rows a ring buffer holds and dynamic shared memory a launch asks
+// for, for the plain model of the schedule and the records.
+extern "C" int pt_closest_hit_block_cache_block_rows() { return kBlockRows; }
+extern "C" int pt_closest_hit_block_cache_smem() { return kSmem; }

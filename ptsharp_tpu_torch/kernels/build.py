@@ -75,8 +75,13 @@ def _bind(lib):
     closest_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                      vp, vp, vp, vp, vp, vp]
     anyhit_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
-    # the staged kernels: their tables' row counts after the tables
-    fat_staged = [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+    # the staged kernels: their tables' row counts after the tables; the
+    # warp packets (#10, #12) also take the ray counter and [5] counts or
+    # null before the stream
+    fat_packet = [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                  vp, vp, vp, vp, vp, vp, vp]
+    split_packet = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                    vp, vp, vp, vp, vp, vp, vp]
     split_staged = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                     vp, vp, vp, vp, vp]
     # the persistent walk over the split tables: rows, leaf, rays, t, n,
@@ -102,14 +107,20 @@ def _bind(lib):
                          (lib.pt_any_hit_split, anyhit_split),
                          (lib.pt_closest_hit_packet, split_persistent),
                          (lib.pt_closest_hit_dual, closest),
-                         (lib.pt_closest_hit_fat_cache, fat_staged),
-                         (lib.pt_closest_hit_block_cache, split_staged),
+                         (lib.pt_closest_hit_fat_cache, fat_packet),
+                         (lib.pt_closest_hit_block_cache, split_packet),
                          (lib.pt_closest_hit_row_stage, split_staged),
                          (lib.pt_closest_hit_binary, binary),
                          (lib.pt_closest_hit_wide_rows, rows_closest),
                          (lib.pt_any_hit_wide_rows, rows_any)):
         fn.restype = ci
         fn.argtypes = argtypes
+    # the warp packets' ring block (table rows) and dynamic shared memory
+    for name in ("fat_cache", "block_cache"):
+        for what in ("block_rows", "smem"):
+            fn = getattr(lib, f"pt_closest_hit_{name}_{what}")
+            fn.restype = ci
+            fn.argtypes = []
     return lib
 
 

@@ -20,14 +20,18 @@ Over the split tables `rows` + `leaf` (the kernel-level entry points,
 Memory schedules of the same two walks (kernel-level entry points too):
   `closest_hit_dual`, the ordered walk over the fat table with two rays
   a thread (csrc/closest_hit_dual.cu);
-  `closest_hit_fat_cache` (fat table), `closest_hit_block_cache` and
+  `closest_hit_fat_cache` (fat table) and `closest_hit_block_cache`
+  (split tables, both a multiple of 64 rows, `accel.tables.pad_rows`),
+  the preorder walk in warp packets of 32 rays with one cursor a packet,
+  in persistent warps, reading rows from rings of two cache blocks in
+  shared memory that TMA bulk copies fill, the next block copied while
+  the warp tests the current one: one ring of fat row pairs, or a ring of
+  node rows and a ring of leaf blocks (csrc/closest_hit_fat_cache.cu,
+  closest_hit_block_cache.cu; `warp_packet_plain` models the schedule
+  and its counts);
   `closest_hit_row_stage` (split tables), the preorder walk with one
-  cursor per block of 128 rays, staging rows into shared memory with
-  cp.async: through a cache of 32 fat row pairs, through two caches of
-  64 node and 64 leaf rows (both tables a multiple of 64 rows,
-  `accel.tables.pad_rows`), or one node row and leaf block a step
-  (csrc/closest_hit_fat_cache.cu, closest_hit_block_cache.cu,
-  closest_hit_row_stage.cu).
+  cursor per block of 128 rays, staging one node row and leaf block a
+  step into shared memory with cp.async (csrc/closest_hit_row_stage.cu).
 Over the XLA walks' row tables (intersect.py, intersector "walk", "wide"
 and "cluster"; node rows of any width, leaf blocks (NL, leaf_size * 9)):
   `closest_hit_binary`, the binary skip-link walk over u_rows (N, 10) in
@@ -63,6 +67,9 @@ internal nodes pick the next node.
            staged walks' plain versions): go to the hit child of smallest
            preorder index, or follow the node's skip link where nothing
            is hit. The cursor only grows, so [base, end) bounds the walk.
+           `warp_packet_plain` runs it in packets: a step moves only the
+           lanes at their packet's cursor, the least of its lanes'
+           cursors, so each lane takes its own walk's steps.
 A table view (`_Table`) says where a node row and its leaf block are, so
 one walk runs over either table form and gives the same results on both.
 The kernels follow the same steps in the same order, so each gives the
@@ -93,7 +100,13 @@ ROW = 128
 STACK_CAPACITY = 128
 KERNEL_K = (4, 8)  # the kernels' template instances
 ORDER_MODES = ("full", "near")  # the ordered walk's push orders
-CACHE_BLOCK_ROWS = 64  # rows a block of the block-cache kernel (BLK)
+# the block-cache kernel's tables are multiples of this many rows, the JAX
+# kernel's block (BLK)
+CACHE_BLOCK_ROWS = 64
+PACKET_WIDTH = 32  # rays a warp packet of #10 and #12
+# the warp packets' counters, in the order of their `counts`: packet steps,
+# the lanes' own steps, demand block copies, prefetches used and discarded
+PACKET_COUNTS = ("packet_steps", "lane_steps", "demand", "used", "discarded")
 # each ray's step cap on the XLA walks' row tables, as max_iters caps the
 # JAX package's lockstep loops (accel/traverse.py: every active ray takes
 # one step an iteration, so the cap is per ray)
@@ -244,11 +257,15 @@ class _Walk:
         self.steps = (torch.zeros(org.shape[0], dtype=torch.int32,
                                   device=org.device) if count else None)
 
+    def active(self):
+        """The lanes that take a step now: every lane not yet at the end."""
+        return torch.nonzero(self.cur < self.end).squeeze(1)
+
     def visit(self):
         """Load the active lanes' nodes and test their boxes. Returns
         (lanes, node, leaf_lanes_mask, inner_lanes_mask) or None when no
         lane is active; `node` holds node-table rows."""
-        act = torch.nonzero(self.cur < self.end).squeeze(1)
+        act = self.active()
         if act.numel() == 0:
             return None
         if self.steps is not None:
@@ -419,6 +436,112 @@ class _SkipWalk(_Walk):
 
     def advance(self, lanes, nxt):
         self.cur[lanes] = nxt
+
+
+class _PacketWalk(_SkipWalk):
+    """The preorder walk in packets of `width` consecutive lanes, one cursor
+    a packet: the least of its lanes' own cursors (a segment minimum). A
+    step moves only the lanes at their packet's cursor, each by its own
+    preorder step, so every lane takes exactly its own walk's steps and
+    gets its result; the packet visits the union of its lanes' nodes in
+    node order. Records the rows each packet reads, step by step: its
+    cursor's node row, and with a separate leaf table the leaf row where
+    some lane at the cursor enters a leaf's box (the kernel reads a leaf
+    block only then; a fat pair holds it beside the node row)."""
+
+    def __init__(self, tab, org, dirn, bt, base, end, k, width):
+        super().__init__(tab, org, dirn, bt, base, end, k, _all_lanes(org),
+                         count=True)
+        self.packet = torch.arange(org.shape[0], device=org.device) // width
+        self.n_packets = -(-org.shape[0] // width)
+        self.node_reads = []  # (packets, node-table rows) a step
+        self.leaf_reads = []  # (packets, leaf-table rows) a step
+
+    def active(self):
+        cursor = torch.full((self.n_packets,), self.end, dtype=torch.int64,
+                            device=self.cur.device)
+        cursor.scatter_reduce_(0, self.packet, self.cur, "amin")
+        at = torch.nonzero(cursor < self.end).squeeze(1)
+        self.node_reads.append((at, self.tab.row(cursor[at])))
+        return torch.nonzero((self.cur < self.end)
+                             & (self.cur == cursor[self.packet])).squeeze(1)
+
+    def visit(self):
+        v = super().visit()
+        if v is not None and self.tab.leaf is not None:
+            act, node, leaf, _inner = v
+            # every lane at a packet's cursor reads the same leaf row; act
+            # is in lane order, so a packet's lanes are adjacent
+            pk, node = self.packet[act[leaf]], node[leaf]
+            first = torch.ones_like(pk, dtype=torch.bool)
+            first[1:] = pk[1:] != pk[:-1]
+            self.leaf_reads.append((pk[first],
+                                    self.tab.leaf_at(node[first])[1]))
+        return v
+
+
+def _ring_counts(reads, block_rows: int, limit: int, n_packets: int):
+    """Demand copies, prefetches used and prefetches discarded, per packet,
+    of a ring of two buffers of `block_rows` table rows (TmaRing in
+    csrc/bvh_common.cuh) over `reads`, the (packets, rows) each step read.
+    The ring holds the block in use and, in its other buffer, a prefetch of
+    the next block, issued when the block came into use unless that block
+    starts at or past `limit`. A read of another block takes the prefetch
+    when it is that block (used), else copies it on demand and discards the
+    prefetch; so does a packet's first read, into an empty ring. The
+    prefetch left at a packet's end is discarded."""
+    dev = reads[0][0].device if reads else torch.device("cpu")
+    zero = torch.zeros(n_packets, dtype=torch.int64, device=dev)
+    if not reads:
+        return zero, zero.clone(), zero.clone()
+    packet = torch.cat([p for p, _r in reads])
+    blk = torch.cat([r for _p, r in reads]).to(torch.int64) // block_rows
+    order = torch.sort(packet, stable=True).indices  # step order a packet
+    packet, blk = packet[order], blk[order]
+    change = torch.ones_like(packet, dtype=torch.bool)
+    change[1:] = (packet[1:] != packet[:-1]) | (blk[1:] != blk[:-1])
+    packet, blk = packet[change], blk[change]
+    used = torch.zeros(packet.shape[0], dtype=torch.bool, device=dev)
+    used[1:] = (packet[1:] == packet[:-1]) & (blk[1:] == blk[:-1] + 1)
+    issued = (blk + 1) * block_rows < limit
+
+    def per_packet(mask):
+        return torch.bincount(packet[mask], minlength=n_packets)
+
+    n_used = per_packet(used)
+    return per_packet(~used), n_used, per_packet(issued) - n_used
+
+
+def warp_packet_plain(nodes, leaf, org, dirn, t_max, base: int, end: int,
+                      leaf_size: int, k: int, block_rows: int,
+                      width: int = PACKET_WIDTH):
+    """Plain model of the warp-packet schedule of closest_hit_fat_cache
+    (leaf None: `nodes` is the fat table, one ring of fat pairs) and
+    closest_hit_block_cache (`nodes`, `leaf` the split tables, a ring
+    each): the preorder walk in packets of `width` lanes with one cursor a
+    packet (_PacketWalk), and each ring's copies for buffers of
+    `block_rows` table rows (_ring_counts; the kernels' constants,
+    `cache_layout`). Returns (t, slot, u, v, counts): each lane's result,
+    equal to the per-lane preorder walk's, and counts, PACKET_COUNTS ->
+    (packets,) int64, the numbers the kernels add to their `counts`."""
+    tab = _Table(nodes) if leaf is None else _Table(nodes, leaf, leaf_size)
+    walk = _PacketWalk(tab, org, dirn, t_max.clone(), base, end, k, width)
+    t, slot, u, v = _walk_closest(walk, leaf_size)
+    n = walk.n_packets
+    steps = torch.bincount(torch.cat([p for p, _r in walk.node_reads]),
+                           minlength=n)
+    lane_steps = torch.zeros(n, dtype=torch.int64, device=org.device)
+    lane_steps.scatter_add_(0, walk.packet, walk.steps.to(torch.int64))
+    # node rows are read below row `limit`: 2 end of the fat table, end of
+    # the split node rows; leaf rows anywhere in the leaf table
+    rings = [_ring_counts(walk.node_reads, block_rows,
+                          end * (2 if leaf is None else 1), n)]
+    if leaf is not None:
+        rings.append(_ring_counts(walk.leaf_reads, block_rows,
+                                  leaf.shape[0], n))
+    copies = [sum(c) for c in zip(*rings)]
+    return t, slot, u, v, dict(zip(PACKET_COUNTS,
+                                   (steps, lane_steps, *copies)))
 
 
 def _first_min(ok, tt, fill=float("inf")):
@@ -744,29 +867,12 @@ def _aligned(nbytes, *tables):
                          f"boundary")
 
 
-def _tables(staged, *tables):
-    """The C entry's table arguments: the pointers, and for a kernel that
-    stages rows into shared memory (16 bytes a copy) also the tables' row
-    counts, which bound its block copies."""
-    if not staged:
-        return tuple(map(_ptr, tables))
+def _staged_tables(*tables):
+    """The C entry's table arguments for a kernel that copies rows into
+    shared memory (16 bytes at a time or more, from 16-byte boundaries):
+    the pointers, then the tables' row counts, which bound its copies."""
     _aligned(16, *tables)
     return (*map(_ptr, tables), *(x.shape[0] for x in tables))
-
-
-def _closest(wrapper, entry, plain, fat, org, dirn, t_max, base, end,
-             leaf_size, k, staged=False):
-    _check(fat, org, dirn, t_max, base, end, leaf_size, k)
-    if fat.device.type == "cpu":
-        return plain(fat, org, dirn, t_max, base, end, leaf_size, k)
-    lib = _kernel_lib(fat, k)
-    r = org.shape[0]
-    out = _hit_outputs(r, fat.device)
-    if r:
-        _launch(wrapper, entry, lib, *_tables(staged, fat), _ptr(org),
-                _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, k,
-                *map(_ptr, out), _stream(fat), rays=r)
-    return out
 
 
 # (device index, stream) -> the two ints of the persistent walks' ray
@@ -776,20 +882,22 @@ _RAY_COUNTERS = {}
 
 
 def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
-                counts, out):
+                counts, out, n_counts=2):
     """Launch a persistent walk (csrc/closest_hit.cu, any_hit.cu,
-    closest_hit_preorder.cu, any_hit_preorder.cu, closest_hit_binary.cu)
-    over the rays, writing
+    closest_hit_preorder.cu, any_hit_preorder.cu, closest_hit_binary.cu,
+    and the warp packets of closest_hit_fat_cache.cu and
+    closest_hit_block_cache.cu) over the rays, writing
     `out`: its warps take rays from the counter of the current stream,
     which is at 0 between launches. `x` is a table (its device and
     stream), `lead` the C entry's arguments before the rays (the tables
-    and their geometry), `tail` those after the node range."""
+    and their geometry), `tail` those after the node range; `counts`, if
+    given, an (n_counts,) int64 tensor the kernel adds to."""
     if counts is not None and (counts.dtype != torch.int64
-                               or tuple(counts.shape) != (2,)
+                               or tuple(counts.shape) != (n_counts,)
                                or counts.device != x.device
                                or not counts.is_contiguous()):
-        raise ValueError("counts must be a contiguous (2,) int64 tensor on "
-                         "the tables' device")
+        raise ValueError(f"counts must be a contiguous ({n_counts},) int64 "
+                         f"tensor on the tables' device")
     r = org.shape[0]
     if r:
         stream = _stream(x)
@@ -957,22 +1065,6 @@ def any_hit_split(rows, leaf, org, dirn, t_cut, base: int, end: int,
     return occ
 
 
-def _closest_split(wrapper, entry, plain, rows, leaf, org, dirn, t_max,
-                   base, end, leaf_size, k):
-    """A staged packet walk over the split tables."""
-    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
-    if rows.device.type == "cpu":
-        return plain(rows, leaf, org, dirn, t_max, base, end, leaf_size, k)
-    lib = _kernel_lib(rows, k)
-    r = org.shape[0]
-    out = _hit_outputs(r, rows.device)
-    if r:
-        _launch(wrapper, entry, lib, *_tables(True, rows, leaf), _ptr(org),
-                _ptr(dirn), _ptr(t_max), r, base, end, leaf_size, k,
-                *map(_ptr, out), _stream(rows), rays=r)
-    return out
-
-
 def closest_hit_packet(rows, leaf, org, dirn, t_max, base: int, end: int,
                        leaf_size: int, k: int, counts=None):
     """Closest hit per ray by the preorder walk over the split tables:
@@ -1003,41 +1095,83 @@ def closest_hit_dual(fat, org, dirn, t_max, base: int, end: int,
     kernel's `mt_gate` and `max_iters` change no result and are not
     taken. csrc/closest_hit_dual.cu on CUDA tensors,
     closest_hit_dual_plain on CPU tensors."""
-    return _closest(closest_hit_dual, "pt_closest_hit_dual",
-                    closest_hit_dual_plain, fat, org, dirn, t_max, base, end,
-                    leaf_size, k)
+    _check(fat, org, dirn, t_max, base, end, leaf_size, k)
+    if fat.device.type == "cpu":
+        return closest_hit_dual_plain(fat, org, dirn, t_max, base, end,
+                                      leaf_size, k)
+    lib = _kernel_lib(fat, k)
+    r = org.shape[0]
+    out = _hit_outputs(r, fat.device)
+    if r:
+        _launch(closest_hit_dual, "pt_closest_hit_dual", lib, _ptr(fat),
+                _ptr(org), _ptr(dirn), _ptr(t_max), r, base, end, leaf_size,
+                k, *map(_ptr, out), _stream(fat), rays=r)
+    return out
 
 
 def closest_hit_fat_cache(fat, org, dirn, t_max, base: int, end: int,
-                          leaf_size: int, k: int):
-    """Closest hit per ray by the preorder packet walk of 128 rays through
-    a shared-memory cache of 32 fat row pairs: (t, slot, u, v), equal to
-    closest_hit_preorder's on every lane. The table is not padded: the
-    kernel copies the last block up to the table's end.
-    csrc/closest_hit_fat_cache.cu on CUDA tensors,
-    closest_hit_fat_cache_plain on CPU tensors."""
-    return _closest(closest_hit_fat_cache, "pt_closest_hit_fat_cache",
-                    closest_hit_fat_cache_plain, fat, org, dirn, t_max, base,
-                    end, leaf_size, k, staged=True)
+                          leaf_size: int, k: int, counts=None):
+    """Closest hit per ray by the preorder walk in warp packets of 32 rays
+    (one cursor a packet, persistent warps) through a ring of two blocks
+    of fat row pairs in shared memory, filled by TMA bulk copies:
+    (t, slot, u, v), equal to closest_hit_preorder's on every lane. The
+    table is not padded: the kernel copies the last block up to the
+    table's end. csrc/closest_hit_fat_cache.cu on CUDA tensors,
+    closest_hit_fat_cache_plain on CPU tensors. `counts`, a (5,) int64
+    tensor on the card, if given: the kernel adds its PACKET_COUNTS, which
+    warp_packet_plain gives per packet."""
+    _check(fat, org, dirn, t_max, base, end, leaf_size, k)
+    if fat.device.type == "cpu":
+        _plain_counts(counts)
+        return closest_hit_fat_cache_plain(fat, org, dirn, t_max, base, end,
+                                           leaf_size, k)
+    _kernel_lib(fat, k)
+    return _persistent(closest_hit_fat_cache, "pt_closest_hit_fat_cache",
+                       fat, _staged_tables(fat), org, dirn, t_max, base, end,
+                       (leaf_size, k), counts,
+                       _hit_outputs(org.shape[0], fat.device),
+                       len(PACKET_COUNTS))
 
 
 def closest_hit_block_cache(rows, leaf, org, dirn, t_max, base: int,
-                            end: int, leaf_size: int, k: int):
-    """Closest hit per ray by the preorder packet walk of 128 rays through
-    two shared-memory caches of 64 rows, node rows and leaf blocks:
-    (t, slot, u, v), equal to closest_hit_preorder's on every lane. Both
-    tables must be multiples of 64 rows (accel.tables.pad_rows), as the
-    JAX kernel asserts. Its `leaf_mode` changes no result and is not
-    taken. csrc/closest_hit_block_cache.cu on CUDA tensors,
-    closest_hit_block_cache_plain on CPU tensors."""
+                            end: int, leaf_size: int, k: int, counts=None):
+    """Closest hit per ray by the preorder walk in warp packets of 32 rays
+    (one cursor a packet, persistent warps) through two rings of two
+    blocks in shared memory, node rows and leaf blocks, filled by TMA bulk
+    copies: (t, slot, u, v), equal to closest_hit_preorder's on every
+    lane. Both tables must be multiples of 64 rows (accel.tables.pad_rows),
+    as the JAX kernel asserts. Its `leaf_mode` changes no result and is
+    not taken. csrc/closest_hit_block_cache.cu on CUDA tensors,
+    closest_hit_block_cache_plain on CPU tensors; `counts` as in
+    closest_hit_fat_cache, both rings' copies summed."""
     for name, x in (("rows", rows), ("leaf", leaf)):
         if x.dim() != 2 or x.shape[0] % CACHE_BLOCK_ROWS:
             raise ValueError(f"{name} must hold a multiple of "
                              f"{CACHE_BLOCK_ROWS} rows (tables.pad_rows)")
-    return _closest_split(closest_hit_block_cache,
-                          "pt_closest_hit_block_cache",
-                          closest_hit_block_cache_plain, rows, leaf, org,
-                          dirn, t_max, base, end, leaf_size, k)
+    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
+    if rows.device.type == "cpu":
+        _plain_counts(counts)
+        return closest_hit_block_cache_plain(rows, leaf, org, dirn, t_max,
+                                             base, end, leaf_size, k)
+    _kernel_lib(rows, k)
+    return _persistent(closest_hit_block_cache, "pt_closest_hit_block_cache",
+                       rows, _staged_tables(rows, leaf), org, dirn, t_max,
+                       base, end, (leaf_size, k), counts,
+                       _hit_outputs(org.shape[0], rows.device),
+                       len(PACKET_COUNTS))
+
+
+def cache_layout(wrapper):
+    """(table rows a ring buffer holds, dynamic shared memory a launch asks
+    for in bytes) of a warp-packet kernel, closest_hit_fat_cache or
+    closest_hit_block_cache, from the built library: the block_rows that
+    warp_packet_plain takes to model it. Needs the card's toolchain."""
+    from ptsharp_tpu_torch.kernels import build
+
+    lib = build.load()
+    name = f"pt_{wrapper.__name__}"
+    return (getattr(lib, f"{name}_block_rows")(),
+            getattr(lib, f"{name}_smem")())
 
 
 def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
@@ -1047,9 +1181,19 @@ def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
     (t, slot, u, v), equal to closest_hit_preorder's on every lane, on
     tables of any length. csrc/closest_hit_row_stage.cu on CUDA tensors,
     closest_hit_row_stage_plain on CPU tensors."""
-    return _closest_split(closest_hit_row_stage, "pt_closest_hit_row_stage",
-                          closest_hit_row_stage_plain, rows, leaf, org, dirn,
-                          t_max, base, end, leaf_size, k)
+    _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
+    if rows.device.type == "cpu":
+        return closest_hit_row_stage_plain(rows, leaf, org, dirn, t_max,
+                                           base, end, leaf_size, k)
+    lib = _kernel_lib(rows, k)
+    r = org.shape[0]
+    out = _hit_outputs(r, rows.device)
+    if r:
+        _launch(closest_hit_row_stage, "pt_closest_hit_row_stage", lib,
+                *_staged_tables(rows, leaf), _ptr(org), _ptr(dirn),
+                _ptr(t_max), r, base, end, leaf_size, k, *map(_ptr, out),
+                _stream(rows), rays=r)
+    return out
 
 
 def closest_hit_binary(rows, leaf, org, dirn, t_max, base: int, end: int,

@@ -23,8 +23,19 @@ except ties for the dual walk (the JAX packets' consensus order differs
 from a ray's own near-to-far order), equal on every lane for the
 preorder packet walks. u, v within 1e-4 on hit lanes off ties.
 
+The plain model of #10's and #12's warp-packet schedule
+(traverse.warp_packet_plain: packets of W lanes with one cursor each, and
+the copies of its two-buffer rings) at W = 1 takes each ray's own steps
+(closest_hit_packet_plain's), and at W = 32 and 128 gives every lane the
+per-lane walk's (t, slot, u, v) bit for bit, so it holds against the JAX
+block-cache kernels as the per-lane walk does. Its ring counts hold
+against a step-by-step simulation of the ring on random reads, and the
+leaf rows that a packet's cursor reaches never decrease in these tables
+(the block-cache kernel's leaf ring prefetches the next leaf block).
+
 The card-marked test runs the four CUDA kernels against their plain
-versions; it skips on a machine without a card.
+versions, and the warp packets' counts against the plain model of their
+schedule; it skips on a machine without a card.
 """
 
 import functools
@@ -229,11 +240,137 @@ def test_pad_rows(n, multiple):
         assert y is x
 
 
+def _packet_tables(ref, table):
+    """(node table, leaf table or None) of the warp-packet kernel over
+    `table`: #12 over the fat table, #10 over the padded split tables."""
+    return (ref["fat"], None) if table == "fat" else tuple(ref["padded"])
+
+
+@pytest.mark.parametrize("table", ["fat", "split"])
+def test_packet_model_at_width_one_takes_each_rays_steps(ref, table):
+    *out, counts = traverse.warp_packet_plain(
+        *_packet_tables(ref, table), *_rays_of(ref), block_rows=8, width=1)
+    *want, steps = traverse.closest_hit_packet_plain(
+        ref["rows"], ref["leaf"], *_rays_of(ref), return_iters=True)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    assert torch.equal(counts["packet_steps"], steps.to(torch.int64))
+    assert torch.equal(counts["lane_steps"], steps.to(torch.int64))
+
+
+@pytest.mark.parametrize("table", ["fat", "split"])
+@pytest.mark.parametrize("width", [32, 128])
+def test_packet_model_matches_lane_walk_and_jax_kernel(ref, width, table):
+    """Every lane of a packet gets its own preorder walk's result, so the
+    model equals the per-lane walk bit for bit and holds against the JAX
+    kernel of the same table (#12 fat cache, #10 block cache) as it does;
+    the packet walks the union of its lanes' nodes, fewer steps than its
+    lanes take together."""
+    *out, counts = traverse.warp_packet_plain(
+        *_packet_tables(ref, table), *_rays_of(ref), block_rows=8,
+        width=width)
+    *want, steps = traverse.closest_hit_preorder_plain(
+        ref["fat"], *_rays_of(ref), return_iters=True)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    _assert_preorder_packet(out, ref["jax"]("fat_cache" if table == "fat"
+                                            else "block_cache"))
+    assert counts["packet_steps"].shape == (-(-N // width),)
+    assert int(counts["lane_steps"].sum()) == int(steps.sum())
+    assert (counts["packet_steps"] <= counts["lane_steps"]).all()
+    assert (counts["packet_steps"] >= 1).all()
+    assert (counts["demand"] >= 1).all()
+    assert (counts["used"] + counts["discarded"] <= counts["packet_steps"]
+            * (1 if table == "fat" else 2)).all()
+
+
+def test_leaf_rows_grow_along_the_packet_cursor(ref):
+    """The block-cache kernel's leaf ring prefetches the block after the
+    one in use: the leaf rows (first // leaf_size) of the leaf nodes grow
+    with the node index in these tables, so along every packet's cursor
+    too, as the model's reads show."""
+    bits = ref["rows"].view(torch.int32)
+    leaf_nodes = torch.nonzero((bits[:, 7] & 0xFF) > 0).squeeze(1)
+    lj = bits[leaf_nodes, 6] // ref["args"][2]
+    assert (lj[1:] > lj[:-1]).all()
+    walk = traverse._PacketWalk(
+        traverse._Table(*ref["padded"], ref["args"][2]), ref["org"],
+        ref["dirn"], ref["t_max"].clone(), *ref["args"][:2], ref["args"][3],
+        traverse.PACKET_WIDTH)
+    traverse._walk_closest(walk, ref["args"][2])
+    packet = torch.cat([p for p, _r in walk.leaf_reads])
+    rows = torch.cat([r for _p, r in walk.leaf_reads])
+    order = torch.sort(packet, stable=True).indices
+    packet, rows = packet[order], rows[order]
+    same = packet[1:] == packet[:-1]
+    assert same.any() and (rows[1:][same] >= rows[:-1][same]).all()
+
+
+def _ring_by_steps(reads, block_rows, limit):
+    """The ring of TmaRing (csrc/bvh_common.cuh) run read by read over one
+    packet's rows: (demand, used, discarded)."""
+    tag, cur, pre = [-1, -1], 0, [False, False]
+    demand = used = discarded = 0
+
+    def prefetch(s, blk):
+        tag[s] = blk if blk * block_rows < limit else -1
+        pre[s] = tag[s] >= 0
+
+    for row in reads:
+        blk = row // block_rows
+        if tag[cur] == blk:
+            continue
+        o = cur ^ 1
+        if tag[o] == blk:
+            used += 1
+            pre[o] = False
+            cur = o
+            prefetch(o ^ 1, blk + 1)
+        else:
+            demand += 1
+            tag[cur] = blk
+            discarded += pre[o]
+            pre[o] = False
+            prefetch(o, blk + 1)
+    return demand, used, discarded + sum(pre)
+
+
+@pytest.mark.parametrize("block_rows, limit, seed", [(4, 200, 0), (8, 64, 1),
+                                                     (16, 1000, 2)])
+def test_ring_counts_follow_the_ring(block_rows, limit, seed):
+    """_ring_counts, which counts a ring's copies from the reads of all
+    packets at once, against the ring run read by read: rows mostly
+    growing with jumps, repeats and, in some packets, a step back."""
+    rng = np.random.default_rng(seed)
+    n_packets, steps = 40, 30
+    grow = rng.choice([0, 1, 2, block_rows, 3 * block_rows], (n_packets,
+                                                              steps))
+    rows = np.minimum(np.cumsum(grow, axis=1), limit - 1)
+    back = rng.random(n_packets) < 0.2
+    rows[back, steps // 2:] //= 3
+    reads = [(torch.arange(n_packets), torch.from_numpy(rows[:, j]))
+             for j in range(steps)]
+    got = traverse._ring_counts(reads, block_rows, limit, n_packets)
+    want = np.array([_ring_by_steps(r, block_rows, limit) for r in rows])
+    for j in range(3):
+        np.testing.assert_array_equal(got[j].numpy(), want[:, j])
+
+
+@pytest.mark.parametrize("name", ["closest_hit_fat_cache",
+                                  "closest_hit_block_cache"])
+def test_packet_wrappers_take_no_counts_on_the_cpu(ref, name):
+    tabs = (ref["fat"],) if name == "closest_hit_fat_cache" else ref["padded"]
+    counts = torch.zeros(len(traverse.PACKET_COUNTS), dtype=torch.int64)
+    with pytest.raises(ValueError, match="counts"):
+        getattr(traverse, name)(*tabs, *_rays_of(ref), counts=counts)
+
+
 @pytest.mark.cuda
 def test_cuda_staged_kernels_match_plain_versions(ref):
     """Runs on a machine with a card: the four CUDA kernels against their
-    plain versions on the same inputs, every lane equal, and their launch
-    counts."""
+    plain versions on the same inputs, every lane equal, their launch
+    counts, and the warp packets' counts against the plain model of their
+    schedule."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
@@ -261,3 +398,15 @@ def test_cuda_staged_kernels_match_plain_versions(ref):
               traverse.closest_hit_block_cache,
               traverse.closest_hit_row_stage):
         assert w.launches == 1
+    for w, tabs in ((traverse.closest_hit_fat_cache, (fat,)),
+                    (traverse.closest_hit_block_cache, padded)):
+        counts = torch.zeros(len(traverse.PACKET_COUNTS), dtype=torch.int64,
+                             device=dev)
+        got = w(*tabs, *rays, counts=counts)
+        *model, mc = traverse.warp_packet_plain(
+            tabs[0], tabs[1] if len(tabs) > 1 else None, *rays,
+            block_rows=traverse.cache_layout(w)[0])
+        for a, b in zip(got, model):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+        assert counts.tolist() == [int(mc[key].sum())
+                                   for key in traverse.PACKET_COUNTS]
