@@ -61,25 +61,25 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
   5d. staged  the four memory-schedule kernels on the closest-hit rays of
               4 at the bunny's 1080p main-path width and of 5 on
               dragon_hd (whose table does not fit the card's L2), over
-              split_fat tables padded with pad_rows once per scene: the
-              two-rays-a-thread ordered walk over the fat table, the
-              preorder walk in warp packets of 32 rays through TMA-filled
-              shared-memory rings (#12 over the fat table, #10 over the
-              padded split tables, each with its packet counts), and the
-              preorder packet walk of 128 rays that stages a row a step
-              (#11, over the unpadded split tables); driven once with
-              every launch count set to 0 just before and read just
-              after; each against its plain version (the dual walk as 4
-              holds the ordered kernel, with slots equal; the others t,
-              slot, u and v equal on every lane) and its twin on every
-              lane (dual = closest_hit; the staged walks =
-              closest_hit_preorder); #10's and #12's counts (packet
-              steps, lane steps, demand copies, prefetches used and
-              discarded) equal to the plain model of their schedule
-              (warp_packet_plain) and their lane steps to #4's steps;
-              times per ray kind beside the plain versions and #1, #4 and
-              #13, with #10's and #12's lane use, copies a packet step and
-              prefetch hit rate; their ptxas lines and dynamic shared
+              split_fat tables, padded with pad_rows once per scene for
+              #10: the ordered walk over the fat table with two rays a
+              lane in persistent warps (#9), and the preorder walk in
+              warp packets of 32 rays through TMA-filled shared memory
+              (#12 over the fat table and #10 over the padded split
+              tables through rings, #11 over the unpadded split tables
+              through one-row stages); driven once with every launch
+              count set to 0 just before and read just after, each with
+              its counts; each against its plain version and its twin
+              (dual = closest_hit; the warp packets =
+              closest_hit_preorder) in t, slot, u and v on every lane;
+              #9's steps equal to #1's, both counted in the kernels; the
+              warp packets' counts (packet steps, lane steps, demand
+              copies, prefetches used and discarded) equal to the plain
+              model of their schedule (warp_packet_plain) and their lane
+              steps to #4's steps; times per ray kind beside the plain
+              versions and #1, #4 and #13, with the warp packets' lane
+              use, copies a packet step and prefetch hit rate, and #9's
+              and #1's lane use; their ptxas lines and dynamic shared
               memory;
   5e. rows    the XLA walks' kernels over the row tables of
               examples.build("bunny", intersector="walk") (leaf 8, K=4) on
@@ -233,9 +233,10 @@ SPLIT = ("closest_hit_split", "any_hit_split", "closest_hit_packet")
 # the memory-schedule kernels: no render launches them either
 STAGED = ("closest_hit_dual", "closest_hit_fat_cache",
           "closest_hit_block_cache", "closest_hit_row_stage")
-# the warp-packet kernels (#12, #10), whose launches ask for dynamic shared
-# memory (traverse.cache_layout) and count their packets and copies
-PACKETS = ("closest_hit_fat_cache", "closest_hit_block_cache")
+# the warp-packet kernels (#12, #10, #11), whose launches ask for dynamic
+# shared memory (traverse.cache_layout) and count their packets and copies
+PACKETS = ("closest_hit_fat_cache", "closest_hit_block_cache",
+           "closest_hit_row_stage")
 # rays a chunk and candidate clusters a ray takes, intersect_clustered's
 # defaults (which intersect.py takes)
 CLUSTER_CHUNK = 8192
@@ -980,15 +981,16 @@ def _packet_text(c) -> str:
 
 
 def staged_phase(scene, rays, label):
-    """The four memory-schedule kernels (two rays a thread, the two warp
-    packets and the 128-ray packet that stages a row a step), driven once
-    on the closest-hit rays of the main path with every launch count set
-    to 0 just before and read just after, the warp packets with their
-    counts; then each held against its plain version and its twin (#9 =
-    #1, #10-#12 = #4) on every lane, the warp packets' counts against the
-    plain model of their schedule, and timed per ray kind beside its plain
-    version and #1, #4 and #13. Returns ({wrapper name: {max_abs_err, ms,
-    plain_ms}}, {wrapper name: launches})."""
+    """The four memory-schedule kernels (two rays a lane, and the warp
+    packets over a fat-pair ring, node and leaf rings, and one-row
+    stages), driven once on the closest-hit rays of the main path with
+    every launch count set to 0 just before and read just after, each
+    with its counts; then each held against its plain version and its
+    twin (#9 = #1, #10-#12 = #4) in every output on every lane, #9's
+    steps against #1's, the warp packets' counts against the plain model
+    of their schedule, and timed per ray kind beside its plain version
+    and #1, #4 and #13, with #9's and #1's lane use. Returns ({wrapper
+    name: {max_abs_err, ms, plain_ms}}, {wrapper name: launches})."""
     from ptsharp_tpu_torch.accel import tables
     from ptsharp_tpu_torch.kernels import build, traverse
 
@@ -1021,15 +1023,15 @@ def staged_phase(scene, rays, label):
             return fn(*kernels[name][0], o, d, tm, *args, counts=counts)
         return fn(*kernels[name][0], o, d, tm, *args)
 
-    def new_counts():
-        return torch.zeros(len(traverse.PACKET_COUNTS), dtype=torch.int64,
-                           device=dev)
+    def new_counts(name):
+        n = len(traverse.PACKET_COUNTS) if name in PACKETS else 2
+        return torch.zeros(n, dtype=torch.int64, device=dev)
 
     # the path: each entry point once, as a caller of the kernel-level
-    # API calls it, the warp packets with their counts
-    packet_counts = {name: new_counts() for name in PACKETS}
+    # API calls it, each with its counts
+    kernel_counts = {name: new_counts(name) for name in kernels}
     traverse.reset_launch_counts()
-    got = {name: run(name, org, dirn, tmax, counts=packet_counts.get(name))
+    got = {name: run(name, org, dirn, tmax, counts=kernel_counts[name])
            for name in kernels}
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
@@ -1040,23 +1042,18 @@ def staged_phase(scene, rays, label):
                                  f"times")
     log(f"staged path [{label}]: launches={launches}")
 
-    twins = {name: getattr(traverse, name)(fat, org, dirn, tmax, *args)
-             for name in ("closest_hit", "closest_hit_preorder")}
+    twin_counts = {name: torch.zeros(2, dtype=torch.int64, device=dev)
+                   for name in ("closest_hit", "closest_hit_preorder")}
+    twins = {name: getattr(traverse, name)(fat, org, dirn, tmax, *args,
+                                           counts=c)
+             for name, c in twin_counts.items()}
     out = {}
     for name, (_tabs, twin) in kernels.items():
         with traverse.count_work() as work:
             plain = run(name, org, dirn, tmax, plain=True)
         sync(dev)
         bnd = bound(work, org.shape[0], "closest")
-        if name == "closest_hit_dual":
-            # held as check_closest holds #1
-            close = torch.isclose(got[name][0], plain[0], **CLOSEST_TOL)
-            if not bool(close.all()):
-                raise AssertionError(f"{name} t differs on "
-                                     f"{int((~close).sum())} lanes")
-            _equal(f"{name} slot", got[name][1:2], plain[1:2])
-        else:
-            _equal(f"{name} against its plain version", got[name], plain)
+        _equal(f"{name} against its plain version", got[name], plain)
         _equal(f"{name} against {twin}", got[name], twins[twin])
         err = float((got[name][0] - plain[0]).abs().max())
         ms = time_ms(lambda: run(name, org, dirn, tmax), dev)
@@ -1067,35 +1064,9 @@ def staged_phase(scene, rays, label):
             f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
-    # the warp packets' counts against the plain model of their schedule,
-    # and their lanes' steps against #4's
-    totals = {}
-    pre_counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    traverse.closest_hit_preorder(fat, org, dirn, tmax, *args,
-                                  counts=pre_counts)
     report = ptxas_report(build.build_info.get("ptxas", ""))
-    for name in PACKETS:
-        wrapper = getattr(traverse, name)
-        block_rows, smem = traverse.cache_layout(wrapper)
-        tabs = kernels[name][0]
-        *model, mc = traverse.warp_packet_plain(
-            tabs[0], tabs[1] if len(tabs) > 1 else None, org, dirn, tmax,
-            *args, block_rows=block_rows)
-        _equal(f"{name} against the plain model of its schedule", got[name],
-               model)
-        want = [int(mc[key].sum()) for key in traverse.PACKET_COUNTS]
-        counted = totals[name] = packet_counts[name].tolist()
-        if counted != want:
-            raise AssertionError(f"{name} counted {counted}, the plain model "
-                                 f"of its schedule {want} "
-                                 f"({traverse.PACKET_COUNTS})")
-        if counted[1] != int(pre_counts[0]):
-            raise AssertionError(f"{name}'s lanes took {counted[1]} steps, "
-                                 f"closest_hit_preorder's rays "
-                                 f"{int(pre_counts[0])}")
-        log(f"{name} [{label}] counts equal to warp_packet_plain's and lane "
-            f"steps to closest_hit_preorder's: {_packet_text(counted)}; "
-            f"ring block {block_rows} rows, dynamic smem {smem} B")
+
+    def ptxas_lines(name, smem=0):
         for kname, row in sorted(report.items()):
             if kname.startswith(name + "<"):
                 log(f"  ptxas {kname}: {row.get('registers')} registers, "
@@ -1103,6 +1074,46 @@ def staged_phase(scene, rays, label):
                     f"{row.get('spill_stores')} B, spill loads "
                     f"{row.get('spill_loads')} B, static smem {row['smem']} "
                     f"B, dynamic smem {smem} B")
+
+    # #9's steps against #1's, both counted in the kernels
+    dual, ordered = (c.tolist() for c in (kernel_counts["closest_hit_dual"],
+                                          twin_counts["closest_hit"]))
+    if dual[0] != ordered[0]:
+        raise AssertionError(f"closest_hit_dual took {dual[0]} steps, "
+                             f"closest_hit {ordered[0]}")
+    log(f"closest_hit_dual [{label}] steps equal to closest_hit's: "
+        f"{dual[0]}; lane use {dual[0] / dual[1]:.3f} (two slots a lane), "
+        f"closest_hit's {ordered[0] / ordered[1]:.3f}")
+    ptxas_lines("closest_hit_dual")
+
+    # the warp packets' counts against the plain model of their schedule,
+    # and their lanes' steps against #4's
+    totals = {}
+    pre_steps = int(twin_counts["closest_hit_preorder"][0])
+    for name in PACKETS:
+        wrapper = getattr(traverse, name)
+        block_rows, smem, prefetch = traverse.cache_layout(wrapper)
+        tabs = kernels[name][0]
+        *model, mc = traverse.warp_packet_plain(
+            tabs[0], tabs[1] if len(tabs) > 1 else None, org, dirn, tmax,
+            *args, block_rows=block_rows, prefetch=prefetch)
+        _equal(f"{name} against the plain model of its schedule", got[name],
+               model)
+        want = [int(mc[key].sum()) for key in traverse.PACKET_COUNTS]
+        counted = totals[name] = kernel_counts[name].tolist()
+        if counted != want:
+            raise AssertionError(f"{name} counted {counted}, the plain model "
+                                 f"of its schedule {want} "
+                                 f"({traverse.PACKET_COUNTS})")
+        if counted[1] != pre_steps:
+            raise AssertionError(f"{name}'s lanes took {counted[1]} steps, "
+                                 f"closest_hit_preorder's rays {pre_steps}")
+        log(f"{name} [{label}] counts equal to warp_packet_plain's and lane "
+            f"steps to closest_hit_preorder's: {_packet_text(counted)}; "
+            f"ring block {block_rows} rows, "
+            f"{'prefetch' if prefetch else 'no prefetch'}, dynamic smem "
+            f"{smem} B")
+        ptxas_lines(name, smem)
 
     kind_counts = {name: [] for name in PACKETS}
     for kind, sl in (("camera", slice(0, n_cam)),
@@ -1123,11 +1134,24 @@ def staged_phase(scene, rays, label):
             f"{name} {time_ms(fn, dev, _reps(name)):.3f}"
             for name, fn in times.items()))
         for name in PACKETS:
-            c = new_counts()
+            c = new_counts(name)
             run(name, o, d, tm, counts=c)
             kind_counts[name].append(c.tolist())
             log(f"{name} [{label}] {kind} rays={o.shape[0]} "
                 f"{_packet_text(kind_counts[name][-1])}")
+        dual_c, ordered_c = (new_counts("closest_hit_dual") for _ in "ab")
+        run("closest_hit_dual", o, d, tm, counts=dual_c)
+        traverse.closest_hit(fat, o, d, tm, *args, counts=ordered_c)
+        (steps, slots), (ordered_steps, ordered_slots) = (
+            dual_c.tolist(), ordered_c.tolist())
+        if steps != ordered_steps:
+            raise AssertionError(f"closest_hit_dual took {steps} steps on "
+                                 f"the {kind} rays, closest_hit "
+                                 f"{ordered_steps}")
+        log(f"closest_hit_dual [{label}] {kind} rays={o.shape[0]} lane_use="
+            f"{steps / slots:.3f} (closest_hit "
+            f"{ordered_steps / ordered_slots:.3f}), steps equal "
+            f"({steps / o.shape[0]:.3f} a ray)")
     # the two kinds' packets make up the whole run's where n_cam is a
     # multiple of the packet width
     for name in PACKETS:

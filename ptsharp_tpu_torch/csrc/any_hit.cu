@@ -48,12 +48,8 @@ any_hit_kernel(const float* __restrict__ fat, const float* __restrict__ org,
       },
       [&](int cur) {
         return ptk::fat_step<K, ptk::Push::kFull>(
-            fat, cur, r, tc, st, end,
-            [&](const float* leaf, int, int cnt) {
-              ptk::leaf_slots(leaf, cnt, r, [&](int, float tt, float, float) {
-                occ = tt < tc;
-                return occ;
-              });
+            fat, cur, r, tc, st, end, [&](int, float tt, float, float) {
+              occ = tt < tc;
               return occ;
             });
       },

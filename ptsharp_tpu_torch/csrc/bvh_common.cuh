@@ -31,8 +31,6 @@
 
 #pragma once
 
-#include <climits>
-
 #include <cuda_runtime.h>
 
 namespace ptk {
@@ -155,26 +153,6 @@ __device__ __forceinline__ int hit_children(const float* __restrict__ node,
   return sort_children<K>(node + 9, node + 9 + 6 * K, r, bt, key, idx);
 }
 
-// The preorder walk's descent (packet_descend): the smallest preorder
-// index among the children the ray enters before `bt`, or -1 when it
-// enters none. Absent children carry index 0 and are never taken.
-template <int K>
-__device__ __forceinline__ int first_hit_child(const float* __restrict__ node,
-                                               const Ray& r, float bt) {
-  const int* bits = reinterpret_cast<const int*>(node);
-  int target = -1;
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const int ci = bits[9 + 6 * K + c];
-    float ctmin, ctmax;
-    slab(node + 9 + 6 * c, r, ctmin, ctmax);
-    if (box_hit(ctmin, ctmax, bt) && ci > 0 && (target < 0 || ci < target)) {
-      target = ci;
-    }
-  }
-  return target;
-}
-
 // Push the hit children far to near (all but the nearest, which the walk
 // visits next). An ordered scene's build checks max_stack_bound <=
 // kStackCap, so the capacity test never drops an entry for a table the
@@ -206,9 +184,6 @@ struct FatTable {
   __device__ __forceinline__ const float* node(int j) const {
     return fat + static_cast<size_t>(2 * j) * kRow;
   }
-  __device__ __forceinline__ const float* leaf(const float* node) const {
-    return node + kRow;
-  }
   // the leaf block of `node`, whose first slot the caller has read
   __device__ __forceinline__ const float* leaf(const float* node, int) const {
     return node + kRow;
@@ -221,9 +196,6 @@ struct SplitTable {
   int leaf_size;
   __device__ __forceinline__ const float* node(int j) const {
     return rows + static_cast<size_t>(j) * kRow;
-  }
-  __device__ __forceinline__ const float* leaf(const float* node) const {
-    return leaf(node, reinterpret_cast<const int*>(node)[6]);
   }
   // the leaf block of `node`, whose first slot `first` the caller has read
   __device__ __forceinline__ const float* leaf(const float*, int first) const {
@@ -245,9 +217,6 @@ struct RowTable {
   int leaf_size;
   __device__ __forceinline__ const float* node(int j) const {
     return rows + static_cast<size_t>(j) * node_stride;
-  }
-  __device__ __forceinline__ const float* leaf(const float* node) const {
-    return leaf(node, reinterpret_cast<const int*>(node)[6]);
   }
   // the leaf block of `node`, whose first slot `first` the caller has read
   __device__ __forceinline__ const float* leaf(const float*, int first) const {
@@ -341,8 +310,8 @@ __device__ __forceinline__ int descend_ordered(const float* __restrict__ node,
 // slot) for the caller to test; at an internal node it enters, descend
 // to the nearest hit child and push the others; otherwise, and at a
 // leaf, pop the next node (`end` when the stack is empty). Sets `cur` to
-// the next node. The popped node does not depend on the leaf test, so a
-// caller may run the test after the step, as the dual walk does.
+// the next node. The popped node does not depend on the leaf test, so
+// ordered_closest and ordered_any run the test after the step.
 template <int K, Push P, class Table>
 __device__ __forceinline__ const float* ordered_step(
     const Table& tab, const float* __restrict__ node, float tmin, float tmax,
@@ -353,8 +322,8 @@ __device__ __forceinline__ const float* ordered_step(
   int next = -1;
   if (box_hit(tmin, tmax, bt)) {
     if ((bits[7] & 0xFF) > 0) {
-      leaf = tab.leaf(node);
       first = bits[6];
+      leaf = tab.leaf(node, first);
     } else {
       next = descend_ordered<K, P>(node, r, bt, stack, sp);
     }
@@ -411,10 +380,11 @@ __device__ __forceinline__ bool ordered_any(const Table& tab, const Ray& r,
   return false;
 }
 
-// ---- the persistent ordered walk over the fat table (#1, #2) --------------
+// ---- the persistent ordered walk over the fat table (#1, #2, #9) ----------
 //
-// closest_hit.cu and any_hit.cu run the ordered walk in persistent warps:
-// the grid holds as many blocks as are resident at once, and each warp
+// closest_hit.cu and any_hit.cu run the ordered walk in persistent warps,
+// closest_hit_dual.cu two such walks a lane (persistent_walk2): the grid
+// holds as many blocks as are resident at once, and each warp
 // takes rays from one global counter in their input order. A lane whose
 // ray has ended writes its result and takes the next ray, with its stack
 // reset, while the other lanes keep walking; a warp refills its idle lanes
@@ -460,31 +430,6 @@ struct EntryStack {
       if (!kDist || dist[sp] < bt) return node[sp];
     }
     return end;
-  }
-};
-
-// Fields [8, 8 + 4 kVec) of a node row in registers, by float4 loads:
-// the skip link, the K child boxes at [9, 9 + 6K) and the K child indices
-// at [9 + 6K, 9 + 7K).
-template <int K>
-struct ChildFields {
-  static constexpr int kVec = (1 + 7 * K + 3) / 4;
-  float f[4 * kVec];
-
-  __device__ __forceinline__ void load(const float* __restrict__ node) {
-    const float4* p = reinterpret_cast<const float4*>(node) + 2;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      const float4 q = __ldg(p + i);
-      f[4 * i + 0] = q.x;
-      f[4 * i + 1] = q.y;
-      f[4 * i + 2] = q.z;
-      f[4 * i + 3] = q.w;
-    }
-  }
-  __device__ __forceinline__ const float* boxes() const { return f + 1; }
-  __device__ __forceinline__ const float* children() const {
-    return f + 1 + 6 * K;
   }
 };
 
@@ -570,32 +515,79 @@ __device__ __forceinline__ int fat_start(const float* __restrict__ fat,
   return box_hit(tmin, tmax, bt) ? base : end;
 }
 
-// One step at node `cur` of the fat table, which the ray enters before
-// `bt` (the root by fat_start, any other node by its parent's child test):
-// at a leaf, leaf(block, first, cnt) tests its triangles and returns true
-// to end the walk; at an internal node, push the hit children other than
-// the nearest with their entry distances, in the order P names, and go to
-// the nearest (the lowest child among equal entry distances). Returns the
-// next node: `end` when the walk is over.
-template <int K, Push P, bool kDist, class Leaf>
-__device__ __forceinline__ int fat_step(const float* __restrict__ fat,
-                                        int cur, const Ray& r,
+// What a step of the fat walk reads of a node row, in registers, loaded in
+// two parts so that a thread that walks two rays (closest_hit_dual.cu)
+// issues both rays' loads before it waits for either: load_meta() reads
+// the meta fields [4, 8) (first slot, count) with one float4 load; at an
+// internal node load_children(), once they have arrived, reads fields
+// [8, 8 + 4 kVec): the skip link, the K child boxes at [9, 9 + 6K) and the
+// K child indices at [9 + 6K, 9 + 7K). A leaf's triangles are read by the
+// leaf test itself: holding four of them in registers beside the child
+// fields took #1 from 80 to 123 registers at K=8 (PERF.md section 6).
+template <int K>
+struct FatRow {
+  static constexpr int kVec = (1 + 7 * K + 3) / 4;
+  const float* node;
+  int first, cnt;
+  float f[4 * kVec];
+
+  __device__ __forceinline__ void load_meta(const float* __restrict__ fat,
+                                            int cur) {
+    node = fat + static_cast<size_t>(2 * cur) * kRow;
+    const float4 meta = __ldg(reinterpret_cast<const float4*>(node) + 1);
+    first = __float_as_int(meta.z);
+    cnt = __float_as_int(meta.w) & 0xFF;
+  }
+  __device__ __forceinline__ void load_children() {
+    const float4* p = reinterpret_cast<const float4*>(node) + 2;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      const float4 q = __ldg(p + i);
+      f[4 * i + 0] = q.x;
+      f[4 * i + 1] = q.y;
+      f[4 * i + 2] = q.z;
+      f[4 * i + 3] = q.w;
+    }
+  }
+  __device__ __forceinline__ const float* boxes() const { return f + 1; }
+  __device__ __forceinline__ const float* children() const {
+    return f + 1 + 6 * K;
+  }
+};
+
+// The step of the fat walk at a leaf whose meta fields `row` holds, which
+// the ray enters before `bt` (the root by fat_start, any other node by its
+// parent's child test): MT over its `count` triangles in slot order,
+// keep(slot, tt, uu, vv) taking each hit at tt > 1e-4 and returning true
+// to end the walk. Returns the next node: `end` when the walk is over.
+template <int K, bool kDist, class Keep>
+__device__ __forceinline__ int fat_leaf(const FatRow<K>& row, const Ray& r,
                                         const float& bt,
                                         EntryStack<kDist>& st, int end,
-                                        Leaf leaf) {
-  const float* node = fat + static_cast<size_t>(2 * cur) * kRow;
-  const float4 meta = __ldg(reinterpret_cast<const float4*>(node) + 1);
-  const int cnt = __float_as_int(meta.w) & 0xFF;
-  if (cnt > 0) {
-    if (leaf(node + kRow, __float_as_int(meta.z), cnt)) return end;
-    return st.next(bt, end);
-  }
-  ChildFields<K> cf;
-  cf.load(node);
+                                        Keep keep) {
+  bool stop = false;
+  const int first = row.first;
+  leaf_slots(row.node + kRow, row.cnt, r,
+             [&](int l, float tt, float uu, float vv) {
+               stop = keep(first + l, tt, uu, vv);
+               return stop;
+             });
+  return stop ? end : st.next(bt, end);
+}
+
+// The step of the fat walk at an internal node whose child fields `row`
+// holds, which the ray enters before `bt`: push the hit children other
+// than the nearest with their entry distances, in the order P names, and
+// go to the nearest (the lowest child among equal entry distances), or pop
+// where it enters none. Returns the next node: `end` when the walk is over.
+template <int K, Push P, bool kDist>
+__device__ __forceinline__ int fat_descend(const FatRow<K>& row,
+                                           const Ray& r, float bt,
+                                           EntryStack<kDist>& st, int end) {
   float key[K];
   if constexpr (P == Push::kFull) {
     int idx[K];
-    const int nh = sort_children<K>(cf.boxes(), cf.children(), r, bt, key,
+    const int nh = sort_children<K>(row.boxes(), row.children(), r, bt, key,
                                     idx);
     for (int j = nh - 1; j >= 1; --j) st.push(idx[j], key[j]);
     return nh > 0 ? idx[0] : st.next(bt, end);
@@ -606,8 +598,8 @@ __device__ __forceinline__ int fat_step(const float* __restrict__ fat,
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       float ctmax;
-      slab(cf.boxes() + 6 * c, r, key[c], ctmax);
-      const int cc = __float_as_int(cf.children()[c]);
+      slab(row.boxes() + 6 * c, r, key[c], ctmax);
+      const int cc = __float_as_int(row.children()[c]);
       if (box_hit(key[c], ctmax, bt) && cc > 0) {
         hit |= 1u << c;
         if (near < 0 || key[c] < near_t) {
@@ -621,10 +613,25 @@ __device__ __forceinline__ int fat_step(const float* __restrict__ fat,
     hit &= ~(1u << near);
 #pragma unroll
     for (int c = K - 1; c >= 0; --c) {
-      if ((hit >> c) & 1u) st.push(__float_as_int(cf.children()[c]), key[c]);
+      if ((hit >> c) & 1u) st.push(__float_as_int(row.children()[c]), key[c]);
     }
     return near_idx;
   }
+}
+
+// One step at node `cur` of the fat table: load its meta fields, then at a
+// leaf fat_leaf, at an internal node its child fields and fat_descend.
+template <int K, Push P, bool kDist, class Keep>
+__device__ __forceinline__ int fat_step(const float* __restrict__ fat,
+                                        int cur, const Ray& r,
+                                        const float& bt,
+                                        EntryStack<kDist>& st, int end,
+                                        Keep keep) {
+  FatRow<K> row;
+  row.load_meta(fat, cur);
+  if (row.cnt > 0) return fat_leaf(row, r, bt, st, end, keep);
+  row.load_children();
+  return fat_descend<K, P>(row, r, bt, st, end);
 }
 
 // The end of a persistent warp's work: the last warp of the grid to finish
@@ -640,6 +647,24 @@ __device__ __forceinline__ void finish_launch(int* __restrict__ next_ray) {
       atomicExch(next_ray + 1, 0);
     }
   }
+}
+
+// The end of a persistent walk's warp: with `counts`, add the steps its
+// lanes' rays took (`steps`, each lane's own) to counts[0] and the walk
+// slots it ran to counts[1]; then finish_launch.
+__device__ __forceinline__ void end_walk(
+    unsigned long long steps, unsigned long long slots,
+    unsigned long long* __restrict__ counts, int* __restrict__ next_ray) {
+  if (counts != nullptr) {
+    for (int o = 16; o > 0; o >>= 1) {
+      steps += __shfl_down_sync(kWarpAll, steps, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(counts, steps);
+      atomicAdd(counts + 1, slots);
+    }
+  }
+  finish_launch(next_ray);
 }
 
 // The persistent loop of one warp over rays [0, n), which it takes from
@@ -693,16 +718,71 @@ __device__ __forceinline__ void persistent_walk(
       }
     }
   }
-  if (counts != nullptr) {
-    for (int o = 16; o > 0; o >>= 1) {
-      steps += __shfl_down_sync(kWarpAll, steps, o);
+  end_walk(steps, 32ull * turns, counts, next_ray);
+}
+
+// persistent_walk with two rays a lane (closest_hit_dual.cu): slot s of a
+// lane walks a ray of its own, and the warp's 64 slots take rays from
+// next_ray[0] as persistent_walk's lanes do, refilling the idle slots when
+// fewer than kRefill are live (one atomicAdd; slot 0's idle lanes take the
+// first rays in lane order, then slot 1's, so each slot's rays stay
+// neighbours in the caller's order). begin(s, i) starts ray i in slot s
+// and returns its first node; turn(run, cur) takes one step of each slot s
+// with run[s] set, setting cur[s] to its next node, so that it can issue
+// both slots' loads before it uses either; finish(s, i) writes ray i's
+// result from slot s. A ray ends at `end` or after max_iters steps. With
+// `counts`, the warp adds the steps its rays took to counts[0] and the
+// slots it ran (64 a loop turn) to counts[1].
+template <int kRefill, class Begin, class Turn, class Finish>
+__device__ __forceinline__ void persistent_walk2(
+    int n, int end, int max_iters, int* __restrict__ next_ray,
+    unsigned long long* __restrict__ counts, Begin begin, Turn turn,
+    Finish finish) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  int ray[2] = {-1, -1}, cur[2] = {end, end}, it[2] = {0, 0};
+  bool drained = false;
+  unsigned long long steps = 0, turns = 0;
+  for (;;) {
+    unsigned live[2] = {__ballot_sync(kWarpAll, ray[0] >= 0),
+                        __ballot_sync(kWarpAll, ray[1] >= 0)};
+    if (!drained && __popc(live[0]) + __popc(live[1]) < kRefill) {
+      const int idle0 = 32 - __popc(live[0]);
+      const int want = idle0 + 32 - __popc(live[1]);
+      int first = 0;
+      if ((threadIdx.x & 31) == 0) first = atomicAdd(next_ray, want);
+      first = __shfl_sync(kWarpAll, first, 0);
+      drained = first + want >= n;
+      const int take[2] = {first + __popc(~live[0] & below),
+                           first + idle0 + __popc(~live[1] & below)};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (ray[s] < 0 && take[s] < n) {
+          ray[s] = take[s];
+          cur[s] = begin(s, take[s]);
+          it[s] = 0;
+        }
+        live[s] = __ballot_sync(kWarpAll, ray[s] >= 0);
+      }
     }
-    if (lane == 0) {
-      atomicAdd(counts, steps);
-      atomicAdd(counts + 1, 32ull * turns);
+    if ((live[0] | live[1]) == 0) break;  // only once the counter is drained
+    ++turns;
+    bool run[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      run[s] = ray[s] >= 0 && cur[s] < end && it[s] < max_iters;
+    }
+    turn(run, cur);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      it[s] += run[s];
+      if (ray[s] >= 0 && (cur[s] >= end || it[s] >= max_iters)) {
+        finish(s, ray[s]);
+        steps += it[s];
+        ray[s] = -1;
+      }
     }
   }
-  finish_launch(next_ray);
+  end_walk(steps, 64ull * turns, counts, next_ray);
 }
 
 // ---- the persistent preorder walk (#4, 4w, #7, #13) -------------------------
@@ -855,9 +935,10 @@ __host__ inline int persistent_blocks(int n, int resident) {
   return need < resident ? need : resident;
 }
 
-// ---- the warp packet walk (#10, #12) ---------------------------------------
+// ---- the warp packet walk (#10, #11, #12) ---------------------------------
 //
-// closest_hit_fat_cache.cu and closest_hit_block_cache.cu walk packets of
+// closest_hit_fat_cache.cu, closest_hit_block_cache.cu and
+// closest_hit_row_stage.cu walk packets of
 // 32 rays, one warp each, in persistent warps: a warp takes 32 consecutive
 // rays from next_ray[0] (persistent_walk's counter, one atomicAdd a packet)
 // and walks them all to their ends before it takes more. Each lane keeps
@@ -880,7 +961,9 @@ __host__ inline int persistent_blocks(int n, int resident) {
 // than the warp synchronises. When the cursor enters block b, the ring
 // starts the copy of block b + 1 into its other buffer, where the next
 // steps most often go (a descent goes to the next node in preorder), so the
-// copy overlaps the tests of block b.
+// copy overlaps the tests of block b. A ring without prefetch (#11's
+// one-row stages, the TPU kernel's schedule) has one buffer and copies a
+// row only when the cursor needs another one.
 
 // The shared-memory address of a pointer into shared memory.
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -908,15 +991,17 @@ __device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
 // A demand copy takes the current buffer (the cursor only grows, so its
 // block is done with); a prefetch takes the other one. Blocks whose first
 // row lies at or past `limit` (rows no walk reads) are never prefetched,
-// and the last block is copied only up to the table's end.
-template <int kRows>
+// and the last block is copied only up to the table's end. Without
+// kPrefetch the ring is one buffer (a stage): each block the cursor moves
+// to is a demand copy into it.
+template <int kRows, bool kPrefetch = true>
 struct TmaRing {
   static constexpr int kFloats = kRows * kRow;  // a buffer
-  static constexpr int kBytes = 2 * kFloats * 4;
+  static constexpr int kBytes = (kPrefetch ? 2 : 1) * kFloats * 4;
 
   const float* table;
   int rows, limit;
-  float* buf;    // shared, 2 kFloats floats, 128-byte aligned
+  float* buf;    // shared, kBytes, 128-byte aligned
   unsigned bar;  // shared address of two 8-byte mbarriers
   int tag0, tag1;  // the block each buffer holds or is loading, -1 none
   int cur;
@@ -1003,24 +1088,30 @@ struct TmaRing {
 
   // Make block blk the current one without waiting for it: a prefetch
   // the ring holds, or a demand copy (which discards the prefetch); then
-  // start the prefetch of blk + 1.
+  // start the prefetch of blk + 1. Without kPrefetch, a demand copy into
+  // the one buffer, whose last copy row() has waited for.
   __device__ __forceinline__ void fetch(int blk) {
     if (tag(cur) == blk) return;
-    const int o = cur ^ 1;
-    if (tag(o) == blk) {
-      ++used;
-      prefetched &= ~(1u << o);
-      cur = o;
-      prefetch(o ^ 1, blk + 1);
-    } else {
+    if constexpr (!kPrefetch) {
       ++demand;
       issue(cur, blk);
-      wait(o);
-      if ((prefetched >> o) & 1u) {
-        ++discarded;
+    } else {
+      const int o = cur ^ 1;
+      if (tag(o) == blk) {
+        ++used;
         prefetched &= ~(1u << o);
+        cur = o;
+        prefetch(o ^ 1, blk + 1);
+      } else {
+        ++demand;
+        issue(cur, blk);
+        wait(o);
+        if ((prefetched >> o) & 1u) {
+          ++discarded;
+          prefetched &= ~(1u << o);
+        }
+        prefetch(o, blk + 1);
       }
-      prefetch(o, blk + 1);
     }
   }
 
@@ -1059,6 +1150,43 @@ __device__ __forceinline__ void add_ring_counts(const Ring& ring,
 // Dynamic shared memory of one warp whose rings take `ring_bytes`: 128
 // bytes of mbarriers (two a ring), then the buffers, 128-byte aligned.
 constexpr int warp_smem(int ring_bytes) { return 128 + ring_bytes; }
+
+// The split tables through two rings (TmaRing): node j at rows[j], its
+// leaf block at leaf[first / leaf_size], the tables of
+// closest_hit_block_cache.cu and closest_hit_row_stage.cu.
+template <class Ring>
+struct SplitRings {
+  Ring nodes, leaves;
+  int leaf_size;
+
+  // Every lane calls it: the node ring over rows[0, n_rows), prefetching
+  // no row at or past `end`, and the leaf ring over leaf[0, n_leaf), in
+  // the warp's `own` dynamic shared memory, warp_smem(2 * Ring::kBytes)
+  // bytes from a 128-byte boundary.
+  __device__ __forceinline__ void init(const float* rows, int n_rows,
+                                       int end, const float* leaf,
+                                       int n_leaf, int ls,
+                                       unsigned char* own) {
+    auto* bars = reinterpret_cast<unsigned long long*>(own);
+    auto* bufs = reinterpret_cast<float*>(own + 128);
+    leaf_size = ls;
+    nodes.init(rows, n_rows, end, bufs, bars);
+    leaves.init(leaf, n_leaf, n_leaf, bufs + Ring::kBytes / 4, bars + 2);
+  }
+  __device__ __forceinline__ void start(int j) { nodes.start(j); }
+  __device__ __forceinline__ const float* node(int j) { return nodes.row(j); }
+  __device__ __forceinline__ const float* leaf(const float*, int first) {
+    return leaves.row(first / leaf_size);
+  }
+  __device__ __forceinline__ void end_packet() {
+    nodes.end_packet();
+    leaves.end_packet();
+  }
+  __device__ __forceinline__ void add_counts(unsigned long long* c) const {
+    add_ring_counts(nodes, c);
+    add_ring_counts(leaves, c);
+  }
+};
 
 // The preorder closest-hit of rays [0, n) over nodes [base, end) in warp
 // packets (see above). `tab` reads through its rings: start(j) begins the
@@ -1149,124 +1277,6 @@ __device__ __forceinline__ void warp_packet_closest(
     }
   }
   finish_launch(next_ray);
-}
-
-// ---- the staged packet walk of #11 ------------------------------------------
-//
-// A packet is one block of kPacket threads, one ray each, the TPU kernel's
-// lane width, sharing one cursor; closest_hit_row_stage.cu's stager copies
-// node j's row and its leaf block into shared memory with cp.async.
-
-constexpr int kPacket = 128;
-constexpr int kPacketWarps = kPacket / 32;
-
-// One 16-byte copy from global to shared memory that bypasses L1
-// (cp.async.cg); both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-// Wait for this thread's cp.async copies.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Block-cooperative copy of rows [first, first + n) of a table of `total`
-// rows into `dst`, 16 bytes a thread per turn, cut at the table's end;
-// returns when every thread of the block sees the rows. Every thread of
-// the block calls it with the same arguments.
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ table,
-                                           int first, int n, int total) {
-  const int rows = max(0, min(n, total - first));
-  const float* src = table + static_cast<size_t>(first) * kRow;
-  for (int c = threadIdx.x; c < rows * (kRow / 4); c += kPacket) {
-    cp_async16(dst + 4 * c, src + 4 * c);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-}
-
-// The minimum of v over the block: __reduce_min_sync per warp, then one
-// value per warp through shared memory. `warp_min` holds two turns of
-// kPacketWarps ints and `turn` picks one, so a call never overwrites the
-// values that a slower warp may still be reading from the call before.
-__device__ __forceinline__ int block_min(int v, int* warp_min, int turn) {
-  int* slot = warp_min + (turn & 1) * kPacketWarps;
-  v = __reduce_min_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) slot[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int m = slot[0];
-#pragma unroll
-  for (int w = 1; w < kPacketWarps; ++w) m = min(m, slot[w]);
-  return m;
-}
-
-// One step of the preorder packet walk at the packet's cursor j: the
-// stager makes node j's row available (st.node(j)) and, at a leaf, its
-// leaf block (st.leaf(node)); both are block-wide calls, and whether
-// j is a leaf is the same for every thread. Each live lane tests the
-// node's box against its own best t, runs MT over the leaf block in slot
-// order at a leaf, and otherwise picks the hit child of smallest preorder
-// index. Returns the node the lane wants next (its skip link where it
-// picks none; INT_MAX for a lane past R). The arithmetic is that of the
-// one-ray preorder walk (closest_hit_preorder.cu).
-template <int K, class Stager>
-__device__ __forceinline__ int packet_step(Stager& st, int j, const Ray& r,
-                                           bool live, int leaf_size,
-                                           Best& b) {
-  const float* node = st.node(j);
-  const int* bits = reinterpret_cast<const int*>(node);
-  float tmin, tmax;
-  slab(node, r, tmin, tmax);
-  const bool hit = live && box_hit(tmin, tmax, b.t);
-  int next = bits[8];  // skip link
-  if ((bits[7] & 0xFF) > 0) {
-    const float* leaf = st.leaf(node);
-    if (hit) leaf_closest(leaf, bits[6], leaf_size, r, b);
-  } else if (hit) {
-    const int c = first_hit_child<K>(node, r, b.t);
-    if (c >= 0) next = c;
-  }
-  return live ? next : INT_MAX;
-}
-
-// The preorder closest-hit of the packet of rays [blockIdx.x * kPacket,
-// + kPacket) over nodes [base, end): the next cursor is the packet's
-// minimum over its lanes' next nodes. Child indices and skip links point
-// forward, so the cursor only grows and end - base steps bound the walk;
-// the block leaves when every lane wants a node at or past `end`. Each
-// lane gets the slot its own preorder walk gives: where it tests a node
-// inside a box it missed or pruned, it misses it again (a child's box lies
-// inside its parent's, and its best t only shrinks), so it accepts the
-// triangles its own walk accepts, in the same order. Launched with kPacket
-// threads a block.
-template <int K, class Stager>
-__device__ __forceinline__ void packet_closest(
-    Stager& st, const float* __restrict__ org, const float* __restrict__ dir,
-    const float* __restrict__ t_max, int n, int base, int end, int leaf_size,
-    float* __restrict__ t_out, int* __restrict__ slot_out,
-    float* __restrict__ u_out, float* __restrict__ v_out) {
-  __shared__ int warp_min[2 * kPacketWarps];
-  const int i = blockIdx.x * kPacket + threadIdx.x;
-  const bool live = i < n;
-  const Ray r = load_ray(org, dir, live ? i : 0);
-  Best b{live ? t_max[i] : -kInf, -1, 0.0f, 0.0f};
-  int cur = base;
-  const int max_iters = end - base;
-  for (int it = 0; cur < end && it < max_iters; ++it) {
-    cur = block_min(packet_step<K>(st, cur, r, live, leaf_size, b), warp_min,
-                    it);
-  }
-  if (!live) return;
-  t_out[i] = b.slot >= 0 ? b.t : kInf;
-  slot_out[i] = b.slot;
-  u_out[i] = b.u;
-  v_out[i] = b.v;
 }
 
 }  // namespace ptk

@@ -63,15 +63,9 @@ closest_hit_kernel(const float* __restrict__ fat,
       [&](int cur) {
         return ptk::fat_step<K, ptk::Push::kNear>(
             fat, cur, r, b.t, st, end,
-            [&](const float* leaf, int first, int cnt) {
-              ptk::leaf_slots(leaf, cnt, r,
-                              [&](int l, float tt, float uu, float vv) {
-                                if (tt < b.t) {  // the first slot wins ties
-                                  b = ptk::Best{tt, first + l, uu, vv};
-                                }
-                                return false;
-                              });
-              return false;
+            [&](int slot, float tt, float uu, float vv) {
+              if (tt < b.t) b = ptk::Best{tt, slot, uu, vv};
+              return false;  // the first slot wins ties
             });
       },
       [&](int i) {

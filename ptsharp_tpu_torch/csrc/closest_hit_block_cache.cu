@@ -19,8 +19,8 @@
 // known only after the lanes' tests), and a packet visits the union of its
 // lanes' walks. The first design (a block of 128 rays sharing a cursor, two
 // 32 KB cp.async caches, 64 KB of shared memory a block) had four faults,
-// and this design answers each (ptk::warp_packet_closest, ptk::TmaRing in
-// bvh_common.cuh):
+// and this design answers each (ptk::warp_packet_closest, ptk::TmaRing and
+// ptk::SplitRings in bvh_common.cuh):
 //   1. a packet of 128 lanes walked the union of 128 rays' walks: the
 //      packet is one warp of 32 rays, and the cursor a __reduce_min_sync;
 //   2. two __syncthreads() a step on a miss of either cache and a
@@ -62,27 +62,6 @@ using Ring = ptk::TmaRing<kBlockRows>;
 constexpr int kWarpSmem = ptk::warp_smem(2 * Ring::kBytes);
 constexpr int kSmem = (ptk::kWalkThreads / 32) * kWarpSmem;
 
-// The split tables through two rings: node j at rows[j], its leaf block at
-// leaf[first / leaf_size].
-struct SplitRings {
-  Ring nodes, leaves;
-  int leaf_size;
-
-  __device__ __forceinline__ void start(int j) { nodes.start(j); }
-  __device__ __forceinline__ const float* node(int j) { return nodes.row(j); }
-  __device__ __forceinline__ const float* leaf(const float*, int first) {
-    return leaves.row(first / leaf_size);
-  }
-  __device__ __forceinline__ void end_packet() {
-    nodes.end_packet();
-    leaves.end_packet();
-  }
-  __device__ __forceinline__ void add_counts(unsigned long long* c) const {
-    ptk::add_ring_counts(nodes, c);
-    ptk::add_ring_counts(leaves, c);
-  }
-};
-
 template <int K>
 __global__ void __launch_bounds__(ptk::kWalkThreads, ptk::kPreorderMinBlocks)
 closest_hit_block_cache_kernel(const float* __restrict__ rows,
@@ -98,13 +77,9 @@ closest_hit_block_cache_kernel(const float* __restrict__ rows,
                                int* __restrict__ next_ray,
                                unsigned long long* __restrict__ counts) {
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* own = smem + (threadIdx.x / 32) * kWarpSmem;
-  auto* bars = reinterpret_cast<unsigned long long*>(own);
-  auto* bufs = reinterpret_cast<float*>(own + 128);
-  SplitRings tab;
-  tab.leaf_size = leaf_size;
-  tab.nodes.init(rows, n_rows, end, bufs, bars);
-  tab.leaves.init(leaf, n_leaf, n_leaf, bufs + 2 * Ring::kFloats, bars + 2);
+  ptk::SplitRings<Ring> tab;
+  tab.init(rows, n_rows, end, leaf, n_leaf, leaf_size,
+           smem + (threadIdx.x / 32) * kWarpSmem);
   ptk::warp_packet_closest<K>(tab, org, dir, t_max, n, base, end, t_out,
                               slot_out, u_out, v_out, next_ray, counts);
 }
@@ -159,7 +134,9 @@ extern "C" int pt_closest_hit_block_cache(const float* rows, const float* leaf,
   }
 }
 
-// Table rows a ring buffer holds and dynamic shared memory a launch asks
-// for, for the plain model of the schedule and the records.
+// Table rows a ring buffer holds, dynamic shared memory a launch asks for
+// and whether the rings prefetch, for the plain model of the schedule and
+// the records.
 extern "C" int pt_closest_hit_block_cache_block_rows() { return kBlockRows; }
 extern "C" int pt_closest_hit_block_cache_smem() { return kSmem; }
+extern "C" int pt_closest_hit_block_cache_prefetch() { return 1; }

@@ -1,5 +1,6 @@
-// Closest-hit over the fat table: the ordered walk with two rays a
-// thread, so two independent chains of row loads are in flight at once.
+// Closest-hit over the fat table: the ordered walk of closest_hit.cu with
+// two rays a lane, in persistent warps that refill their idle slots, so
+// that each thread has two independent chains of row loads in flight.
 //
 // Replaces the TPU kernel ptsharp_tpu/pallas/ordered_kernel.py
 // pallas_traverse_ordered8_fat_dual (body _kernel8_ord_fat_dual): two
@@ -8,119 +9,129 @@
 // the other packet's whole phase runs in that copy's shadow. It pushes in
 // the "near" order only, and its results are those of
 // pallas_traverse_ordered8_fat (closest_hit.cu), which the JAX package
-// calls in that order. Its `mt_gate` only skips MT passes no lane needs and changes no result, and
-// its `max_iters` is closest_hit.cu's bound, so the port takes neither.
+// calls in that order. Its `mt_gate` only skips MT passes no lane needs
+// and changes no result, and its `max_iters` is closest_hit.cu's bound,
+// so the port takes neither.
 //
-// closest_hit.cu already walks one ray a thread, so the counterpart of
-// two packets in flight is two rays a thread: ray i and ray i + h, h =
-// ceil(R / 2), each with its own stack of kStackCap entries and its own
-// best hit. One loop advances both walks; each turn
-//   1. reads the heads of the node rows both rays visit (the two rows'
-//      loads are issued before either is used),
-//   2. runs both slab tests and both steps of the ordered walk
-//      (ptk::ordered_step: descend and push, or pop), which pick each
-//      ray's next node,
-//   3. and only then runs MT over each ray's leaf block, if it has one.
-// The next node does not depend on the leaf test, so each ray tests the
-// leaves closest_hit.cu tests, in the same order (that walk also pushes
-// "near", and only skips the steps whose own-box test fails here): t,
-// slot, u and v equal on every lane.
-//
-// What bounds it on an H100: the chain of dependent 1 KB row-pair loads
-// of each walk. What the design does about it: two chains in one
-// instruction stream, so a thread waits for the slower of two loads
-// instead of for each in turn. It pays with about twice the registers and
-// a 1 KB local-memory frame for the two stacks, so fewer warps fit on an
-// SM to hide each other's latency: the trade the TPU kernel made
-// ("doubles register pressure", BASELINE.md). Rays i and i + h of a warp
-// are each 32 neighbours in the caller's order, so a coherent ray order
-// stays coherent within each half.
+// What bounds it on an H100: each walk is a chain of dependent row loads
+// (the meta fields, then the child fields or the leaf's triangles, then
+// the next node). closest_hit.cu walks one ray a lane; here each lane
+// holds two slots, each with its own ray, best hit, stack of entry
+// distances (ptk::EntryStack) and step count, and a warp's 64 slots take
+// rays from the ray counter and refill when fewer than kRefillBelow2 are
+// live (ptk::persistent_walk2). A loop turn first issues both slots' loads
+// (ptk::FatRow: both meta float4s, then the child fields of each slot at
+// an internal node), so a thread waits for the slower of two loads instead
+// of each in turn; then runs each slot's whole step in turn: at a leaf
+// ptk::fat_leaf, the test of its triangles (read there) and then the pop,
+// which drops entries by the best t that the test has just set; at an
+// internal node ptk::fat_descend. The walk is not reordered, so each slot
+// takes closest_hit.cu's steps and gets its t, slot, u and v on every
+// lane. The price is about twice the registers and two stacks of local
+// memory a thread, so fewer warps fit an SM (PERF.md section 6).
 
 #include "bvh_common.cuh"
 
 namespace {
 
+// the warp refills its idle slots when fewer than this of its 64 are live
+// (closest_hit.cu's 24 of 32, doubled; 40 and 56 measured the same on the
+// H100, PERF.md section 6)
+constexpr int kRefillBelow2 = 48;
+// blocks an SM that the kernel's __launch_bounds__ ask for: 3 caps ptxas
+// at 168 registers (K=8: 217 without a cap, 2 blocks an SM; the cap
+// spills about 190 B), which measured 18% faster (PERF.md section 6)
+constexpr int kDualMinBlocks = 3;
+
 template <int K>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(ptk::kWalkThreads, kDualMinBlocks)
 closest_hit_dual_kernel(const float* __restrict__ fat,
                         const float* __restrict__ org,
                         const float* __restrict__ dir,
-                        const float* __restrict__ t_max, int n, int half,
-                        int base, int end, int leaf_size,
-                        float* __restrict__ t_out, int* __restrict__ slot_out,
-                        float* __restrict__ u_out,
-                        float* __restrict__ v_out) {
-  const int ia = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ia >= half) return;
-  const int ib = ia + half;  // past R only for the last thread of an odd R
-  const bool has_b = ib < n;
-  const ptk::FatTable tab{fat};
-  const ptk::Ray ra = ptk::load_ray(org, dir, ia);
-  const ptk::Ray rb = ptk::load_ray(org, dir, has_b ? ib : ia);
-  ptk::Best ba{t_max[ia], -1, 0.0f, 0.0f};
-  ptk::Best bb{has_b ? t_max[ib] : 0.0f, -1, 0.0f, 0.0f};
-  int stack_a[ptk::kStackCap], stack_b[ptk::kStackCap];
-  int sp_a = 0, sp_b = 0;
-  int ca = base, cb = has_b ? base : end;
-  // both walks take one step a turn while they run, so the turn count is
-  // each running walk's step count and bounds it as closest_hit.cu does
-  const int max_iters = end - base + 2;
-  for (int it = 0; (ca < end || cb < end) && it < max_iters; ++it) {
-    const bool run_a = ca < end, run_b = cb < end;
-    const float* na = tab.node(run_a ? ca : base);
-    const float* nb = tab.node(run_b ? cb : base);
-    float tmin_a, tmax_a, tmin_b, tmax_b;
-    ptk::slab(na, ra, tmin_a, tmax_a);
-    ptk::slab(nb, rb, tmin_b, tmax_b);
-    int fa = 0, fb = 0;
-    const float* la = nullptr;
-    const float* lb = nullptr;
-    if (run_a) {
-      la = ptk::ordered_step<K, ptk::Push::kNear>(
-          tab, na, tmin_a, tmax_a, ra, ba.t, stack_a, sp_a, ca, end, fa);
-    }
-    if (run_b) {
-      lb = ptk::ordered_step<K, ptk::Push::kNear>(
-          tab, nb, tmin_b, tmax_b, rb, bb.t, stack_b, sp_b, cb, end, fb);
-    }
-    if (la != nullptr) ptk::leaf_closest(la, fa, leaf_size, ra, ba);
-    if (lb != nullptr) ptk::leaf_closest(lb, fb, leaf_size, rb, bb);
-  }
-  t_out[ia] = ba.slot >= 0 ? ba.t : ptk::kInf;
-  slot_out[ia] = ba.slot;
-  u_out[ia] = ba.u;
-  v_out[ia] = ba.v;
-  if (!has_b) return;
-  t_out[ib] = bb.slot >= 0 ? bb.t : ptk::kInf;
-  slot_out[ib] = bb.slot;
-  u_out[ib] = bb.u;
-  v_out[ib] = bb.v;
+                        const float* __restrict__ t_max, int n, int base,
+                        int end, float* __restrict__ t_out,
+                        int* __restrict__ slot_out, float* __restrict__ u_out,
+                        float* __restrict__ v_out, int* __restrict__ next_ray,
+                        unsigned long long* __restrict__ counts) {
+  ptk::Ray r[2];
+  ptk::Best b[2];
+  ptk::EntryStack<true> st[2];
+  ptk::FatRow<K> row[2];
+  ptk::persistent_walk2<kRefillBelow2>(
+      n, end, end - base + 2, next_ray, counts,
+      [&](int s, int i) {
+        r[s] = ptk::load_ray(org, dir, i);
+        b[s] = ptk::Best{t_max[i], -1, 0.0f, 0.0f};
+        st[s].sp = 0;
+        return ptk::fat_start(fat, r[s], b[s].t, base, end);
+      },
+      [&](const bool (&run)[2], int (&cur)[2]) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (run[s]) row[s].load_meta(fat, cur[s]);
+        }
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (run[s] && row[s].cnt == 0) row[s].load_children();
+        }
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          if (!run[s]) continue;
+          ptk::Best& bs = b[s];
+          cur[s] = row[s].cnt > 0
+                       ? ptk::fat_leaf(row[s], r[s], bs.t, st[s], end,
+                                       [&](int slot, float tt, float uu,
+                                           float vv) {
+                                         if (tt < bs.t) {
+                                           bs = ptk::Best{tt, slot, uu, vv};
+                                         }
+                                         return false;  // first slot wins
+                                       })
+                       : ptk::fat_descend<K, ptk::Push::kNear>(
+                             row[s], r[s], bs.t, st[s], end);
+        }
+      },
+      [&](int s, int i) {
+        t_out[i] = b[s].slot >= 0 ? b[s].t : ptk::kInf;
+        slot_out[i] = b[s].slot;
+        u_out[i] = b[s].u;
+        v_out[i] = b[s].v;
+      });
+}
+
+template <int K>
+int launch(const float* fat, const float* org, const float* dir,
+           const float* t_max, int n, int base, int end, float* t_out,
+           int* slot_out, float* u_out, float* v_out, int* next_ray,
+           unsigned long long* counts, cudaStream_t s) {
+  static const int resident = ptk::resident_blocks(closest_hit_dual_kernel<K>);
+  closest_hit_dual_kernel<K>
+      <<<ptk::persistent_blocks(n, resident), ptk::kWalkThreads, 0, s>>>(
+          fat, org, dir, t_max, n, base, end, t_out, slot_out, u_out, v_out,
+          next_ray, counts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// next_ray as in pt_closest_hit; counts: null, or two unsigned 64-bit ints
+// to which the kernel adds [steps, slots run] (64 slots a warp's loop
+// turn).
 extern "C" int pt_closest_hit_dual(const float* fat, const float* org,
                                    const float* dir, const float* t_max,
-                                   int n, int base, int end, int leaf_size,
-                                   int k, float* t_out, int* slot_out,
-                                   float* u_out, float* v_out, void* stream) {
-  const int threads = 128;
-  const int half = (n + 1) / 2;
-  const int blocks = (half + threads - 1) / threads;
+                                   int n, int base, int end, int k,
+                                   float* t_out, int* slot_out, float* u_out,
+                                   float* v_out, int* next_ray,
+                                   unsigned long long* counts, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
     case 4:
-      closest_hit_dual_kernel<4><<<blocks, threads, 0, s>>>(
-          fat, org, dir, t_max, n, half, base, end, leaf_size, t_out,
-          slot_out, u_out, v_out);
-      break;
+      return launch<4>(fat, org, dir, t_max, n, base, end, t_out, slot_out,
+                       u_out, v_out, next_ray, counts, s);
     case 8:
-      closest_hit_dual_kernel<8><<<blocks, threads, 0, s>>>(
-          fat, org, dir, t_max, n, half, base, end, leaf_size, t_out,
-          slot_out, u_out, v_out);
-      break;
+      return launch<8>(fat, org, dir, t_max, n, base, end, t_out, slot_out,
+                       u_out, v_out, next_ray, counts, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

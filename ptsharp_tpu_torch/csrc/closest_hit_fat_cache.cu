@@ -139,7 +139,9 @@ extern "C" int pt_closest_hit_fat_cache(const float* fat, int n_fat_rows,
   }
 }
 
-// Table rows a ring buffer holds (2 kPairs) and dynamic shared memory a
-// launch asks for, for the plain model of the schedule and the records.
+// Table rows a ring buffer holds (2 kPairs), dynamic shared memory a
+// launch asks for and whether the ring prefetches, for the plain model of
+// the schedule and the records.
 extern "C" int pt_closest_hit_fat_cache_block_rows() { return 2 * kPairs; }
 extern "C" int pt_closest_hit_fat_cache_smem() { return kSmem; }
+extern "C" int pt_closest_hit_fat_cache_prefetch() { return 1; }

@@ -63,8 +63,6 @@ def _digest() -> str:
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    # fat, rays, t, n, base, end, leaf_size, k, outputs, stream
-    closest = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp]
     # the persistent walks over the fat table: fat, rays, t, n, base, end,
     # k, outputs, the ray counter, [steps, lane slots] or null, stream
     persistent_closest = [vp, vp, vp, vp, ci, ci, ci, ci,
@@ -75,15 +73,13 @@ def _bind(lib):
     closest_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                      vp, vp, vp, vp, vp, vp]
     anyhit_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
-    # the staged kernels: their tables' row counts after the tables; the
-    # warp packets (#10, #12) also take the ray counter and [5] counts or
-    # null before the stream
+    # the warp packets (#10, #11, #12): their tables' row counts after the
+    # tables, rays, t, n, base, end, leaf_size, k, outputs, the ray
+    # counter, [5] counts or null, stream
     fat_packet = [vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                   vp, vp, vp, vp, vp, vp, vp]
     split_packet = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                     vp, vp, vp, vp, vp, vp, vp]
-    split_staged = [vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci,
-                    vp, vp, vp, vp, vp]
     # the persistent walk over the split tables: rows, leaf, rays, t, n,
     # base, end, leaf_size, k, outputs, the ray counter, [steps, lane
     # slots] or null, stream
@@ -106,18 +102,19 @@ def _bind(lib):
                          (lib.pt_closest_hit_split, closest_split),
                          (lib.pt_any_hit_split, anyhit_split),
                          (lib.pt_closest_hit_packet, split_persistent),
-                         (lib.pt_closest_hit_dual, closest),
+                         (lib.pt_closest_hit_dual, persistent_closest),
                          (lib.pt_closest_hit_fat_cache, fat_packet),
                          (lib.pt_closest_hit_block_cache, split_packet),
-                         (lib.pt_closest_hit_row_stage, split_staged),
+                         (lib.pt_closest_hit_row_stage, split_packet),
                          (lib.pt_closest_hit_binary, binary),
                          (lib.pt_closest_hit_wide_rows, rows_closest),
                          (lib.pt_any_hit_wide_rows, rows_any)):
         fn.restype = ci
         fn.argtypes = argtypes
-    # the warp packets' ring block (table rows) and dynamic shared memory
-    for name in ("fat_cache", "block_cache"):
-        for what in ("block_rows", "smem"):
+    # the warp packets' ring block (table rows), dynamic shared memory and
+    # whether their rings prefetch
+    for name in ("fat_cache", "block_cache", "row_stage"):
+        for what in ("block_rows", "smem", "prefetch"):
             fn = getattr(lib, f"pt_closest_hit_{name}_{what}")
             fn.restype = ci
             fn.argtypes = []

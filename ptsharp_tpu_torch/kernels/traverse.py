@@ -18,20 +18,20 @@ Over the split tables `rows` + `leaf` (the kernel-level entry points,
   closest_hit_preorder over the split tables (csrc/closest_hit_preorder.cu;
   its TPU kernel walks a packet with one shared cursor, this one does not).
 Memory schedules of the same two walks (kernel-level entry points too):
-  `closest_hit_dual`, the ordered walk over the fat table with two rays
-  a thread (csrc/closest_hit_dual.cu);
-  `closest_hit_fat_cache` (fat table) and `closest_hit_block_cache`
-  (split tables, both a multiple of 64 rows, `accel.tables.pad_rows`),
-  the preorder walk in warp packets of 32 rays with one cursor a packet,
-  in persistent warps, reading rows from rings of two cache blocks in
-  shared memory that TMA bulk copies fill, the next block copied while
-  the warp tests the current one: one ring of fat row pairs, or a ring of
-  node rows and a ring of leaf blocks (csrc/closest_hit_fat_cache.cu,
-  closest_hit_block_cache.cu; `warp_packet_plain` models the schedule
-  and its counts);
-  `closest_hit_row_stage` (split tables), the preorder walk with one
-  cursor per block of 128 rays, staging one node row and leaf block a
-  step into shared memory with cp.async (csrc/closest_hit_row_stage.cu).
+  `closest_hit_dual`, the ordered walk of closest_hit over the fat table
+  with two rays a lane, in persistent warps that refill their idle slots
+  (csrc/closest_hit_dual.cu);
+  `closest_hit_fat_cache` (fat table), `closest_hit_block_cache` (split
+  tables, both a multiple of 64 rows, `accel.tables.pad_rows`) and
+  `closest_hit_row_stage` (split tables of any length), the preorder walk
+  in warp packets of 32 rays with one cursor a packet, in persistent
+  warps, reading rows from shared memory that TMA bulk copies fill: rings
+  of two cache blocks, the next block copied while the warp tests the
+  current one, one of fat row pairs or one of node rows and one of leaf
+  blocks (csrc/closest_hit_fat_cache.cu, closest_hit_block_cache.cu), or
+  one-row stages of node rows and leaf blocks, a row copied when the
+  cursor needs another (csrc/closest_hit_row_stage.cu);
+  `warp_packet_plain` models the schedule and its counts.
 Over the XLA walks' row tables (intersect.py, intersector "walk", "wide"
 and "cluster"; node rows of any width, leaf blocks (NL, leaf_size * 9)):
   `closest_hit_binary`, the binary skip-link walk over u_rows (N, 10) in
@@ -103,7 +103,7 @@ ORDER_MODES = ("full", "near")  # the ordered walk's push orders
 # the block-cache kernel's tables are multiples of this many rows, the JAX
 # kernel's block (BLK)
 CACHE_BLOCK_ROWS = 64
-PACKET_WIDTH = 32  # rays a warp packet of #10 and #12
+PACKET_WIDTH = 32  # rays a warp packet of #10, #11 and #12
 # the warp packets' counters, in the order of their `counts`: packet steps,
 # the lanes' own steps, demand block copies, prefetches used and discarded
 PACKET_COUNTS = ("packet_steps", "lane_steps", "demand", "used", "discarded")
@@ -324,14 +324,14 @@ class _StackWalk(_Walk):
     pushes in the order `order` names (ORDER_MODES).
 
     entry=False: a visit tests the node's own box against the best t,
-    and a pop takes the top entry (the walk of #5, #8 and #9).
+    and a pop takes the top entry (the walk of #5 and #8).
     entry=True: each entry carries the entry distance of its box, which
     the parent's child test computed; a pop drops the entries the ray no
     longer enters before the best t, and no visit tests its own box again,
     since the child test decided it (the parent row holds each child's
     box bit for bit, accel.tables.check_child_boxes). Only the root's box
     is tested, once, where the walk starts. Both give the same results;
-    entry=True takes fewer steps (the walk of #1 and #2)."""
+    entry=True takes fewer steps (the walk of #1, #2 and #9)."""
 
     def __init__(self, tab, org, dirn, bt, base, end, k, start,
                  order="full", count=False, entry=False):
@@ -480,7 +480,8 @@ class _PacketWalk(_SkipWalk):
         return v
 
 
-def _ring_counts(reads, block_rows: int, limit: int, n_packets: int):
+def _ring_counts(reads, block_rows: int, limit: int, n_packets: int,
+                 prefetch: bool = True, device="cpu"):
     """Demand copies, prefetches used and prefetches discarded, per packet,
     of a ring of two buffers of `block_rows` table rows (TmaRing in
     csrc/bvh_common.cuh) over `reads`, the (packets, rows) each step read.
@@ -489,9 +490,11 @@ def _ring_counts(reads, block_rows: int, limit: int, n_packets: int):
     starts at or past `limit`. A read of another block takes the prefetch
     when it is that block (used), else copies it on demand and discards the
     prefetch; so does a packet's first read, into an empty ring. The
-    prefetch left at a packet's end is discarded."""
-    dev = reads[0][0].device if reads else torch.device("cpu")
-    zero = torch.zeros(n_packets, dtype=torch.int64, device=dev)
+    prefetch left at a packet's end is discarded. Without `prefetch` the
+    ring is one buffer (a stage): every read of another block than the one
+    it holds, and a packet's first read, is a demand copy. The counts lie
+    on `device`, the reads' device."""
+    zero = torch.zeros(n_packets, dtype=torch.int64, device=device)
     if not reads:
         return zero, zero.clone(), zero.clone()
     packet = torch.cat([p for p, _r in reads])
@@ -501,9 +504,10 @@ def _ring_counts(reads, block_rows: int, limit: int, n_packets: int):
     change = torch.ones_like(packet, dtype=torch.bool)
     change[1:] = (packet[1:] != packet[:-1]) | (blk[1:] != blk[:-1])
     packet, blk = packet[change], blk[change]
-    used = torch.zeros(packet.shape[0], dtype=torch.bool, device=dev)
-    used[1:] = (packet[1:] == packet[:-1]) & (blk[1:] == blk[:-1] + 1)
-    issued = (blk + 1) * block_rows < limit
+    used = torch.zeros(packet.shape[0], dtype=torch.bool, device=device)
+    if prefetch:
+        used[1:] = (packet[1:] == packet[:-1]) & (blk[1:] == blk[:-1] + 1)
+    issued = ((blk + 1) * block_rows < limit) & prefetch
 
     def per_packet(mask):
         return torch.bincount(packet[mask], minlength=n_packets)
@@ -514,16 +518,17 @@ def _ring_counts(reads, block_rows: int, limit: int, n_packets: int):
 
 def warp_packet_plain(nodes, leaf, org, dirn, t_max, base: int, end: int,
                       leaf_size: int, k: int, block_rows: int,
-                      width: int = PACKET_WIDTH):
+                      width: int = PACKET_WIDTH, prefetch: bool = True):
     """Plain model of the warp-packet schedule of closest_hit_fat_cache
-    (leaf None: `nodes` is the fat table, one ring of fat pairs) and
-    closest_hit_block_cache (`nodes`, `leaf` the split tables, a ring
-    each): the preorder walk in packets of `width` lanes with one cursor a
-    packet (_PacketWalk), and each ring's copies for buffers of
-    `block_rows` table rows (_ring_counts; the kernels' constants,
-    `cache_layout`). Returns (t, slot, u, v, counts): each lane's result,
-    equal to the per-lane preorder walk's, and counts, PACKET_COUNTS ->
-    (packets,) int64, the numbers the kernels add to their `counts`."""
+    (leaf None: `nodes` is the fat table, one ring of fat pairs),
+    closest_hit_block_cache and closest_hit_row_stage (`nodes`, `leaf` the
+    split tables, a ring or a stage each): the preorder walk in packets of
+    `width` lanes with one cursor a packet (_PacketWalk), and each ring's
+    copies for buffers of `block_rows` table rows, with or without
+    `prefetch` (_ring_counts; the kernels' constants, `cache_layout`).
+    Returns (t, slot, u, v, counts): each lane's result, equal to the
+    per-lane preorder walk's, and counts, PACKET_COUNTS -> (packets,)
+    int64, the numbers the kernels add to their `counts`."""
     tab = _Table(nodes) if leaf is None else _Table(nodes, leaf, leaf_size)
     walk = _PacketWalk(tab, org, dirn, t_max.clone(), base, end, k, width)
     t, slot, u, v = _walk_closest(walk, leaf_size)
@@ -535,10 +540,11 @@ def warp_packet_plain(nodes, leaf, org, dirn, t_max, base: int, end: int,
     # node rows are read below row `limit`: 2 end of the fat table, end of
     # the split node rows; leaf rows anywhere in the leaf table
     rings = [_ring_counts(walk.node_reads, block_rows,
-                          end * (2 if leaf is None else 1), n)]
+                          end * (2 if leaf is None else 1), n, prefetch,
+                          org.device)]
     if leaf is not None:
         rings.append(_ring_counts(walk.leaf_reads, block_rows,
-                                  leaf.shape[0], n))
+                                  leaf.shape[0], n, prefetch, org.device))
     copies = [sum(c) for c in zip(*rings)]
     return t, slot, u, v, dict(zip(PACKET_COUNTS,
                                    (steps, lane_steps, *copies)))
@@ -719,14 +725,15 @@ def closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base: int,
 
 
 def closest_hit_dual_plain(fat, org, dirn, t_max, base: int, end: int,
-                           leaf_size: int, k: int):
-    """Plain PyTorch version of the two-rays-a-thread ordered walk: per
-    ray the ordered walk over the fat table, "near" push order (the
-    only order of the JAX kernel), which is each ray's walk in
-    csrc/closest_hit_dual.cu."""
-    return _walk_closest(_StackWalk(_Table(fat), org, dirn, t_max.clone(),
-                                    base, end, k, _all_lanes(org),
-                                    order="near"), leaf_size)
+                           leaf_size: int, k: int,
+                           return_iters: bool = False):
+    """Plain PyTorch version of the two-rays-a-lane ordered walk: per ray
+    closest_hit_plain's walk, "near" push order (the only order of the JAX
+    kernel) with stack entries that carry their entry distance, which is
+    each slot's walk in csrc/closest_hit_dual.cu; with return_iters, also
+    each ray's step count (int32 (R,)), the steps that kernel takes."""
+    return closest_hit_plain(fat, org, dirn, t_max, base, end, leaf_size, k,
+                             return_iters)
 
 
 def closest_hit_fat_cache_plain(fat, org, dirn, t_max, base: int, end: int,
@@ -749,7 +756,7 @@ def closest_hit_block_cache_plain(rows, leaf, org, dirn, t_max, base: int,
 
 def closest_hit_row_stage_plain(rows, leaf, org, dirn, t_max, base: int,
                                 end: int, leaf_size: int, k: int):
-    """Plain PyTorch version of the row-staging packet walk over the split
+    """Plain PyTorch version of the row-staged warp packet over the split
     tables: per lane the preorder walk, leaf block leaf[first //
     leaf_size] on a leaf table of any length
     (csrc/closest_hit_row_stage.cu)."""
@@ -884,9 +891,10 @@ _RAY_COUNTERS = {}
 def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
                 counts, out, n_counts=2):
     """Launch a persistent walk (csrc/closest_hit.cu, any_hit.cu,
-    closest_hit_preorder.cu, any_hit_preorder.cu, closest_hit_binary.cu,
-    and the warp packets of closest_hit_fat_cache.cu and
-    closest_hit_block_cache.cu) over the rays, writing
+    closest_hit_dual.cu, closest_hit_preorder.cu, any_hit_preorder.cu,
+    closest_hit_binary.cu, and the warp packets of closest_hit_fat_cache.cu,
+    closest_hit_block_cache.cu and closest_hit_row_stage.cu) over the rays,
+    writing
     `out`: its warps take rays from the counter of the current stream,
     which is at 0 between launches. `x` is a table (its device and
     stream), `lead` the C entry's arguments before the rays (the tables
@@ -1089,24 +1097,22 @@ def closest_hit_packet(rows, leaf, org, dirn, t_max, base: int, end: int,
 
 
 def closest_hit_dual(fat, org, dirn, t_max, base: int, end: int,
-                     leaf_size: int, k: int):
-    """Closest hit per ray by the ordered walk, two rays a thread:
-    (t, slot, u, v), equal to closest_hit's on every lane. The JAX
-    kernel's `mt_gate` and `max_iters` change no result and are not
-    taken. csrc/closest_hit_dual.cu on CUDA tensors,
-    closest_hit_dual_plain on CPU tensors."""
+                     leaf_size: int, k: int, counts=None):
+    """Closest hit per ray by the ordered walk, two rays a lane in
+    persistent warps: (t, slot, u, v), equal to closest_hit's on every
+    lane. The JAX kernel's `mt_gate` and `max_iters` change no result and
+    are not taken. csrc/closest_hit_dual.cu on CUDA tensors,
+    closest_hit_dual_plain on CPU tensors. `counts` as in closest_hit:
+    the steps its rays took (closest_hit's) and the slots its warps ran
+    (64 a loop turn)."""
     _check(fat, org, dirn, t_max, base, end, leaf_size, k)
     if fat.device.type == "cpu":
+        _plain_counts(counts)
         return closest_hit_dual_plain(fat, org, dirn, t_max, base, end,
                                       leaf_size, k)
-    lib = _kernel_lib(fat, k)
-    r = org.shape[0]
-    out = _hit_outputs(r, fat.device)
-    if r:
-        _launch(closest_hit_dual, "pt_closest_hit_dual", lib, _ptr(fat),
-                _ptr(org), _ptr(dirn), _ptr(t_max), r, base, end, leaf_size,
-                k, *map(_ptr, out), _stream(fat), rays=r)
-    return out
+    return _persistent_fat(closest_hit_dual, "pt_closest_hit_dual", fat, org,
+                           dirn, t_max, base, end, k, counts,
+                           _hit_outputs(org.shape[0], fat.device))
 
 
 def closest_hit_fat_cache(fat, org, dirn, t_max, base: int, end: int,
@@ -1163,37 +1169,40 @@ def closest_hit_block_cache(rows, leaf, org, dirn, t_max, base: int,
 
 def cache_layout(wrapper):
     """(table rows a ring buffer holds, dynamic shared memory a launch asks
-    for in bytes) of a warp-packet kernel, closest_hit_fat_cache or
-    closest_hit_block_cache, from the built library: the block_rows that
-    warp_packet_plain takes to model it. Needs the card's toolchain."""
+    for in bytes, whether the rings prefetch) of a warp-packet kernel,
+    closest_hit_fat_cache, closest_hit_block_cache or
+    closest_hit_row_stage, from the built library: the block_rows and
+    prefetch that warp_packet_plain takes to model it. Needs the card's
+    toolchain."""
     from ptsharp_tpu_torch.kernels import build
 
     lib = build.load()
     name = f"pt_{wrapper.__name__}"
     return (getattr(lib, f"{name}_block_rows")(),
-            getattr(lib, f"{name}_smem")())
+            getattr(lib, f"{name}_smem")(),
+            bool(getattr(lib, f"{name}_prefetch")()))
 
 
 def closest_hit_row_stage(rows, leaf, org, dirn, t_max, base: int, end: int,
-                          leaf_size: int, k: int):
-    """Closest hit per ray by the preorder packet walk of 128 rays that
-    stages each step's node row and leaf block into shared memory:
+                          leaf_size: int, k: int, counts=None):
+    """Closest hit per ray by the preorder walk in warp packets of 32 rays
+    (one cursor a packet, persistent warps) through one-row stages in
+    shared memory, node rows and leaf blocks, filled by TMA bulk copies:
     (t, slot, u, v), equal to closest_hit_preorder's on every lane, on
-    tables of any length. csrc/closest_hit_row_stage.cu on CUDA tensors,
-    closest_hit_row_stage_plain on CPU tensors."""
+    split tables of any length. csrc/closest_hit_row_stage.cu on CUDA
+    tensors, closest_hit_row_stage_plain on CPU tensors; `counts` as in
+    closest_hit_fat_cache, both stages' copies summed."""
     _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
     if rows.device.type == "cpu":
+        _plain_counts(counts)
         return closest_hit_row_stage_plain(rows, leaf, org, dirn, t_max,
                                            base, end, leaf_size, k)
-    lib = _kernel_lib(rows, k)
-    r = org.shape[0]
-    out = _hit_outputs(r, rows.device)
-    if r:
-        _launch(closest_hit_row_stage, "pt_closest_hit_row_stage", lib,
-                *_staged_tables(rows, leaf), _ptr(org), _ptr(dirn),
-                _ptr(t_max), r, base, end, leaf_size, k, *map(_ptr, out),
-                _stream(rows), rays=r)
-    return out
+    _kernel_lib(rows, k)
+    return _persistent(closest_hit_row_stage, "pt_closest_hit_row_stage",
+                       rows, _staged_tables(rows, leaf), org, dirn, t_max,
+                       base, end, (leaf_size, k), counts,
+                       _hit_outputs(org.shape[0], rows.device),
+                       len(PACKET_COUNTS))
 
 
 def closest_hit_binary(rows, leaf, org, dirn, t_max, base: int, end: int,

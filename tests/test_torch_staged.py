@@ -23,19 +23,26 @@ except ties for the dual walk (the JAX packets' consensus order differs
 from a ray's own near-to-far order), equal on every lane for the
 preorder packet walks. u, v within 1e-4 on hit lanes off ties.
 
-The plain model of #10's and #12's warp-packet schedule
+The dual walk's plain version is the ordered walk of closest_hit_plain
+(stack entries with their entry distance): each ray takes its steps.
+
+The plain model of the warp-packet schedule of #10, #11 and #12
 (traverse.warp_packet_plain: packets of W lanes with one cursor each, and
-the copies of its two-buffer rings) at W = 1 takes each ray's own steps
-(closest_hit_packet_plain's), and at W = 32 and 128 gives every lane the
-per-lane walk's (t, slot, u, v) bit for bit, so it holds against the JAX
-block-cache kernels as the per-lane walk does. Its ring counts hold
-against a step-by-step simulation of the ring on random reads, and the
-leaf rows that a packet's cursor reaches never decrease in these tables
-(the block-cache kernel's leaf ring prefetches the next leaf block).
+the copies of its two-buffer rings or, for #11, one-row stages without
+prefetch) at W = 1 takes each ray's own steps (closest_hit_packet_plain's),
+and at W = 32 and 128 gives every lane the per-lane walk's (t, slot, u, v)
+bit for bit, so it holds against the JAX block-cache kernels as the
+per-lane walk does; #11's stage model does so on the unpadded split
+tables. Its ring and stage counts hold against a step-by-step simulation
+of the ring or stage on random reads and on the packets' own reads, and
+the leaf rows that a packet's cursor reaches never decrease in these
+tables, padded or not (a leaf ring that prefetches copies the next leaf
+block).
 
 The card-marked test runs the four CUDA kernels against their plain
-versions, and the warp packets' counts against the plain model of their
-schedule; it skips on a machine without a card.
+versions, and their counts against the plain walks (#9's steps) and the
+plain model of their schedule (#10-#12); it skips on a machine without a
+card.
 """
 
 import functools
@@ -197,6 +204,20 @@ def test_staged_walks_equal_the_fat_walks(ref):
             assert torch.equal(a, b)
 
 
+def test_dual_plain_takes_the_ordered_walks_steps(ref):
+    """The dual walk's plain version takes closest_hit_plain's steps on
+    every ray, the steps csrc/closest_hit_dual.cu counts, and gives its
+    results."""
+    *out, steps = traverse.closest_hit_dual_plain(ref["fat"], *_rays_of(ref),
+                                                  return_iters=True)
+    *want, want_steps = traverse.closest_hit_plain(
+        ref["fat"], *_rays_of(ref), return_iters=True)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    assert torch.equal(steps, want_steps)
+    assert int(steps.sum()) > 0
+
+
 def test_staged_wrappers_take_the_plain_version_on_cpu(ref):
     traverse.reset_launch_counts()
     rays = _rays_of(ref)
@@ -284,35 +305,49 @@ def test_packet_model_matches_lane_walk_and_jax_kernel(ref, width, table):
             * (1 if table == "fat" else 2)).all()
 
 
-def test_leaf_rows_grow_along_the_packet_cursor(ref):
-    """The block-cache kernel's leaf ring prefetches the block after the
-    one in use: the leaf rows (first // leaf_size) of the leaf nodes grow
-    with the node index in these tables, so along every packet's cursor
-    too, as the model's reads show."""
+def _packet_walk(ref, tables, width=traverse.PACKET_WIDTH):
+    """The model's packet walk over split tables (rows, leaf), run to its
+    end: its reads a step."""
+    walk = traverse._PacketWalk(
+        traverse._Table(*tables, ref["args"][2]), ref["org"], ref["dirn"],
+        ref["t_max"].clone(), *ref["args"][:2], ref["args"][3], width)
+    traverse._walk_closest(walk, ref["args"][2])
+    return walk
+
+
+def _reads_by_packet(reads):
+    """(packet, row) of every read in step order within each packet, the
+    packets in order."""
+    packet = torch.cat([p for p, _r in reads])
+    rows = torch.cat([r for _p, r in reads])
+    order = torch.sort(packet, stable=True).indices
+    return packet[order], rows[order]
+
+
+@pytest.mark.parametrize("padded", [True, False])
+def test_leaf_rows_grow_along_the_packet_cursor(ref, padded):
+    """A leaf ring that prefetches copies the block after the one in use:
+    the leaf rows (first // leaf_size) of the leaf nodes grow with the node
+    index in these tables, padded (#10's) or not (#11's), so along every
+    packet's cursor too, as the model's reads show."""
     bits = ref["rows"].view(torch.int32)
     leaf_nodes = torch.nonzero((bits[:, 7] & 0xFF) > 0).squeeze(1)
     lj = bits[leaf_nodes, 6] // ref["args"][2]
     assert (lj[1:] > lj[:-1]).all()
-    walk = traverse._PacketWalk(
-        traverse._Table(*ref["padded"], ref["args"][2]), ref["org"],
-        ref["dirn"], ref["t_max"].clone(), *ref["args"][:2], ref["args"][3],
-        traverse.PACKET_WIDTH)
-    traverse._walk_closest(walk, ref["args"][2])
-    packet = torch.cat([p for p, _r in walk.leaf_reads])
-    rows = torch.cat([r for _p, r in walk.leaf_reads])
-    order = torch.sort(packet, stable=True).indices
-    packet, rows = packet[order], rows[order]
+    tables = ref["padded"] if padded else (ref["rows"], ref["leaf"])
+    packet, rows = _reads_by_packet(_packet_walk(ref, tables).leaf_reads)
     same = packet[1:] == packet[:-1]
     assert same.any() and (rows[1:][same] >= rows[:-1][same]).all()
 
 
-def _ring_by_steps(reads, block_rows, limit):
+def _ring_by_steps(reads, block_rows, limit, prefetch=True):
     """The ring of TmaRing (csrc/bvh_common.cuh) run read by read over one
-    packet's rows: (demand, used, discarded)."""
+    packet's rows: (demand, used, discarded). Without `prefetch`, the
+    one-buffer stage."""
     tag, cur, pre = [-1, -1], 0, [False, False]
     demand = used = discarded = 0
 
-    def prefetch(s, blk):
+    def prefetch_next(s, blk):
         tag[s] = blk if blk * block_rows < limit else -1
         pre[s] = tag[s] >= 0
 
@@ -320,27 +355,33 @@ def _ring_by_steps(reads, block_rows, limit):
         blk = row // block_rows
         if tag[cur] == blk:
             continue
+        if not prefetch:
+            demand += 1
+            tag[cur] = blk
+            continue
         o = cur ^ 1
         if tag[o] == blk:
             used += 1
             pre[o] = False
             cur = o
-            prefetch(o ^ 1, blk + 1)
+            prefetch_next(o ^ 1, blk + 1)
         else:
             demand += 1
             tag[cur] = blk
             discarded += pre[o]
             pre[o] = False
-            prefetch(o, blk + 1)
+            prefetch_next(o, blk + 1)
     return demand, used, discarded + sum(pre)
 
 
+@pytest.mark.parametrize("prefetch", [True, False])
 @pytest.mark.parametrize("block_rows, limit, seed", [(4, 200, 0), (8, 64, 1),
                                                      (16, 1000, 2)])
-def test_ring_counts_follow_the_ring(block_rows, limit, seed):
-    """_ring_counts, which counts a ring's copies from the reads of all
-    packets at once, against the ring run read by read: rows mostly
-    growing with jumps, repeats and, in some packets, a step back."""
+def test_ring_counts_follow_the_ring(block_rows, limit, seed, prefetch):
+    """_ring_counts, which counts a ring's (or a stage's) copies from the
+    reads of all packets at once, against the ring run read by read: rows
+    mostly growing with jumps, repeats and, in some packets, a step
+    back."""
     rng = np.random.default_rng(seed)
     n_packets, steps = 40, 30
     grow = rng.choice([0, 1, 2, block_rows, 3 * block_rows], (n_packets,
@@ -350,17 +391,67 @@ def test_ring_counts_follow_the_ring(block_rows, limit, seed):
     rows[back, steps // 2:] //= 3
     reads = [(torch.arange(n_packets), torch.from_numpy(rows[:, j]))
              for j in range(steps)]
-    got = traverse._ring_counts(reads, block_rows, limit, n_packets)
-    want = np.array([_ring_by_steps(r, block_rows, limit) for r in rows])
+    got = traverse._ring_counts(reads, block_rows, limit, n_packets,
+                                prefetch)
+    want = np.array([_ring_by_steps(r, block_rows, limit, prefetch)
+                     for r in rows])
     for j in range(3):
         np.testing.assert_array_equal(got[j].numpy(), want[:, j])
 
 
+@pytest.mark.parametrize("width", [1, 32, 128])
+def test_stage_model_on_unpadded_tables(ref, width):
+    """#11's schedule, warp packets over one-row stages with no prefetch,
+    on the unpadded split tables: every lane equals the per-lane preorder
+    walk bit for bit (at width 1 each packet takes its ray's steps), and
+    the stages' copies equal the stage run read by read over each packet's
+    node rows and leaf rows: one demand copy a change of row."""
+    rays = _rays_of(ref)
+    split = (ref["rows"], ref["leaf"])
+    *out, counts = traverse.warp_packet_plain(*split, *rays, block_rows=1,
+                                              width=width, prefetch=False)
+    *want, steps = traverse.closest_hit_preorder_plain(ref["fat"], *rays,
+                                                       return_iters=True)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+    assert int(counts["lane_steps"].sum()) == int(steps.sum())
+    if width == 1:
+        assert torch.equal(counts["packet_steps"], steps.to(torch.int64))
+    walk = _packet_walk(ref, split, width)
+    demand = np.zeros(-(-N // width), dtype=np.int64)
+    for reads, limit in ((walk.node_reads, ref["args"][1]),
+                         (walk.leaf_reads, ref["leaf"].shape[0])):
+        packet, rows = _reads_by_packet(reads)
+        for p in torch.unique(packet).tolist():
+            demand[p] += _ring_by_steps(rows[packet == p].tolist(), 1, limit,
+                                        prefetch=False)[0]
+    np.testing.assert_array_equal(counts["demand"].numpy(), demand)
+    assert not counts["used"].any() and not counts["discarded"].any()
+    assert (counts["demand"] >= 1).all()
+
+
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_packet_model_of_no_rays(ref, prefetch):
+    """No ray, no packet: the model gives empty results and counts."""
+    rays = [x[:0] for x in (ref["org"], ref["dirn"], ref["t_max"])]
+    *out, counts = traverse.warp_packet_plain(
+        ref["rows"], ref["leaf"], *rays, *ref["args"], block_rows=1,
+        prefetch=prefetch)
+    assert all(x.shape == (0,) for x in out)
+    assert all(counts[key].shape == (0,) for key in traverse.PACKET_COUNTS)
+
+
 @pytest.mark.parametrize("name", ["closest_hit_fat_cache",
-                                  "closest_hit_block_cache"])
+                                  "closest_hit_block_cache",
+                                  "closest_hit_row_stage",
+                                  "closest_hit_dual"])
 def test_packet_wrappers_take_no_counts_on_the_cpu(ref, name):
-    tabs = (ref["fat"],) if name == "closest_hit_fat_cache" else ref["padded"]
-    counts = torch.zeros(len(traverse.PACKET_COUNTS), dtype=torch.int64)
+    tabs = {"closest_hit_block_cache": ref["padded"],
+            "closest_hit_row_stage": (ref["rows"], ref["leaf"])}.get(
+                name, (ref["fat"],))
+    n_counts = 2 if name == "closest_hit_dual" else len(
+        traverse.PACKET_COUNTS)
+    counts = torch.zeros(n_counts, dtype=torch.int64)
     with pytest.raises(ValueError, match="counts"):
         getattr(traverse, name)(*tabs, *_rays_of(ref), counts=counts)
 
@@ -369,8 +460,8 @@ def test_packet_wrappers_take_no_counts_on_the_cpu(ref, name):
 def test_cuda_staged_kernels_match_plain_versions(ref):
     """Runs on a machine with a card: the four CUDA kernels against their
     plain versions on the same inputs, every lane equal, their launch
-    counts, and the warp packets' counts against the plain model of their
-    schedule."""
+    counts, #9's steps against the ordered walk's, and the warp packets'
+    counts against the plain model of their schedule."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
@@ -398,14 +489,20 @@ def test_cuda_staged_kernels_match_plain_versions(ref):
               traverse.closest_hit_block_cache,
               traverse.closest_hit_row_stage):
         assert w.launches == 1
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    traverse.closest_hit_dual(fat, *rays, counts=counts)
+    steps = traverse.closest_hit_dual_plain(fat, *rays, return_iters=True)[-1]
+    assert int(counts[0]) == int(steps.sum()) <= int(counts[1])
     for w, tabs in ((traverse.closest_hit_fat_cache, (fat,)),
-                    (traverse.closest_hit_block_cache, padded)):
+                    (traverse.closest_hit_block_cache, padded),
+                    (traverse.closest_hit_row_stage, split)):
         counts = torch.zeros(len(traverse.PACKET_COUNTS), dtype=torch.int64,
                              device=dev)
         got = w(*tabs, *rays, counts=counts)
+        block_rows, _smem, prefetch = traverse.cache_layout(w)
         *model, mc = traverse.warp_packet_plain(
             tabs[0], tabs[1] if len(tabs) > 1 else None, *rays,
-            block_rows=traverse.cache_layout(w)[0])
+            block_rows=block_rows, prefetch=prefetch)
         for a, b in zip(got, model):
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
         assert counts.tolist() == [int(mc[key].sum())
