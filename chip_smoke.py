@@ -38,23 +38,24 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               of each chunk held against the plain version on every
               lane, the four launches timed in full;
   5b. split   the kernel-level entry points over the split tables
-              (split_fat of the bunny's fat table, K=8, leaf 14) on the
-              rays of 4 at the 1080p main-path width, driven once with
-              every launch count set to 0 just before and read just
-              after: ordered closest-hit in both push orders with each
-              ray's step count, ordered any-hit, and the persistent
-              preorder closest-hit over the split tables (#13, with its
-              kernel-counted steps); then each against its plain version
-              (the tolerances of 4; #13 every output and the step count
-              on every lane; the step counts equal) and against its
-              fat-table twin on the same rays (ordered "near" closest-hit
-              and #13 equal to the fat ordered and preorder kernels on
-              every lane, ordered any-hit equal to the fat one);
-              step-count mean, p50, p99 and lane use (steps taken over
-              the steps each warp runs, one and two rays a thread) per
-              ray kind and order; times against the plain versions and,
-              per ray kind, against the twins, with #13's kernel-counted
-              lane use and steps;
+              (split_fat of the fat table, held to check_child_boxes; the
+              bunny's K=8, leaf 14, on the rays of 4 at the 1080p
+              main-path width, then dragon_hd's on the rays of 5), driven
+              once with every launch count set to 0 just before and read
+              just after, each with its kernel-counted steps: the
+              persistent ordered closest-hit (#5) in both push orders
+              with each ray's step count, the persistent ordered any-hit
+              (#8), and the persistent preorder closest-hit (#13); then
+              each against its plain version (every output and each
+              ray's steps on every lane, #8 in both orders; the counted
+              steps equal) and against its fat-table twin on the same
+              rays (#5 "near" equal to #1 on every lane and in its
+              counted steps, #8 to #2, #13 to #4); step-count mean, p50,
+              p99 and a static lane use (steps taken over the steps each
+              warp of consecutive rays runs, one and two rays a thread)
+              per order; times against the plain versions and, per ray
+              kind (camera, bounce; shadow for #8), each kernel's time,
+              kernel-counted lane use and steps beside the twins' times;
   5c. stack   the ordered kernels, fat and split, on hand-built chains
               whose max_stack_bound lies in (64, 128], against the
               preorder walk;
@@ -138,8 +139,8 @@ Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
 of the fourteen kernel entry points' launches over the main-path renders
-(the split-table kernels': over the split phase's driven calls; the
-staged kernels': over the staged phase's, both scenes), its largest
+(the split-table and the staged kernels': over their phases' driven
+calls, both scenes), its largest
 error against its plain version, its times at the bunny's 1080p
 main-path width and its bound there; the last line is {"ok": true,
 "device": {...}}.
@@ -185,9 +186,9 @@ KERNELS = {
                               "ptsharp_tpu/pallas/hbm_kernel.py:570"]),
     "any_hit_preorder": ("ptsharp_tpu_torch/csrc/any_hit_preorder.cu",
                          ["ptsharp_tpu/pallas/hbm_kernel.py:862"]),
-    "closest_hit_split": ("ptsharp_tpu_torch/csrc/closest_hit_split.cu",
+    "closest_hit_split": ("ptsharp_tpu_torch/csrc/closest_hit.cu",
                           ["ptsharp_tpu/pallas/ordered_kernel.py:875"]),
-    "any_hit_split": ("ptsharp_tpu_torch/csrc/any_hit_split.cu",
+    "any_hit_split": ("ptsharp_tpu_torch/csrc/any_hit.cu",
                       ["ptsharp_tpu/pallas/ordered_kernel.py:816"]),
     "closest_hit_packet": ("ptsharp_tpu_torch/csrc/closest_hit_preorder.cu",
                            ["ptsharp_tpu/pallas/wide_kernel.py:304"]),
@@ -356,7 +357,8 @@ def ptxas_report(text: str) -> dict:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             k = re.search(r"([a-z_]+)_kernel(?:I(?:Li(\d+)E)?)?(?:Lb(\d)E)?"
-                          r"(?:LN3ptk4PushE(\d)E)?(?:N3ptk\d+([A-Z][a-z]+Table)E)?",
+                          r"(?:LN3ptk4PushE(\d)E)?"
+                          r"(?:N(?:3ptk|S\d*_)\d+([A-Z][a-z]+Table)E)?",
                           m.group(1))
             loads = {None: None, "0": "scalar", "1": "float4"}
             push = {None: None, "0": "full", "1": "near"}
@@ -639,19 +641,20 @@ def _steps_text(steps):
             f"p99={float(q[1]):.0f}")
 
 
-def _kind_stats(kernel, plain, tables, o, d, t, args, counted, dev):
+def _kind_stats(kernel, plain, tables, o, d, t, args, counted, dev, **kw):
     """One ray kind through a persistent kernel: its kernel-counted steps
     (equal to its plain version's) and lane use, and its time. `counted`
-    names the ray kind for the messages. Returns (ms, lane use, steps)."""
+    names the ray kind for the messages; `kw` goes to both. Returns (ms,
+    lane use, steps)."""
     counts = torch.zeros(2, dtype=torch.int64, device=dev)
-    kernel(*tables, o, d, t, *args, counts=counts)
-    steps = plain(*tables, o, d, t, *args, return_iters=True)[-1]
+    kernel(*tables, o, d, t, *args, counts=counts, **kw)
+    steps = plain(*tables, o, d, t, *args, return_iters=True, **kw)[-1]
     taken, slots = counts.tolist()
     if taken != int(steps.sum()):
         raise AssertionError(f"{kernel.__name__} took {taken} steps on "
                              f"{counted}, its plain version "
                              f"{int(steps.sum())}")
-    ms = time_ms(lambda: kernel(*tables, o, d, t, *args), dev)
+    ms = time_ms(lambda: kernel(*tables, o, d, t, *args, **kw), dev)
     return ms, taken / slots, steps
 
 
@@ -796,38 +799,54 @@ def _steps_line(steps, n_cam):
     return "; ".join(parts)
 
 
+def split_tables(fat, leaf_size: int, k: int, device):
+    """split_fat of a fat table, held to the child-box check that the
+    ordered walks need (accel.tables.check_child_boxes), on `device`."""
+    from ptsharp_tpu_torch.accel import tables
+
+    rows, leaf = tables.split_fat(np.asarray(fat), leaf_size)
+    tables.check_child_boxes(rows, k)
+    return rows, leaf, tuple(torch.from_numpy(x).to(device)
+                             for x in (rows, leaf))
+
+
 def split_phase(scene, rays, label):
     """The split-table entry points, driven once on the rays of the main
-    path with the launch counts set to 0 just before and read just after;
-    then each held against its plain version and its fat-table twin, and
-    timed. Returns ({wrapper name: {max_abs_err, ms, plain_ms}},
-    {wrapper name: launches})."""
-    from ptsharp_tpu_torch.accel.tables import split_fat
+    path with the launch counts set to 0 just before and read just after,
+    each with its counts; then each held against its plain version (every
+    output on every lane, and each ray's steps) and its fat-table twin,
+    and timed, per ray kind with lane use. Returns ({wrapper name:
+    {max_abs_err, ms, plain_ms}}, {wrapper name: launches})."""
     from ptsharp_tpu_torch.kernels import traverse
 
     dev = scene.p_fat.device
     t0 = time.perf_counter()
-    rows, leaf = (torch.from_numpy(x).to(dev) for x in split_fat(
-        scene.p_fat.cpu().numpy(), scene.max_leaf))
-    log(f"split tables [{label}]: rows {tuple(rows.shape)}, leaf "
-        f"{tuple(leaf.shape)}, {time.perf_counter() - t0:.2f} s")
+    _rows, _leaf, tab = split_tables(scene.p_fat.cpu().numpy(),
+                                     scene.max_leaf, scene.wide_k, dev)
+    log(f"split tables [{label}]: rows {tuple(tab[0].shape)}, leaf "
+        f"{tuple(tab[1].shape)}, child boxes checked, "
+        f"{time.perf_counter() - t0:.2f} s")
     org, dirn, n_cam = rays["org"], rays["dirn"], rays["n_cam"]
-    ob, ds = rays["shadow_org"], rays["shadow_dirn"]
-    t_cut, t_near = rays["t_cut"], rays["t_near"]
+    ob, ds, t_cut = rays["shadow_org"], rays["shadow_dirn"], rays["t_cut"]
     args = _args(scene)
     tmax = torch.full((org.shape[0],), INF, device=dev)
-    tab = (rows, leaf)
+
+    def new_counts():
+        return torch.zeros(2, dtype=torch.int64, device=dev)
 
     # the path: each entry point once, as a caller of the kernel-level
-    # API calls it
+    # API calls it, each with its counts
+    counts = {name: new_counts() for name in
+              (*traverse.ORDER_MODES, "any_hit_split", "closest_hit_packet")}
     traverse.reset_launch_counts()
     ordered = {m: traverse.closest_hit_split(*tab, org, dirn, tmax, *args,
-                                             order_mode=m, return_iters=True)
+                                             order_mode=m, return_iters=True,
+                                             counts=counts[m])
                for m in traverse.ORDER_MODES}
-    occ = traverse.any_hit_split(*tab, ob, ds, t_cut, *args)
-    packet_counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    occ = traverse.any_hit_split(*tab, ob, ds, t_cut, *args,
+                                 counts=counts["any_hit_split"])
     packet = traverse.closest_hit_packet(*tab, org, dirn, tmax, *args,
-                                         counts=packet_counts)
+                                         counts=counts["closest_hit_packet"])
     sync(dev)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
     launch_rays = {w.__name__: w.rays for w in traverse.WRAPPERS}
@@ -839,66 +858,76 @@ def split_phase(scene, rays, label):
                                  f"times, not {want}")
     log(f"split path [{label}]: launches={launches}")
 
+    def counted_steps(name, c, steps_p):
+        if int(c[0]) != int(steps_p.sum()):
+            raise AssertionError(f"{name} took {int(c[0])} steps, its plain "
+                                 f"version {int(steps_p.sum())}")
+        return f"lane_use={int(c[0]) / int(c[1]):.3f}"
+
     out = {}
-    # #5 against its plain version: t, slots except ties, step counts
+    # #5 against its plain version in every output and each ray's steps
     errs = []
-    for mode, (t, s, u, v, steps) in ordered.items():
+    for mode, got in ordered.items():
+        name = f"closest_hit_split ({mode})"
         with traverse.count_work() as work:
-            tp, sp, _up, _vp, steps_p = traverse.closest_hit_split_plain(
+            want = traverse.closest_hit_split_plain(
                 *tab, org, dirn, tmax, *args, order_mode=mode,
                 return_iters=True)
         sync(dev)
         bnd = bound(work, org.shape[0], "closest")
-        close = torch.isclose(t, tp, **CLOSEST_TOL)
-        if not bool(close.all()):
-            raise AssertionError(f"closest_hit_split ({mode}) t differs on "
-                                 f"{int((~close).sum())} lanes")
-        lanes, tie = _ties(scene, org, dirn, s, sp, tp)
-        if not bool(tie.all()):
-            raise AssertionError(f"closest_hit_split ({mode}) slot differs "
-                                 f"off ties on {int((~tie).sum())} lanes")
-        _equal(f"closest_hit_split ({mode}) step count", (steps,), (steps_p,))
-        errs.append(float((t - tp).abs().max()))
+        _equal(f"{name} against its plain version", got, want)
+        use = counted_steps(name, counts[mode], want[4])
+        errs.append(float((got[0] - want[0]).abs().max()))
         ms = time_ms(lambda: traverse.closest_hit_split(
             *tab, org, dirn, tmax, *args, order_mode=mode), dev)
         plain_ms = time_ms(lambda: traverse.closest_hit_split_plain(
             *tab, org, dirn, tmax, *args, order_mode=mode), dev,
             PLAIN_REPS)
-        log(f"closest_hit_split order={mode} [{label}] rays={org.shape[0]} "
-            f"max_abs_err_t={errs[-1]:.3e} slot_mismatches={lanes.numel()} "
-            f"(all ties) step counts equal; kernel_ms={ms:.3f} "
-            f"plain_ms={plain_ms:.3f} {bound_text(bnd)}")
-        log(f"  steps per ray, order={mode}: {_steps_line(steps, n_cam)}")
+        log(f"{name} [{label}] rays={org.shape[0]} max_abs_err_t="
+            f"{errs[-1]:.3e}, every output and each ray's steps equal to its "
+            f"plain version; {use} kernel_ms={ms:.3f} plain_ms="
+            f"{plain_ms:.3f} {bound_text(bnd)}")
+        log(f"  steps per ray, order={mode}: {_steps_line(got[4], n_cam)}")
         if mode == "full":
             out["closest_hit_split"] = dict(ms=ms, plain_ms=plain_ms, **bnd)
     out["closest_hit_split"]["max_abs_err"] = max(errs)
     # #1 pushes "near", the order the JAX package asks of its kernel
-    fat_hit = traverse.closest_hit(scene.p_fat, org, dirn, tmax, *args)
+    fat_counts = new_counts()
     _equal("closest_hit_split (near) against closest_hit",
-           ordered["near"][:4], fat_hit)
+           ordered["near"][:4], traverse.closest_hit(
+               scene.p_fat, org, dirn, tmax, *args, counts=fat_counts))
+    if int(fat_counts[0]) != int(counts["near"][0]):
+        raise AssertionError(f"closest_hit took {int(fat_counts[0])} steps, "
+                             f"closest_hit_split (near) "
+                             f"{int(counts['near'][0])}")
 
-    # #8 against its plain version in both orders, and against #2
+    # #8 against its plain version on every lane, in either order, and
+    # against #2
     with traverse.count_work() as work:
-        occ_p = traverse.any_hit_split_plain(*tab, ob, ds, t_cut, *args)
+        occ_p, steps_p = traverse.any_hit_split_plain(
+            *tab, ob, ds, t_cut, *args,
+            order_mode=traverse.SPLIT_ANY_HIT_ORDER, return_iters=True)
     sync(dev)
     bnd = bound(work, ob.shape[0], "any")
-    n_edge, edge = _band(t_near, t_cut, occ, occ_p, "any_hit_split")
-    err = float((occ.float() - occ_p.float())[~edge].abs().max())
-    occ_near = traverse.any_hit_split(*tab, ob, ds, t_cut, *args,
-                                      order_mode="near")
-    _band(t_near, t_cut, occ_near, traverse.any_hit_split_plain(
-        *tab, ob, ds, t_cut, *args, order_mode="near"),
-        "any_hit_split (near)")
+    _equal("any_hit_split against its plain version", (occ,), (occ_p,))
+    use = counted_steps("any_hit_split", counts["any_hit_split"], steps_p)
+    err = float((occ.float() - occ_p.float()).abs().max())
+    _equal("any_hit_split (full) against its plain version",
+           (traverse.any_hit_split(*tab, ob, ds, t_cut, *args,
+                                   order_mode="full"),),
+           (traverse.any_hit_split_plain(*tab, ob, ds, t_cut, *args,
+                                         order_mode="full"),))
     _equal("any_hit_split against any_hit", (occ,),
            (traverse.any_hit(scene.p_fat, ob, ds, t_cut, *args),))
     ms = time_ms(lambda: traverse.any_hit_split(*tab, ob, ds, t_cut, *args),
                  dev)
     plain_ms = time_ms(lambda: traverse.any_hit_split_plain(
-        *tab, ob, ds, t_cut, *args), dev, PLAIN_REPS)
+        *tab, ob, ds, t_cut, *args, order_mode=traverse.SPLIT_ANY_HIT_ORDER),
+        dev, PLAIN_REPS)
     log(f"any_hit_split [{label}] rays={ob.shape[0]} occluded="
-        f"{float(occ_p.float().mean()):.4f} edge_mismatches={n_edge} "
-        f"equal to any_hit; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        f"{bound_text(bnd)}")
+        f"{float(occ_p.float().mean()):.4f}, equal to its plain version (both "
+        f"orders) and to any_hit on every lane, steps equal; {use} "
+        f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
     out["any_hit_split"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 **bnd)
 
@@ -910,10 +939,8 @@ def split_phase(scene, rays, label):
     sync(dev)
     bnd = bound(work, org.shape[0], "closest")
     _equal("closest_hit_packet against its plain version", packet, pp)
-    if int(packet_counts[0]) != int(psteps.sum()):
-        raise AssertionError(f"closest_hit_packet took "
-                             f"{int(packet_counts[0])} steps, its plain "
-                             f"version {int(psteps.sum())}")
+    use = counted_steps("closest_hit_packet", counts["closest_hit_packet"],
+                        psteps)
     _equal("closest_hit_packet against closest_hit_preorder", packet,
            traverse.closest_hit_preorder(scene.p_fat, org, dirn, tmax,
                                          *args))
@@ -924,37 +951,48 @@ def split_phase(scene, rays, label):
         *tab, org, dirn, tmax, *args), dev, PLAIN_REPS)
     log(f"closest_hit_packet [{label}] rays={org.shape[0]} "
         f"max_abs_err_t={err:.3e}, every output and the step count equal to "
-        f"its plain version, equal to closest_hit_preorder; lane_use="
-        f"{int(packet_counts[0]) / int(packet_counts[1]):.3f} "
+        f"its plain version, equal to closest_hit_preorder; {use} "
         f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} {bound_text(bnd)}")
     out["closest_hit_packet"] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, **bnd)
 
-    # each split kernel against its fat twin, per ray kind
-    for kind, sl in (("camera", slice(0, n_cam)),
-                     ("bounce", slice(n_cam, None))):
-        o, d = org[sl].contiguous(), dirn[sl].contiguous()
-        tm = tmax[sl].contiguous()
-        times = {
-            "closest_hit_split full": lambda: traverse.closest_hit_split(
-                *tab, o, d, tm, *args),
-            "closest_hit_split near": lambda: traverse.closest_hit_split(
-                *tab, o, d, tm, *args, order_mode="near"),
-            "closest_hit (fat)": lambda: traverse.closest_hit(
-                scene.p_fat, o, d, tm, *args),
-            "closest_hit_packet": lambda: traverse.closest_hit_packet(
-                *tab, o, d, tm, *args),
-            "closest_hit_preorder (fat)": lambda:
-                traverse.closest_hit_preorder(scene.p_fat, o, d, tm, *args),
-        }
-        log(f"  {kind} rays ({o.shape[0]}) kernel ms: " + ", ".join(
-            f"{name} {time_ms(fn, dev):.3f}" for name, fn in times.items()))
-        ms, use, steps = _kind_stats(
-            traverse.closest_hit_packet, traverse.closest_hit_packet_plain,
-            tab, o, d, tm, args, f"the {kind} rays", dev)
-        log(f"closest_hit_packet [{label}] {kind} rays={o.shape[0]} "
-            f"kernel_ms={ms:.4f} lane_use={use:.3f} {_steps_text(steps)} "
-            f"(kernel's step count equal)")
+    # per ray kind: each split kernel's time, lane use and steps, beside
+    # its fat twin's time
+    kinds = {"camera": (org[:n_cam].contiguous(), dirn[:n_cam].contiguous(),
+                        tmax[:n_cam].contiguous()),
+             "bounce": (org[n_cam:].contiguous(), dirn[n_cam:].contiguous(),
+                        tmax[n_cam:].contiguous()),
+             "shadow": (ob, ds, t_cut)}
+    for kind, (o, d, tm) in kinds.items():
+        if kind == "shadow":
+            runs = {"any_hit_split": (
+                traverse.any_hit_split, traverse.any_hit_split_plain,
+                dict(order_mode=traverse.SPLIT_ANY_HIT_ORDER))}
+            twins = {"any_hit (fat)": lambda: traverse.any_hit(
+                scene.p_fat, o, d, tm, *args)}
+        else:
+            runs = {f"closest_hit_split {m}": (
+                traverse.closest_hit_split, traverse.closest_hit_split_plain,
+                dict(order_mode=m)) for m in traverse.ORDER_MODES}
+            runs["closest_hit_packet"] = (traverse.closest_hit_packet,
+                                          traverse.closest_hit_packet_plain,
+                                          {})
+            twins = {"closest_hit (fat)": lambda: traverse.closest_hit(
+                         scene.p_fat, o, d, tm, *args),
+                     "closest_hit_preorder (fat)": lambda:
+                         traverse.closest_hit_preorder(scene.p_fat, o, d, tm,
+                                                       *args)}
+        times = []
+        for name, (kernel, plain, kw) in runs.items():
+            ms, use, steps = _kind_stats(kernel, plain, tab, o, d, tm, args,
+                                         f"the {kind} rays", dev, **kw)
+            log(f"{name} [{label}] {kind} rays={o.shape[0]} "
+                f"kernel_ms={ms:.4f} lane_use={use:.3f} {_steps_text(steps)} "
+                f"(kernel's step count equal)")
+            times.append(f"{name} {ms:.3f}")
+        times += [f"{name} {time_ms(fn, dev):.3f}"
+                  for name, fn in twins.items()]
+        log(f"  {kind} rays ({o.shape[0]}) kernel ms: " + ", ".join(times))
     return out, {name: (launches[name], launch_rays[name])
                  for name in SPLIT}
 
@@ -996,8 +1034,8 @@ def staged_phase(scene, rays, label):
 
     dev = scene.p_fat.device
     fat = scene.p_fat
-    split_np = tables.split_fat(fat.cpu().numpy(), scene.max_leaf)
-    split = tuple(torch.from_numpy(x).to(dev) for x in split_np)
+    *split_np, split = split_tables(fat.cpu().numpy(), scene.max_leaf,
+                                    scene.wide_k, dev)
     padded = tuple(torch.from_numpy(tables.pad_rows(
         x, traverse.CACHE_BLOCK_ROWS)).to(dev) for x in split_np)
     log(f"staged tables [{label}]: rows {tuple(split[0].shape)}, leaf "
@@ -1492,8 +1530,7 @@ def stack_phase(device):
         fat_np = stack_chain(k, depth)
         bound = tables.max_stack_bound(fat_np[0::2], k)
         fat = torch.from_numpy(fat_np).to(device)
-        tab = tuple(torch.from_numpy(x).to(device)
-                    for x in tables.split_fat(fat_np, 1))
+        tab = split_tables(fat_np, 1, k, device)[2]
         g = torch.Generator(device="cpu").manual_seed(k)
         n = 256
         org = torch.zeros((n, 3))
@@ -1725,6 +1762,8 @@ def main() -> int:
     bench_shape_phase(dscene, dcam, "dragon_hd")
     dstaged, dstaged_launches = staged_phase(dscene, drays, dlabel)
     phases.append(dstaged)
+    dsplit, dsplit_launches = split_phase(dscene, drays, dlabel)
+    phases.append(dsplit)
     # one "cluster" build serves the rows phase (its row tables are a
     # "walk" build's) and the cluster chunk
     t0 = time.perf_counter()
@@ -1777,7 +1816,8 @@ def main() -> int:
         f"of main")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        counted = ([split_launches[name]] if name in SPLIT
+        counted = ([split_launches[name], dsplit_launches[name]]
+                   if name in SPLIT
                    else [staged_launches[name], dstaged_launches[name]]
                    if name in STAGED else [run[name] for run in runs])
         launches = sum(n for n, _rays in counted)

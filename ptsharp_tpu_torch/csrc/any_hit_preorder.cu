@@ -69,7 +69,7 @@ any_hit_preorder_kernel(Table tab, const float* __restrict__ org,
               return occ;
             });
       },
-      [&](int i) { occ_out[i] = occ; });
+      [&](int i, int) { occ_out[i] = occ; });
 }
 
 template <int K, bool kVec, class Table>

@@ -19,7 +19,8 @@
 // forms hold the same rows: the fat interleave, row pair (2j, 2j+1) =
 // [node j; its leaf block] (FatTable), and the split tables that
 // pack_fat interleaves, node j at rows[j] and its leaf block at
-// leaf[first / leaf_size] (SplitTable). A walk body takes either.
+// leaf[first / leaf_size] (SplitTable). A walk body takes either: the one
+// ordered walk and the one preorder walk serve both table forms.
 //
 // The XLA walks' row tables (ptsharp_tpu/accel/traverse.py) hold the same
 // fields at other strides (RowTable): the binary node rows u_rows (N, 10),
@@ -145,38 +146,6 @@ __device__ __forceinline__ int sort_children(const float* cb, const float* ci,
   return nh;
 }
 
-// sort_children over the child fields of a node row
-template <int K>
-__device__ __forceinline__ int hit_children(const float* __restrict__ node,
-                                            const Ray& r, float bt,
-                                            float (&key)[K], int (&idx)[K]) {
-  return sort_children<K>(node + 9, node + 9 + 6 * K, r, bt, key, idx);
-}
-
-// Push the hit children far to near (all but the nearest, which the walk
-// visits next). An ordered scene's build checks max_stack_bound <=
-// kStackCap, so the capacity test never drops an entry for a table the
-// port built.
-template <int K>
-__device__ __forceinline__ void push_far_to_near(const int (&idx)[K], int nh,
-                                                 int* stack, int& sp) {
-  for (int j = nh - 1; j >= 1; --j) {
-    if (sp < kStackCap) stack[sp++] = idx[j];
-  }
-}
-
-// Push the children whose bit is set in `mask` in static reverse order
-// (child K-1 first), so they pop in child order.
-template <int K>
-__device__ __forceinline__ void push_static_reverse(const int (&ci)[K],
-                                                    unsigned mask, int* stack,
-                                                    int& sp) {
-#pragma unroll
-  for (int c = K - 1; c >= 0; --c) {
-    if (((mask >> c) & 1u) && sp < kStackCap) stack[sp++] = ci[c];
-  }
-}
-
 // ---- where a walk reads a node row and its leaf block ----------------------
 
 struct FatTable {
@@ -224,7 +193,7 @@ struct RowTable {
   }
 };
 
-// ---- walk bodies ------------------------------------------------------------
+// ---- results and push orders ----------------------------------------------
 
 // The ordered walk's push order (ordered_kernel.py order_mode): both take
 // the nearest hit child next; kFull pushes the others far to near (:206-
@@ -238,166 +207,28 @@ struct Best {
   float u, v;
 };
 
-// MT over a leaf block in slot order, keeping the closest accepted hit:
-// strict tt < best t, so the first slot wins among equal t.
-__device__ __forceinline__ void leaf_closest(const float* __restrict__ leaf,
-                                             int first, int leaf_size,
-                                             const Ray& r, Best& b) {
-  for (int l = 0; l < leaf_size; ++l) {
-    float tt, uu, vv;
-    if (mt(leaf + 9 * l, r, tt, uu, vv) && tt < b.t) {
-      b.t = tt;
-      b.slot = first + l;
-      b.u = uu;
-      b.v = vv;
-    }
-  }
-}
-
-// Whether some triangle of a leaf block lies at t in (1e-4, tc).
-__device__ __forceinline__ bool leaf_any(const float* __restrict__ leaf,
-                                         int leaf_size, const Ray& r,
-                                         float tc) {
-  for (int l = 0; l < leaf_size; ++l) {
-    float tt, uu, vv;
-    if (mt(leaf + 9 * l, r, tt, uu, vv) && tt < tc) return true;
-  }
-  return false;
-}
-
-// The ordered walk's step at an internal node: push the hit children
-// other than the nearest in the order P says and return the nearest, or
-// -1 when the ray enters no child before `bt`.
-template <int K, Push P>
-__device__ __forceinline__ int descend_ordered(const float* __restrict__ node,
-                                               const Ray& r, float bt,
-                                               int* stack, int& sp) {
-  if constexpr (P == Push::kFull) {
-    float key[K];
-    int idx[K];
-    const int nh = hit_children<K>(node, r, bt, key, idx);
-    if (nh == 0) return -1;
-    push_far_to_near<K>(idx, nh, stack, sp);
-    return idx[0];
-  } else {
-    const int* bits = reinterpret_cast<const int*>(node);
-    int ci[K];
-    unsigned hit = 0;
-    int near = -1;
-    float near_t = 0.0f;
-#pragma unroll
-    for (int c = 0; c < K; ++c) {
-      ci[c] = bits[9 + 6 * K + c];
-      float ctmin, ctmax;
-      slab(node + 9 + 6 * c, r, ctmin, ctmax);
-      if (box_hit(ctmin, ctmax, bt) && ci[c] > 0) {
-        hit |= 1u << c;
-        if (near < 0 || ctmin < near_t) {
-          near = c;
-          near_t = ctmin;
-        }
-      }
-    }
-    if (near < 0) return -1;
-    push_static_reverse<K>(ci, hit & ~(1u << near), stack, sp);
-    return ci[near];
-  }
-}
-
-// The ordered walk's step at node row `node`, whose own box the ray
-// enters at [tmin, tmax], short of the leaf test: at a leaf whose box the
-// ray enters before `bt`, return its block (and set `first` to its first
-// slot) for the caller to test; at an internal node it enters, descend
-// to the nearest hit child and push the others; otherwise, and at a
-// leaf, pop the next node (`end` when the stack is empty). Sets `cur` to
-// the next node. The popped node does not depend on the leaf test, so
-// ordered_closest and ordered_any run the test after the step.
-template <int K, Push P, class Table>
-__device__ __forceinline__ const float* ordered_step(
-    const Table& tab, const float* __restrict__ node, float tmin, float tmax,
-    const Ray& r, float bt, int* stack, int& sp, int& cur, int end,
-    int& first) {
-  const int* bits = reinterpret_cast<const int*>(node);
-  const float* leaf = nullptr;
-  int next = -1;
-  if (box_hit(tmin, tmax, bt)) {
-    if ((bits[7] & 0xFF) > 0) {
-      first = bits[6];
-      leaf = tab.leaf(node, first);
-    } else {
-      next = descend_ordered<K, P>(node, r, bt, stack, sp);
-    }
-  }
-  cur = next >= 0 ? next : (sp > 0 ? stack[--sp] : end);
-  return leaf;
-}
-
-// The ordered closest-hit walk of one ray over nodes [base, end): pop a
-// node, re-test its own box against the current best t; at a leaf run MT
-// over its block; at an internal node descend to the nearest hit child
-// and push the others. (end - base + 2) steps bound the loop, as
-// max_iters bounds the TPU kernels. Returns the steps taken.
-template <int K, Push P, class Table>
-__device__ __forceinline__ int ordered_closest(const Table& tab, const Ray& r,
-                                               int base, int end,
-                                               int leaf_size, Best& b) {
-  int stack[kStackCap];
-  int sp = 0;
-  int cur = base;
-  const int max_iters = end - base + 2;
-  int it = 0;
-  for (; cur < end && it < max_iters; ++it) {
-    const float* node = tab.node(cur);
-    float tmin, tmax;
-    slab(node, r, tmin, tmax);
-    int first = 0;
-    const float* leaf = ordered_step<K, P>(tab, node, tmin, tmax, r, b.t,
-                                           stack, sp, cur, end, first);
-    if (leaf != nullptr) leaf_closest(leaf, first, leaf_size, r, b);
-  }
-  return it;
-}
-
-// The ordered any-hit walk: the closest-hit walk with best t fixed at
-// tc, ending on the first accepted hit.
-template <int K, Push P, class Table>
-__device__ __forceinline__ bool ordered_any(const Table& tab, const Ray& r,
-                                            float tc, int base, int end,
-                                            int leaf_size) {
-  int stack[kStackCap];
-  int sp = 0;
-  int cur = base;
-  const int max_iters = end - base + 2;
-  for (int it = 0; cur < end && it < max_iters; ++it) {
-    const float* node = tab.node(cur);
-    float tmin, tmax;
-    slab(node, r, tmin, tmax);
-    int first = 0;
-    const float* leaf = ordered_step<K, P>(tab, node, tmin, tmax, r, tc,
-                                           stack, sp, cur, end, first);
-    if (leaf != nullptr && leaf_any(leaf, leaf_size, r, tc)) return true;
-  }
-  return false;
-}
-
-// ---- the persistent ordered walk over the fat table (#1, #2, #9) ----------
+// ---- the persistent ordered walk (#1, #2, #5, #8, #9) ----------------------
 //
 // closest_hit.cu and any_hit.cu run the ordered walk in persistent warps,
-// closest_hit_dual.cu two such walks a lane (persistent_walk2): the grid
-// holds as many blocks as are resident at once, and each warp
-// takes rays from one global counter in their input order. A lane whose
-// ray has ended writes its result and takes the next ray, with its stack
-// reset, while the other lanes keep walking; a warp refills its idle lanes
-// (one atomicAdd for all of them) when fewer than kRefillBelow are live.
-// Stack entries carry the entry distance of their box, computed when the
-// parent tested its children: a pop drops the entries that the ray no
-// longer enters before the best t without reading their rows, and no node
-// reached from the stack or from its parent tests its own box again, since
-// the parent's child test decided it (exact because every child box in a
-// row equals the child's own box bit for bit, which the scene build checks:
-// accel.tables.check_child_boxes). A step reads what it uses with float4
-// loads through the read-only path: the meta fields, then at an internal
-// node the K child boxes and indices, at a leaf its `count` triangles.
+// over the fat table (#1, #2) and over the split tables (#5, #8): one walk
+// over a table view (FatTable or SplitTable) serves both forms.
+// closest_hit_dual.cu runs two such walks a lane (persistent_walk2) over
+// the fat table. The grid holds as many blocks as are resident at once,
+// and each warp takes rays from one global counter in their input order.
+// A lane whose ray has ended writes its result and takes the next ray,
+// with its stack reset, while the other lanes keep walking; a warp refills
+// its idle lanes (one atomicAdd for all of them) when fewer than
+// kRefillBelow are live. Stack entries carry the entry distance of their
+// box, computed when the parent tested its children: a pop drops the
+// entries that the ray no longer enters before the best t without reading
+// their rows, and no node reached from the stack or from its parent tests
+// its own box again, since the parent's child test decided it (exact
+// because every child box in a row equals the child's own box bit for bit,
+// which the scene build checks: accel.tables.check_child_boxes; split_fat
+// copies those rows). A step reads what it uses with float4 loads through
+// the read-only path: the meta fields, then at an internal node the K
+// child boxes and indices, at a leaf its `count` triangles (in the split
+// tables, from leaf[first / leaf_size]).
 
 constexpr int kWalkThreads = 128;  // threads a block
 constexpr unsigned kWarpAll = 0xffffffffu;
@@ -504,36 +335,37 @@ __device__ __forceinline__ void closest_in_leaf(const float* __restrict__ leaf,
   });
 }
 
-// Where a ray starts over nodes [base, end): the root, or `end` when the
-// ray does not enter the root's box before `bt`.
-__device__ __forceinline__ int fat_start(const float* __restrict__ fat,
-                                         const Ray& r, float bt, int base,
-                                         int end) {
+// Where a ray starts over nodes [base, end) of `tab`: the root, or `end`
+// when the ray does not enter the root's box before `bt`.
+template <class Table>
+__device__ __forceinline__ int walk_start(const Table& tab, const Ray& r,
+                                          float bt, int base, int end) {
   if (base >= end) return end;
   float tmin, tmax;
-  slab(fat + static_cast<size_t>(2 * base) * kRow, r, tmin, tmax);
+  slab(tab.node(base), r, tmin, tmax);
   return box_hit(tmin, tmax, bt) ? base : end;
 }
 
-// What a step of the fat walk reads of a node row, in registers, loaded in
-// two parts so that a thread that walks two rays (closest_hit_dual.cu)
-// issues both rays' loads before it waits for either: load_meta() reads
-// the meta fields [4, 8) (first slot, count) with one float4 load; at an
-// internal node load_children(), once they have arrived, reads fields
-// [8, 8 + 4 kVec): the skip link, the K child boxes at [9, 9 + 6K) and the
-// K child indices at [9 + 6K, 9 + 7K). A leaf's triangles are read by the
-// leaf test itself: holding four of them in registers beside the child
-// fields took #1 from 80 to 123 registers at K=8 (PERF.md section 6).
+// What a step of the ordered walk reads of a node row, in registers,
+// loaded in two parts so that a thread that walks two rays
+// (closest_hit_dual.cu) issues both rays' loads before it waits for
+// either: load_meta() reads the meta fields [4, 8) (first slot, count)
+// with one float4 load; at an internal node load_children(), once they
+// have arrived, reads fields [8, 8 + 4 kVec): the skip link, the K child
+// boxes at [9, 9 + 6K) and the K child indices at [9 + 6K, 9 + 7K). A
+// leaf's triangles are read by the leaf test itself: holding four of them
+// in registers beside the child fields took #1 from 80 to 123 registers at
+// K=8 (PERF.md section 6).
 template <int K>
-struct FatRow {
+struct OrderedRow {
   static constexpr int kVec = (1 + 7 * K + 3) / 4;
   const float* node;
   int first, cnt;
   float f[4 * kVec];
 
-  __device__ __forceinline__ void load_meta(const float* __restrict__ fat,
-                                            int cur) {
-    node = fat + static_cast<size_t>(2 * cur) * kRow;
+  template <class Table>
+  __device__ __forceinline__ void load_meta(const Table& tab, int cur) {
+    node = tab.node(cur);
     const float4 meta = __ldg(reinterpret_cast<const float4*>(node) + 1);
     first = __float_as_int(meta.z);
     cnt = __float_as_int(meta.w) & 0xFF;
@@ -555,19 +387,21 @@ struct FatRow {
   }
 };
 
-// The step of the fat walk at a leaf whose meta fields `row` holds, which
-// the ray enters before `bt` (the root by fat_start, any other node by its
-// parent's child test): MT over its `count` triangles in slot order,
-// keep(slot, tt, uu, vv) taking each hit at tt > 1e-4 and returning true
-// to end the walk. Returns the next node: `end` when the walk is over.
-template <int K, bool kDist, class Keep>
-__device__ __forceinline__ int fat_leaf(const FatRow<K>& row, const Ray& r,
-                                        const float& bt,
+// The step of the ordered walk at a leaf of `tab` whose meta fields `row`
+// holds, which the ray enters before `bt` (the root by walk_start, any
+// other node by its parent's child test): MT over its `count` triangles in
+// slot order, keep(slot, tt, uu, vv) taking each hit at tt > 1e-4 and
+// returning true to end the walk. Returns the next node: `end` when the
+// walk is over.
+template <int K, bool kDist, class Table, class Keep>
+__device__ __forceinline__ int row_leaf(const Table& tab,
+                                        const OrderedRow<K>& row,
+                                        const Ray& r, const float& bt,
                                         EntryStack<kDist>& st, int end,
                                         Keep keep) {
   bool stop = false;
   const int first = row.first;
-  leaf_slots(row.node + kRow, row.cnt, r,
+  leaf_slots(tab.leaf(row.node, first), row.cnt, r,
              [&](int l, float tt, float uu, float vv) {
                stop = keep(first + l, tt, uu, vv);
                return stop;
@@ -575,13 +409,14 @@ __device__ __forceinline__ int fat_leaf(const FatRow<K>& row, const Ray& r,
   return stop ? end : st.next(bt, end);
 }
 
-// The step of the fat walk at an internal node whose child fields `row`
-// holds, which the ray enters before `bt`: push the hit children other
-// than the nearest with their entry distances, in the order P names, and
-// go to the nearest (the lowest child among equal entry distances), or pop
-// where it enters none. Returns the next node: `end` when the walk is over.
+// The step of the ordered walk at an internal node whose child fields
+// `row` holds, which the ray enters before `bt`: push the hit children
+// other than the nearest with their entry distances, in the order P names,
+// and go to the nearest (the lowest child among equal entry distances), or
+// pop where it enters none. Returns the next node: `end` when the walk is
+// over.
 template <int K, Push P, bool kDist>
-__device__ __forceinline__ int fat_descend(const FatRow<K>& row,
+__device__ __forceinline__ int row_descend(const OrderedRow<K>& row,
                                            const Ray& r, float bt,
                                            EntryStack<kDist>& st, int end) {
   float key[K];
@@ -619,19 +454,19 @@ __device__ __forceinline__ int fat_descend(const FatRow<K>& row,
   }
 }
 
-// One step at node `cur` of the fat table: load its meta fields, then at a
-// leaf fat_leaf, at an internal node its child fields and fat_descend.
-template <int K, Push P, bool kDist, class Keep>
-__device__ __forceinline__ int fat_step(const float* __restrict__ fat,
-                                        int cur, const Ray& r,
-                                        const float& bt,
-                                        EntryStack<kDist>& st, int end,
-                                        Keep keep) {
-  FatRow<K> row;
-  row.load_meta(fat, cur);
-  if (row.cnt > 0) return fat_leaf(row, r, bt, st, end, keep);
+// One step of the ordered walk at node `cur` of `tab`: load its meta
+// fields, then at a leaf row_leaf, at an internal node its child fields
+// and row_descend.
+template <int K, Push P, bool kDist, class Table, class Keep>
+__device__ __forceinline__ int walk_step(const Table& tab, int cur,
+                                         const Ray& r, const float& bt,
+                                         EntryStack<kDist>& st, int end,
+                                         Keep keep) {
+  OrderedRow<K> row;
+  row.load_meta(tab, cur);
+  if (row.cnt > 0) return row_leaf(tab, row, r, bt, st, end, keep);
   row.load_children();
-  return fat_descend<K, P>(row, r, bt, st, end);
+  return row_descend<K, P>(row, r, bt, st, end);
 }
 
 // The end of a persistent warp's work: the last warp of the grid to finish
@@ -670,8 +505,9 @@ __device__ __forceinline__ void end_walk(
 // The persistent loop of one warp over rays [0, n), which it takes from
 // next_ray[0], a counter at 0 when the launch starts: begin(i) starts ray
 // i and returns its first node, step(cur) takes one step and returns the
-// next node, finish(i) writes ray i's result. A ray ends at `end` or after
-// max_iters steps, as max_iters bounds the TPU kernels and the XLA walks.
+// next node, finish(i, steps) writes ray i's result (`steps` the steps it
+// took). A ray ends at `end` or after max_iters steps, as max_iters bounds
+// the TPU kernels and the XLA walks.
 // The warp takes new rays for its idle lanes when fewer than kRefillBelow
 // are live. With `counts`, the warp adds the steps its rays took to
 // counts[0] and the lane slots it ran (32 a loop turn) to counts[1]: their
@@ -712,7 +548,7 @@ __device__ __forceinline__ void persistent_walk(
         ++it;
       }
       if (cur >= end || it >= max_iters) {
-        finish(ray);
+        finish(ray, it);
         steps += it;
         ray = -1;
       }

@@ -81,7 +81,7 @@ closest_hit_binary_kernel(ptk::RowTable tab, const float* __restrict__ org,
               ptk::closest_in_leaf<kVec>(leaf, first, cnt, r, b);
             });
       },
-      [&](int i) {
+      [&](int i, int) {
         t_out[i] = b.slot >= 0 ? b.t : ptk::kInf;
         slot_out[i] = b.slot;
         u_out[i] = b.u;

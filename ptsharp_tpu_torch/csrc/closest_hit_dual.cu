@@ -20,12 +20,12 @@
 // distances (ptk::EntryStack) and step count, and a warp's 64 slots take
 // rays from the ray counter and refill when fewer than kRefillBelow2 are
 // live (ptk::persistent_walk2). A loop turn first issues both slots' loads
-// (ptk::FatRow: both meta float4s, then the child fields of each slot at
-// an internal node), so a thread waits for the slower of two loads instead
-// of each in turn; then runs each slot's whole step in turn: at a leaf
-// ptk::fat_leaf, the test of its triangles (read there) and then the pop,
-// which drops entries by the best t that the test has just set; at an
-// internal node ptk::fat_descend. The walk is not reordered, so each slot
+// (ptk::OrderedRow: both meta float4s, then the child fields of each slot
+// at an internal node), so a thread waits for the slower of two loads
+// instead of each in turn; then runs each slot's whole step in turn: at a
+// leaf ptk::row_leaf, the test of its triangles (read there) and then the
+// pop, which drops entries by the best t that the test has just set; at an
+// internal node ptk::row_descend. The walk is not reordered, so each slot
 // takes closest_hit.cu's steps and gets its t, slot, u and v on every
 // lane. The price is about twice the registers and two stacks of local
 // memory a thread, so fewer warps fit an SM (PERF.md section 6).
@@ -56,19 +56,20 @@ closest_hit_dual_kernel(const float* __restrict__ fat,
   ptk::Ray r[2];
   ptk::Best b[2];
   ptk::EntryStack<true> st[2];
-  ptk::FatRow<K> row[2];
+  ptk::OrderedRow<K> row[2];
+  const ptk::FatTable tab{fat};
   ptk::persistent_walk2<kRefillBelow2>(
       n, end, end - base + 2, next_ray, counts,
       [&](int s, int i) {
         r[s] = ptk::load_ray(org, dir, i);
         b[s] = ptk::Best{t_max[i], -1, 0.0f, 0.0f};
         st[s].sp = 0;
-        return ptk::fat_start(fat, r[s], b[s].t, base, end);
+        return ptk::walk_start(tab, r[s], b[s].t, base, end);
       },
       [&](const bool (&run)[2], int (&cur)[2]) {
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
-          if (run[s]) row[s].load_meta(fat, cur[s]);
+          if (run[s]) row[s].load_meta(tab, cur[s]);
         }
 #pragma unroll
         for (int s = 0; s < 2; ++s) {
@@ -79,7 +80,7 @@ closest_hit_dual_kernel(const float* __restrict__ fat,
           if (!run[s]) continue;
           ptk::Best& bs = b[s];
           cur[s] = row[s].cnt > 0
-                       ? ptk::fat_leaf(row[s], r[s], bs.t, st[s], end,
+                       ? ptk::row_leaf(tab, row[s], r[s], bs.t, st[s], end,
                                        [&](int slot, float tt, float uu,
                                            float vv) {
                                          if (tt < bs.t) {
@@ -87,7 +88,7 @@ closest_hit_dual_kernel(const float* __restrict__ fat,
                                          }
                                          return false;  // first slot wins
                                        })
-                       : ptk::fat_descend<K, ptk::Push::kNear>(
+                       : ptk::row_descend<K, ptk::Push::kNear>(
                              row[s], r[s], bs.t, st[s], end);
         }
       },

@@ -96,7 +96,7 @@ closest_hit_preorder_kernel(Table tab, const float* __restrict__ org,
               return false;
             });
       },
-      [&](int i) {
+      [&](int i, int) {
         t_out[i] = b.slot >= 0 ? b.t : ptk::kInf;
         slot_out[i] = b.slot;
         u_out[i] = b.u;

@@ -68,11 +68,12 @@ def _bind(lib):
     persistent_closest = [vp, vp, vp, vp, ci, ci, ci, ci,
                           vp, vp, vp, vp, vp, vp, vp]
     persistent_any = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
-    # rows, leaf, rays, t, n, base, end, leaf_size, k, [near], outputs,
-    # [iters], stream
+    # the persistent ordered walks over the split tables: rows, leaf, rays,
+    # t, n, base, end, leaf_size, k, [near], outputs, [steps or null], the
+    # ray counter, [steps, lane slots] or null, stream
     closest_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                     vp, vp, vp, vp, vp, vp]
-    anyhit_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
+                     vp, vp, vp, vp, vp, vp, vp, vp]
+    anyhit_split = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp]
     # the warp packets (#10, #11, #12): their tables' row counts after the
     # tables, rays, t, n, base, end, leaf_size, k, outputs, the ray
     # counter, [5] counts or null, stream

@@ -11,9 +11,10 @@ Over the fat table (the render path):
   these four.
 Over the split tables `rows` + `leaf` (the kernel-level entry points,
 `accel.tables.split_fat` makes them from the fat table):
-  `closest_hit_split` and `any_hit_split`, the ordered walk in either push
-  order, closest-hit with an optional count of each ray's steps
-  (csrc/closest_hit_split.cu, csrc/any_hit_split.cu);
+  `closest_hit_split` and `any_hit_split`, the ordered walk of
+  closest_hit and any_hit over the split tables, closest-hit in either
+  push order and with an optional count of each ray's steps
+  (csrc/closest_hit.cu, csrc/any_hit.cu, in persistent warps);
   `closest_hit_packet`, the persistent preorder walk of
   closest_hit_preorder over the split tables (csrc/closest_hit_preorder.cu;
   its TPU kernel walks a packet with one shared cursor, this one does not).
@@ -55,14 +56,16 @@ walks the tree with its own cursor, in lockstep with the others, one node
 per loop step: gather the node rows, test the node box against the ray's
 best t, run Moller-Trumbore over the leaf block at leaves, and at
 internal nodes pick the next node.
-  ordered  (`*_plain`, `*_split_plain`): take the nearest hit child next
-           and push the others on the ray's row of an (R, S) stack, far
-           to near ("full") or in static reverse child order ("near");
-           pop the stack where nothing is hit. closest_hit_plain
-           ("near") and any_hit_plain ("full") push each entry with its
-           entry distance and drop it on pop once it is no nearer than
-           the best t, instead of testing each visited node's box
-           (_StackWalk, entry=True).
+  ordered  (`*_plain`, `*_split_plain`, _StackWalk): take the nearest
+           hit child next and push the others on the ray's row of an
+           (R, S) stack, far to near ("full") or in static reverse child
+           order ("near"), each entry with its entry distance; pop the
+           stack where nothing is hit, dropping the entries no longer
+           nearer than the best t. Only the root's box is tested as a
+           node's own box; the parent's child test decides every other
+           node (exact where each child box equals the child's own box
+           bit for bit, accel.tables.check_child_boxes). closest_hit_plain
+           pushes "near", any_hit_plain "full".
   preorder (`*_preorder_plain`, `closest_hit_packet_plain` and the
            staged walks' plain versions): go to the hit child of smallest
            preorder index, or follow the node's skip link where nothing
@@ -100,6 +103,9 @@ ROW = 128
 STACK_CAPACITY = 128
 KERNEL_K = (4, 8)  # the kernels' template instances
 ORDER_MODES = ("full", "near")  # the ordered walk's push orders
+# the push order of any_hit_split's kernel, whatever order_mode names (the
+# occlusion is the same in both; "near" measured faster there)
+SPLIT_ANY_HIT_ORDER = "near"
 # the block-cache kernel's tables are multiples of this many rows, the JAX
 # kernel's block (BLK)
 CACHE_BLOCK_ROWS = 64
@@ -321,22 +327,21 @@ class _Walk:
 
 class _StackWalk(_Walk):
     """The ordered walk: each ray keeps a row of an (R, S) stack and
-    pushes in the order `order` names (ORDER_MODES).
+    pushes in the order `order` names (ORDER_MODES). Each entry carries
+    the entry distance of its box, which the parent's child test
+    computed; a pop drops the entries the ray no longer enters before the
+    best t, and no visit tests its own box, since the child test decided
+    it (the parent row holds each child's box bit for bit,
+    accel.tables.check_child_boxes). Only the root's box is tested, once,
+    where the walk starts: a ray that misses it takes no step. The walk
+    of #1, #2, #5, #8 and #9."""
 
-    entry=False: a visit tests the node's own box against the best t,
-    and a pop takes the top entry (the walk of #5 and #8).
-    entry=True: each entry carries the entry distance of its box, which
-    the parent's child test computed; a pop drops the entries the ray no
-    longer enters before the best t, and no visit tests its own box again,
-    since the child test decided it (the parent row holds each child's
-    box bit for bit, accel.tables.check_child_boxes). Only the root's box
-    is tested, once, where the walk starts. Both give the same results;
-    entry=True takes fewer steps (the walk of #1, #2 and #9)."""
+    own_box = False
 
     def __init__(self, tab, org, dirn, bt, base, end, k, start,
-                 order="full", count=False, entry=False):
+                 order="full", count=False):
         _check_order(order)
-        if entry and base < end:
+        if base < end:
             root = tab.nodes[tab.row(base), 0:6]
             tmin, tmax = _slab(root, org, _safe_inv(dirn))
             start = start & _box_hit(tmin, tmax, bt)
@@ -345,11 +350,9 @@ class _StackWalk(_Walk):
         super().__init__(tab, org, dirn, bt, base, end, k, start, count)
         r = org.shape[0]
         self.order = order
-        self.own_box = not entry
         self.stack = torch.zeros((r, STACK_CAPACITY), dtype=torch.int32,
                                  device=org.device)
-        self.stack_t = (torch.zeros((r, STACK_CAPACITY), device=org.device)
-                        if entry else None)
+        self.stack_t = torch.zeros((r, STACK_CAPACITY), device=org.device)
         self.sp = torch.zeros(r, dtype=torch.int64, device=org.device)
         self.max_iters = end - base + 2
 
@@ -366,8 +369,7 @@ class _StackWalk(_Walk):
         do = do & (sp < STACK_CAPACITY)
         put = lanes[do]
         self.stack[put, sp[do]] = val[do].to(torch.int32)
-        if self.stack_t is not None:
-            self.stack_t[put, sp[do]] = key[do]
+        self.stack_t[put, sp[do]] = key[do]
         self.sp[put] += 1
 
     def descend(self, lanes, node):
@@ -391,9 +393,9 @@ class _StackWalk(_Walk):
         return torch.where(shit[:, 0], sidx[:, 0], -1)
 
     def advance(self, lanes, nxt):
-        """Set each lane's next node; lanes with nxt < 0 pop their stack
-        (with entry distances, past the entries no longer nearer than the
-        best t), or finish when it runs out."""
+        """Set each lane's next node; lanes with nxt < 0 pop their stack,
+        past the entries no longer nearer than the best t, or finish when
+        it runs out."""
         pop = torch.nonzero(nxt < 0).squeeze(1)
         while pop.numel():
             pl = lanes[pop]
@@ -402,9 +404,7 @@ class _StackWalk(_Walk):
             pop, pl, sp = pop[has], pl[has], sp[has]
             top = self.stack[pl, sp - 1].to(torch.int64)
             self.sp[pl] = sp - 1
-            take = (self.stack_t[pl, sp - 1] < self.bt[pl]
-                    if self.stack_t is not None
-                    else torch.ones_like(pop, dtype=torch.bool))
+            take = self.stack_t[pl, sp - 1] < self.bt[pl]
             nxt[pop[take]] = top[take]
             pop = pop[~take]
         nxt = torch.where(nxt < 0, self.end, nxt)
@@ -633,8 +633,7 @@ def closest_hit_plain(fat, org, dirn, t_max, base: int, end: int,
     also each ray's step count (int32 (R,)), the steps
     csrc/closest_hit.cu takes."""
     walk = _StackWalk(_Table(fat), org, dirn, t_max.clone(), base, end, k,
-                      _all_lanes(org), order="near", count=return_iters,
-                      entry=True)
+                      _all_lanes(org), order="near", count=return_iters)
     out = _walk_closest(walk, leaf_size)
     return (*out, walk.steps) if return_iters else out
 
@@ -658,7 +657,7 @@ def any_hit_plain(fat, org, dirn, t_cut, base: int, end: int,
     docstring); with return_iters, also each ray's step count (int32
     (R,))."""
     walk = _StackWalk(_Table(fat), org, dirn, t_cut, base, end, k,
-                      t_cut > 0.0, count=return_iters, entry=True)
+                      t_cut > 0.0, count=return_iters)
     occ = _walk_any(walk, t_cut, leaf_size)
     return (occ, walk.steps) if return_iters else occ
 
@@ -692,9 +691,11 @@ def closest_hit_split_plain(rows, leaf, org, dirn, t_max, base: int,
                             end: int, leaf_size: int, k: int,
                             order_mode: str = "full",
                             return_iters: bool = False):
-    """Plain PyTorch ordered closest-hit over the split tables, in the
-    push order `order_mode` names; with return_iters, also each ray's
-    step count (int32 (R,))."""
+    """Plain PyTorch ordered closest-hit over the split tables, the walk
+    of closest_hit_plain in the push order `order_mode` names (in "near"
+    equal to closest_hit_plain over the fat table they split, steps
+    included); with return_iters, also each ray's step count (int32
+    (R,)), the steps csrc/closest_hit.cu takes over them."""
     walk = _StackWalk(_Table(rows, leaf, leaf_size), org, dirn,
                       t_max.clone(), base, end, k, _all_lanes(org),
                       order_mode, count=return_iters)
@@ -703,11 +704,17 @@ def closest_hit_split_plain(rows, leaf, org, dirn, t_max, base: int,
 
 
 def any_hit_split_plain(rows, leaf, org, dirn, t_cut, base: int, end: int,
-                        leaf_size: int, k: int, order_mode: str = "full"):
-    """Plain PyTorch ordered any-hit over the split tables."""
-    return _walk_any(_StackWalk(_Table(rows, leaf, leaf_size), org, dirn,
-                                t_cut, base, end, k, t_cut > 0.0,
-                                order_mode), t_cut, leaf_size)
+                        leaf_size: int, k: int, order_mode: str = "full",
+                        return_iters: bool = False):
+    """Plain PyTorch ordered any-hit over the split tables, the walk of
+    any_hit_plain in the push order `order_mode` names (the occlusion is
+    the same in both; in SPLIT_ANY_HIT_ORDER so are the steps that
+    any_hit_split's kernel takes); with return_iters, also each ray's
+    step count (int32 (R,))."""
+    walk = _StackWalk(_Table(rows, leaf, leaf_size), org, dirn, t_cut, base,
+                      end, k, t_cut > 0.0, order_mode, count=return_iters)
+    occ = _walk_any(walk, t_cut, leaf_size)
+    return (occ, walk.steps) if return_iters else occ
 
 
 def closest_hit_packet_plain(rows, leaf, org, dirn, t_max, base: int,
@@ -894,12 +901,12 @@ def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
     closest_hit_dual.cu, closest_hit_preorder.cu, any_hit_preorder.cu,
     closest_hit_binary.cu, and the warp packets of closest_hit_fat_cache.cu,
     closest_hit_block_cache.cu and closest_hit_row_stage.cu) over the rays,
-    writing
-    `out`: its warps take rays from the counter of the current stream,
-    which is at 0 between launches. `x` is a table (its device and
-    stream), `lead` the C entry's arguments before the rays (the tables
-    and their geometry), `tail` those after the node range; `counts`, if
-    given, an (n_counts,) int64 tensor the kernel adds to."""
+    writing `out` (an output of None passes a null pointer): its warps
+    take rays from the counter of the current stream, which is at 0
+    between launches. `x` is a table (its device and stream), `lead` the
+    C entry's arguments before the rays (the tables and their geometry),
+    `tail` those after the node range; `counts`, if given, an (n_counts,)
+    int64 tensor the kernel adds to."""
     if counts is not None and (counts.dtype != torch.int64
                                or tuple(counts.shape) != (n_counts,)
                                or counts.device != x.device
@@ -916,7 +923,8 @@ def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
         try:
             _launch(wrapper, entry, _kernel_lib(x), *lead, _ptr(org),
                     _ptr(dirn), _ptr(t), r, base, end, *tail,
-                    *map(_ptr, out), _ptr(_RAY_COUNTERS[key]),
+                    *(None if o is None else _ptr(o) for o in out),
+                    _ptr(_RAY_COUNTERS[key]),
                     None if counts is None else _ptr(counts), stream, rays=r)
         except RuntimeError:
             del _RAY_COUNTERS[key]  # a launch that failed may leave it set
@@ -1026,51 +1034,62 @@ def any_hit_preorder(fat, org, dirn, t_cut, base: int, end: int,
 
 def closest_hit_split(rows, leaf, org, dirn, t_max, base: int, end: int,
                       leaf_size: int, k: int, order_mode: str = "full",
-                      return_iters: bool = False):
+                      return_iters: bool = False, counts=None):
     """Closest hit per ray by the ordered walk over the split tables:
     (t, slot, u, v), and with return_iters each ray's step count (int32
     (R,); the JAX kernel's count is its packet's, broadcast over the
     tile). order_mode "full" pushes the hit children far to near, "near"
-    in static reverse order. csrc/closest_hit_split.cu on CUDA tensors,
-    closest_hit_split_plain on CPU tensors."""
+    in static reverse order; in "near" the result is closest_hit's on the
+    fat table they split, steps included. The walk tests a node's box
+    only as a child box of its parent row, so every child box must equal
+    the child's own box bit for bit (accel.tables.check_child_boxes,
+    which a scene build runs on the fat table that split_fat splits).
+    The persistent ordered walk of csrc/closest_hit.cu over the split
+    tables (both on 16-byte boundaries) on CUDA tensors,
+    closest_hit_split_plain on CPU tensors. `counts` as in closest_hit."""
     _check(rows, org, dirn, t_max, base, end, leaf_size, k, leaf)
     _check_order(order_mode)
     if rows.device.type == "cpu":
+        _plain_counts(counts)
         return closest_hit_split_plain(rows, leaf, org, dirn, t_max, base,
                                        end, leaf_size, k, order_mode,
                                        return_iters)
-    lib = _kernel_lib(rows, k)
+    _kernel_lib(rows, k)
+    _aligned(16, rows, leaf)
     r = org.shape[0]
-    out = _hit_outputs(r, rows.device)
     steps = (torch.empty(r, dtype=torch.int32, device=rows.device)
              if return_iters else None)
-    if r:
-        _launch(closest_hit_split, "pt_closest_hit_split", lib, _ptr(rows),
-                _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_max), r, base, end,
-                leaf_size, k, int(order_mode == "near"), *map(_ptr, out),
-                None if steps is None else _ptr(steps), _stream(rows), rays=r)
-    return (*out, steps) if return_iters else out
+    out = _persistent(closest_hit_split, "pt_closest_hit_split", rows,
+                      (_ptr(rows), _ptr(leaf)), org, dirn, t_max, base, end,
+                      (leaf_size, k, int(order_mode == "near")), counts,
+                      (*_hit_outputs(r, rows.device), steps))
+    return out if return_iters else out[:4]
 
 
 def any_hit_split(rows, leaf, org, dirn, t_cut, base: int, end: int,
-                  leaf_size: int, k: int, order_mode: str = "full"):
+                  leaf_size: int, k: int, order_mode: str = "full",
+                  counts=None):
     """Occlusion per ray by the ordered walk over the split tables: (R,)
-    bool. csrc/any_hit_split.cu on CUDA tensors, any_hit_split_plain on
-    CPU tensors."""
+    bool, any_hit's on the fat table they split. order_mode is checked
+    and changes no result on this walk, which visits each node at most
+    once: the kernel pushes SPLIT_ANY_HIT_ORDER whatever it names. Every
+    child box must equal the child's own box bit for bit, as in
+    closest_hit_split.
+    The persistent ordered walk of csrc/any_hit.cu over the split tables
+    (both on 16-byte boundaries) on CUDA tensors, any_hit_split_plain (in
+    the order given) on CPU tensors. `counts` as in closest_hit."""
     _check(rows, org, dirn, t_cut, base, end, leaf_size, k, leaf)
     _check_order(order_mode)
     if rows.device.type == "cpu":
+        _plain_counts(counts)
         return any_hit_split_plain(rows, leaf, org, dirn, t_cut, base, end,
                                    leaf_size, k, order_mode)
-    lib = _kernel_lib(rows, k)
-    r = org.shape[0]
-    occ = torch.empty(r, dtype=torch.bool, device=rows.device)
-    if r:
-        _launch(any_hit_split, "pt_any_hit_split", lib, _ptr(rows),
-                _ptr(leaf), _ptr(org), _ptr(dirn), _ptr(t_cut), r, base, end,
-                leaf_size, k, int(order_mode == "near"), _ptr(occ),
-                _stream(rows), rays=r)
-    return occ
+    _kernel_lib(rows, k)
+    _aligned(16, rows, leaf)
+    occ = torch.empty(org.shape[0], dtype=torch.bool, device=rows.device)
+    return _persistent(any_hit_split, "pt_any_hit_split", rows,
+                       (_ptr(rows), _ptr(leaf)), org, dirn, t_cut, base, end,
+                       (leaf_size, k), counts, (occ,))[0]
 
 
 def closest_hit_packet(rows, leaf, org, dirn, t_max, base: int, end: int,

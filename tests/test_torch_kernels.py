@@ -184,7 +184,9 @@ def test_stack_capacity_holds_a_bound_past_64(monkeypatch, k, depth):
                        axis=1).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     fat_t, org_t, d_t = map(torch.from_numpy, (fat, org, d))
-    rows, leaf = map(torch.from_numpy, tables.split_fat(fat, 1))
+    split = tables.split_fat(fat, 1)
+    tables.check_child_boxes(split[0], k)
+    rows, leaf = map(torch.from_numpy, split)
     args = (0, fat.shape[0] // 2, 1, k)
     tm = torch.full((n,), 1e9)
     t_pre, s_pre, _u, _v = traverse.closest_hit_preorder_plain(

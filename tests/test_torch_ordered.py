@@ -1,7 +1,8 @@
-"""The ordered walk of kernels #1 and #2 (csrc/closest_hit.cu,
+"""The ordered walk of kernels #1, #2, #5 and #8 (csrc/closest_hit.cu,
 csrc/any_hit.cu) on the CPU: its push order against the JAX kernel at
 exact ties, the table property its single box test per node needs, and
-its plain versions against the walk that re-tests every node's own box.
+its plain versions over both table forms against the JAX kernels that
+re-test every node's own box.
 
 Push order. The JAX package calls pallas_traverse_ordered8_fat with
 order_mode="near" (ptsharp_tpu/intersect.py). The first triangle found
@@ -30,6 +31,9 @@ from ptsharp_tpu.scene import SceneBuilder
 from ptsharp_tpu_torch import examples
 from ptsharp_tpu_torch.accel import tables
 from ptsharp_tpu_torch.kernels import traverse
+
+from tests.test_torch_kernels import _tied
+from tests.test_torch_split import _assert_t
 
 N = 2048
 
@@ -103,8 +107,9 @@ def test_push_order_against_the_jax_kernel(kind, leaf_size, k):
                                 jnp.asarray(tm), *args, order_mode="near",
                                 pipelined=True, mt_gate=True))
     fat = torch.from_numpy(np.array(sp.p_fat))
-    rows, leaf = map(torch.from_numpy,
-                     tables.split_fat(np.asarray(sp.p_fat), sp.max_leaf))
+    split = tables.split_fat(np.asarray(sp.p_fat), sp.max_leaf)
+    tables.check_child_boxes(split[0], k)
+    rows, leaf = map(torch.from_numpy, split)
     o, dd, t = map(torch.from_numpy, (org, d, tm))
     slots = {m: traverse.closest_hit_split_plain(
         rows, leaf, o, dd, t, *args, order_mode=m)[1].numpy()
@@ -165,34 +170,53 @@ def test_ordered_builds_check_the_child_boxes(monkeypatch):
 
 @pytest.mark.parametrize("k", [4, 8])
 def test_entry_distance_cull_matches_the_own_box_retest(k):
-    """closest_hit_plain (entries carry their entry distance, no own-box
-    re-test) against the walk that re-tests each visited node's own box
-    (closest_hit_split_plain, "near", #1's push order), on the two-mesh scene's rays with
-    random t_max: (t, slot, u, v) bit-equal, and no lane takes more steps;
-    any_hit_plain against any_hit_split_plain the same way."""
+    """The entry-distance walk (entries carry their entry distance, no
+    own-box re-test) against the JAX package's ordered kernels over the
+    split tables, which re-test each visited node's own box (interpret
+    mode), on the two-mesh scene's rays with random t_max:
+    closest_hit_plain and closest_hit_split_plain ("near", #1's push
+    order) against pallas_traverse_ordered8(order_mode="near") with
+    tests/test_torch_split.py's tolerance and tie rule, and any_hit_plain
+    and any_hit_split_plain against pallas_occluded_ordered8, equal off
+    the t_cut band."""
     sp = _scene("two-mesh", 8, k)
-    org, d = map(torch.from_numpy, _rays(N, 5))
+    org_np, d_np = _rays(N, 5)
+    org, d = map(torch.from_numpy, (org_np, d_np))
     rng = np.random.default_rng(11)
-    tm = np.where(rng.random(N) < 0.1, -1e9, rng.uniform(0.2, 6.0, N))
-    tm = torch.from_numpy(tm.astype(np.float32))
+    tm_np = np.where(rng.random(N) < 0.1, -1e9,
+                     rng.uniform(0.2, 6.0, N)).astype(np.float32)
+    tm = torch.from_numpy(tm_np)
     fat = torch.from_numpy(np.array(sp.p_fat))
-    rows, leaf = map(torch.from_numpy,
-                     tables.split_fat(np.asarray(sp.p_fat), sp.max_leaf))
+    rows_np, leaf_np = tables.split_fat(np.asarray(sp.p_fat), sp.max_leaf)
+    tables.check_child_boxes(rows_np, k)
+    rows, leaf = map(torch.from_numpy, (rows_np, leaf_np))
     args = (sp.p_inst_base[0], sp.p_inst_end[0], sp.max_leaf, sp.wide_k)
-    *got, steps = traverse.closest_hit_plain(fat, org, d, tm, *args,
-                                             return_iters=True)
-    *want, steps_retest = traverse.closest_hit_split_plain(
-        rows, leaf, org, d, tm, *args, order_mode="near", return_iters=True)
-    assert 0.2 < float((want[1] >= 0).float().mean()) < 0.9
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert bool((steps <= steps_retest).all())
-    assert int(steps.sum()) < int(steps_retest.sum())
-    occ, _steps = traverse.any_hit_plain(fat, org, d, tm, *args,
-                                         return_iters=True)
-    assert torch.equal(occ, traverse.any_hit_split_plain(rows, leaf, org, d,
-                                                         tm, *args))
-    assert 0.1 < float(occ.float().mean()) < 0.9
+    jo, jd, jt = map(jnp.asarray, (org_np, d_np, tm_np))
+    t_ref, s_ref, u_ref, v_ref = (np.asarray(x) for x in
+                                  ordered_kernel.pallas_traverse_ordered8(
+                                      sp.p_rows, sp.p_leaf, jo, jd, jt, *args,
+                                      order_mode="near"))
+    hit = s_ref >= 0
+    assert 0.2 < hit.mean() < 0.9
+    same = hit & ~_tied(fat, org, d, tm, sp.max_leaf)
+    for t, slot, u, v in (
+            traverse.closest_hit_plain(fat, org, d, tm, *args),
+            traverse.closest_hit_split_plain(rows, leaf, org, d, tm, *args,
+                                             order_mode="near")):
+        _assert_t(t.numpy(), t_ref)
+        np.testing.assert_array_equal(slot.numpy() >= 0, hit)
+        np.testing.assert_array_equal(slot.numpy()[same], s_ref[same])
+        np.testing.assert_allclose(u.numpy()[same], u_ref[same], atol=1e-4)
+        np.testing.assert_allclose(v.numpy()[same], v_ref[same], atol=1e-4)
+    occ_ref = np.asarray(ordered_kernel.pallas_occluded_ordered8(
+        sp.p_rows, sp.p_leaf, jo, jd, jt, *args))
+    assert 0.1 < occ_ref.mean() < 0.9
+    t_near = traverse.closest_hit_plain(fat, org, d, torch.full((N,), 1e9),
+                                        *args)[0].numpy()
+    edge = np.abs(t_near - tm_np) <= 1e-5 * np.abs(tm_np)
+    for occ in (traverse.any_hit_plain(fat, org, d, tm, *args),
+                traverse.any_hit_split_plain(rows, leaf, org, d, tm, *args)):
+        np.testing.assert_array_equal(occ.numpy()[~edge], occ_ref[~edge])
 
 
 def test_counts_are_kept_by_the_kernels_only():

@@ -23,12 +23,17 @@ Tolerances:
     does, in the same order). u, v within 1e-4 on hit lanes off ties.
   any-hit: equal, except on lanes whose nearest hit lies within
     1e-5 * t_cut of t_cut.
-  split against fat (both plain, on the same rays): bit-equal.
+  split against fat (both plain, on the same rays): bit-equal, and the
+    ordered "near" walk also in each ray's steps; the two push orders'
+    any-hits: equal.
 
-The card-marked tests run the three split-table CUDA kernels against
-their plain versions, and #13 also at 17, 1,024 and 2^19 rays and on a
-chunk of rays most of which start at t_max = -INF; they skip on a machine
-without a card.
+The ordered walks test a node's box only as a child box of its parent
+row, so the split tables are held to accel.tables.check_child_boxes
+where they are made. The card-marked tests run the three split-table
+CUDA kernels against their plain versions (every output on every lane,
+and the kernels' step counts), and #13 also at 17, 1,024 and 2^19 rays
+and on a chunk of rays most of which start at t_max = -INF; they skip on
+a machine without a card.
 """
 
 import jax.numpy as jnp
@@ -89,6 +94,7 @@ def ref(request):
         sp.p_rows, sp.p_leaf, jo, jd, jnp.asarray(t_cut), *args)
     fat = np.array(sp.p_fat)
     rows, leaf = tables.split_fat(fat, sp.max_leaf)
+    tables.check_child_boxes(rows, sp.wide_k)
     return dict(
         fat=torch.from_numpy(fat), rows=torch.from_numpy(rows),
         leaf=torch.from_numpy(leaf), org=torch.from_numpy(org),
@@ -179,18 +185,44 @@ def test_split_walks_equal_the_fat_walks(ref):
                                                    *ref["args"]))
 
 
+def test_split_near_walk_equals_the_fat_walk_in_steps(ref):
+    """closest_hit_split_plain in the "near" order is closest_hit_plain
+    over the fat table the split tables come from: all five outputs
+    bit-equal, each ray's step count included."""
+    fat, org, d, tm = ref["fat"], ref["org"], ref["dirn"], ref["t_max"]
+    split = traverse.closest_hit_split_plain(*_split(ref), tm, *ref["args"],
+                                             order_mode="near",
+                                             return_iters=True)
+    whole = traverse.closest_hit_plain(fat, org, d, tm, *ref["args"],
+                                       return_iters=True)
+    assert len(split) == len(whole) == 5
+    for a, b in zip(split, whole):
+        assert torch.equal(a, b)
+
+
+def test_any_hit_split_orders_agree(ref):
+    """The ordered any-hit visits each node at most once, so its two push
+    orders give the same occlusion on every lane (the kernel runs one)."""
+    occ = {m: traverse.any_hit_split_plain(*_split(ref), ref["t_cut"],
+                                           *ref["args"], order_mode=m)
+           for m in traverse.ORDER_MODES}
+    assert 0.1 < float(occ["full"].float().mean()) < 0.9
+    assert torch.equal(occ["full"], occ["near"])
+
+
 @pytest.mark.parametrize("mode", traverse.ORDER_MODES)
 def test_step_counts(ref, mode):
     """return_iters adds each ray's step count and changes nothing else;
-    a ray with t_max <= 0 misses the root box and takes one step."""
+    a ray with t_max <= 0 misses the root box where its walk starts and
+    takes no step."""
     out = traverse.closest_hit_split_plain(
         *_split(ref), ref["t_max"], *ref["args"], order_mode=mode,
         return_iters=True)
     base, end = ref["args"][:2]
     steps = out[4].numpy()
     assert out[4].dtype == torch.int32 and steps.shape == (N,)
-    assert (steps >= 1).all() and (steps <= end - base + 2).all()
-    np.testing.assert_array_equal(steps[ref["t_max"].numpy() <= 0], 1)
+    assert (steps >= 0).all() and (steps <= end - base + 2).all()
+    np.testing.assert_array_equal(steps[ref["t_max"].numpy() <= 0], 0)
     assert steps.mean() > 2
     plain = traverse.closest_hit_split_plain(
         *_split(ref), ref["t_max"], *ref["args"], order_mode=mode)
@@ -257,10 +289,10 @@ def test_split_wrappers_reject_bad_inputs(ref, bad):
     with pytest.raises(ValueError):
         traverse.closest_hit_split(rows, leaf, org, d, tm, base, end,
                                    leaf_size, k, **kw)
+    with pytest.raises(ValueError):
+        traverse.any_hit_split(rows, leaf, org, d, ref["t_cut"], base, end,
+                               leaf_size, k, **kw)
     if bad != "order_mode":
-        with pytest.raises(ValueError):
-            traverse.any_hit_split(rows, leaf, org, d, ref["t_cut"], base,
-                                   end, leaf_size, k)
         with pytest.raises(ValueError):
             traverse.closest_hit_packet(rows, leaf, org, d, tm, base, end,
                                         leaf_size, k)
@@ -269,8 +301,9 @@ def test_split_wrappers_reject_bad_inputs(ref, bad):
 @pytest.mark.cuda
 def test_cuda_split_kernels_match_plain_versions(ref):
     """Runs on a machine with a card: the three split-table CUDA kernels
-    against their plain versions on the same inputs, both push orders,
-    the step counts, and the launch counts."""
+    against their plain versions on the same inputs, both push orders:
+    every output on every lane, each ray's step count, the steps the
+    kernels count (lane slots bound them), and the launch counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
@@ -280,18 +313,25 @@ def test_cuda_split_kernels_match_plain_versions(ref):
     args = ref["args"]
     traverse.reset_launch_counts()
     for mode in traverse.ORDER_MODES:
+        counts = torch.zeros((2, 2), dtype=torch.int64, device=dev)
         got = traverse.closest_hit_split(rows, leaf, org, d, tm, *args,
-                                         order_mode=mode, return_iters=True)
+                                         order_mode=mode, return_iters=True,
+                                         counts=counts[0])
         want = traverse.closest_hit_split_plain(rows, leaf, org, d, tm,
                                                 *args, order_mode=mode,
                                                 return_iters=True)
+        assert len(got) == len(want) == 5
         for a, b in zip(got, want):
-            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+            assert torch.equal(a, b)
         occ = traverse.any_hit_split(rows, leaf, org, d, tc, *args,
-                                     order_mode=mode)
-        occ_p = traverse.any_hit_split_plain(rows, leaf, org, d, tc, *args,
-                                             order_mode=mode)
-        np.testing.assert_array_equal(occ.cpu().numpy(), occ_p.cpu().numpy())
+                                     order_mode=mode, counts=counts[1])
+        occ_p, steps_any = traverse.any_hit_split_plain(
+            rows, leaf, org, d, tc, *args,
+            order_mode=traverse.SPLIT_ANY_HIT_ORDER, return_iters=True)
+        assert torch.equal(occ, occ_p)
+        assert counts[:, 0].tolist() == [int(want[4].sum()),
+                                          int(steps_any.sum())]
+        assert bool((counts[:, 0] <= counts[:, 1]).all())
     got = traverse.closest_hit_packet(rows, leaf, org, d, tm, *args)
     want = traverse.closest_hit_packet_plain(rows, leaf, org, d, tm, *args)
     for a, b in zip(got, want):
