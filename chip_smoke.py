@@ -123,7 +123,30 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               any_hit_wide_rows for "walk" and "cluster"); one cornell pass
               at 512x512; and 32x24 bunny renders on the card, both walk
               orders, "walk" and "wide", held against the same renders on
-              the CPU (the plain versions).
+              the CPU (the plain versions);
+  7. grad     the gradient path on the bunny of 3 (pallas ordered, K=8)
+              at 1920x1080, 1 spp, through diff.render_image, with
+              respect to the DiffParams leaves (material color,
+              emittance, tint, environment color, texels): forward only,
+              then forward and backward by the tape and by autograd under
+              remat "full", "hits" and off, twice each, with wall ms, peak
+              device memory and launches, each half's counts set to 0 just
+              before and read just after (every forward launches #1 and #2
+              once a depth; the tape's backward launches nothing, "full"
+              re-launches both once a checkpointed depth, "hits" #2 only,
+              off nothing); every gradient finite, each autograd mode's
+              equal to the tape's per leaf (GRAD_RTOL, GRAD_ATOL_REL), the
+              textured material's color row without gradient and the
+              texels with; one tape and one "full" step under
+              torch.profiler (device ms, idle share, index_add_'s share,
+              the top kernels); three SGD steps on the material colors (lr
+              0.5, clipped to [0, 1], as shard.make_train_step) toward a
+              target rendered from scaled colors, the last loss below the
+              first; a 32x24 bunny's tape gradients on the card against
+              the CPU's; and bench.py run_grad's shape through the port
+              (cornell 1920x1080, 8 chunks of 1,048,576 rays, fwd+bwd
+              Mrays/s by the tape and by autograd through
+              trace_compacted_static; no kernel launches there).
 
 Every kernel's least time on the card (bound_ms) is computed from the
 work its plain version did on the main-path rays (kernels.traverse.
@@ -139,8 +162,9 @@ Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
 of the fourteen kernel entry points' launches over the main-path renders
-(the split-table and the staged kernels': over their phases' driven
-calls, both scenes), its largest
+and the grad phase's main-path runs and SGD steps (the split-table and
+the staged kernels': over their phases' driven calls, both scenes), its
+largest
 error against its plain version, its times at the bunny's 1080p
 main-path width and its bound there; the last line is {"ok": true,
 "device": {...}}.
@@ -1641,6 +1665,353 @@ def reference_phase(device):
             raise AssertionError("card render disagrees with the CPU render")
 
 
+# ---- grad -----------------------------------------------------------------
+
+# per DiffParams leaf: gradients agree within rtol 1e-3 and an atol of 1e-3
+# of the leaf's largest magnitude (the CPU tests' tolerance against the
+# JAX package; card sums run in no fixed order, so never bit equality)
+GRAD_RTOL = 1e-3
+GRAD_ATOL_REL = 1e-3
+GRAD_REPS = 3  # runs of each gradient mode; the first pays first-use costs
+# (label, use_tape, IntegratorConfig fields)
+GRAD_MODES = (
+    ("tape", True, {}),
+    ("AD remat full", False, {"remat": True, "remat_policy": "full"}),
+    ("AD remat hits", False, {"remat": True, "remat_policy": "hits"}),
+    ("AD remat off", False, {"remat": False}),
+)
+SGD_STEPS = 3
+SGD_LR = 0.5       # shard.make_train_step's
+SGD_SCALE = 0.7    # the target's plain material colors, against the scene's
+
+
+def _counts():
+    """{wrapper name: (launches, rays)} since the last reset."""
+    from ptsharp_tpu_torch.kernels import traverse
+
+    return {w.__name__: (w.launches, w.rays) for w in traverse.WRAPPERS}
+
+
+def _launched(counts):
+    return {name: n for name, (n, _rays) in counts.items() if n}
+
+
+def _add_counts(total, counts):
+    for name, (n, rays) in counts.items():
+        a, b = total.get(name, (0, 0))
+        total[name] = (a + n, b + rays)
+
+
+def _peak_mb(device):
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**20
+
+
+def _reset_peak(device):
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def grads_close(what, got, want):
+    """Raise unless each DiffParams leaf of `got` is finite and agrees
+    with `want`'s (GRAD_RTOL, GRAD_ATOL_REL); returns the largest error
+    over each leaf's largest magnitude."""
+    from ptsharp_tpu_torch.tape import DiffParams
+
+    worst = 0.0
+    for name, a, b in zip(DiffParams._fields, got, want):
+        a, b = a.float().cpu(), b.float().cpu()
+        scale = float(b.abs().max())
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: {name} gradient is not finite")
+        if not torch.allclose(a, b, rtol=GRAD_RTOL,
+                              atol=GRAD_ATOL_REL * scale):
+            raise AssertionError(
+                f"{what}: {name} gradients differ by "
+                f"{float((a - b).abs().max()):.3e} (max |g| {scale:.3e})")
+        if scale > 0:
+            worst = max(worst, float((a - b).abs().max()) / scale)
+    return worst
+
+
+def grad_run(scene, cam, icfg, width, height, weights, use_tape, seed=0):
+    """One forward and backward of sum(render_image * weights) with
+    respect to the scene's DiffParams leaves, each half with every launch
+    count set to 0 just before and read just after. Returns the
+    gradients, the two halves' launches, their wall ms and the peak
+    device memory."""
+    from ptsharp_tpu_torch import diff
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.kernels import traverse
+    from ptsharp_tpu_torch.tape import DiffParams, plug
+
+    dev = scene.device
+    leaves = [x.detach().clone().requires_grad_()
+              for x in DiffParams.of(scene)]
+    s = plug(scene, DiffParams(*leaves))
+    _reset_peak(dev)
+    sync(dev)
+    traverse.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = diff.render_image(s, cam, icfg, rng.PRNGKey(seed), width, height,
+                            1, use_tape=use_tape)
+    loss = (img * weights).sum()
+    sync(dev)
+    t1 = time.perf_counter()
+    fwd = _counts()
+    traverse.reset_launch_counts()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    sync(dev)
+    t2 = time.perf_counter()
+    bwd = _counts()
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("the gradient run's image is not finite")
+    return dict(grads=grads, fwd=fwd, bwd=bwd,
+                fwd_ms=(t1 - t0) * 1e3, ms=(t2 - t0) * 1e3,
+                peak_mb=_peak_mb(dev))
+
+
+def grad_profile(scene, cam, icfg, width, height, weights, card):
+    """One tape and one remat "full" gradient step under torch.profiler:
+    device ms (the kernels' self time), the share of the wall time the
+    card sat idle, index_add_'s device ms and calls, and the kernels that
+    took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if scene.device.type != "cuda":
+        log("grad profile: not measured (no card)")
+        return
+    for label, use_tape, fields in GRAD_MODES[:2]:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run = grad_run(scene, cam, replace(icfg, **fields), width,
+                           height, weights, use_tape)
+        events = prof.key_averages()
+        kernels = sorted((e for e in events
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        adds = [e for e in events if e.key == "aten::index_add_"]
+        add_ms = sum(e.self_device_time_total for e in adds) / 1e3
+        log(f"grad profile {label}: fwd+bwd {run['ms']:.1f} ms wall, "
+            f"device {device_ms:.1f} ms, idle {1 - device_ms / run['ms']:.1%}"
+            f", index_add_ {add_ms:.1f} ms in {sum(e.count for e in adds)} "
+            f"calls ({add_ms / max(device_ms, 1e-9):.1%})"
+            f"; top kernels: " + "; ".join(
+                f"{e.key[:48]} {e.self_device_time_total / 1e3:.1f} ms x "
+                f"{e.count}" for e in kernels[:5]) + f" [{card}]")
+
+
+def _expect(what, counts, want):
+    if _launched(counts) != want:
+        raise AssertionError(f"{what}: launched {_launched(counts)}, "
+                             f"expected {want}")
+
+
+def sgd_phase(scene, cam, icfg, width, height, card):
+    """SGD on the material color table, as shard.make_train_step does on
+    one device (lr 0.5, colors clipped to [0, 1], the tape backward),
+    toward a target rendered with the same key from the scene with its
+    untextured materials' colors scaled by SGD_SCALE. Raises unless the
+    last step's loss is below the first's. Returns the steps' launches
+    and rays by wrapper."""
+    from ptsharp_tpu_torch import diff
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.kernels import traverse
+
+    mats = scene.materials
+    scaled = torch.where((mats.texture >= 0)[:, None], mats.color,
+                         mats.color * SGD_SCALE)
+    with torch.no_grad():
+        target = diff.render_image(
+            replace(scene, materials=mats._replace(color=scaled)), cam,
+            icfg, rng.PRNGKey(1), width, height, 1)
+    colors = mats.color.clone()
+    losses, launches = [], {}
+    for step in range(SGD_STEPS):
+        c = colors.clone().requires_grad_()
+        s = replace(scene, materials=mats._replace(color=c))
+        traverse.reset_launch_counts()
+        img = diff.render_image(s, cam, icfg, rng.PRNGKey(1), width, height,
+                                1, use_tape=True)
+        loss = torch.mean((img - target) ** 2)
+        (g,) = torch.autograd.grad(loss, c)
+        colors = torch.clamp(colors - SGD_LR * g, 0.0, 1.0)
+        losses.append(float(loss.detach()))
+        _add_counts(launches, _counts())
+        log(f"grad sgd step {step + 1}/{SGD_STEPS}: loss={losses[-1]:.9e} "
+            f"[{card}]")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"SGD did not lower the loss: {losses}")
+    dist = [float((c - scaled).abs().max()) for c in (mats.color, colors)]
+    log(f"grad sgd: losses {losses}; max |color - target color| "
+        f"{dist[0]:.4f} -> {dist[1]:.4f}")
+    return launches
+
+
+def grad_reference(device):
+    """A 32x24 bunny's tape gradients on the card against the same run on
+    the CPU, where the wrappers run the plain versions."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.kernels import traverse
+
+    w, h = 32, 24
+    grads = []
+    for dev in (device, torch.device("cpu")):
+        scene, cam, _rc, icfg = examples.bunny(
+            w, h, subdivisions=3, intersector="pallas", wide_k=8, device=dev)
+        weights = torch.from_numpy(np.random.default_rng(3).random(
+            (h, w, 3)).astype(np.float32)).to(dev)
+        grads.append(grad_run(scene, cam, icfg, w, h, weights, True,
+                              seed=5)["grads"])
+    traverse.reset_launch_counts()
+    err = grads_close("bunny 32x24 tape gradients, card against CPU",
+                      *grads)
+    log(f"grad reference bunny {w}x{h}: tape gradients card = CPU, largest "
+        f"error over max |g| {err:.3e}")
+
+
+def grad_bench_shape(device, card, width=1920, height=1080, chunk=1 << 20,
+                     chunks=8):
+    """bench.py run_grad's shape through the port: cornell at 1920x1080,
+    gradient of the mean radiance of a chunk of 1,048,576 pixels (in
+    scanline order, wrapping) with respect to the material colors, by the
+    tape and by autograd through trace_compacted_static; one warm-up
+    chunk, then `chunks` timed ones; fwd+bwd Mrays/s counts the forward's
+    rays. Cornell has no mesh: no kernel may launch."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.integrator import trace_compacted_static
+    from ptsharp_tpu_torch.kernels import traverse
+    from ptsharp_tpu_torch.tape import trace_tape_radiance
+
+    scene, cam, _rc, icfg = examples.build("cornell", device=device)
+    n_pix = width * height
+    for mode, tracer in (("tape", trace_tape_radiance),
+                         ("AD compacted", trace_compacted_static)):
+        def step(ci, key):
+            start = (ci * chunk) % n_pix
+            xs = (start + torch.arange(chunk, device=device)) % n_pix
+            colors = scene.materials.color.clone().requires_grad_()
+            s = replace(scene,
+                        materials=scene.materials._replace(color=colors))
+            kj, kt = rng.split(key)
+            ju, jv = rng.uniform(kj, (2, chunk), device=device)
+            org, dirn = cam.cast_rays(xs % width, xs // width, width, height,
+                                      ju, jv)
+            res = tracer(s, icfg, org, dirn, kt)
+            (g,) = torch.autograd.grad(torch.mean(res.radiance), colors)
+            return res.rays_traced, g
+
+        step(0, rng.PRNGKey(99))
+        _reset_peak(device)
+        sync(device)
+        traverse.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [step(i, rng.PRNGKey(i)) for i in range(chunks)]
+        total = sum(int(r) for r, _g in outs)
+        sync(device)
+        sec = time.perf_counter() - t0
+        _expect(f"cornell fwd+bwd ({mode})", _counts(), {})
+        if not all(bool(torch.isfinite(g).all()) for _r, g in outs):
+            raise AssertionError(f"cornell fwd+bwd ({mode}): gradient is "
+                                 f"not finite")
+        log(f"grad bench shape cornell {width}x{height} {mode}: {chunks} x "
+            f"{chunk} rays, rays_traced={total} seconds={sec:.3f} "
+            f"fwd+bwd mrays_per_s={total / sec / 1e6:.3f} peak_mb="
+            f"{_peak_mb(device)} [{card}]")
+
+
+def grad_phase(scene, cam, icfg, width, height, card):
+    """The gradient path on the main-path scene (the bunny, pallas ordered
+    K=8) at width x height, 1 spp, through diff.render_image: forward
+    only, then forward and backward by the tape and by autograd under
+    remat "full", "hits" and off, GRAD_REPS runs each with its launches
+    (each half's counts set to 0 just before and read just after), wall
+    ms and peak memory. Every forward launches #1 and #2 once a depth;
+    the tape's backward launches nothing, "full" re-launches both once a
+    checkpointed depth (max_bounces), "hits" #2 only, off nothing. The
+    tape's and every autograd mode's gradients agree per leaf. Then the
+    SGD steps, a small bunny's card gradients against the CPU's, and
+    bench.py's fwd+bwd shape on cornell. Returns the phase's launches and
+    rays by wrapper (the main-path runs and the SGD steps)."""
+    from ptsharp_tpu_torch import diff
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.kernels import traverse
+    from ptsharp_tpu_torch.tape import DiffParams
+
+    if scene.intersector != "pallas" or not scene.p_ordered:
+        raise AssertionError("the grad phase runs the pallas ordered walk")
+    dev = scene.device
+    depths = icfg.max_bounces + 1
+    fwd_want = {"closest_hit": depths, "any_hit": depths}
+    bwd_want = {"tape": {},
+                "AD remat full": {"closest_hit": depths - 1,
+                                  "any_hit": depths - 1},
+                "AD remat hits": {"any_hit": depths - 1},
+                "AD remat off": {}}
+    n = width * height
+    weights = torch.from_numpy(np.random.default_rng(7).random(
+        (height, width, 3)).astype(np.float32) / n).to(dev)
+    total = {}
+    for rep in range(GRAD_REPS):
+        _reset_peak(dev)
+        sync(dev)
+        traverse.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            img = diff.render_image(scene, cam, icfg, rng.PRNGKey(0), width,
+                                    height, 1)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        _expect("forward only", counts, fwd_want)
+        _add_counts(total, counts)
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError("forward image is not finite")
+        log(f"grad bunny {width}x{height} forward only run {rep + 1}: "
+            f"{ms:.1f} ms, peak_mb={_peak_mb(dev)}, launches "
+            f"{_launched(counts)} [{card}]")
+    ref = None
+    for label, use_tape, fields in GRAD_MODES:
+        cfg = replace(icfg, **fields)
+        for rep in range(GRAD_REPS):
+            run = grad_run(scene, cam, cfg, width, height, weights, use_tape)
+            _expect(f"{label} forward", run["fwd"], fwd_want)
+            _expect(f"{label} backward", run["bwd"], bwd_want[label])
+            _add_counts(total, run["fwd"])
+            _add_counts(total, run["bwd"])
+            if ref is None:
+                ref = run["grads"]
+                err = 0.0
+            else:
+                err = grads_close(f"{label} against the tape", run["grads"],
+                                  ref)
+            log(f"grad bunny {width}x{height} {label} run {rep + 1}: fwd "
+                f"{run['fwd_ms']:.1f} ms, fwd+bwd {run['ms']:.1f} ms, "
+                f"peak_mb={run['peak_mb']}, launches fwd "
+                f"{_launched(run['fwd'])} bwd {_launched(run['bwd'])}, "
+                f"largest error against the tape over max |g| {err:.3e} "
+                f"[{card}]")
+    grad_profile(scene, cam, icfg, width, height, weights, card)
+    log("grad bunny gradient magnitudes: " + ", ".join(
+        f"{name} {float(g.abs().max()):.4e}"
+        for name, g in zip(DiffParams._fields, ref)))
+    tex = scene.materials.texture >= 0
+    if not (float(ref[4].abs().max()) > 0
+            and bool((ref[0][tex] == 0).all())):
+        raise AssertionError("the textured material must pass its gradient "
+                             "to the texels, not to its color row")
+    _add_counts(total, sgd_phase(scene, cam, icfg, width, height, card))
+    grad_reference(dev)
+    grad_bench_shape(dev, card)
+    return total
+
+
 def scene_line(name, scene, seconds):
     if scene.intersector != "pallas":
         # leaf slots holding a triangle (padding slots are all zero)
@@ -1811,6 +2182,7 @@ def main() -> int:
         f"mrays_per_s={rays / sec / 1e6:.3f} "
         f"film_mean={float(film.mean.mean()):.6f}")
     reference_phase(device)
+    runs.append(grad_phase(scene, cam, icfg, rcfg.width, rcfg.height, card))
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
         f"of main")

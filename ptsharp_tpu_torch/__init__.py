@@ -18,11 +18,14 @@ Layer map:
   kernels/       CUDA kernel build, wrappers and plain versions
   scene.py       host scene builder -> SceneData of tensors on one device
   intersect.py   closest-hit, occlusion, shading data
-  integrator.py  wavefront path integrator (plain and compacted)
+  integrator.py  wavefront path integrator (plain and compacted),
+                 differentiable in materials, textures and environment
+  tape.py        analytic tape backward (trace_tape_radiance)
+  diff.py        differentiable render_image, material_color_grad
   film.py        Welford film
   renderer.py    chunked progressive renderer
   examples.py    scene catalog (cornell, bunny, dragon_hd)
-  convert.py     JAX-package scene/camera -> port
+  convert.py     JAX-package scene/camera/DiffParams -> port
 """
 
 from ptsharp_tpu_torch.camera import Camera
@@ -40,6 +43,7 @@ from ptsharp_tpu_torch.materials import (
 )
 from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
 from ptsharp_tpu_torch.scene import SceneBuilder, SceneData
+from ptsharp_tpu_torch.tape import trace_tape_radiance
 
 __all__ = [
     "Camera",
@@ -57,4 +61,5 @@ __all__ = [
     "Renderer",
     "SceneBuilder",
     "SceneData",
+    "trace_tape_radiance",
 ]

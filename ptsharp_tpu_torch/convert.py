@@ -2,8 +2,9 @@
 
 `scene_from_reference` turns the arrays of a ptsharp_tpu SceneData, taken
 as numpy, into the port's SceneData, so one scene can run through both
-packages even where a rebuild could differ. It takes plain dicts and
-never imports the JAX package:
+packages even where a rebuild could differ; `diff_params_from_reference`
+does the same for the tape's DiffParams. They take plain dicts and never
+import the JAX package:
 
   fields: the reference's data fields by name (numpy arrays); the nested
           `materials` and `textures` tables as dicts of arrays (or any
@@ -17,7 +18,7 @@ For the XLA walks ("wide", "walk", "cluster") the reference's row tables
 (u_rows, w_rows, leaf_rows, the cluster tables) and each instance's
 ranges in them carry over.
 
-Both functions put the tensors on the card unless device="cpu" is asked
+Each function puts the tensors on the card unless device="cpu" is asked
 for.
 """
 
@@ -33,6 +34,7 @@ from ptsharp_tpu_torch.materials import MaterialTable
 from ptsharp_tpu_torch.scene import (
     SceneData, check_stack_bound, no_xla_tables, not_ported,
 )
+from ptsharp_tpu_torch.tape import DiffParams
 from ptsharp_tpu_torch.textures import TextureAtlas
 
 
@@ -185,3 +187,13 @@ def camera_from_reference(fields: dict,
     return Camera(**{name: torch.as_tensor(np.array(fields[name]),
                                            dtype=torch.float32, device=device)
                      for name in Camera._fields})
+
+
+def diff_params_from_reference(fields: dict,
+                               device=devices.DEFAULT) -> DiffParams:
+    """fields: the reference DiffParams' leaves by name (numpy arrays), or
+    any object with `_asdict()`."""
+    dev = devices.resolve(device)
+    fields = _as_dict(fields)
+    return DiffParams(*(torch.from_numpy(np.array(fields[name], np.float32))
+                        .to(dev) for name in DiffParams._fields))

@@ -10,9 +10,16 @@ two integrators make the same decisions ray by ray.
 Covered here: the naive specular mode, light modes "random" and "power",
 analytic lights with any-hit shadow rays, and the sync-free compacted
 trace. The rest raises
-NotImplementedError naming the ROADMAP item that ports it. The port is
-forward-only: the JAX package's remat options (backward-pass memory) and
-its tape have no counterpart.
+NotImplementedError naming the ROADMAP item that ports it.
+
+Radiance is differentiable in the material table, the texture atlas and
+the environment color, as in the JAX package: geometry and every discrete
+decision (branch coins, light picks, Russian roulette's probability, the
+Morton keys, the reservoir weight) are detached where it calls
+stop_gradient, and traversal never sees a tensor that requires grad.
+`remat` recomputes each scanned depth in the backward pass
+(torch.utils.checkpoint), `want_tape` records the per-depth TapeRecord
+that tape.py's analytic backward replays.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.utils import checkpoint
 
 from ptsharp_tpu_torch.core import rng, sampling, vec
 from ptsharp_tpu_torch.intersect import (
@@ -50,6 +58,12 @@ class IntegratorConfig:
     russian_roulette: bool = False
     rr_start_depth: int = 2
     rr_min_prob: float = 0.05
+    # recompute each scanned depth (1..max_bounces) in the backward pass
+    # instead of keeping its residuals: "full" re-runs the whole depth,
+    # closest-hit included; "hits" keeps the depth's hit record and
+    # re-runs shading and NEE (shadow rays included). Exact either way.
+    remat: bool = True
+    remat_policy: str = "full"
     # sort each bounce's wavefront by direction octant + origin Morton code
     # before closest-hit (results scattered back)
     sort_bounces: bool = True
@@ -58,17 +72,19 @@ class IntegratorConfig:
     anyhit_shadows: bool = True
 
     def __post_init__(self):
+        if self.remat_policy not in ("full", "hits"):
+            raise ValueError(self.remat_policy)
         if not self.anyhit_shadows:
             raise not_ported("closest-hit shadow rays (anyhit_shadows=False)",
-                             "Queue 1 item 10")
+                             "Queue 1 item 10b")
         if self.light_mode not in (LIGHT_MODE_RANDOM, LIGHT_MODE_POWER):
             if self.light_mode == LIGHT_MODE_ALL:
-                raise not_ported("light mode 'all'", "Queue 1 item 10")
+                raise not_ported("light mode 'all'", "Queue 1 item 10b")
             raise ValueError(self.light_mode)
         if self.specular_mode != SPECULAR_MODE_NAIVE:
             if self.specular_mode in (SPECULAR_MODE_FIRST, SPECULAR_MODE_ALL):
                 raise not_ported(f"specular mode {self.specular_mode!r}",
-                                 "Queue 1 item 10")
+                                 "Queue 1 item 10b")
             raise ValueError(self.specular_mode)
 
 
@@ -86,6 +102,30 @@ class TraceResult(NamedTuple):
     albedo: torch.Tensor       # (R, 3) first-hit material color
     normal: torch.Tensor       # (R, 3) first-hit shading normal
     rays_traced: torch.Tensor  # () int64, on the wavefront's device
+
+
+# tape flag bits (TapeRecord.flags)
+TAPE_MISS_ENV = 1   # lane adds throughput * env this depth
+TAPE_EMIT = 2       # lane adds throughput * color * emittance
+TAPE_NEE = 4        # lane adds (throughput * B) * direct
+TAPE_SPEC = 8       # bounce took the specular branch (B = tint mix)
+TAPE_TEX = 16       # resolved color came from the texture atlas
+TAPE_ALIVE = 32     # lane survives into the next depth
+
+
+class TapeRecord(NamedTuple):
+    """One depth's record for tape.py's analytic backward: what rebuilds
+    the depth's radiance terms and throughput update as a pointwise
+    function of the differentiable scene parameters (no traversal, no RNG,
+    no sort in the backward)."""
+
+    t_in: torch.Tensor    # (R, 3) throughput entering the depth
+    mat_id: torch.Tensor  # (R,) i32 hit material
+    uv: torch.Tensor      # (R, 2) texture uv at the hit (env uv on a miss)
+    lm: torch.Tensor      # (R,) i32 NEE light material id
+    kappa: torch.Tensor   # (R,) f32: direct = C[lm] * e[lm] * kappa
+    rr: torch.Tensor      # (R,) f32 RR survivor scale (1/prob; 1 if off)
+    flags: torch.Tensor   # (R,) i32 TAPE_* bits
 
 
 def _uniform(key, r: int, like):
@@ -132,16 +172,24 @@ def sample_environment(scene: SceneData, dirn):
 
 
 def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
-                  key, active=None):
+                  key, active=None, want_aux: bool = False):
     """Batched NEE (Sampler.sampleLights): the direct-light contribution
     BEFORE albedo weighting, and the shadow-ray count. Lanes where
     `active` is False skip all shadow traversal; their contribution is
-    garbage the caller masks."""
+    garbage the caller masks. The light pick and the sampled point are
+    detached.
+
+    want_aux: also return the tape decomposition (lm (R,) i32, kappa (R,)
+    f32, detached) with direct = color[lm] * emittance[lm] * kappa."""
     n_lights = scene.num_lights
     r = position.shape[0]
     dev = position.device
     if n_lights == 0 or not cfg.direct_lighting:
-        return torch.zeros((r, 3), device=dev), 0
+        zero = torch.zeros((r, 3), device=dev)
+        if want_aux:
+            return zero, 0, (torch.zeros(r, dtype=torch.int32, device=dev),
+                             torch.zeros(r, device=dev))
+        return zero, 0
     if active is None:
         active = torch.ones(r, dtype=torch.bool, device=dev)
 
@@ -158,6 +206,7 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
                      + b_ax * (dy * radius)[:, None])
         else:
             point = center
+        point = point.detach()
         ray_dir = vec.normalize(point - position)
         cos_t = vec.dot(ray_dir, normal)
         facing = cos_t > 0.0
@@ -179,11 +228,13 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
         cov = (radius * radius) / torch.clamp(hyp * hyp - radius * radius,
                                               min=1e-12)
         cov = torch.where(hyp < radius, 1.0, torch.clamp(cov, max=1.0))
-        lmat = scene.materials.gather(scene.light_mat[lidx])
+        lm = scene.light_mat[lidx]
+        lmat = scene.materials.gather(lm)
         scale = lmat.emittance * cos_t * cov
         contrib = lmat.color * scale[:, None]
         ok = facing & visible
-        return torch.where(ok[:, None], contrib, 0.0)
+        aux = (lm, torch.where(ok, cos_t * cov, 0.0).detach())
+        return torch.where(ok[:, None], contrib, 0.0), aux
 
     kpick, ksmp = rng.split(key)
     if cfg.light_mode == LIGHT_MODE_POWER:
@@ -191,10 +242,17 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
         lidx = torch.clamp(
             torch.searchsorted(scene.light_cdf, u, right=True),
             0, n_lights - 1)
-        inv_pdf = 1.0 / torch.clamp(scene.light_pmf[lidx], min=1e-12)
-        return one_light(lidx, ksmp) * inv_pdf[:, None], r
-    lidx = rng.randint(kpick, (r,), 0, n_lights, device=dev).long()
-    return one_light(lidx, ksmp) * float(n_lights), r
+        inv_pdf = (1.0 / torch.clamp(scene.light_pmf[lidx],
+                                     min=1e-12)).detach()
+        contrib, (lm, kap) = one_light(lidx, ksmp)
+        contrib, kap = contrib * inv_pdf[:, None], kap * inv_pdf
+    else:
+        lidx = rng.randint(kpick, (r,), 0, n_lights, device=dev).long()
+        contrib, (lm, kap) = one_light(lidx, ksmp)
+        contrib, kap = contrib * float(n_lights), kap * float(n_lights)
+    if want_aux:
+        return contrib, r, (lm, kap)
+    return contrib, r
 
 
 def _bounce(scene: SceneData, cfg: IntegratorConfig, state: RayState,
@@ -261,7 +319,7 @@ def _sorted_closest_hit(scene: SceneData, org, dirn, t_max=None):
     hit record is scattered back to the caller's lane order."""
     perm = torch.argsort(_morton_key(org, dirn, box=_mesh_root_box(scene)),
                          stable=True)
-    tm = None if t_max is None else t_max[perm]
+    tm = None if t_max is None else t_max.detach()[perm]
     hit = closest_hit(scene, org[perm], dirn[perm], t_max=tm)
     inv = _inverse_perm(perm)
     return Hit(*(f[inv] for f in hit))
@@ -275,17 +333,24 @@ def _sorted_occlusion(scene: SceneData, org, dirn, t_cut):
     return occ[_inverse_perm(perm)]
 
 
-def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
-          depth_key, u1, u2, depth: int, sort_rays: bool = False):
-    """One wavefront bounce. Returns (state, rays, first_albedo,
-    first_normal)."""
-    do_sort = sort_rays and cfg.sort_bounces and scene.has_meshes
-    # dead lanes carry a collapsed t bound so traversal retires them
+def _depth_hit(scene: SceneData, cfg: IntegratorConfig, state: RayState,
+               sort_rays: bool) -> Hit:
+    """The depth's closest hit. Dead lanes carry a collapsed t bound so
+    traversal retires them."""
     lane_tmax = torch.where(state.alive, INF, -INF)
-    if do_sort:
-        hit = _sorted_closest_hit(scene, state.org, state.dirn, lane_tmax)
-    else:
-        hit = closest_hit(scene, state.org, state.dirn, t_max=lane_tmax)
+    if sort_rays and cfg.sort_bounces and scene.has_meshes:
+        return _sorted_closest_hit(scene, state.org, state.dirn, lane_tmax)
+    return closest_hit(scene, state.org, state.dirn, t_max=lane_tmax)
+
+
+def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
+          depth_key, u1, u2, depth: int, sort_rays: bool = False,
+          pre_hit: Hit | None = None, want_tape: bool = False):
+    """One wavefront bounce. Returns (state, rays, first_albedo,
+    first_normal), and the depth's TapeRecord last with want_tape.
+    pre_hit: the depth's closest hit, found by the caller."""
+    hit = (pre_hit if pre_hit is not None
+           else _depth_hit(scene, cfg, state, sort_rays))
     rays = rays + torch.sum(state.alive)
     info = hit_info(scene, state.org, state.dirn, hit)
     mat = scene.materials.gather(info.mat_id)
@@ -294,8 +359,9 @@ def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
 
     missed = hit.ptype == PT_NONE
     env = sample_environment(scene, state.dirn)
+    miss_env = state.alive & missed
     radiance = state.radiance + torch.where(
-        (state.alive & missed)[:, None], state.throughput * env, 0.0)
+        miss_env[:, None], state.throughput * env, 0.0)
     alive = state.alive & ~missed
 
     # emissive hit: with NEE only specular-continued paths add emission
@@ -315,23 +381,29 @@ def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
     throughput = state.throughput * branch_w
 
     # NEE on the diffuse branch: post-branch throughput * direct
+    nee_mask = torch.zeros_like(alive)
+    nee_aux = None
     if cfg.direct_lighting and scene.num_lights > 0:
-        nee_active = alive & ~is_spec
-        direct, _n = sample_lights(scene, cfg, info.position, info.normal,
-                                   kn, active=nee_active)
-        radiance = radiance + torch.where(nee_active[:, None],
+        nee_mask = alive & ~is_spec
+        direct, _n, nee_aux = sample_lights(
+            scene, cfg, info.position, info.normal, kn, active=nee_mask,
+            want_aux=True)
+        radiance = radiance + torch.where(nee_mask[:, None],
                                           throughput * direct, 0.0)
-        rays = rays + torch.sum(nee_active)
+        rays = rays + torch.sum(nee_mask)
 
+    rr_scale = torch.ones_like(u1)
     if cfg.russian_roulette:
-        prob = torch.clamp(torch.amax(throughput, dim=-1), cfg.rr_min_prob,
-                           1.0)
+        # the survival probability is a decision: no gradient through it
+        prob = torch.clamp(torch.amax(throughput.detach(), dim=-1),
+                           cfg.rr_min_prob, 1.0)
         if depth < cfg.rr_start_depth:
             prob = torch.ones_like(prob)
         survive = _uniform(krr, prob.shape[0], prob) < prob
         throughput = torch.where(survive[:, None], throughput / prob[:, None],
                                  throughput)
         alive = alive & survive
+        rr_scale = 1.0 / prob
 
     a3 = alive[:, None]
     new_state = RayState(
@@ -342,7 +414,28 @@ def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
         emission_ok=torch.where(alive, is_spec, state.emission_ok),
         alive=alive,
     )
-    return new_state, rays, color, info.normal
+    if not want_tape:
+        return new_state, rays, color, info.normal
+    has_tex = (mat.texture >= 0) & scene.textures.nontrivial
+    uv = torch.stack([info.tex_u, info.tex_v], dim=-1)
+    if scene.env_texture >= 0:
+        eu, ev = env_uv(scene, state.dirn)
+        uv = torch.where(miss_env[:, None], torch.stack([eu, ev], dim=-1), uv)
+    if nee_aux is not None:
+        lm, kappa = nee_aux
+    else:
+        lm = torch.zeros_like(info.mat_id)
+        kappa = torch.zeros_like(u1)
+    flags = (miss_env.to(torch.int32) * TAPE_MISS_ENV
+             | emit_add.to(torch.int32) * TAPE_EMIT
+             | nee_mask.to(torch.int32) * TAPE_NEE
+             | is_spec.to(torch.int32) * TAPE_SPEC
+             | has_tex.to(torch.int32) * TAPE_TEX
+             | alive.to(torch.int32) * TAPE_ALIVE)
+    tape = TapeRecord(t_in=state.throughput.detach(), mat_id=info.mat_id,
+                      uv=uv.detach(), lm=lm.to(torch.int32), kappa=kappa,
+                      rr=rr_scale.detach(), flags=flags)
+    return new_state, rays, color, info.normal, tape
 
 
 def _initial_state(org, dirn) -> RayState:
@@ -356,25 +449,50 @@ def _initial_state(org, dirn) -> RayState:
         alive=torch.ones(r, dtype=torch.bool, device=dev))
 
 
+def _remat_step(scene, cfg, state, rays, dk, uu, vv, depth, pre_hit):
+    state, rays, _, _ = _step(scene, cfg, state, rays, dk, uu, vv, depth,
+                              sort_rays=True, pre_hit=pre_hit)
+    return state, rays
+
+
 def _trace_span(scene, cfg: IntegratorConfig, state, rays, krest, d0: int,
-                d1: int, si: int = 0):
+                d1: int, si: int = 0, tape: list | None = None):
     """Depths [d0, d1) with the one key chain
-    fold_in(fold_in(krest, si*1024), depth) that every trace variant uses."""
+    fold_in(fold_in(krest, si*1024), depth) that every trace variant uses.
+    Under autograd with cfg.remat each depth is a checkpoint that the
+    backward re-runs ("full"), or re-runs past the depth's closest hit,
+    kept from the forward ("hits"). `tape`, if a list, collects each
+    depth's TapeRecord."""
     r = state.org.shape[0]
+    remat = cfg.remat and torch.is_grad_enabled() and tape is None
     for depth in range(d0, d1):
         dk = rng.fold_in(rng.fold_in(krest, si * 1024), depth)
         ku, kv = rng.split(rng.fold_in(dk, 7))
         uu = _uniform(ku, r, state.org)
         vv = _uniform(kv, r, state.org)
-        state, rays, _, _ = _step(scene, cfg, state, rays, dk, uu, vv, depth,
-                                  sort_rays=True)
+        if remat:
+            pre_hit = (_depth_hit(scene, cfg, state, sort_rays=True)
+                       if cfg.remat_policy == "hits" else None)
+            state, rays = checkpoint.checkpoint(
+                _remat_step, scene, cfg, state, rays, dk, uu, vv, depth,
+                pre_hit, use_reentrant=False, preserve_rng_state=False)
+        elif tape is not None:
+            state, rays, _, _, record = _step(scene, cfg, state, rays, dk, uu,
+                                              vv, depth, sort_rays=True,
+                                              want_tape=True)
+            tape.append(record)
+        else:
+            state, rays, _, _ = _step(scene, cfg, state, rays, dk, uu, vv,
+                                      depth, sort_rays=True)
     return state, rays
 
 
 def _trace_prefix(scene, cfg: IntegratorConfig, org, dirn, key, strat_idx,
-                  n_strat: int, d_stop: int):
+                  n_strat: int, d_stop: int, tape: list | None = None):
     """Depths [0, d_stop). Returns the carried state, the ray count, the
-    depth-0 albedo and normal, and krest for the later depths."""
+    depth-0 albedo and normal, and krest for the later depths. Depth 0 is
+    never a checkpoint. `tape`, if a list, collects each depth's
+    TapeRecord."""
     r = org.shape[0]
     k0, krest = rng.split(key)
     k0a, k0u, k0v = rng.split(k0, 3)
@@ -383,9 +501,13 @@ def _trace_prefix(scene, cfg: IntegratorConfig, org, dirn, key, strat_idx,
     if strat_idx is not None and n_strat > 1:
         u1, u2 = sampling.stratified_pair(u1, u2, n_strat, strat_idx)
     rays = torch.zeros((), dtype=torch.int64, device=org.device)
-    state, rays, alb, nrm = _step(scene, cfg, _initial_state(org, dirn), rays,
-                                  k0a, u1, u2, 0)
-    state, rays = _trace_span(scene, cfg, state, rays, krest, 1, d_stop)
+    out = _step(scene, cfg, _initial_state(org, dirn), rays, k0a, u1, u2, 0,
+                want_tape=tape is not None)
+    state, rays, alb, nrm = out[:4]
+    if tape is not None:
+        tape.append(out[4])
+    state, rays = _trace_span(scene, cfg, state, rays, krest, 1, d_stop,
+                              tape=tape)
     return state, rays, alb, nrm, krest
 
 
@@ -393,11 +515,10 @@ def trace(scene: SceneData, cfg: IntegratorConfig, org, dirn, key,
           strat_idx=None, n_strat: int = 1) -> TraceResult:
     """Trace a wavefront of R primary rays to completion. strat_idx:
     optional (R,) sample index in [0, n_strat^2) for stratified first-hit
-    sampling. The forward pass needs no gradients."""
-    with torch.no_grad():
-        state, rays, alb, nrm, _ = _trace_prefix(
-            scene, cfg, org, dirn, key, strat_idx, n_strat,
-            cfg.max_bounces + 1)
+    sampling. Differentiable in the scene's material table, texture atlas
+    and environment color where autograd is on (Renderer turns it off)."""
+    state, rays, alb, nrm, _ = _trace_prefix(
+        scene, cfg, org, dirn, key, strat_idx, n_strat, cfg.max_bounces + 1)
     return TraceResult(state.radiance, alb, nrm, rays)
 
 
@@ -405,6 +526,7 @@ def _morton_key(p, d, box=None):
     """(R,) coherence key in int64 holding a uint32: [31] mesh-root-box
     miss bit (with `box`) | [27:30] direction octant | [0:27] origin
     Morton code over the batch's bounding box."""
+    p = p.detach()
     lo = torch.amin(p, dim=0)
     hi = torch.amax(p, dim=0)
     q = torch.clamp((p - lo) / torch.clamp(hi - lo, min=1e-9), 0.0, 1.0)
@@ -450,7 +572,7 @@ def _reservoir_compact(state: RayState, cap: int, key):
     rank = torch.empty_like(order)
     rank[order] = torch.arange(r, device=order.device)
     keep = alive & (rank < cap)
-    w = torch.where(s_cnt > cap, s_cnt.to(torch.float32) / cap, 1.0)
+    w = torch.where(s_cnt > cap, s_cnt.to(torch.float32) / cap, 1.0).detach()
     throughput = torch.where(keep[:, None], state.throughput * w,
                              state.throughput)
     pack = torch.where(keep, _morton_key(state.org, state.dirn), 0xFFFFFFFF)
@@ -519,9 +641,8 @@ def trace_compacted_static(scene: SceneData, cfg: IntegratorConfig, org,
     schedule = compaction_schedule(cfg, r, schedule, min_cap)
     if not schedule:
         return trace(scene, cfg, org, dirn, key, strat_idx, n_strat)
-    with torch.no_grad():
-        state, rays, alb, nrm, krest = _trace_prefix(
-            scene, cfg, org, dirn, key, strat_idx, n_strat, schedule[0][0])
-        radiance, tail_rays = _static_tail(scene, cfg, state, krest, schedule,
-                                           cfg.max_bounces + 1)
+    state, rays, alb, nrm, krest = _trace_prefix(
+        scene, cfg, org, dirn, key, strat_idx, n_strat, schedule[0][0])
+    radiance, tail_rays = _static_tail(scene, cfg, state, krest, schedule,
+                                       cfg.max_bounces + 1)
     return TraceResult(radiance, alb, nrm, rays + tail_rays)

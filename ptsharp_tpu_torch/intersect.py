@@ -156,13 +156,17 @@ def _as_rays(x, r, like):
 
 def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
     """org/dirn (R, 3), unit directions. Returns the closest hit per ray;
-    t_max (scalar or (R,)) bounds the search."""
+    t_max (scalar or (R,)) bounds the search. Detached where the JAX
+    package detaches: t_max at the entry (ptsharp_tpu/intersect.py:356),
+    the rays where they enter a mesh walk (its traversal entry points,
+    :168-170, and the pallas wrappers); an analytic primitive's t stays
+    differentiable in org and dirn, as there."""
     r = org.shape[0]
     dev = org.device
     if t_max is None:
         best_t = torch.full((r,), INF, dtype=torch.float32, device=dev)
     else:
-        best_t = _as_rays(t_max, r, org).clone()
+        best_t = _as_rays(t_max, r, org).detach().clone()
     best_type = torch.zeros(r, dtype=torch.int32, device=dev)
     best_idx = torch.full((r,), -1, dtype=torch.int32, device=dev)
     best_inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
@@ -202,6 +206,8 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
         take_min(primitives.intersect_cylinders(o, d, scene.cyl_radius,
                                                 scene.cyl_z0, scene.cyl_z1),
                  PT_CYLINDER)
+    # the walks take raw pointers: they see detached rays and bounds
+    org, dirn = org.detach(), dirn.detach()
     if scene.has_meshes and scene.intersector == "pallas":
         # one world-space launch over every instance, bounded by the best
         # analytic t; slot maps recover scene triangle and instance
@@ -209,8 +215,8 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
                 else traverse.closest_hit_preorder)
         t, kslot, u, v = walk(
             scene.p_fat, org.contiguous(), dirn.contiguous(),
-            best_t.contiguous(), scene.p_inst_base[0], scene.p_inst_end[0],
-            scene.max_leaf, scene.wide_k)
+            best_t.detach().contiguous(), scene.p_inst_base[0],
+            scene.p_inst_end[0], scene.max_leaf, scene.wide_k)
         ks = torch.clamp(kslot, 0, scene.p_slot_tri.shape[0] - 1).long()
         take(t, PT_TRIANGLE, scene.p_slot_tri[ks], inst=scene.p_slot_inst[ks],
              u=u, v=v)
@@ -228,15 +234,16 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
                      scene.inst_cluster_end[i], scene.u_rows,
                      scene.leaf_rows, scene.u_inst_base[i],
                      scene.u_inst_end[i], scene.max_leaf),
-                    o, d, best_t)
+                    o, d, best_t.detach())
             elif scene.intersector == "walk":
                 t, slot, u, v = traverse.closest_hit_binary(
-                    scene.u_rows, scene.leaf_rows, o, d, best_t.contiguous(),
-                    scene.u_inst_base[i], scene.u_inst_end[i],
-                    scene.max_leaf)
+                    scene.u_rows, scene.leaf_rows, o, d,
+                    best_t.detach().contiguous(), scene.u_inst_base[i],
+                    scene.u_inst_end[i], scene.max_leaf)
             else:
                 t, slot, u, v = traverse.closest_hit_wide_rows(
-                    scene.w_rows, scene.leaf_rows, o, d, best_t.contiguous(),
+                    scene.w_rows, scene.leaf_rows, o, d,
+                    best_t.detach().contiguous(),
                     scene.w_inst_base[i], scene.w_inst_end[i],
                     scene.max_leaf, scene.wide_k)
             take(t, PT_TRIANGLE, slot, inst=i, u=u, v=v)
@@ -253,9 +260,11 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     ("pallas"), else, per instance, through the K-wide any-hit walk over
     w_rows. ptsharp_tpu/intersect.py:722-728 runs the K-wide closest-hit
     bounded by t_cut there and tests t < INF: the same boolean wherever
-    t_cut <= INF, which every cut the integrator passes is."""
+    t_cut <= INF, which every cut the integrator passes is. Discrete, so
+    every input is detached (ptsharp_tpu/intersect.py:602-606)."""
+    org, dirn = org.detach(), dirn.detach()
     r = org.shape[0]
-    tc = _as_rays(t_cut, r, org)
+    tc = _as_rays(t_cut, r, org).detach()
     occ = torch.zeros(r, dtype=torch.bool, device=org.device)
     o1 = org[:, None, :]
     d1 = dirn[:, None, :]

@@ -49,7 +49,9 @@ On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream, adds one to its `launches` count and the launch's rays
 to its `rays`; on a CPU tensor it runs its plain version below; any
 other device raises. There is no fallback from a kernel to a plain
-version.
+version. Traversal is not differentiable (the JAX package detaches its
+inputs, and no pallas_call has a VJP rule): every wrapper raises where a
+table or ray input requires grad.
 
 The plain versions compute the same functions in tensor ops: every ray
 walks the tree with its own cursor, in lockstep with the others, one node
@@ -795,13 +797,25 @@ def _check(nodes, org, dirn, t, base, end, leaf_size, k, leaf=None):
             raise ValueError(f"leaf is on {leaf.device}, rows on "
                              f"{nodes.device}")
         n_nodes = nodes.shape[0]
-    _check_rays(nodes, org, dirn, t, base, end, n_nodes)
+    _check_rays(nodes, org, dirn, t, base, end, n_nodes, leaf)
     if not (1 <= leaf_size and leaf_size * 9 <= ROW) \
             or not (2 <= k and 9 + 7 * k <= ROW):
         raise ValueError(f"leaf_size={leaf_size}, k={k} do not fit a row")
 
 
-def _check_rays(nodes, org, dirn, t, base, end, n_nodes):
+def _check_detached(**tensors):
+    """A launch reads raw pointers, so autograd cannot follow it: raise
+    where an input requires grad instead of cutting the graph without a
+    word (intersect.py detaches every traversal input)."""
+    live = [name for name, x in tensors.items()
+            if x is not None and x.requires_grad]
+    if live:
+        raise ValueError(f"{', '.join(live)} require grad: traversal is "
+                         f"not differentiable, pass detached tensors")
+
+
+def _check_rays(nodes, org, dirn, t, base, end, n_nodes, leaf=None):
+    _check_detached(nodes=nodes, leaf=leaf, org=org, dirn=dirn, t=t)
     r = org.shape[0]
     for name, x, shape in (("org", org, (r, 3)), ("dirn", dirn, (r, 3)),
                            ("t", t, (r,))):
@@ -829,7 +843,7 @@ def _check_row_tables(rows, leaf, org, dirn, t, base, end, leaf_size, k):
                              f"of at least {cols} columns")
     if leaf.device != rows.device:
         raise ValueError(f"leaf is on {leaf.device}, rows on {rows.device}")
-    _check_rays(rows, org, dirn, t, base, end, rows.shape[0])
+    _check_rays(rows, org, dirn, t, base, end, rows.shape[0], leaf)
 
 
 def _check_order(order_mode):

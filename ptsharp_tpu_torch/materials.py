@@ -113,6 +113,10 @@ class MaterialTable(NamedTuple):
         return MaterialTable.from_arrays(arrays, device)
 
     def gather(self, mat_id) -> "MaterialTable":
-        """Per-ray material fields for an int id tensor (...,)."""
+        """Per-ray material fields for an int id tensor (...,), by
+        index_select: its backward is an atomic index_add_, where advanced
+        indexing's would sum each material's lanes serially on CUDA."""
         i = torch.clamp(mat_id, 0, self.color.shape[0] - 1).long()
-        return MaterialTable(*(f[i] for f in self))
+        flat = i.reshape(-1)
+        return MaterialTable(*(f.index_select(0, flat)
+                               .reshape(i.shape + f.shape[1:]) for f in self))

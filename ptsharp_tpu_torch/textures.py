@@ -63,10 +63,22 @@ class TextureAtlas(NamedTuple):
         fy = (vv - y0)[..., None]
         x1 = torch.where(x0 + 1 >= wi, 0, x0 + 1)
         y1 = torch.where(y0 + 1 >= hi, 0, y0 + 1)
-        c00 = self.data[tid, y0, x0]
-        c01 = self.data[tid, y0, x1]
-        c10 = self.data[tid, y1, x0]
-        c11 = self.data[tid, y1, x1]
+        # index_select, whose backward is an atomic index_add_: the
+        # backward of advanced indexing on CUDA sorts the indices and sums
+        # each run of equal ones serially, and a wavefront's lanes pile
+        # onto a few texels (every untextured lane reads texel 0)
+        texels = self.data.reshape(-1, 3)
+        mh, mw = self.data.shape[1], self.data.shape[2]
+
+        def fetch(y, x):
+            idx = (tid * mh + y) * mw + x
+            return texels.index_select(0, idx.reshape(-1)) \
+                .reshape(idx.shape + (3,))
+
+        c00 = fetch(y0, x0)
+        c01 = fetch(y0, x1)
+        c10 = fetch(y1, x0)
+        c11 = fetch(y1, x1)
         c0 = c00 * (1 - fx) + c01 * fx
         c1 = c10 * (1 - fx) + c11 * fx
         return c0 * (1 - fy) + c1 * fy

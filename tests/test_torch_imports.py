@@ -41,9 +41,12 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("module", ["ptsharp_tpu_torch.accel.traverse",
                                     "ptsharp_tpu_torch.accel.cluster",
-                                    "ptsharp_tpu_torch.core.device"])
+                                    "ptsharp_tpu_torch.core.device",
+                                    "ptsharp_tpu_torch.tape",
+                                    "ptsharp_tpu_torch.diff"])
 def test_new_module_imports_without_jax(module):
-    """The XLA walks' modules and the device default, each alone."""
+    """The XLA walks' modules, the device default, the tape and the
+    differentiable render, each alone."""
     assert module in MODULES
     code = (f"import importlib, sys; importlib.import_module({module!r})\n"
             "sys.exit(any(m.split('.')[0] in ('jax', 'ptsharp_tpu')"
@@ -56,7 +59,8 @@ def test_new_module_imports_without_jax(module):
 
 @pytest.mark.parametrize("entry", ["build", "example", "look_at",
                                    "film", "scene_from_reference",
-                                   "camera_from_reference"])
+                                   "camera_from_reference",
+                                   "diff_params_from_reference"])
 def test_entry_points_default_to_the_card(entry):
     """Without a card, each entry point's default device raises; nothing
     moves to the CPU on its own."""
@@ -76,14 +80,18 @@ def test_entry_points_default_to_the_card(entry):
             ptsharp_tpu_torch.Film.zeros(2, 2)
         elif entry == "scene_from_reference":
             convert.scene_from_reference({}, {})
+        elif entry == "diff_params_from_reference":
+            convert.diff_params_from_reference({})
         else:
             convert.camera_from_reference({})
 
 
 def test_public_names_match_the_reference_layout():
     for name in ("SceneBuilder", "SceneData", "Camera", "Film",
-                 "IntegratorConfig", "Renderer", "RenderConfig"):
+                 "IntegratorConfig", "Renderer", "RenderConfig",
+                 "trace_tape_radiance"):
         assert hasattr(ptsharp_tpu_torch, name)
+        assert name in ptsharp_tpu_torch.__all__
     from ptsharp_tpu_torch.integrator import trace, trace_compacted_static
     from ptsharp_tpu_torch.intersect import closest_hit, occlusion_query
     assert all(callable(f) for f in (trace, trace_compacted_static,
