@@ -112,18 +112,47 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               of 54 floats, not a 16-byte stride): the K-wide walks, and
               #14 over its u_rows, each held against its plain version on
               every lane and in its step count;
+  5f. tlas    the TLAS walk (csrc/tlas_walk.cu: closest_hit_tlas,
+              any_hit_tlas) over examples.build("toybrick") at 1920x1080
+              (36 brick instances, the default "wide" build, K=4, leaf 4):
+              2,073,600 Morton-ordered camera rays, 2,073,600 scattered
+              bounce rays from their hits and the shadow rays from those,
+              driven once with every launch count set to 0 just before and
+              read just after; each against its plain version in every
+              output on every lane, the any-hit against the bounded
+              closest-hit's kind != PT_NONE on every shadow lane; times
+              beside the plain versions and the bound; per ray kind the
+              kernel-counted steps (equal to the plain versions'), lane use
+              and time; then the same over toybrick's binary rows (the
+              "walk" walk of the same tables) and over cube_field at
+              1920x1080 (145 analytic primitives, no mesh);
+  5g. inst    four instances of dragon_hd's mesh built in this script
+              (4 x 1,310,720 triangles, past FLAT_TRI_CAP): the "pallas"
+              build (K=8, leaf 14) keeps one table of the one mesh (checked:
+              one node range, the table's rows twice its nodes), and its
+              per-instance path runs #1 and #2, then on the preorder walk
+              #4 and #7, once an instance on 518,400 camera + 518,400
+              bounce rays (960x540) and their shadow rays, each launch
+              against its plain version on every lane; the "wide" build
+              of the same four walks the TLAS that re-enters the 1.3M-
+              triangle BLAS: 5f's kernels and checks on the same rays;
   6. render   Renderer.render() at 1 spp of the bunny at 1920x1080 in both
               walk orders, of dragon_hd at 960x540 in both walk orders,
-              and of the bunny at 1920x1080 with the XLA intersectors
-              ("wide", the default build, "walk" and "cluster"), each with
+              of the bunny at 1920x1080 with the XLA intersectors
+              ("wide", the default build, "walk" and "cluster"), of
+              toybrick and cube_field at 1920x1080 (the TLAS walk) and of
+              the four dragons of 5g at 960x540 ("pallas" per instance in
+              both walk orders, whose launches must be a multiple of the
+              instances, and "wide" through the TLAS), each with
               every launch count set to 0 just before and read just after
               (exactly the build's kernels must have launched: the walk's
               two fat-table kernels for "pallas", closest_hit_wide_rows and
               any_hit_wide_rows for "wide", closest_hit_binary and
-              any_hit_wide_rows for "walk" and "cluster"); one cornell pass
-              at 512x512; and 32x24 bunny renders on the card, both walk
-              orders, "walk" and "wide", held against the same renders on
-              the CPU (the plain versions);
+              any_hit_wide_rows for "walk" and "cluster", closest_hit_tlas
+              and any_hit_tlas for a TLAS build); one cornell pass at
+              512x512; and 32x24 renders on the card, the bunny in both
+              walk orders, "walk" and "wide", and toybrick, held against
+              the same renders on the CPU (the plain versions);
   7. grad     the gradient path on the bunny of 3 (pallas ordered, K=8)
               at 1920x1080, 1 spp, through diff.render_image, with
               respect to the DiffParams leaves (material color,
@@ -152,8 +181,10 @@ Every kernel's least time on the card (bound_ms) is computed from the
 work its plain version did on the main-path rays (kernels.traverse.
 count_work): operations are box tests and triangle tests (a leaf's
 `count` triangles, not its padding slots, and an any-hit's only up to its
-first accepted one) counted from csrc/bvh_common.cuh, over the card's
-float32 rate; bytes are each ray's
+first accepted one), and for the TLAS walk its analytic leaf tests,
+affine ray transforms and instance entries (OPS_ANALYTIC, OPS_AFFINE),
+counted from csrc/bvh_common.cuh, over the card's float32 rate; bytes
+are each ray's
 inputs and outputs once and each table row the walks read once (the
 columns a read uses), over its memory rate; the larger of the two bounds
 it.
@@ -161,12 +192,13 @@ it.
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-of the fourteen kernel entry points' launches over the main-path renders
+of the sixteen kernel entry points' launches over the main-path renders
 and the grad phase's main-path runs and SGD steps (the split-table and
 the staged kernels': over their phases' driven calls, both scenes), its
 largest
 error against its plain version, its times at the bunny's 1080p
-main-path width and its bound there; the last line is {"ok": true,
+main-path width (the TLAS walk's at toybrick's) and its bound there; the
+last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -232,6 +264,12 @@ KERNELS = {
     "closest_hit_wide_rows": ("ptsharp_tpu_torch/csrc/closest_hit_preorder.cu",
                               []),
     "any_hit_wide_rows": ("ptsharp_tpu_torch/csrc/any_hit_preorder.cu", []),
+    # the TLAS walk: the counterpart of the JAX package's XLA
+    # traverse_scene, no Pallas kernel (NOTES)
+    "closest_hit_tlas": ("ptsharp_tpu_torch/csrc/tlas_walk.cu",
+                         ["ptsharp_tpu/intersect.py:150"]),
+    "any_hit_tlas": ("ptsharp_tpu_torch/csrc/tlas_walk.cu",
+                     ["ptsharp_tpu/intersect.py:150"]),
 }
 # what a kernel with no TPU kernel of its own stands in for
 NOTES = {
@@ -240,6 +278,12 @@ NOTES = {
     "any_hit_wide_rows": "XLA traverse_wide over w_rows + leaf_rows, "
                          "bounded by t_cut, tested t < INF "
                          "(ptsharp_tpu/intersect.py:722-728)",
+    "closest_hit_tlas": "XLA traverse_scene, the TLAS walk over the "
+                        "unified node rows, not a Pallas kernel "
+                        "(ptsharp_tpu/intersect.py:150-342)",
+    "any_hit_tlas": "XLA traverse_scene bounded by t_cut, tested kind != "
+                    "PT_NONE (ptsharp_tpu/intersect.py:624-626), not a "
+                    "Pallas kernel",
 }
 # the XLA walks' kernels
 ROWS = ("closest_hit_binary", "closest_hit_wide_rows", "any_hit_wide_rows")
@@ -251,6 +295,7 @@ RENDER_KERNELS = {
     "wide": {"closest_hit_wide_rows", "any_hit_wide_rows"},
     "walk": {"closest_hit_binary", "any_hit_wide_rows"},
     "cluster": {"closest_hit_binary", "any_hit_wide_rows"},
+    "tlas": {"closest_hit_tlas", "any_hit_tlas"},
 }
 XLA_INTERSECTORS = ("wide", "walk", "cluster")
 # the split-table kernels: no render launches them
@@ -280,8 +325,20 @@ PEAK_BYTES = 3.35e12  # bytes/s
 OPS_RAY = 9    # safe_inv of the direction: 3 x (abs, compare, divide)
 OPS_BOX = 25   # slab: 6 sub, 6 mul, 10 min/max; box_hit: max, 2 compares
 OPS_MT = 55    # mt: 45 arithmetic, 9 compares, 1 add; and tt < best t
+# the TLAS walk's analytic leaves (csrc/bvh_common.cuh sphere_t, cube_t,
+# cyl_t, each with its t < best t), by type code: sphere 38 (oc 3, a 5,
+# b 6, cq 7, disc 4, sqrt and max 2, inv2a 2, t0 and t1 5, 3 compares),
+# cube 34 (safe inverse 9, slabs 12, min/max 10, 2 compares), cylinder
+# 68 (cap planes 8, two cap tests 20, a 3, b 4, c 5, disc 4, sqrt and max
+# 2, inv2a 2, tl0 and tl1 5, two side tests 12, 2 min); an affine
+# transform of a ray (a transformed primitive's or an instance's) 33:
+# origin 9 mul 9 add, direction 9 mul 6 add; an instance entry also its
+# direction's safe inverse (OPS_RAY)
+OPS_ANALYTIC = {1: 38, 3: 34, 4: 68}
+OPS_AFFINE = 33
 RAY_BYTES = 28  # org, dir, t_max or t_cut: float32
-OUT_BYTES = {"closest": 16, "any": 1}  # t, slot, u, v; one bool
+# t, slot, u, v; one bool; the TLAS walk's t, kind, index, inst, u, v
+OUT_BYTES = {"closest": 16, "any": 1, "tlas": 24}
 
 
 def log(msg: str) -> None:
@@ -360,7 +417,9 @@ def bound(work, n_rays: int, kind: str) -> dict:
     """The least time of the work a plain walk counted (kernels.traverse.
     count_work) on n_rays rays: the larger of its operations over
     PEAK_F32 and its bytes over PEAK_BYTES."""
-    ops = n_rays * OPS_RAY + work.boxes * OPS_BOX + work.triangles * OPS_MT
+    ops = (n_rays * OPS_RAY + work.boxes * OPS_BOX + work.triangles * OPS_MT
+           + sum(OPS_ANALYTIC[k] * n for k, n in work.analytic.items())
+           + work.affine * OPS_AFFINE + work.instances * OPS_RAY)
     nbytes = n_rays * (RAY_BYTES + OUT_BYTES[kind]) + work.table_bytes
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
@@ -379,6 +438,12 @@ def ptxas_report(text: str) -> dict:
     rows, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
+        tlas = m and re.search(r"tlas_walk_kernelILb(\d)ELb(\d)E", m.group(1))
+        if tlas:
+            name = (f"tlas_walk<{('closest', 'any')[int(tlas.group(1))]},"
+                    f"{('binary', 'wide')[int(tlas.group(2))]}>")
+            rows[name] = {"smem": 0}
+            continue
         if m:
             k = re.search(r"([a-z_]+)_kernel(?:I(?:Li(\d+)E)?)?(?:Lb(\d)E)?"
                           r"(?:LN3ptk4PushE(\d)E)?"
@@ -1494,6 +1559,216 @@ def scalar_rows_phase(scene, rays, label):
             f"equal)")
 
 
+# ---- the TLAS and instanced scenes ------------------------------------------
+
+
+def tlas_rays(scene, cam, width, height, n_cam, n_bounce):
+    """The TLAS phases' rays: camera rays (Morton order over the full
+    frame, as the renderer gives them), scattered bounce rays from their
+    hits, and shadow rays from the bounce origins toward the lights with
+    their t_cut (phase_rays' kinds, for a scene without a fat table)."""
+    oc, dc = camera_rays(scene, cam, width, height, n_cam)
+    ob, db = bounce_rays(scene, oc, dc, n_bounce)
+    ds, t_cut = shadow_cut(scene, ob)
+    return dict(org=torch.cat([oc, ob]).contiguous(),
+                dirn=torch.cat([dc, db]).contiguous(), n_cam=n_cam,
+                shadow_org=ob, shadow_dirn=ds, t_cut=t_cut)
+
+
+def _kinds_text(kind):
+    names = {0: "none", 1: "sphere", 2: "plane", 3: "cube", 4: "cylinder",
+             5: "triangle"}
+    counts = torch.bincount(kind.long(), minlength=6).tolist()
+    return ", ".join(f"{names[k]} {c / kind.numel():.4f}"
+                     for k, c in enumerate(counts) if c)
+
+
+def tlas_phase(scene, rays, label):
+    """The TLAS walk (csrc/tlas_walk.cu) over `scene`'s node rows (K-wide
+    w_rows, or binary u_rows for a "walk" build) on the rays of the main
+    path: closest_hit_tlas on the camera and bounce rays, any_hit_tlas on
+    the shadow rays, driven once with every launch count set to 0 just
+    before and read just after; each against its plain version in every
+    output on every lane, and the any-hit against the bounded
+    closest-hit's kind != PT_NONE on every shadow lane (the JAX package's
+    shadow query); then per ray kind the kernel-counted steps (equal to
+    the plain version's), lane use and time. Returns ({wrapper name:
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by}}, {wrapper name:
+    launches})."""
+    from ptsharp_tpu_torch.intersect import scene_tlas
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.device
+    tabs = scene_tlas(scene)
+    org, dirn, n_cam = rays["org"], rays["dirn"], rays["n_cam"]
+    so, sd, t_cut = rays["shadow_org"], rays["shadow_dirn"], rays["t_cut"]
+    tmax = torch.full((org.shape[0],), INF, device=dev)
+    log(f"tlas tables [{label}] ({scene.intersector}): node rows "
+        f"{tuple(tabs.rows.shape)} (TLAS head {tabs.tlas_end}, K="
+        f"{tabs.k or 'binary'}), leaf_rows {tuple(tabs.leaf.shape)}, "
+        f"instances {tabs.inst_inv.shape[0]}, spheres "
+        f"{tabs.sphere_center.shape[0]}, cubes {tabs.cube_min.shape[0]}, "
+        f"cylinders {tabs.cyl_radius.shape[0]}")
+    runs = {"closest_hit_tlas": (traverse.closest_hit_tlas,
+                                 traverse.closest_hit_tlas_plain,
+                                 (org, dirn, tmax), "tlas"),
+            "any_hit_tlas": (traverse.any_hit_tlas,
+                             traverse.any_hit_tlas_plain, (so, sd, t_cut),
+                             "any")}
+    traverse.reset_launch_counts()
+    got = {name: kernel(tabs, *inputs)
+           for name, (kernel, _p, inputs, _k) in runs.items()}
+    sync(dev)
+    launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    for name, count in launches.items():
+        if count != int(name in runs):
+            raise AssertionError(f"tlas phase launched {name} {count} times")
+    log(f"tlas path [{label}]: launches={launches}")
+    out = {}
+    for name, (kernel, plain, inputs, kind) in runs.items():
+        with traverse.count_work() as work:
+            want = plain(tabs, *inputs)
+        sync(dev)
+        bnd = bound(work, inputs[0].shape[0], kind)
+        if kind == "any":
+            got[name], want = (got[name],), (want,)
+        _equal(f"{name} against its plain version", got[name], want)
+        err = float((got[name][0].float() - want[0].float()).abs().max())
+        ms = time_ms(lambda: kernel(tabs, *inputs), dev)
+        plain_ms = time_ms(lambda: plain(tabs, *inputs), dev, PLAIN_REPS)
+        what = (f"occluded={float(want[0].float().mean()):.4f}"
+                if kind == "any" else f"kinds: {_kinds_text(want[1])}")
+        log(f"{name} [{label}] rays={inputs[0].shape[0]} {what} "
+            f"max_abs_err={err:.3e} every output equal to its plain version "
+            f"on every lane; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"{bound_text(bnd)} (analytic tests {dict(work.analytic)}, "
+            f"affine transforms {work.affine}, instance entries "
+            f"{work.instances})")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
+    bounded = traverse.closest_hit_tlas(tabs, so, sd, t_cut)[1] != 0
+    _equal("any_hit_tlas against the bounded closest-hit's kind != PT_NONE",
+           (got["any_hit_tlas"][0],), (bounded,))
+    log(f"any_hit_tlas [{label}]: equal to closest_hit_tlas bounded by "
+        f"t_cut, kind != PT_NONE, on all {so.shape[0]} shadow lanes")
+    kinds = {"camera": (org[:n_cam].contiguous(), dirn[:n_cam].contiguous(),
+                        tmax[:n_cam].contiguous()),
+             "bounce": (org[n_cam:].contiguous(), dirn[n_cam:].contiguous(),
+                        tmax[n_cam:].contiguous()),
+             "shadow": (so, sd, t_cut)}
+    for kind, rk in kinds.items():
+        kernel, plain = ((traverse.any_hit_tlas, traverse.any_hit_tlas_plain)
+                         if kind == "shadow" else
+                         (traverse.closest_hit_tlas,
+                          traverse.closest_hit_tlas_plain))
+        ms, use, steps = _kind_stats(kernel, plain, (tabs,), *rk, (),
+                                     f"the {kind} rays", dev)
+        log(f"{kernel.__name__} [{label}] {kind} rays={rk[0].shape[0]} "
+            f"kernel_ms={ms:.4f} lane_use={use:.3f} {_steps_text(steps)} "
+            f"(kernel's step count equal)")
+    return out, launches
+
+
+def four_dragons(mesh, device, **build):
+    """Four instances of dragon_hd's mesh (one with a material override)
+    on a ground plane under one spherical light, built with the port's
+    SceneBuilder: 4 x 1,310,720 instanced triangles, past FLAT_TRI_CAP, so
+    a "pallas" build keeps one table of the one mesh and walks it per
+    instance; a "wide" build walks the TLAS, which re-enters the mesh's
+    BLAS. Returns (scene, camera, render config at 960x540 1 spp,
+    integrator config)."""
+    from ptsharp_tpu_torch.camera import Camera
+    from ptsharp_tpu_torch.core import transform
+    from ptsharp_tpu_torch.integrator import IntegratorConfig
+    from ptsharp_tpu_torch.materials import (
+        diffuse_material, glossy_material, light_material,
+    )
+    from ptsharp_tpu_torch.renderer import RenderConfig
+    from ptsharp_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    jade = glossy_material([0.35, 0.72, 0.45], 1.6, 0.28)
+    places = ((-1.8, -1.0, 0.0), (1.8, -1.0, 0.6), (-1.8, 1.2, -0.6),
+              (1.8, 1.2, 3.14))
+    mid = None
+    for i, (x, z, yaw) in enumerate(places):
+        t = transform.translate([x, 0, z]) @ transform.rotate([0, 1, 0], yaw)
+        over = diffuse_material([0.8, 0.35, 0.2]) if i == 3 else None
+        if mid is None:
+            mid = b.add_mesh(mesh, jade, transform=t)
+        else:
+            b.add_mesh_instance(mid, transform=t, material=over)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.42, 0.42, 0.45]))
+    b.add_sphere([-2.5, 6, -4], 1.4, light_material([1, 1, 1], 12.0))
+    b.set_environment(color=[0.15, 0.17, 0.21])
+    scene = b.build(device=device, **build)
+    cam = Camera.look_at([0, 2.4, -5.2], [0, 0.5, 0.1], [0, 1, 0], 42.0,
+                         device=device)
+    return (scene, cam, RenderConfig(width=960, height=540, spp=1),
+            IntegratorConfig(max_bounces=4))
+
+
+def instance_phase(scene, rays, label):
+    """The per-instance "pallas" path of a non-flat scene (one table of
+    the one mesh, walked once per instance with object-space rays, as
+    intersect.py walks it): in each walk order, the closest-hit kernel
+    (#1 ordered, #4 preorder) on every instance's camera and bounce rays
+    and the any-hit kernel (#2, #7) on its shadow rays, driven once with
+    every launch count set to 0 just before and read just after (one
+    launch an instance each); each launch against its plain version on
+    every lane. Returns ({wrapper name: {max_abs_err}}, {wrapper name:
+    launches})."""
+    from ptsharp_tpu_torch.intersect import _instance_rays
+    from ptsharp_tpu_torch.kernels import traverse
+
+    dev = scene.device
+    n_inst = scene.inst_inv.shape[0]
+    tmax = torch.full((rays["org"].shape[0],), INF, device=dev)
+    local = [(_instance_rays(scene, i, rays["org"], rays["dirn"]),
+              _instance_rays(scene, i, rays["shadow_org"],
+                             rays["shadow_dirn"])) for i in range(n_inst)]
+    out, counted = {}, {}
+    for walk, (closest, anyhit) in WALKS.items():
+        s = replace(scene, p_ordered=walk == "ordered")
+        kc, ka = getattr(traverse, closest), getattr(traverse, anyhit)
+        pc = getattr(traverse, f"{closest}_plain")
+        pa = getattr(traverse, f"{anyhit}_plain")
+
+        def args(i):
+            return (s.p_inst_base[i], s.p_inst_end[i], s.max_leaf, s.wide_k)
+
+        traverse.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = [(kc(s.p_fat, *cr, tmax, *args(i)),
+                ka(s.p_fat, *sr, rays["t_cut"], *args(i)))
+               for i, (cr, sr) in enumerate(local)]
+        sync(dev)
+        sec = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+        for name, count in launches.items():
+            if count != n_inst * (name in (closest, anyhit)):
+                raise AssertionError(f"instance phase launched {name} "
+                                     f"{count} times")
+        counted.update({closest: launches[closest],
+                        anyhit: launches[anyhit]})
+        for i, (cr, sr) in enumerate(local):
+            _equal(f"{closest} on instance {i} against its plain version",
+                   got[i][0], pc(s.p_fat, *cr, tmax, *args(i)))
+            _equal(f"{anyhit} on instance {i} against its plain version",
+                   (got[i][1],), (pa(s.p_fat, *sr, rays["t_cut"],
+                                     *args(i)),))
+        hits = sum(float((g[0][0] < INF).float().mean()) for g in got)
+        log(f"instances [{label}] {walk}: {closest} and {anyhit} once an "
+            f"instance ({n_inst} each) over node ranges "
+            f"{sorted(set(zip(s.p_inst_base, s.p_inst_end)))}; "
+            f"rays={rays['org'].shape[0]} and {rays['t_cut'].shape[0]} "
+            f"shadow an instance; hit fraction summed over instances "
+            f"{hits:.4f}; every output equal to its plain version on every "
+            f"lane; the {2 * n_inst} launches {1e3 * sec:.1f} ms wall")
+        for name in (closest, anyhit):
+            out[name] = dict(max_abs_err=0.0)
+    return out, counted
+
+
 def stack_chain(k: int, depth: int) -> np.ndarray:
     """A fat table of depth+1 K-wide internal nodes in a chain, built by
     hand: node l has K-1 leaf children and, last, node l+1; the last
@@ -1619,10 +1894,22 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
     widths = {w.__name__: w.rays // w.launches for w in traverse.WRAPPERS
               if w.launches}
-    if scene.intersector == "pallas":
+    if scene.use_tlas:
+        walk = "tlas"
+    elif scene.intersector == "pallas":
         walk = "ordered" if scene.p_ordered else "preorder"
     else:
         walk = scene.intersector
+    n_inst = scene.inst_inv.shape[0]
+    per_instance = scene.intersector == "pallas" and not scene.p_flat
+    if per_instance:
+        for name in RENDER_KERNELS[walk]:
+            if launches[name] % n_inst:
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{launches[name]} times, not once an "
+                                     f"instance a query")
+        label = (f"{label} per instance ({n_inst} instances: "
+                 f"{launches[WALKS[walk][0]] // n_inst} closest-hit queries)")
     log(f"render {label} {rcfg.width}x{rcfg.height} spp={rcfg.spp} "
         f"walk={walk} primary_rays={rcfg.width * rcfg.height * rcfg.spp} "
         f"rays_traced={rays} seconds={sec:.3f} "
@@ -1637,21 +1924,28 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
 
 
 def reference_phase(device):
-    """Small bunny renders on the card, in both walk orders, against the
-    same renders on the CPU, where the wrappers run the plain versions."""
+    """Small renders on the card against the same renders on the CPU,
+    where the wrappers run the plain versions: the bunny in both walk
+    orders, "walk" and "wide", and toybrick (the TLAS walk)."""
     from ptsharp_tpu_torch import examples
     from ptsharp_tpu_torch.renderer import RenderConfig
 
-    builds = {"pallas_ordered=True": dict(intersector="pallas", wide_k=8),
-              "pallas_ordered=False": dict(intersector="pallas", wide_k=8,
-                                           pallas_ordered=False),
-              "intersector=walk": dict(intersector="walk"),
-              "intersector=wide": dict(intersector="wide")}
+    builds = {"bunny pallas_ordered=True": dict(intersector="pallas",
+                                                wide_k=8),
+              "bunny pallas_ordered=False": dict(intersector="pallas",
+                                                 wide_k=8,
+                                                 pallas_ordered=False),
+              "bunny intersector=walk": dict(intersector="walk"),
+              "bunny intersector=wide": dict(intersector="wide"),
+              "toybrick (TLAS)": None}
     for name, kw in builds.items():
         means = []
         for dev in (device, torch.device("cpu")):
-            scene, cam, _rc, icfg = examples.bunny(
-                32, 24, subdivisions=3, device=dev, **kw)
+            if kw is None:
+                scene, cam, _rc, icfg = examples.toybrick(32, 24, device=dev)
+            else:
+                scene, cam, _rc, icfg = examples.bunny(
+                    32, 24, subdivisions=3, device=dev, **kw)
             film, _rays, _sec = render(scene, cam,
                                        RenderConfig(32, 24, spp=1), icfg,
                                        seed=5)
@@ -1659,7 +1953,7 @@ def reference_phase(device):
         close = np.all(np.isclose(means[0], means[1], rtol=1e-4, atol=1e-4),
                        axis=-1)
         rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
-        log(f"reference bunny 32x24 {name}: "
+        log(f"reference {name} 32x24: "
             f"pixels_within_1e-4={close.mean():.4f} mean_rel_diff={rel:.3e}")
         if close.mean() < PIXEL_FRAC or rel > 1e-3:
             raise AssertionError("card render disagrees with the CPU render")
@@ -2022,7 +2316,21 @@ def scene_line(name, scene, seconds):
             f"{tuple(scene.w_rows.shape)}, leaf_rows "
             f"{tuple(scene.leaf_rows.shape)}, clusters "
             f"{scene.cluster_bmin.shape[0]}, TLAS head {scene.tlas_end} "
-            f"rows, build {seconds:.1f} s")
+            f"rows (wide {scene.w_tlas_end}), use_tlas={scene.use_tlas}, "
+            f"instances {scene.inst_inv.shape[0]}, build {seconds:.1f} s")
+        return n_tri
+    if not scene.p_flat:
+        # one table of each mesh: count its leaf slots holding a triangle
+        fat = scene.p_fat
+        leaf = fat[1::2][(fat[0::2].view(torch.int32)[:, 7] & 0xFF) > 0]
+        n_tri = int((leaf[:, :scene.max_leaf * 9].reshape(-1, 9).abs()
+                     .sum(1) > 0).sum())
+        log(f"{name} scene (pallas, per instance): {n_tri} triangles in "
+            f"its mesh table for {scene.inst_inv.shape[0]} instances, "
+            f"bvh_builder={scene.bvh_builder}, fat="
+            f"{fat.numel() * 4 / 2**20:.2f} MB ({fat.shape[0] // 2} nodes), "
+            f"node ranges {sorted(set(zip(scene.p_inst_base, scene.p_inst_end)))}, "
+            f"max_stack_bound={scene.p_stack_bound}, build {seconds:.1f} s")
         return n_tri
     n_tri = int((scene.p_slot_tri >= 0).sum())
     log(f"{name} scene: {n_tri} triangles, bvh_builder={scene.bvh_builder}, "
@@ -2112,6 +2420,31 @@ def main() -> int:
     del main_rays
     stack_phase(device)
 
+    # the TLAS walk at the main width: toybrick (36 brick instances), its
+    # binary rows (a "walk" build's tables are the same, intersector aside),
+    # and cube_field (145 analytic primitives)
+    t0 = time.perf_counter()
+    tb = examples.build("toybrick", width=1920, height=1080, device=device)
+    scene_line("toybrick", tb[0], time.perf_counter() - t0)
+    n_tb = 1920 * 1080
+    tb_rays = tlas_rays(tb[0], tb[1], 1920, 1080, n_tb, n_tb)
+    tb_label = f"toybrick 1080p: {n_tb} camera + {n_tb} bounce"
+    tlas_main, _tlas_launches = tlas_phase(tb[0], tb_rays, tb_label)
+    main_width.update(tlas_main)
+    phases.append(tlas_main)
+    phases.append(tlas_phase(replace(tb[0], intersector="walk"), tb_rays,
+                             f"{tb_label}, binary rows")[0])
+    del tb_rays
+    t0 = time.perf_counter()
+    cf = examples.build("cube_field", width=1920, height=1080, device=device)
+    scene_line("cube_field", cf[0], time.perf_counter() - t0)
+    if not (tb[0].use_tlas and cf[0].use_tlas):
+        raise AssertionError("toybrick and cube_field must build the TLAS")
+    cf_rays = tlas_rays(cf[0], cf[1], 1920, 1080, n_tb, n_tb)
+    phases.append(tlas_phase(cf[0], cf_rays, f"cube_field 1080p: {n_tb} "
+                             f"camera + {n_tb} bounce")[0])
+    del cf_rays
+
     # dragon_hd: built once, in the preorder walk this slice brings; the
     # ordered walk runs the same tables (its stack bound is checked)
     t0 = time.perf_counter()
@@ -2148,6 +2481,36 @@ def main() -> int:
     cluster_chunk_phase(dwscene, drays, dlabel)
     del drays, dwscene
 
+    # four instances of dragon_hd's mesh: past FLAT_TRI_CAP, a "pallas"
+    # build keeps one table of the one mesh and walks it per instance; a
+    # "wide" build walks the TLAS, which re-enters the mesh's BLAS
+    t0 = time.perf_counter()
+    dmesh = examples.dragon_mesh()
+    log(f"dragon_hd mesh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    d4 = four_dragons(dmesh, device, intersector="pallas", leaf_size=14,
+                      wide_k=8)
+    if scene_line("four dragons", d4[0], time.perf_counter() - t0) \
+            != DRAGON_TRIANGLES:
+        raise AssertionError("the four dragons' table must hold one mesh")
+    spans = set(zip(d4[0].p_inst_base, d4[0].p_inst_end))
+    if d4[0].p_flat or len(spans) != 1 or d4[0].p_fat.shape[0] != 2 * (
+            d4[0].p_inst_end[0] - d4[0].p_inst_base[0]):
+        raise AssertionError("four dragons: not one per-instance table of "
+                             "the one mesh")
+    n4 = 960 * 540
+    d4rays = tlas_rays(d4[0], d4[1], 960, 540, n4, n4)
+    d4label = f"four dragons 960x540: {n4} camera + {n4} bounce"
+    inst, _inst_launches = instance_phase(d4[0], d4rays, d4label)
+    phases.append(inst)
+    t0 = time.perf_counter()
+    d4w = four_dragons(dmesh, device)
+    scene_line("four dragons", d4w[0], time.perf_counter() - t0)
+    if not d4w[0].use_tlas:
+        raise AssertionError("four dragons (wide) must build the TLAS")
+    phases.append(tlas_phase(d4w[0], d4rays, d4label)[0])
+    del d4rays, dmesh
+
     # the main path, each render with its own launch counts
     rcfg1 = replace(rcfg, spp=1)
     if not compaction_schedule(icfg, min(n_main, rcfg1.max_rays_per_chunk)):
@@ -2164,6 +2527,14 @@ def main() -> int:
                     drcfg1, dicfg, card),
     ]
     del pscene, dscene
+    # the TLAS and the per-instance path
+    for name, (xs, xc, xrc, xic) in (("toybrick", tb), ("cube_field", cf)):
+        runs.append(render_main(name, xs, xc, replace(xrc, spp=1), xic,
+                                card))
+    for xs in (d4[0], replace(d4[0], p_ordered=False), d4w[0]):
+        runs.append(render_main("four dragons", xs, d4[1], d4[2], d4[3],
+                                card))
+    del tb, cf, d4, d4w
     # the XLA intersectors: "wide" is examples.bunny()'s default build
     xla = {"wide": examples.bunny(device=device),
            "walk": (wscene, wcam, _wrc, wicfg),

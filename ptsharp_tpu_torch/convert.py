@@ -13,10 +13,11 @@ import the JAX package:
 
 For intersector "pallas" the traversal table is the reference's fat
 interleave: `p_fat`, or `p_rows` where the reference streams its tables
-from HBM (`p_hbm`); the walk order (`p_ordered`) carries over as it is.
-For the XLA walks ("wide", "walk", "cluster") the reference's row tables
-(u_rows, w_rows, leaf_rows, the cluster tables) and each instance's
-ranges in them carry over.
+from HBM (`p_hbm`); flat or per-instance (`p_flat`) and the walk order
+(`p_ordered`) carry over as they are. For the XLA walks ("wide", "walk",
+"cluster") the reference's row tables (u_rows, w_rows, leaf_rows, the
+cluster tables), each instance's ranges in them, the TLAS heads' row
+counts and `use_tlas` carry over.
 
 Each function puts the tensors on the card unless device="cpu" is asked
 for.
@@ -32,7 +33,7 @@ from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import device as devices
 from ptsharp_tpu_torch.materials import MaterialTable
 from ptsharp_tpu_torch.scene import (
-    SceneData, check_stack_bound, no_xla_tables, not_ported,
+    SceneData, check_stack_bound, inst_range, no_xla_tables, not_ported,
 )
 from ptsharp_tpu_torch.tape import DiffParams
 from ptsharp_tpu_torch.textures import TextureAtlas
@@ -81,26 +82,33 @@ def reference_arrays(ref_scene) -> tuple[dict, dict]:
 def scene_from_reference(fields: dict, meta: dict,
                          device=devices.DEFAULT) -> SceneData:
     dev = devices.resolve(device)
-    if meta["use_tlas"]:
-        raise not_ported("the TLAS", "Queue 1 item 10")
     if meta["sdf_objects"] or meta["volumes"] or meta["functions"]:
-        raise not_ported("SDF, volume and function shapes", "Queue 1 item 10")
+        raise not_ported("SDF, volume and function shapes",
+                         "Queue 1 item 10c")
     if meta["has_surface_maps"]:
-        raise not_ported("normal and bump maps", "Queue 1 item 10")
+        raise not_ported("normal and bump maps", "Queue 1 item 10b")
     if np.asarray(fields["em_v0"]).shape[0] or 5 in meta["light_types"]:
-        raise not_ported("mesh lights", "Queue 1 item 10")
+        raise not_ported("mesh lights", "Queue 1 item 10b")
     n_inst = np.asarray(fields["inst_inv"]).shape[0]
     pallas = meta["intersector"] == "pallas"
+    slot_tri = np.asarray(fields["p_slot_tri"], np.int32)
+    slot_inst = np.asarray(fields["p_slot_inst"], np.int32)
     if n_inst and pallas:
-        if not meta["p_flat"]:
-            raise not_ported("per-instance (non-flat) mesh tables",
-                             "Queue 1 item 10")
         fat = np.asarray(fields["p_rows"] if meta["p_hbm"]
                          else fields["p_fat"], np.float32)
-        stack_bound = tables.max_stack_bound(fat[0::2], int(meta["wide_k"]))
+        k = int(meta["wide_k"])
+        # one range (flat), or each mesh's (non-flat; instances share them)
+        spans = sorted(set(zip(meta["p_inst_base"], meta["p_inst_end"])))
+        stack_bound = max(tables.max_stack_bound(fat[0::2], k, int(b), int(e))
+                          for b, e in spans)
         if meta["p_ordered"]:
             check_stack_bound(stack_bound)
-            tables.check_child_boxes(fat[0::2], int(meta["wide_k"]))
+            tables.check_child_boxes(fat[0::2], k)
+        if not meta["p_flat"]:
+            # kernel slots are scene slots; the instance is the loop's
+            n_slots = np.asarray(fields["tri_n0"]).shape[0]
+            slot_tri = np.arange(n_slots, dtype=np.int32)
+            slot_inst = np.full(n_slots, -1, np.int32)
     else:
         fat = np.zeros((0, tables.ROW), np.float32)
         stack_bound = 0
@@ -117,6 +125,9 @@ def scene_from_reference(fields: dict, meta: dict,
                   for name in _XLA_RANGES}
         ranges.update((name, int(meta[name]))
                       for name in ("tlas_end", "w_tlas_end"))
+    ranges_t = {name: torch.from_numpy(inst_range(
+                    ranges[f"{w}_inst_base"], ranges[f"{w}_inst_end"])).to(dev)
+                for name, w in (("u_inst_range", "u"), ("w_inst_range", "w"))}
 
     mats = _as_dict(fields["materials"])
     tex = _as_dict(fields["textures"])
@@ -148,10 +159,11 @@ def scene_from_reference(fields: dict, meta: dict,
         inst_inv=t("inst_inv"),
         inst_mat=t("inst_mat", np.int32),
         p_fat=torch.from_numpy(fat.copy()).to(dev),
-        p_slot_tri=t("p_slot_tri", np.int32),
-        p_slot_inst=t("p_slot_inst", np.int32),
+        p_slot_tri=torch.from_numpy(slot_tri.copy()).to(dev),
+        p_slot_inst=torch.from_numpy(slot_inst.copy()).to(dev),
         **{name: torch.from_numpy(np.array(a, np.float32)).to(dev)
            for name, a in xla.items()},
+        **ranges_t,
         light_ptype=t("light_ptype", np.int32),
         light_pindex=t("light_pindex", np.int32),
         light_center=t("light_center"),
@@ -170,6 +182,8 @@ def scene_from_reference(fields: dict, meta: dict,
         max_leaf=int(meta["max_leaf"]),
         wide_k=int(meta["wide_k"]),
         intersector=str(meta["intersector"]),
+        use_tlas=bool(meta["use_tlas"]),
+        p_flat=bool(meta["p_flat"]),
         p_ordered=bool(meta["p_ordered"]),
         p_inst_base=tuple(int(b) for b in meta["p_inst_base"]),
         p_inst_end=tuple(int(e) for e in meta["p_inst_end"]),

@@ -1115,4 +1115,161 @@ __device__ __forceinline__ void warp_packet_closest(
   finish_launch(next_ray);
 }
 
+// ---- the TLAS walk (tlas_walk.cu) -------------------------------------------
+//
+// tlas_walk.cu walks the whole scene in one walk: a TLAS over the scene's
+// objects (typed singleton leaves: spheres, cubes, cylinders and mesh
+// instances) at the head of the XLA walks' node rows (RowTable: u_rows, or
+// w_rows at a K given at run time), whose instance leaves re-enter the
+// instance's BLAS with the ray in its object space (ptsharp_tpu/intersect.py
+// traverse_scene). Every field is read with scalar loads through the
+// read-only path. The analytic tests and the affine transforms below take
+// the order of operations of the plain version (kernels/traverse.py
+// _sphere_t, _cube_t, _cyl_t, _affine), so that the kernel equals it on
+// every lane.
+
+// type codes of the TLAS leaves and hit records (ptsharp_tpu_torch/scene.py)
+constexpr int kNone = 0, kSphere = 1, kCube = 3, kCylinder = 4;
+constexpr int kTriangle = 5, kInstance = 9;
+constexpr float kEpsT = 1e-4f;  // least t of an analytic hit
+
+// The tables the TLAS walk reads (kernels/traverse.py _TlasScene, which
+// fills it field for field): the node rows and leaf blocks at their
+// strides; per instance its world->object affine (3x4, row-major) and its
+// BLAS node range [base, end); the analytic primitives in object space,
+// each type with its world->object affines, applied where the type's
+// xform flag is set. k: children a node row, 0 for binary rows.
+struct TlasScene {
+  const float* rows;
+  const float* leaves;
+  const float* inst_inv;
+  const int* inst_range;
+  const float* sph_center;
+  const float* sph_radius;
+  const float* sph_inv;
+  const float* cube_min;
+  const float* cube_max;
+  const float* cube_inv;
+  const float* cyl_radius;
+  const float* cyl_z0;
+  const float* cyl_z1;
+  const float* cyl_inv;
+  int node_stride, leaf_stride, leaf_size, k;
+  int n_inst, n_sph, n_cube, n_cyl;
+  int sph_xform, cube_xform, cyl_xform;
+};
+
+// The ray r under the affine m (3x4, row-major): the origin with the
+// translation added last, the direction unnormalised (so that t stays the
+// parameter of the untransformed ray), and its safe inverse.
+__device__ __forceinline__ Ray affine_ray(const float* __restrict__ m,
+                                          const Ray& r) {
+  float a[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) a[i] = __ldg(m + i);
+  Ray o;
+  o.ox = ((a[0] * r.ox + a[1] * r.oy) + a[2] * r.oz) + a[3];
+  o.oy = ((a[4] * r.ox + a[5] * r.oy) + a[6] * r.oz) + a[7];
+  o.oz = ((a[8] * r.ox + a[9] * r.oy) + a[10] * r.oz) + a[11];
+  o.dx = (a[0] * r.dx + a[1] * r.dy) + a[2] * r.dz;
+  o.dy = (a[4] * r.dx + a[5] * r.dy) + a[6] * r.dz;
+  o.dz = (a[8] * r.dx + a[9] * r.dy) + a[10] * r.dz;
+  o.ix = safe_inv(o.dx);
+  o.iy = safe_inv(o.dy);
+  o.iz = safe_inv(o.dz);
+  return o;
+}
+
+// Nearest hit t > kEpsT of r on the sphere (c, rad), kInf where none
+// (ptsharp_tpu/intersect.py _sphere_t1).
+__device__ __forceinline__ float sphere_t(const Ray& r, float cx, float cy,
+                                          float cz, float rad) {
+  const float ocx = r.ox - cx, ocy = r.oy - cy, ocz = r.oz - cz;
+  const float a = (r.dx * r.dx + r.dy * r.dy) + r.dz * r.dz;
+  const float b = 2.0f * ((ocx * r.dx + ocy * r.dy) + ocz * r.dz);
+  const float cq = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad * rad;
+  const float disc = b * b - (4.0f * a) * cq;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float inv2a = 0.5f / fmaxf(a, 1e-30f);
+  const float t0 = (-b - sq) * inv2a;
+  const float t1 = (-b + sq) * inv2a;
+  const float t = t0 > kEpsT ? t0 : (t1 > kEpsT ? t1 : kInf);
+  return disc > 0.0f ? t : kInf;
+}
+
+// Entry t > kEpsT of r on the box [lo, hi], kInf where none (_cube_t1).
+__device__ __forceinline__ float cube_t(const Ray& r,
+                                        const float* __restrict__ lo,
+                                        const float* __restrict__ hi) {
+  const float nx = (__ldg(lo + 0) - r.ox) * r.ix;
+  const float ny = (__ldg(lo + 1) - r.oy) * r.iy;
+  const float nz = (__ldg(lo + 2) - r.oz) * r.iz;
+  const float fx = (__ldg(hi + 0) - r.ox) * r.ix;
+  const float fy = (__ldg(hi + 1) - r.oy) * r.iy;
+  const float fz = (__ldg(hi + 2) - r.oz) * r.iz;
+  const float t0 =
+      fmaxf(fmaxf(fminf(nx, fx), fminf(ny, fy)), fminf(nz, fz));
+  const float t1 =
+      fminf(fminf(fmaxf(nx, fx), fmaxf(ny, fy)), fmaxf(nz, fz));
+  return t0 > kEpsT && t0 < t1 ? t0 : kInf;
+}
+
+// Nearest hit t > kEpsT of r on the capped z-cylinder (rad, z0, z1),
+// kInf where none (_cyl_t1).
+__device__ __forceinline__ float cyl_t(const Ray& r, float rad, float z0,
+                                       float z1) {
+  const float den =
+      fabsf(r.dz) < 1e-30f ? (r.dz < 0.0f ? -1e-30f : 1e-30f) : r.dz;
+  const float tz0 = (z0 - r.oz) / den;
+  const float tz1 = (z1 - r.oz) / den;
+  const float r2 = rad * rad;
+  auto cap = [&](float tc) {
+    const float px = r.ox + r.dx * tc;
+    const float py = r.oy + r.dy * tc;
+    return tc > kEpsT && px * px + py * py <= r2 ? tc : kInf;
+  };
+  const float a = r.dx * r.dx + r.dy * r.dy;
+  const float b = 2.0f * (r.ox * r.dx + r.oy * r.dy);
+  const float c = (r.ox * r.ox + r.oy * r.oy) - r2;
+  const float disc = b * b - (4.0f * a) * c;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float inv2a = 0.5f / fmaxf(a, 1e-30f);
+  const float tl0 = (-b - sq) * inv2a;
+  const float tl1 = (-b + sq) * inv2a;
+  auto lat = [&](float tl) {
+    const float z = r.oz + r.dz * tl;
+    return tl > kEpsT && z >= z0 && z <= z1 && disc >= 0.0f;
+  };
+  const float t_lat = lat(tl0) ? tl0 : (lat(tl1) ? tl1 : kInf);
+  return fminf(fminf(cap(tz1), cap(tz0)), t_lat);
+}
+
+// The hit t of r on the analytic leaf of type `kind` naming primitive
+// `first` (clamped to its table, as traverse_scene clamps it), in the
+// primitive's object space where its type is transformed.
+__device__ __forceinline__ float analytic_t(const TlasScene& sc, int kind,
+                                           int first, const Ray& r) {
+  auto pick = [](int i, int n) { return i < 0 ? 0 : (i >= n ? n - 1 : i); };
+  if (kind == kSphere && sc.n_sph > 0) {
+    const int p = pick(first, sc.n_sph);
+    const Ray o = sc.sph_xform ? affine_ray(sc.sph_inv + 12 * p, r) : r;
+    return sphere_t(o, __ldg(sc.sph_center + 3 * p),
+                    __ldg(sc.sph_center + 3 * p + 1),
+                    __ldg(sc.sph_center + 3 * p + 2),
+                    __ldg(sc.sph_radius + p));
+  }
+  if (kind == kCube && sc.n_cube > 0) {
+    const int p = pick(first, sc.n_cube);
+    const Ray o = sc.cube_xform ? affine_ray(sc.cube_inv + 12 * p, r) : r;
+    return cube_t(o, sc.cube_min + 3 * p, sc.cube_max + 3 * p);
+  }
+  if (kind == kCylinder && sc.n_cyl > 0) {
+    const int p = pick(first, sc.n_cyl);
+    const Ray o = sc.cyl_xform ? affine_ray(sc.cyl_inv + 12 * p, r) : r;
+    return cyl_t(o, __ldg(sc.cyl_radius + p), __ldg(sc.cyl_z0 + p),
+                 __ldg(sc.cyl_z1 + p));
+  }
+  return kInf;
+}
+
 }  // namespace ptk

@@ -1,6 +1,8 @@
 """Scene catalog: the scenes of the port's slice (counterpart of
 ptsharp_tpu/examples.py, same signatures and defaults plus a `device`,
-the card unless "cpu" is asked for).
+the card unless "cpu" is asked for): cornell, bunny, dragon_hd, and the
+instanced and many-object scenes that take the TLAS, toybrick and
+cube_field.
 
 Each builder returns (scene, camera, render_config, integrator_config).
 """
@@ -12,8 +14,10 @@ import math
 import numpy as np
 
 from ptsharp_tpu_torch.camera import Camera
+from ptsharp_tpu_torch.core import color as colorlib
+from ptsharp_tpu_torch.core import transform
 from ptsharp_tpu_torch.core.device import DEFAULT
-from ptsharp_tpu_torch.geometry.mesh import TriMesh, sphere_mesh
+from ptsharp_tpu_torch.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
 from ptsharp_tpu_torch.integrator import IntegratorConfig
 from ptsharp_tpu_torch.materials import (
     Material, clear_material, diffuse_material, glossy_material,
@@ -125,14 +129,10 @@ def bunny(width=1920, height=1080, subdivisions: int = 6,
         IntegratorConfig(max_bounces=4)
 
 
-@example("dragon_hd")
-def dragon_hd(width=960, height=540, subdivisions: int = 8,
-              intersector: str = "wide", wide_k: int = 4,
-              pallas_ordered: bool = True, device=DEFAULT):
-    """Dragon-scale mesh: 1,310,720 triangles (the subdivision-8 displaced
-    icosphere with a serpentine warp), one jade glossy material, a ground
-    plane and one spherical area light. Leaf 14 for "pallas", 8 for the
-    XLA walks."""
+def dragon_mesh(subdivisions: int = 8) -> TriMesh:
+    """dragon_hd's mesh: the displaced icosphere of _bunny_mesh (seed 23)
+    with a serpentine warp, fitted inside [-1.6, 0, -0.8] .. [1.6, 1.2,
+    0.8]; 1,310,720 triangles at subdivisions=8."""
     m = _bunny_mesh(subdivisions, seed=23)
     v = m.v.reshape(-1, 3).copy()
     t = v[:, 0] * 1.5
@@ -142,10 +142,20 @@ def dragon_hd(width=960, height=540, subdivisions: int = 8,
     v[:, 1], v[:, 2] = y * 0.6, z * 0.8
     v[:, 0] *= 1.9
     m = TriMesh(v=v.reshape(-1, 3, 3), uv=m.uv).smooth_normals()
+    return m.fit_inside([-1.6, 0, -0.8], [1.6, 1.2, 0.8], [0.5, 0, 0.5])
+
+
+@example("dragon_hd")
+def dragon_hd(width=960, height=540, subdivisions: int = 8,
+              intersector: str = "wide", wide_k: int = 4,
+              pallas_ordered: bool = True, device=DEFAULT):
+    """Dragon-scale mesh: 1,310,720 triangles (the subdivision-8 displaced
+    icosphere with a serpentine warp), one jade glossy material, a ground
+    plane and one spherical area light. Leaf 14 for "pallas", 8 for the
+    XLA walks."""
     b = SceneBuilder()
     jade = glossy_material([0.35, 0.72, 0.45], 1.6, math.radians(16))
-    b.add_mesh(m.fit_inside([-1.6, 0, -0.8], [1.6, 1.2, 0.8], [0.5, 0, 0.5]),
-               jade)
+    b.add_mesh(dragon_mesh(subdivisions), jade)
     b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.42, 0.42, 0.45]))
     b.add_sphere([-2.5, 5, -3], 1.4, light_material([1, 1, 1], 10.0))
     b.set_environment(color=[0.15, 0.17, 0.21])
@@ -158,7 +168,75 @@ def dragon_hd(width=960, height=540, subdivisions: int = 8,
         IntegratorConfig(max_bounces=4)
 
 
+def _brick_mesh() -> TriMesh:
+    """2x4 toy brick with studs (Util.CreateBrick stand-in: the STL asset
+    is not shipped; studs are small boxes)."""
+    parts = [cube_mesh([0, 0, 0], [4, 1.0, 2])]
+    for i in range(4):
+        for j in range(2):
+            cx, cz = 0.5 + i, 0.5 + j
+            parts.append(cube_mesh([cx - 0.28, 1.0, cz - 0.28],
+                                   [cx + 0.28, 1.28, cz + 0.28]))
+    return TriMesh(v=np.concatenate([p.v for p in parts]))
+
+
+@example("toybrick")
+def toybrick(width=512, height=384, rows=6, cols=6, device=DEFAULT):
+    """Instanced toy-brick wall (reference toybrick, Example.cs:1229-1272):
+    one brick mesh, rows x cols instances with per-instance material
+    overrides, walked through the TLAS."""
+    rng = np.random.default_rng(4)
+    palette = [
+        diffuse_material(c) for c in
+        ([0.78, 0.12, 0.1], [0.98, 0.75, 0.1], [0.1, 0.4, 0.75],
+         [0.1, 0.6, 0.25], [0.95, 0.95, 0.95], [0.95, 0.45, 0.1])
+    ]
+    b = SceneBuilder()
+    mid = None
+    brick = _brick_mesh()
+    for r_ in range(rows):
+        off = 2.0 if r_ % 2 else 0.0
+        for c_ in range(cols):
+            t = transform.translate([c_ * 4.0 + off - cols * 2, r_ * 1.0, 0])
+            mat = palette[int(rng.integers(len(palette)))]
+            if mid is None:
+                mid = b.add_mesh(brick, mat, transform=t)
+            else:
+                b.add_mesh_instance(mid, transform=t, material=mat)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.7, 0.7, 0.7]))
+    b.add_sphere([6, 14, -12], 3.0, light_material([1, 1, 1], 7.0))
+    b.set_environment(color=[0.25, 0.28, 0.33])
+    scene = b.build(leaf_size=4, device=device)
+    cam = Camera.look_at([2, 5.5, -16], [0, 3, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=12), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("cube_field")
+def cube_field(width=512, height=384, n=12, device=DEFAULT):
+    """Grid of random-height cubes (reference example3, Example.cs:387-418,
+    the default viewport scene): n x n cubes and a light, 145 analytic
+    primitives at n = 12, walked through the TLAS."""
+    rng = np.random.default_rng(4)
+    b = SceneBuilder()
+    for i in range(-n // 2, n // 2):
+        for j in range(-n // 2, n // 2):
+            h = float(rng.uniform(0.1, 1.8))
+            b.add_cube([i, 0, j], [i + 0.92, h, j + 0.92],
+                       diffuse_material(colorlib.hex_color(
+                           [0x334D5C, 0x45B29D, 0xEFC94C, 0xE27A3F,
+                            0xDF5A49][int(rng.integers(5))])))
+    b.add_sphere([0, 14, -6], 3.0, light_material([1, 1, 1], 8.0))
+    b.set_environment(color=[0.1, 0.12, 0.15])
+    scene = b.build(device=device)
+    cam = Camera.look_at([-7, 8, -10], [0, 0, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
+        IntegratorConfig(max_bounces=3)
+
+
 def build(name: str, **kw):
     if name not in CATALOG:
-        raise not_ported(f"example {name!r}", "Queue 1 item 10")
+        raise not_ported(f"example {name!r}", "Queue 1 item 10d")
     return CATALOG[name](**kw)

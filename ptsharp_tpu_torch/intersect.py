@@ -1,23 +1,31 @@
 """Scene-wide closest-hit, occlusion and shading data over ray wavefronts.
 
-Counterpart of ptsharp_tpu/intersect.py for the port's slice: per
-primitive type the whole batch is intersected in one vectorized pass
-(planes, spheres, cubes, cylinders, in that order), then the meshes,
-bounded by the best t found so far, by `scene.intersector`, as
-ptsharp_tpu/intersect.py dispatches them (kernels/traverse.py):
-  "pallas"   the flat world-space table in one launch: the ordered walk
-             where `scene.p_ordered`, the preorder walk otherwise;
-  "wide"     per instance, object-space rays through the K-wide walk
-             over w_rows (closest_hit_wide_rows);
-  "walk"     per instance, the binary walk over u_rows
-             (closest_hit_binary);
-  "cluster"  per instance, the cluster cull (accel/cluster.py), whose
-             unresolved rays take the binary walk.
-Shadow rays of the last three go through the K-wide any-hit walk over
-w_rows, per instance (any_hit_wide_rows). Object-space rays are not
-normalised: t is parametric in the world ray. Hit records follow Hit.Info
-(Hit.cs:26-55): the shading normal is flipped toward the ray and `inside`
-set on a flip.
+Counterpart of ptsharp_tpu/intersect.py for the port's slice, in one of
+two tiers, chosen per scene at build time (`scene.use_tlas`), as there:
+
+  * per primitive type the whole batch is intersected in one vectorized
+    pass (planes, spheres, cubes, cylinders, in that order), then the
+    meshes, bounded by the best t found so far, by `scene.intersector`
+    (kernels/traverse.py):
+      "pallas"   flat (`scene.p_flat`): the world-space table in one
+                 launch; else per instance, object-space rays over the
+                 instance's mesh table; the ordered walk where
+                 `scene.p_ordered`, the preorder walk otherwise;
+      "wide"     per instance, object-space rays through the K-wide walk
+                 over w_rows (closest_hit_wide_rows);
+      "walk"     per instance, the binary walk over u_rows
+                 (closest_hit_binary);
+      "cluster"  per instance, the cluster cull (accel/cluster.py), whose
+                 unresolved rays take the binary walk.
+    Shadow rays of the last three go through the K-wide any-hit walk over
+    w_rows, per instance (any_hit_wide_rows);
+  * `scene.use_tlas` (instancing, or many analytic primitives): the planes,
+    then every other object in one walk of the TLAS that re-enters each
+    instance's BLAS (`traverse_scene`: closest_hit_tlas, any_hit_tlas
+    for shadow rays; binary rows for "walk", K-wide rows else).
+Object-space rays are not normalised: t is parametric in the world ray.
+Hit records follow Hit.Info (Hit.cs:26-55): the shading normal is flipped
+toward the ray and `inside` set on a flip.
 """
 
 from __future__ import annotations
@@ -93,60 +101,34 @@ def _instance_rays(scene: SceneData, i: int, org, dirn):
             _xform_dir(inv, dirn).contiguous())
 
 
-def _sphere_t1(o, d, c, rad):
-    oc = o - c
-    a = torch.sum(d * d, dim=-1)
-    b = 2.0 * torch.sum(oc * d, dim=-1)
-    cq = torch.sum(oc * oc, dim=-1) - rad * rad
-    disc = b * b - 4.0 * a * cq
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    inv2a = 0.5 / torch.clamp(a, min=1e-30)
-    t0 = (-b - sq) * inv2a
-    t1 = (-b + sq) * inv2a
-    inf = torch.full_like(t0, INF)
-    t = torch.where(t0 > primitives.EPS_T, t0,
-                    torch.where(t1 > primitives.EPS_T, t1, inf))
-    return torch.where(disc > 0.0, t, inf)
+def scene_tlas(scene: SceneData) -> traverse.TlasTables:
+    """The tables of `scene` that its TLAS walk reads: binary u_rows for
+    "walk", else the K-wide w_rows (ptsharp_tpu/intersect.py:178-184)."""
+    wide = scene.intersector != "walk"
+    return traverse.TlasTables(
+        rows=scene.w_rows if wide else scene.u_rows, leaf=scene.leaf_rows,
+        inst_inv=scene.inst_inv,
+        inst_range=scene.w_inst_range if wide else scene.u_inst_range,
+        sphere_center=scene.sphere_center, sphere_radius=scene.sphere_radius,
+        sphere_inv=scene.sphere_inv, cube_min=scene.cube_min,
+        cube_max=scene.cube_max, cube_inv=scene.cube_inv,
+        cyl_radius=scene.cyl_radius, cyl_z0=scene.cyl_z0,
+        cyl_z1=scene.cyl_z1, cyl_inv=scene.cyl_inv,
+        tlas_end=scene.w_tlas_end if wide else scene.tlas_end,
+        leaf_size=scene.max_leaf, k=scene.wide_k if wide else 0,
+        sphere_xform=scene.sphere_xform, cube_xform=scene.cube_xform,
+        cyl_xform=scene.cyl_xform)
 
 
-def _cube_t1(o, d, lo, hi):
-    invd = primitives._safe_div(torch.ones_like(d), d)
-    n = (lo - o) * invd
-    f = (hi - o) * invd
-    t0 = torch.amax(torch.minimum(n, f), dim=-1)
-    t1 = torch.amin(torch.maximum(n, f), dim=-1)
-    ok = (t0 > primitives.EPS_T) & (t0 < t1)
-    return torch.where(ok, t0, torch.full_like(t0, INF))
-
-
-def _cyl_t1(o, d, rad, z0, z1):
-    """Capped z-cylinder with per-ray parameters (R,)."""
-    tz0 = primitives._safe_div(z0 - o[..., 2], d[..., 2])
-    tz1 = primitives._safe_div(z1 - o[..., 2], d[..., 2])
-    inf = torch.full_like(tz0, INF)
-
-    def cap_ok(tc):
-        px = o[..., 0] + d[..., 0] * tc
-        py = o[..., 1] + d[..., 1] * tc
-        return (tc > primitives.EPS_T) & (px * px + py * py <= rad * rad)
-
-    t_top = torch.where(cap_ok(tz1), tz1, inf)
-    t_bot = torch.where(cap_ok(tz0), tz0, inf)
-    a = d[..., 0] ** 2 + d[..., 1] ** 2
-    b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 1] * d[..., 1])
-    c = o[..., 0] ** 2 + o[..., 1] ** 2 - rad * rad
-    disc = b * b - 4.0 * a * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    inv2a = 0.5 / torch.clamp(a, min=1e-30)
-    tl0 = (-b - sq) * inv2a
-    tl1 = (-b + sq) * inv2a
-
-    def lat_ok(tl):
-        z = o[..., 2] + d[..., 2] * tl
-        return (tl > primitives.EPS_T) & (z >= z0) & (z <= z1) & (disc >= 0.0)
-
-    t_lat = torch.where(lat_ok(tl0), tl0, torch.where(lat_ok(tl1), tl1, inf))
-    return torch.minimum(torch.minimum(t_top, t_bot), t_lat)
+def traverse_scene(scene: SceneData, org, dirn, t_max):
+    """One walk of the scene's TLAS, whose instance leaves re-enter each
+    instance's BLAS with object-space rays (ptsharp_tpu/intersect.py
+    traverse_scene): (t, kind, index, inst, u, v), kind PT_NONE and t INF
+    where nothing beat t_max ((R,)). Detached: traversal is discrete."""
+    return traverse.closest_hit_tlas(
+        scene_tlas(scene), org.detach().contiguous(),
+        dirn.detach().contiguous(),
+        _as_rays(t_max, org.shape[0], org).detach().contiguous())
 
 
 def _as_rays(x, r, like):
@@ -193,6 +175,14 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
     if scene.plane_point.shape[0] > 0:
         take_min(primitives.intersect_planes(o1, d1, scene.plane_point,
                                              scene.plane_normal), PT_PLANE)
+    if scene.use_tlas:
+        # planes are never in the TLAS; everything else is
+        t, k, i, binst, u, v = traverse_scene(scene, org, dirn, best_t)
+        take(t, k, i, inst=binst, u=u, v=v)
+        if t_max is not None:
+            best_t = torch.where(best_type == PT_NONE,
+                                 torch.full_like(best_t, INF), best_t)
+        return Hit(best_t, best_type, best_idx, best_inst, best_u, best_v)
     if scene.sphere_center.shape[0] > 0:
         o, d = _local(scene.sphere_inv, scene.sphere_xform, o1, d1)
         take_min(primitives.intersect_spheres(o, d, scene.sphere_center,
@@ -209,17 +199,28 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
     # the walks take raw pointers: they see detached rays and bounds
     org, dirn = org.detach(), dirn.detach()
     if scene.has_meshes and scene.intersector == "pallas":
-        # one world-space launch over every instance, bounded by the best
-        # analytic t; slot maps recover scene triangle and instance
         walk = (traverse.closest_hit if scene.p_ordered
                 else traverse.closest_hit_preorder)
-        t, kslot, u, v = walk(
-            scene.p_fat, org.contiguous(), dirn.contiguous(),
-            best_t.detach().contiguous(), scene.p_inst_base[0],
-            scene.p_inst_end[0], scene.max_leaf, scene.wide_k)
-        ks = torch.clamp(kslot, 0, scene.p_slot_tri.shape[0] - 1).long()
-        take(t, PT_TRIANGLE, scene.p_slot_tri[ks], inst=scene.p_slot_inst[ks],
-             u=u, v=v)
+        if scene.p_flat:
+            # one world-space launch over every instance, bounded by the
+            # best analytic t; slot maps recover scene triangle and instance
+            t, kslot, u, v = walk(
+                scene.p_fat, org.contiguous(), dirn.contiguous(),
+                best_t.detach().contiguous(), scene.p_inst_base[0],
+                scene.p_inst_end[0], scene.max_leaf, scene.wide_k)
+            ks = torch.clamp(kslot, 0, scene.p_slot_tri.shape[0] - 1).long()
+            take(t, PT_TRIANGLE, scene.p_slot_tri[ks],
+                 inst=scene.p_slot_inst[ks], u=u, v=v)
+        else:
+            # per instance, object-space rays over its mesh's table,
+            # bounded by the best t so far; kernel slots are scene slots
+            for i in range(scene.inst_inv.shape[0]):
+                o, d = _instance_rays(scene, i, org, dirn)
+                t, slot, u, v = walk(
+                    scene.p_fat, o, d, best_t.detach().contiguous(),
+                    scene.p_inst_base[i], scene.p_inst_end[i],
+                    scene.max_leaf, scene.wide_k)
+                take(t, PT_TRIANGLE, slot, inst=i, u=u, v=v)
     elif scene.has_meshes:
         # per instance, object-space rays; slots index the scene's slot
         # arrays directly
@@ -257,10 +258,13 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     """True where any surface intersects the ray at t in (eps, t_cut);
     lanes with t_cut <= 0 are never occluded. Mesh instances go through
     the any-hit kernel of the scene's walk order over the fat table
-    ("pallas"), else, per instance, through the K-wide any-hit walk over
-    w_rows. ptsharp_tpu/intersect.py:722-728 runs the K-wide closest-hit
-    bounded by t_cut there and tests t < INF: the same boolean wherever
-    t_cut <= INF, which every cut the integrator passes is. Discrete, so
+    ("pallas", once, or per instance where not flat), else, per instance,
+    through the K-wide any-hit walk over w_rows.
+    ptsharp_tpu/intersect.py:722-728 runs the K-wide closest-hit bounded by
+    t_cut there and tests t < INF: the same boolean wherever t_cut <= INF,
+    which every cut the integrator passes is. A `use_tlas` scene's objects
+    other than planes go through the TLAS any-hit walk, the boolean of
+    the bounded TLAS closest-hit's kind != PT_NONE (:624-626). Discrete, so
     every input is detached (ptsharp_tpu/intersect.py:602-606)."""
     org, dirn = org.detach(), dirn.detach()
     r = org.shape[0]
@@ -275,6 +279,14 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     if scene.plane_point.shape[0] > 0:
         occ = occ | any_below(primitives.intersect_planes(
             o1, d1, scene.plane_point, scene.plane_normal))
+
+    def cut():
+        # already-occluded lanes carry a -INF bound and test nothing
+        return torch.where(occ, torch.full_like(tc, -INF), tc).contiguous()
+
+    if scene.use_tlas:
+        return occ | traverse.any_hit_tlas(scene_tlas(scene), org.contiguous(),
+                                           dirn.contiguous(), cut())
     if scene.sphere_center.shape[0] > 0:
         o, d = _local(scene.sphere_inv, scene.sphere_xform, o1, d1)
         occ = occ | any_below(primitives.intersect_spheres(
@@ -287,17 +299,20 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
         o, d = _local(scene.cyl_inv, scene.cyl_xform, o1, d1)
         occ = occ | any_below(primitives.intersect_cylinders(
             o, d, scene.cyl_radius, scene.cyl_z0, scene.cyl_z1))
-    def cut():
-        # already-occluded lanes carry a -INF bound and test nothing
-        return torch.where(occ, torch.full_like(tc, -INF), tc).contiguous()
-
     if scene.has_meshes and scene.intersector == "pallas":
         walk = (traverse.any_hit if scene.p_ordered
                 else traverse.any_hit_preorder)
-        occ = occ | walk(
-            scene.p_fat, org.contiguous(), dirn.contiguous(), cut(),
-            scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
-            scene.wide_k)
+        if scene.p_flat:
+            occ = occ | walk(
+                scene.p_fat, org.contiguous(), dirn.contiguous(), cut(),
+                scene.p_inst_base[0], scene.p_inst_end[0], scene.max_leaf,
+                scene.wide_k)
+        else:
+            for i in range(scene.inst_inv.shape[0]):
+                o, d = _instance_rays(scene, i, org, dirn)
+                occ = occ | walk(scene.p_fat, o, d, cut(),
+                                 scene.p_inst_base[i], scene.p_inst_end[i],
+                                 scene.max_leaf, scene.wide_k)
     elif scene.has_meshes:
         for i in range(scene.inst_inv.shape[0]):
             o, d = _instance_rays(scene, i, org, dirn)
@@ -325,19 +340,19 @@ def light_hit_t(scene: SceneData, org, dirn, lidx) -> torch.Tensor:
     if PT_SPHERE in scene.light_types:
         pic = torch.clamp(pi, 0, scene.sphere_center.shape[0] - 1)
         o, d = local(scene.sphere_inv, scene.sphere_xform, pic)
-        t = _sphere_t1(o, d, scene.sphere_center[pic],
+        t = traverse._sphere_t(o, d, scene.sphere_center[pic],
                        scene.sphere_radius[pic])
         t_light = torch.where(lt == PT_SPHERE, t, t_light)
     if PT_CUBE in scene.light_types:
         pic = torch.clamp(pi, 0, scene.cube_min.shape[0] - 1)
         o, d = local(scene.cube_inv, scene.cube_xform, pic)
-        t = _cube_t1(o, d, scene.cube_min[pic], scene.cube_max[pic])
+        t = traverse._cube_t(o, d, scene.cube_min[pic], scene.cube_max[pic])
         t_light = torch.where(lt == PT_CUBE, t, t_light)
     if PT_CYLINDER in scene.light_types:
         pic = torch.clamp(pi, 0, scene.cyl_radius.shape[0] - 1)
         o, d = local(scene.cyl_inv, scene.cyl_xform, pic)
-        t = _cyl_t1(o, d, scene.cyl_radius[pic], scene.cyl_z0[pic],
-                    scene.cyl_z1[pic])
+        t = traverse._cyl_t(o, d, scene.cyl_radius[pic], scene.cyl_z0[pic],
+                            scene.cyl_z1[pic])
         t_light = torch.where(lt == PT_CYLINDER, t, t_light)
     return t_light
 

@@ -96,6 +96,12 @@ def _bind(lib):
                     vp, vp, vp, vp, vp, vp, vp]
     rows_any = [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                 vp, vp, vp, vp]
+    # the TLAS walks: the TlasScene, rays, t, n, the TLAS head [root,
+    # tlas_end), max_iters, outputs (t, kind, index, inst, u, v; or the
+    # occlusion), the ray counter, [steps, lane slots] or null, stream
+    tlas_closest = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp,
+                    vp, vp, vp]
+    tlas_any = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
     for fn, argtypes in ((lib.pt_closest_hit, persistent_closest),
                          (lib.pt_any_hit, persistent_any),
                          (lib.pt_closest_hit_preorder, persistent_closest),
@@ -109,7 +115,9 @@ def _bind(lib):
                          (lib.pt_closest_hit_row_stage, split_packet),
                          (lib.pt_closest_hit_binary, binary),
                          (lib.pt_closest_hit_wide_rows, rows_closest),
-                         (lib.pt_any_hit_wide_rows, rows_any)):
+                         (lib.pt_any_hit_wide_rows, rows_any),
+                         (lib.pt_closest_hit_tlas, tlas_closest),
+                         (lib.pt_any_hit_tlas, tlas_any)):
         fn.restype = ci
         fn.argtypes = argtypes
     # the warp packets' ring block (table rows), dynamic shared memory and

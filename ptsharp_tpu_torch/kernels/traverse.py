@@ -1,5 +1,5 @@
 """Closest-hit and any-hit over the BVH tables: wrappers and plain
-versions of the CUDA kernels in csrc/ (fourteen entry points).
+versions of the CUDA kernels in csrc/ (sixteen entry points).
 
 Over the fat table (the render path):
   `closest_hit` and `any_hit` walk near to far with a per-ray stack (the
@@ -45,6 +45,14 @@ and "cluster"; node rows of any width, leaf blocks (NL, leaf_size * 9)):
   versions are accel.traverse.traverse_wide and any_hit_wide_rows_plain),
   with float4 loads where both tables are 16-byte strides from 16-byte
   aligned bases (`row_loads(rows, leaf)`), else scalar loads.
+Over the whole scene (intersect.py, a `use_tlas` scene):
+  `closest_hit_tlas` and `any_hit_tlas`, one walk of the TLAS at the head
+  of the XLA walks' node rows (w_rows, or u_rows for "walk") whose
+  analytic leaves are tested in place and whose instance leaves re-enter
+  the instance's BLAS with the ray in its object space
+  (csrc/tlas_walk.cu, persistent warps, scalar loads; `TlasTables` names
+  what they read; their plain versions are the torch counterpart of
+  ptsharp_tpu/intersect.py traverse_scene, `_TlasWalk`).
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream, adds one to its `launches` count and the launch's rays
 to its `rays`; on a CPU tensor it runs its plain version below; any
@@ -94,6 +102,8 @@ Contract (the JAX package's kernels):
 from __future__ import annotations
 
 import contextlib
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -127,14 +137,20 @@ class Work:
     kernel's least time on the card (chip_smoke.py): box tests (each
     visit's own box and, at a hit K-wide internal node, its K children's),
     Moller-Trumbore tests (a leaf's `count` triangles, not its padding
-    slots; an any-hit's up to its first accepted one), and the distinct
-    table rows they read with the float32 columns a read uses (a row read
-    twice counts its widest read)."""
+    slots; an any-hit's up to its first accepted one), the TLAS walk's
+    analytic leaf tests by primitive type code, its affine transforms of
+    a ray (into an instance's or a transformed primitive's object space)
+    and its instance entries, and the distinct table rows they read with
+    the float32 columns a read uses (a row read twice counts its widest
+    read)."""
 
     def __init__(self):
         self.boxes = 0
         self.triangles = 0
-        self._cols = {}  # (table, "node" | "leaf") -> columns read per row
+        self.analytic = {}  # primitive type code -> leaf tests
+        self.affine = 0
+        self.instances = 0
+        self._cols = {}  # (table, what) -> columns read per row
 
     def touch(self, table, what, rows, cols):
         """Rows `rows` of `table` read, `cols` columns each (an int, or a
@@ -773,6 +789,356 @@ def closest_hit_row_stage_plain(rows, leaf, org, dirn, t_max, base: int,
                                     leaf_size, k)
 
 
+# ---- the TLAS walk: the whole scene in one walk ----------------------------
+
+# the scene's primitive type codes in node rows and hit records
+# (ptsharp_tpu_torch/scene.py)
+PT_NONE, PT_SPHERE, PT_CUBE, PT_CYLINDER, PT_TRIANGLE = 0, 1, 3, 4, 5
+PT_INSTANCE = 9
+EPS_T = 1e-4  # least t of an analytic hit (geometry/primitives.py)
+
+
+class TlasTables(NamedTuple):
+    """What the TLAS walk reads: the unified node rows (the TLAS head
+    [0, tlas_end), then each mesh's BLAS in object space), binary u_rows
+    (k = 0) or K-wide w_rows; the scene's leaf_rows; each instance's
+    world->object affine and BLAS node range [base, end); and the analytic
+    primitives the TLAS leaves name, in object space with their
+    world->object affines (applied where the `*_xform` flag is set).
+    intersect.scene_tlas makes it from a scene."""
+
+    rows: torch.Tensor           # (N, 10) u_rows or (Nw, 9 + 7K) w_rows
+    leaf: torch.Tensor           # (NL, leaf_size * 9) leaf_rows
+    inst_inv: torch.Tensor       # (I, 3, 4)
+    inst_range: torch.Tensor     # (I, 2) int32
+    sphere_center: torch.Tensor  # (S, 3)
+    sphere_radius: torch.Tensor  # (S,)
+    sphere_inv: torch.Tensor     # (S, 3, 4)
+    cube_min: torch.Tensor       # (C, 3)
+    cube_max: torch.Tensor       # (C, 3)
+    cube_inv: torch.Tensor       # (C, 3, 4)
+    cyl_radius: torch.Tensor     # (Y,)
+    cyl_z0: torch.Tensor         # (Y,)
+    cyl_z1: torch.Tensor         # (Y,)
+    cyl_inv: torch.Tensor        # (Y, 3, 4)
+    tlas_end: int
+    leaf_size: int
+    k: int                       # children a row; 0: binary rows
+    sphere_xform: bool
+    cube_xform: bool
+    cyl_xform: bool
+
+
+def _safe_den(b):
+    """b with |b| < 1e-30 moved to +/-1e-30 (primitives._safe_div)."""
+    return torch.where(torch.abs(b) < 1e-30,
+                       torch.where(b < 0, -1e-30, 1e-30), b)
+
+
+def _affine(m, p, point: bool):
+    """m (A, 3, 4) applied to p (A, 3), summed left to right as
+    csrc/tlas_walk.cu sums it: the translation (of a point) added last."""
+    out = []
+    for i in range(3):
+        x = (m[:, i, 0] * p[:, 0] + m[:, i, 1] * p[:, 1]) + m[:, i, 2] * p[:, 2]
+        out.append(x + m[:, i, 3] if point else x)
+    return torch.stack(out, dim=1)
+
+
+def _sphere_t(o, d, c, rad):
+    """Nearest hit t > EPS_T of rays (A, 3) on spheres (A, 3), (A,), INF
+    where none: ptsharp_tpu/intersect.py _sphere_t1 in the order of
+    operations of csrc/tlas_walk.cu."""
+    ocx, ocy, ocz = o[:, 0] - c[:, 0], o[:, 1] - c[:, 1], o[:, 2] - c[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    a = (dx * dx + dy * dy) + dz * dz
+    b = 2.0 * ((ocx * dx + ocy * dy) + ocz * dz)
+    cq = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad * rad
+    disc = b * b - (4.0 * a) * cq
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv2a = 0.5 / torch.clamp(a, min=1e-30)
+    t0 = (-b - sq) * inv2a
+    t1 = (-b + sq) * inv2a
+    inf = torch.full_like(t0, INF)
+    t = torch.where(t0 > EPS_T, t0, torch.where(t1 > EPS_T, t1, inf))
+    return torch.where(disc > 0.0, t, inf)
+
+
+def _cube_t(o, d, lo, hi):
+    """Entry t > EPS_T of rays on boxes [lo, hi] (_cube_t1)."""
+    inv = 1.0 / _safe_den(d)
+    n = (lo - o) * inv
+    f = (hi - o) * inv
+    mn, mx = torch.minimum(n, f), torch.maximum(n, f)
+    t0 = torch.maximum(torch.maximum(mn[:, 0], mn[:, 1]), mn[:, 2])
+    t1 = torch.minimum(torch.minimum(mx[:, 0], mx[:, 1]), mx[:, 2])
+    ok = (t0 > EPS_T) & (t0 < t1)
+    return torch.where(ok, t0, torch.full_like(t0, INF))
+
+
+def _cyl_t(o, d, rad, z0, z1):
+    """Nearest hit t > EPS_T of rays on capped z-cylinders (_cyl_t1)."""
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    den = _safe_den(dz)
+    tz0 = (z0 - oz) / den
+    tz1 = (z1 - oz) / den
+    inf = torch.full_like(tz0, INF)
+    r2 = rad * rad
+
+    def cap(tc):
+        px = ox + dx * tc
+        py = oy + dy * tc
+        return torch.where((tc > EPS_T) & (px * px + py * py <= r2), tc, inf)
+
+    a = dx * dx + dy * dy
+    b = 2.0 * (ox * dx + oy * dy)
+    c = (ox * ox + oy * oy) - r2
+    disc = b * b - (4.0 * a) * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv2a = 0.5 / torch.clamp(a, min=1e-30)
+    tl0 = (-b - sq) * inv2a
+    tl1 = (-b + sq) * inv2a
+
+    def lat(tl):
+        z = oz + dz * tl
+        return (tl > EPS_T) & (z >= z0) & (z <= z1) & (disc >= 0.0)
+
+    t_lat = torch.where(lat(tl0), tl0, torch.where(lat(tl1), tl1, inf))
+    return torch.minimum(torch.minimum(cap(tz1), cap(tz0)), t_lat)
+
+
+class _TlasWalk:
+    """The lockstep state of ptsharp_tpu/intersect.py traverse_scene, a
+    row a ray, stepped on the active lanes only: the cursor, the return
+    slot and the instance with its BLAS end, the ray in the current space
+    (world, or an instance's object space: unnormalised, so t stays the
+    world ray's) and the best hit."""
+
+    def __init__(self, tabs: TlasTables, org, dirn, bt, start, count):
+        r = org.shape[0]
+        dev = org.device
+        self.tabs, self.org, self.dirn = tabs, org, dirn
+        self.bits = tabs.rows.view(torch.int32)
+        self.cur = torch.where(start, 0, tabs.tlas_end).to(torch.int64)
+        self.ret = torch.full((r,), tabs.tlas_end, dtype=torch.int64,
+                              device=dev)
+        self.inst = torch.full((r,), -1, dtype=torch.int64, device=dev)
+        self.bend = torch.zeros(r, dtype=torch.int64, device=dev)
+        self.o, self.d = org.clone(), dirn.clone()
+        self.inv = _safe_inv(dirn)
+        self.bt = bt
+        self.bk = torch.zeros(r, dtype=torch.int32, device=dev)
+        self.bi = torch.full((r,), -1, dtype=torch.int32, device=dev)
+        self.binst = torch.full((r,), -1, dtype=torch.int32, device=dev)
+        self.bu = torch.zeros(r, dtype=torch.float32, device=dev)
+        self.bv = torch.zeros(r, dtype=torch.float32, device=dev)
+        self.steps = (torch.zeros(r, dtype=torch.int32, device=dev)
+                      if count else None)
+
+    def active(self):
+        return torch.nonzero((self.inst >= 0)
+                             | (self.cur < self.tabs.tlas_end)).squeeze(1)
+
+    def take(self, lanes, t, kind, index, inst, u=None, v=None):
+        """Keep each lane's hit (already known to be below its best t)."""
+        self.bt[lanes] = t
+        self.bk[lanes] = kind
+        self.bi[lanes] = index.to(torch.int32)
+        self.binst[lanes] = inst.to(torch.int32)
+        if u is not None:
+            self.bu[lanes] = u
+            self.bv[lanes] = v
+
+    def triangles(self, lanes, first, any_hit):
+        """MT of the lanes' rays over the leaf blocks at `first`: the lanes
+        that accepted a hit below their best t (and, closest-hit, keep
+        it: the first slot of least t)."""
+        tabs = self.tabs
+        ls = tabs.leaf_size
+        rows = (first // ls).to(torch.int64)
+        blk = tabs.leaf[rows, :ls * 9].reshape(-1, ls, 9)
+        ok, tt, uu, vv = _mt(blk, self.o[lanes], self.d[lanes])
+        ok = ok & (tt < self.bt[lanes][:, None])
+        got = ok.any(dim=1)
+        if _work is not None:
+            count = (self.bits[self.cur[lanes], 7] & 0xFF).to(torch.int64)
+            if any_hit:
+                hit1 = torch.argmax(ok.to(torch.int8), dim=1) + 1
+                count = torch.where(got, torch.minimum(hit1, count), count)
+            _work.triangles += int(count.sum())
+            _work.touch(tabs.leaf, "leaf", rows, count * 9)
+        if not any_hit:
+            lane, t = _first_min(ok, tt)
+            g = lanes[got]
+            lane = lane[got]
+            self.take(g, t[got], PT_TRIANGLE, first[got] + lane.squeeze(1),
+                      self.inst[g], torch.gather(uu[got], 1, lane).squeeze(1),
+                      torch.gather(vv[got], 1, lane).squeeze(1))
+        return lanes[got]
+
+    def analytic(self, lanes, kind, first, any_hit):
+        """The analytic leaves of type `kind` at `first`, tested in their
+        object space where the scene transforms that type: the lanes that
+        hit below their best t (and, closest-hit, keep it)."""
+        tabs = self.tabs
+        o, d = self.o[lanes], self.d[lanes]
+        if kind == PT_SPHERE:
+            params = (tabs.sphere_center, tabs.sphere_radius)
+            inv, xform, test = tabs.sphere_inv, tabs.sphere_xform, _sphere_t
+        elif kind == PT_CUBE:
+            params = (tabs.cube_min, tabs.cube_max)
+            inv, xform, test = tabs.cube_inv, tabs.cube_xform, _cube_t
+        else:
+            params = (tabs.cyl_radius, tabs.cyl_z0, tabs.cyl_z1)
+            inv, xform, test = tabs.cyl_inv, tabs.cyl_xform, _cyl_t
+        pi = torch.clamp(first.to(torch.int64), 0, params[0].shape[0] - 1)
+        if xform:
+            m = inv[pi]
+            o, d = _affine(m, o, True), _affine(m, d, False)
+        t = test(o, d, *(p[pi] for p in params))
+        got = t < self.bt[lanes]
+        if _work is not None:
+            _work.analytic[kind] = _work.analytic.get(kind, 0) + lanes.numel()
+            _work.affine += lanes.numel() * xform
+            for p in params + ((inv,) if xform else ()):
+                _work.touch(p, "prim", pi, p[0].numel() if p.dim() > 1 else 1)
+        if not any_hit:
+            g = lanes[got]
+            self.take(g, t[got], kind, first[got], torch.full_like(g, -1))
+        return lanes[got]
+
+    def child_step(self, lanes, node, bt):
+        """The hit child of smallest preorder index of K-wide rows `node`
+        (ptsharp_tpu/accel/traverse.py wide_child_step), -1 where none."""
+        k = self.tabs.k
+        cb = self.tabs.rows[node, 9:9 + 6 * k].reshape(-1, k, 6)
+        cidx = self.bits[node, 9 + 6 * k:9 + 7 * k].to(torch.int64)
+        ctmin, ctmax = _slab(cb, self.o[lanes][:, None, :],
+                             self.inv[lanes][:, None, :])
+        chit = _box_hit(ctmin, ctmax, bt[:, None]) & (cidx > 0)
+        target = torch.where(chit, cidx, _NO_CHILD).amin(dim=1)
+        return torch.where(target < _NO_CHILD, target, -1)
+
+    def step(self, any_hit):
+        """One step of every active lane (traverse_scene's loop body).
+        Returns the active lanes, or None when none is left, and (any-hit)
+        the lanes that found a blocker."""
+        act = self.active()
+        if act.numel() == 0:
+            return None, None
+        tabs = self.tabs
+        if self.steps is not None:
+            self.steps[act] += 1
+        j = self.cur[act]
+        bits = self.bits[j]
+        first, skip = bits[:, 6], bits[:, 8].to(torch.int64)
+        kind = (bits[:, 7] >> 8) & 0xF
+        tmin, tmax = _slab(tabs.rows[j, 0:6], self.o[act], self.inv[act])
+        hit = _box_hit(tmin, tmax, self.bt[act])
+        inner = hit & (kind == PT_NONE)
+        if _work is not None:
+            _work.boxes += act.numel() + tabs.k * int(inner.sum())
+            _work.touch(tabs.rows, "node", j, 9 + 7 * tabs.k if tabs.k
+                        else tabs.rows.shape[1])
+        blocked = []
+        for code in (PT_TRIANGLE, PT_SPHERE, PT_CUBE, PT_CYLINDER):
+            m = hit & (kind == code)
+            if bool(m.any()):
+                if code == PT_TRIANGLE:
+                    blocked.append(self.triangles(act[m], first[m], any_hit))
+                else:
+                    blocked.append(self.analytic(act[m], code, first[m],
+                                                 any_hit))
+        nxt = skip.clone()
+        if bool(inner.any()):
+            if tabs.k:
+                target = self.child_step(act[inner], j[inner],
+                                         self.bt[act[inner]])
+                nxt[inner] = torch.where(target >= 0, target, skip[inner])
+            else:
+                nxt[inner] = j[inner] + 1
+        enter = hit & (kind == PT_INSTANCE)
+        if bool(enter.any()):
+            la = act[enter]
+            ii = torch.clamp(first[enter].to(torch.int64), 0,
+                             tabs.inst_inv.shape[0] - 1)
+            rng = tabs.inst_range[ii].to(torch.int64)
+            m = tabs.inst_inv[ii]
+            nxt[enter] = rng[:, 0]
+            self.ret[la] = skip[enter]
+            self.bend[la] = rng[:, 1]
+            self.inst[la] = ii
+            self.o[la] = _affine(m, self.org[la], True)
+            self.d[la] = _affine(m, self.dirn[la], False)
+            self.inv[la] = _safe_inv(self.d[la])
+            if _work is not None:
+                _work.instances += la.numel()
+                _work.affine += la.numel()
+                _work.touch(tabs.inst_inv, "prim", ii, 12)
+                _work.touch(tabs.inst_range, "prim", ii, 2)
+        pop = (self.inst[act] >= 0) & (nxt >= self.bend[act])
+        if bool(pop.any()):
+            la = act[pop]
+            nxt[pop] = self.ret[la]
+            self.inst[la] = -1
+            self.o[la] = self.org[la]
+            self.d[la] = self.dirn[la]
+            self.inv[la] = _safe_inv(self.dirn[la])
+        self.cur[act] = nxt
+        if not any_hit:
+            return act, None
+        blocked = (torch.cat(blocked) if blocked
+                   else act.new_zeros(0))
+        # a blocked lane is finished
+        self.cur[blocked] = tabs.tlas_end
+        self.inst[blocked] = -1
+        return act, blocked
+
+
+def closest_hit_tlas_plain(tabs: TlasTables, org, dirn, t_max,
+                           return_iters: bool = False):
+    """Plain PyTorch version of ptsharp_tpu/intersect.py traverse_scene:
+    the closest hit over the whole scene by one walk of the TLAS that
+    re-enters each instance's BLAS, each ray capped at MAX_ITERS steps.
+    Returns (t, kind, index, inst, u, v): t INF and kind PT_NONE where
+    nothing beat t_max; index the scene slot of a triangle or the
+    primitive's index; inst the instance of a triangle, else -1; u, v of
+    the last triangle kept (an analytic hit keeps them as they were, as
+    traverse_scene does). With return_iters, also each ray's step count
+    (int32 (R,)), the steps csrc/tlas_walk.cu takes."""
+    walk = _TlasWalk(tabs, org, dirn, t_max.clone(), _all_lanes(org),
+                     return_iters)
+    for _ in range(MAX_ITERS):
+        if walk.step(False)[0] is None:
+            break
+    t = torch.where(walk.bk == PT_NONE, torch.full_like(walk.bt, INF),
+                    walk.bt)
+    out = (t, walk.bk, walk.bi, walk.binst, walk.bu, walk.bv)
+    return (*out, walk.steps) if return_iters else out
+
+
+def any_hit_tlas_plain(tabs: TlasTables, org, dirn, t_cut,
+                       return_iters: bool = False):
+    """Plain PyTorch any-hit over the whole scene by the TLAS walk with
+    best t fixed at t_cut: (R,) bool, True where a primitive lies at t in
+    (1e-4, t_cut); a lane ends on its first accepted hit, and a lane with
+    t_cut <= 0 is never occluded and takes no step. The same boolean as
+    closest_hit_tlas_plain(..., t_cut) kind != PT_NONE
+    (ptsharp_tpu/intersect.py:624-626): until its first accepted hit the
+    bounded closest-hit walks with best t = t_cut too. With
+    return_iters, also each ray's step count (int32 (R,))."""
+    walk = _TlasWalk(tabs, org, dirn, t_cut.clone(), t_cut > 0.0,
+                     return_iters)
+    occ = torch.zeros(org.shape[0], dtype=torch.bool, device=org.device)
+    for _ in range(MAX_ITERS):
+        act, blocked = walk.step(True)
+        if act is None:
+            break
+        occ[blocked] = True
+    return (occ, walk.steps) if return_iters else occ
+
+
 # ---- wrappers -------------------------------------------------------------
 
 
@@ -1321,11 +1687,119 @@ def any_hit_wide_rows(rows, leaf, org, dirn, t_cut, base: int, end: int,
                             counts, (occ,))[0]
 
 
+def _check_tlas(tabs: TlasTables, org, dirn, t):
+    """The TLAS walk's contract: the row tables as the XLA walks' (node
+    rows of at least 9 + 7K columns, K = tabs.k, 0 for binary rows; leaf
+    blocks of at least leaf_size * 9), the TLAS head [0, tlas_end) and
+    every instance's BLAS range inside the node rows; the instance and
+    primitive tables float32 (the ranges int32), contiguous, of matching
+    lengths, on the tables' device and not requiring grad."""
+    if tabs.k != 0 and not 2 <= tabs.k <= 17:
+        raise ValueError(f"k={tabs.k}: 0 (binary rows) or 2..17")
+    if tabs.tlas_end < 1:
+        raise ValueError("the scene has no TLAS")
+    _check_row_tables(tabs.rows, tabs.leaf, org, dirn, t, 0, tabs.tlas_end,
+                      tabs.leaf_size, tabs.k)
+    n_inst = tabs.inst_inv.shape[0]
+    n_sph = tabs.sphere_center.shape[0]
+    n_cube = tabs.cube_min.shape[0]
+    n_cyl = tabs.cyl_radius.shape[0]
+    shapes = {"inst_inv": (n_inst, 3, 4), "inst_range": (n_inst, 2),
+              "sphere_center": (n_sph, 3), "sphere_radius": (n_sph,),
+              "sphere_inv": (n_sph, 3, 4), "cube_min": (n_cube, 3),
+              "cube_max": (n_cube, 3), "cube_inv": (n_cube, 3, 4),
+              "cyl_radius": (n_cyl,), "cyl_z0": (n_cyl,), "cyl_z1": (n_cyl,),
+              "cyl_inv": (n_cyl, 3, 4)}
+    for name, shape in shapes.items():
+        x = getattr(tabs, name)
+        dtype = torch.int32 if name == "inst_range" else torch.float32
+        if x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}")
+        if x.device != tabs.rows.device:
+            raise ValueError(f"{name} is on {x.device}, the tables on "
+                             f"{tabs.rows.device}")
+    _check_detached(**{name: getattr(tabs, name) for name in shapes})
+    if n_inst:
+        rng = tabs.inst_range
+        if not bool(((rng[:, 0] >= 0) & (rng[:, 0] <= rng[:, 1])
+                     & (rng[:, 1] <= tabs.rows.shape[0])).all()):
+            raise ValueError("an instance's node range lies outside the "
+                             "table")
+
+
+class _TlasScene(ctypes.Structure):
+    """csrc/tlas_walk.cu's TlasScene: the tables' pointers, then their
+    geometry."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "rows", "leaves", "inst_inv", "inst_range", "sph_center",
+        "sph_radius", "sph_inv", "cube_min", "cube_max", "cube_inv",
+        "cyl_radius", "cyl_z0", "cyl_z1", "cyl_inv")] + [
+        (name, ctypes.c_int) for name in (
+            "node_stride", "leaf_stride", "leaf_size", "k", "n_inst",
+            "n_sph", "n_cube", "n_cyl", "sph_xform", "cube_xform",
+            "cyl_xform")]
+
+
+def _tlas_launch(wrapper, entry, tabs: TlasTables, org, dirn, t, counts,
+                 out):
+    _kernel_lib(tabs.rows)
+    scene = _TlasScene(
+        *(_ptr(x) for x in (
+            tabs.rows, tabs.leaf, tabs.inst_inv, tabs.inst_range,
+            tabs.sphere_center, tabs.sphere_radius, tabs.sphere_inv,
+            tabs.cube_min, tabs.cube_max, tabs.cube_inv, tabs.cyl_radius,
+            tabs.cyl_z0, tabs.cyl_z1, tabs.cyl_inv)),
+        tabs.rows.shape[1], tabs.leaf.shape[1], tabs.leaf_size, tabs.k,
+        tabs.inst_inv.shape[0], tabs.sphere_center.shape[0],
+        tabs.cube_min.shape[0], tabs.cyl_radius.shape[0],
+        int(tabs.sphere_xform), int(tabs.cube_xform), int(tabs.cyl_xform))
+    # the launch copies the struct into the kernel's parameters
+    return _persistent(wrapper, entry, tabs.rows, (ctypes.addressof(scene),),
+                       org, dirn, t, 0, tabs.tlas_end, (MAX_ITERS,), counts,
+                       out)
+
+
+def closest_hit_tlas(tabs: TlasTables, org, dirn, t_max, counts=None):
+    """Closest hit per ray over the whole scene by one walk of the TLAS
+    (ptsharp_tpu/intersect.py traverse_scene): (t, kind, index, inst, u,
+    v), as closest_hit_tlas_plain gives them, each ray capped at
+    MAX_ITERS steps. csrc/tlas_walk.cu on CUDA tensors,
+    closest_hit_tlas_plain on CPU tensors; `counts` as in closest_hit."""
+    _check_tlas(tabs, org, dirn, t_max)
+    if tabs.rows.device.type == "cpu":
+        _plain_counts(counts)
+        return closest_hit_tlas_plain(tabs, org, dirn, t_max)
+    r = org.shape[0]
+    dev = tabs.rows.device
+    t, index, u, v = _hit_outputs(r, dev)
+    kind = torch.empty(r, dtype=torch.int32, device=dev)
+    inst = torch.empty_like(kind)
+    return _tlas_launch(closest_hit_tlas, "pt_closest_hit_tlas", tabs, org,
+                        dirn, t_max, counts, (t, kind, index, inst, u, v))
+
+
+def any_hit_tlas(tabs: TlasTables, org, dirn, t_cut, counts=None):
+    """Occlusion per ray over the whole scene by the TLAS walk: (R,) bool,
+    True where a primitive lies at t in (1e-4, t_cut); a lane with
+    t_cut <= 0 is never occluded. The same boolean as closest_hit_tlas
+    bounded by t_cut, kind != PT_NONE. csrc/tlas_walk.cu on CUDA tensors,
+    any_hit_tlas_plain on CPU tensors; `counts` as in closest_hit."""
+    _check_tlas(tabs, org, dirn, t_cut)
+    if tabs.rows.device.type == "cpu":
+        _plain_counts(counts)
+        return any_hit_tlas_plain(tabs, org, dirn, t_cut)
+    occ = torch.empty(org.shape[0], dtype=torch.bool, device=tabs.rows.device)
+    return _tlas_launch(any_hit_tlas, "pt_any_hit_tlas", tabs, org, dirn,
+                        t_cut, counts, (occ,))[0]
+
+
 WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder,
             closest_hit_split, any_hit_split, closest_hit_packet,
             closest_hit_dual, closest_hit_fat_cache, closest_hit_block_cache,
             closest_hit_row_stage, closest_hit_binary, closest_hit_wide_rows,
-            any_hit_wide_rows)
+            any_hit_wide_rows, closest_hit_tlas, any_hit_tlas)
 for _w in WRAPPERS:
     _w.launches = _w.rays = 0
 

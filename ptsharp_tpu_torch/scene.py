@@ -2,15 +2,21 @@
 
 Counterpart of ptsharp_tpu/scene.py for the slice the port covers:
 analytic primitives (sphere, plane, cube, cylinder, each with an optional
-affine) and triangle meshes, in one of two table sets by `intersector`:
+affine) and triangle meshes with instances, in one of two table sets by
+`intersector`:
 
-  * "pallas": the meshes flattened into ONE world-space K-wide BVH, the
-    fat interleave `p_fat` (accel/tables.py), read by the fat-table
-    kernels. The JAX package's VMEM/HBM switch and its duplicate
-    `p_rows`/`p_leaf` tables have no counterpart: a GPU has no such
-    split. `p_ordered` picks the walk, as in the JAX package: near to far
-    with a stack, or preorder along skip links. An ordered scene's build
-    checks `max_stack_bound` against the ordered kernels' stack capacity
+  * "pallas": the fat interleave `p_fat` (accel/tables.py), read by the
+    fat-table kernels. Up to FLAT_TRI_CAP instanced triangles, every
+    instance is baked into ONE world-space K-wide BVH (`p_flat`), walked
+    in one launch, with slot maps back to scene triangle and instance;
+    beyond it, each mesh's K-wide BVH in object space at its own node
+    offset, built once per mesh however many instances share it, walked
+    once per instance with object-space rays (the slot is the scene slot).
+    The JAX package's VMEM/HBM switch and its duplicate `p_rows`/`p_leaf`
+    tables have no counterpart: a GPU has no such split. `p_ordered` picks
+    the walk, as in the JAX package: near to far with a stack, or preorder
+    along skip links. An ordered scene's build checks `max_stack_bound`
+    (each mesh's, non-flat) against the ordered kernels' stack capacity
     and raises if a tree could overflow it, and checks that each child
     box in a node row equals the child's own box bit for bit, which the
     ordered kernels' single box test per node needs
@@ -19,8 +25,11 @@ affine) and triangle meshes, in one of two table sets by `intersector`:
   * "wide", "walk", "cluster" (the XLA walks): a binary BVH per mesh in
     object space, its K-wide collapse, and a TLAS head over every object,
     packed as the JAX package packs them (u_rows, w_rows, leaf_rows, the
-    cluster tables for "cluster"), byte for byte; intersect.py walks each
-    instance with object-space rays.
+    cluster tables for "cluster"), byte for byte. intersect.py walks each
+    instance with object-space rays, or, where `use_tlas` (more than one
+    instance or 64 analytic primitives, as the JAX package decides), the
+    whole scene in one walk over the TLAS that re-enters each instance's
+    BLAS (kernels.traverse.closest_hit_tlas).
 
 What the port does not cover yet raises NotImplementedError naming the
 ROADMAP item that will port it.
@@ -54,8 +63,9 @@ PT_INSTANCE = 9  # TLAS leaf: a mesh instance
 # consecutive leaves are padded to a multiple of this per mesh, so scene
 # triangle slots match the JAX package's layout
 CLUSTER_GROUP = 16
-# instances are baked to world space; beyond this many triangles the JAX
-# package switches to per-instance tables
+# "pallas" instances are baked to world space up to this many instanced
+# triangle slots (their sum over instances), beyond it each mesh keeps its
+# own object-space table, as in the JAX package
 FLAT_TRI_CAP = 4_000_000
 
 _IDENTITY34 = np.eye(4, dtype=np.float32)[:3, :4]
@@ -99,7 +109,9 @@ class SceneData:
     # mesh instances
     inst_inv: torch.Tensor        # (I, 3, 4) world->object
     inst_mat: torch.Tensor        # (I,) material override, -1 = per-tri
-    # "pallas": the fat traversal table and its slot maps (else empty)
+    # "pallas": the fat traversal table and its slot maps (else empty);
+    # non-flat: the identity over scene slots, and -1 (the instance is the
+    # loop's)
     p_fat: torch.Tensor           # (2*Nw, 128) f32
     p_slot_tri: torch.Tensor      # (NL*leaf,) i32 kernel slot -> scene slot
     p_slot_inst: torch.Tensor     # (NL*leaf,) i32 kernel slot -> instance
@@ -111,6 +123,10 @@ class SceneData:
     cluster_bmin: torch.Tensor    # (C, 3) boxes of 16 leaves ("cluster")
     cluster_bmax: torch.Tensor
     cluster_rows: torch.Tensor    # (C, 16*leaf*9)
+    # each instance's BLAS node range [base, end) in u_rows and in w_rows,
+    # which the TLAS walk reads on the device
+    u_inst_range: torch.Tensor    # (I, 2) i32
+    w_inst_range: torch.Tensor    # (I, 2) i32
     # NEE light table
     light_ptype: torch.Tensor
     light_pindex: torch.Tensor
@@ -131,11 +147,14 @@ class SceneData:
     max_leaf: int
     wide_k: int
     intersector: str
+    use_tlas: bool                # one TLAS walk over the whole scene
+    p_flat: bool                  # one world-space tree over all instances
     p_ordered: bool               # ordered (stack) walk, else preorder
-    p_inst_base: tuple            # node range [base, end) of the fat table
-    p_inst_end: tuple
-    p_stack_bound: int            # max_stack_bound of the fat table
-                                  # (checked for ordered scenes only)
+    p_inst_base: tuple            # node range [base, end) in the fat table:
+    p_inst_end: tuple             # one (flat), or one per instance
+    p_stack_bound: int            # max_stack_bound of the fat table (the
+                                  # largest of the meshes' non-flat;
+                                  # checked for ordered scenes only)
     # per instance: its BLAS node range in u_rows and w_rows and its
     # cluster range; the TLAS heads' row counts
     u_inst_base: tuple
@@ -163,6 +182,13 @@ def check_stack_bound(bound: int) -> None:
         raise ValueError(
             f"BVH needs a traversal stack of {bound} entries; the kernels "
             f"hold {STACK_CAPACITY}")
+
+
+def inst_range(base, end) -> np.ndarray:
+    """Instance node ranges as the (I, 2) int32 array the TLAS walk
+    reads."""
+    return np.stack([np.asarray(base, np.int32).reshape(-1),
+                     np.asarray(end, np.int32).reshape(-1)], axis=1)
 
 
 def no_xla_tables(leaf_size: int, k: int) -> tuple[dict, dict]:
@@ -339,18 +365,18 @@ class SceneBuilder:
                            for m in np.unique(mesh.mat))
         if emissive:
             raise not_ported("emissive meshes (mesh lights)",
-                             "Queue 1 item 10")
+                             "Queue 1 item 10b")
         self._instances.append((mesh_idx, inv, world, over))
         return len(self._instances) - 1
 
     def add_sdf(self, *args, **kwargs):
-        raise not_ported("SDF shapes", "Queue 1 item 10")
+        raise not_ported("SDF shapes", "Queue 1 item 10c")
 
     def add_function(self, *args, **kwargs):
-        raise not_ported("function (heightfield) shapes", "Queue 1 item 10")
+        raise not_ported("function (heightfield) shapes", "Queue 1 item 10c")
 
     def add_volume(self, *args, **kwargs):
-        raise not_ported("volumes", "Queue 1 item 10")
+        raise not_ported("volumes", "Queue 1 item 10c")
 
     # -- freeze --------------------------------------------------------------
 
@@ -402,6 +428,60 @@ class SceneBuilder:
                 np.concatenate(tri_uv), np.concatenate(tri_mat), slot_range,
                 blas)
 
+    @staticmethod
+    def _mesh_wides(slot_range, blas, leaf_size: int, k: int):
+        """Per mesh, in object space: its leaf firsts moved to its padded
+        scene slots, and the K-wide collapse of its binary BVH with them
+        (ptsharp_tpu/scene.py:590-599). Returns [(first, kind, wide)]."""
+        out = []
+        for (flat, leaf_ids), (lo_s, _hi_s) in zip(blas, slot_range):
+            first = flat.first.copy()
+            first[leaf_ids] = (np.arange(leaf_ids.shape[0], dtype=np.int32)
+                               * leaf_size + lo_s)
+            kind = np.where(flat.count > 0, PT_TRIANGLE,
+                            PT_NONE).astype(np.int32)
+            out.append((first, kind, wide_mod.collapse(
+                flat.bmin, flat.bmax, first, flat.count, flat.skip,
+                kind=kind, k=k)))
+        return out
+
+    @staticmethod
+    def _leaf_rows(tv, leaf_size: int) -> np.ndarray:
+        """(NL, leaf*9): (v0, e1, e2) of each scene slot, a leaf a row."""
+        return np.concatenate(
+            [tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]],
+            axis=1).reshape(-1, leaf_size * 9).astype(np.float32)
+
+    def _pallas_instance_tables(self, tv, slot_range, blas, leaf_size: int,
+                                k: int, ordered: bool):
+        """The non-flat "pallas" table (ptsharp_tpu/scene.py:796-816):
+        each mesh's K-wide rows in object space at its own node offset,
+        padded to 128 columns, once per mesh; the scene's leaf rows padded
+        the same way; pack_fat over both. Kernel slots are scene slots.
+        Returns (fat, node range of each instance (base, end), the largest
+        max_stack_bound of the meshes); an ordered build checks each
+        mesh's bound and the child boxes."""
+        parts, ranges = [], []
+        off = 0
+        for _first, _kind, w in self._mesh_wides(slot_range, blas,
+                                                  leaf_size, k):
+            parts.append(tables._pack_rows_128(w, off))
+            ranges.append((off, off + w.bmin.shape[0]))
+            off += w.bmin.shape[0]
+        rows = np.concatenate(parts)
+        lr = self._leaf_rows(tv, leaf_size)
+        leaf = np.zeros((lr.shape[0], tables.ROW), np.float32)
+        leaf[:, :lr.shape[1]] = lr
+        bounds = [tables.max_stack_bound(rows, k, b, e) for b, e in ranges]
+        if ordered:
+            for bound in bounds:
+                check_stack_bound(bound)
+            tables.check_child_boxes(rows, k)
+        inst = [ranges[m] for m, *_ in self._instances]
+        return (tables.pack_fat(rows, leaf, leaf_size),
+                (tuple(b for b, _e in inst), tuple(e for _b, e in inst)),
+                max(bounds))
+
     def _xla_tables(self, tv, slot_range, blas, leaf_size: int, k: int,
                     clusters: bool) -> tuple[dict, dict]:
         """The XLA walks' tables, laid out as the JAX package's build lays
@@ -416,12 +496,11 @@ class SceneBuilder:
         nodes, ranges, roots, wides = [], [], [], []
         cl_min, cl_max, cl_ranges = [], [], []
         node_off = cl_off = 0
-        for flat, leaf_ids in blas:
+        for (flat, leaf_ids), (first, kind, wide) in zip(
+                blas, self._mesh_wides(slot_range, blas, leaf_size, k)):
             nl = leaf_ids.shape[0]
             lo_s, hi_s = slot_range[len(ranges)]
             nlp = (hi_s - lo_s) // leaf_size
-            first = flat.first.copy()
-            first[leaf_ids] = np.arange(nl, dtype=np.int32) * leaf_size + lo_s
             nc = nlp // CLUSTER_GROUP
             if clusters:
                 lb_min = np.full((nlp, 3), np.float32(np.inf))
@@ -432,19 +511,14 @@ class SceneBuilder:
                 cl_max.append(lb_max.reshape(nc, CLUSTER_GROUP, 3).max(1))
             cl_ranges.append((cl_off, cl_off + nc))
             cl_off += nc
-            kind = np.where(flat.count > 0, PT_TRIANGLE, PT_NONE)
-            wides.append(wide_mod.collapse(
-                flat.bmin, flat.bmax, first, flat.count, flat.skip,
-                kind=kind.astype(np.int32), k=k))
+            wides.append(wide)
             n = flat.bmin.shape[0]
             nodes.append((flat.bmin, flat.bmax, first, flat.count,
                           flat.skip + node_off, kind))
             ranges.append((node_off, node_off + n))
             roots.append((flat.bmin[0].copy(), flat.bmax[0].copy()))
             node_off += n
-        leaf_rows = np.concatenate(
-            [tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]],
-            axis=1).reshape(-1, leaf_size * 9).astype(np.float32)
+        leaf_rows = self._leaf_rows(tv, leaf_size)
         cw = CLUSTER_GROUP * leaf_size * 9
         if clusters and cl_min:
             cl_min, cl_max = np.concatenate(cl_min), np.concatenate(cl_max)
@@ -530,15 +604,21 @@ class SceneBuilder:
           "walk"    the binary skip-link walk over u_rows;
           "cluster" a cluster cull, then the binary walk for the rays it
                     leaves unresolved;
-          "pallas"  one world-space K-wide tree over all instances, near
-                    to far when `pallas_ordered`, else in preorder.
+          "pallas"  one world-space K-wide tree over all instances (up to
+                    FLAT_TRI_CAP instanced triangle slots; else each mesh's
+                    tree, walked per instance), near to far when
+                    `pallas_ordered`, else in preorder.
         Shadow rays of the first three take the K-wide walk, as in the JAX
-        package."""
+        package. `use_tlas` (not for "pallas"; None: more than one
+        instance or 64 analytic primitives, as the JAX package decides)
+        walks every object of the first three through the TLAS in one
+        walk instead: wide rows for "wide" and "cluster", binary rows for
+        "walk"."""
         if intersector not in ("wide", "walk", "cluster", "pallas"):
             raise ValueError(intersector)
         for m in self._materials:
             if m.normal_texture >= 0 or m.bump_texture >= 0:
-                raise not_ported("normal and bump maps", "Queue 1 item 10")
+                raise not_ported("normal and bump maps", "Queue 1 item 10b")
         n_analytic = len(self._spheres) + len(self._cubes) + len(self._cyls)
         if intersector == "pallas":
             if leaf_size * 9 > tables.ROW or 9 + 7 * wide_k > tables.ROW:
@@ -548,8 +628,7 @@ class SceneBuilder:
             use_tlas = False
         if use_tlas is None:
             use_tlas = len(self._instances) > 1 or n_analytic >= 64
-        if use_tlas and n_analytic + len(self._instances) > 0:
-            raise not_ported("the TLAS", "Queue 1 item 10")
+        use_tlas = bool(use_tlas and n_analytic + len(self._instances) > 0)
         dev = devices.resolve(device)
 
         def t(a, dtype=np.float32):
@@ -566,6 +645,7 @@ class SceneBuilder:
         p_slot_inst = np.zeros(0, np.int32)
         p_inst_b, p_inst_e = (), ()
         stack_bound = 0
+        p_flat = False
         builder = "none"
         if self._meshes:
             tv, tn, tuv, tmat, slot_range, blas = self._mesh_slots(leaf_size)
@@ -582,25 +662,32 @@ class SceneBuilder:
         else:
             xla, ranges = no_xla_tables(leaf_size, wide_k)
         if self._instances and intersector == "pallas":
-            e1n = (tv[:, 1] - tv[:, 0]).astype(np.float32)
-            e2n = (tv[:, 2] - tv[:, 0]).astype(np.float32)
             specs = []
             for iid, (mesh_idx, _inv, world, _over) in enumerate(
                     self._instances):
                 lo_s, hi_s = slot_range[mesh_idx]
                 specs.append((lo_s, hi_s, world, iid))
-            if sum(hi - lo for lo, hi, _w, _i in specs) > FLAT_TRI_CAP:
-                raise not_ported("per-instance (non-flat) mesh tables",
-                                 "Queue 1 item 10")
-            rows, leaf, p_slot_tri, p_slot_inst, builder = \
-                tables.pack_flat_tables(tv[:, 0].astype(np.float32), e1n, e2n,
-                                        specs, leaf_size, wide_k)
-            stack_bound = tables.max_stack_bound(rows, wide_k)
-            if pallas_ordered:
-                check_stack_bound(stack_bound)
-                tables.check_child_boxes(rows, wide_k)
-            p_fat = tables.pack_fat(rows, leaf, leaf_size)
-            p_inst_b, p_inst_e = (0,), (int(rows.shape[0]),)
+            p_flat = sum(hi - lo for lo, hi, _w, _i in specs) <= FLAT_TRI_CAP
+            if p_flat:
+                e1n = (tv[:, 1] - tv[:, 0]).astype(np.float32)
+                e2n = (tv[:, 2] - tv[:, 0]).astype(np.float32)
+                rows, leaf, p_slot_tri, p_slot_inst, builder = \
+                    tables.pack_flat_tables(tv[:, 0].astype(np.float32), e1n,
+                                            e2n, specs, leaf_size, wide_k)
+                stack_bound = tables.max_stack_bound(rows, wide_k)
+                if pallas_ordered:
+                    check_stack_bound(stack_bound)
+                    tables.check_child_boxes(rows, wide_k)
+                p_fat = tables.pack_fat(rows, leaf, leaf_size)
+                p_inst_b, p_inst_e = (0,), (int(rows.shape[0]),)
+            else:
+                p_fat, (p_inst_b, p_inst_e), stack_bound = \
+                    self._pallas_instance_tables(tv, slot_range, blas,
+                                                 leaf_size, wide_k,
+                                                 pallas_ordered)
+                p_slot_tri = np.arange(tv.shape[0], dtype=np.int32)
+                p_slot_inst = np.full(tv.shape[0], -1, np.int32)
+                builder = blas[0][0].builder
 
         n_l = len(self._lights)
         if n_l:
@@ -658,6 +745,10 @@ class SceneBuilder:
             p_slot_tri=t(p_slot_tri, np.int32),
             p_slot_inst=t(p_slot_inst, np.int32),
             **{name: t(a) for name, a in xla.items()},
+            u_inst_range=t(inst_range(ranges["u_inst_base"],
+                                      ranges["u_inst_end"]), np.int32),
+            w_inst_range=t(inst_range(ranges["w_inst_base"],
+                                      ranges["w_inst_end"]), np.int32),
             light_ptype=soa(self._lights, 0, (), np.int32),
             light_pindex=soa(self._lights, 1, (), np.int32),
             light_center=soa(self._lights, 2, (3,)),
@@ -676,6 +767,8 @@ class SceneBuilder:
             max_leaf=int(leaf_size),
             wide_k=int(wide_k),
             intersector=intersector,
+            use_tlas=use_tlas,
+            p_flat=p_flat,
             p_ordered=bool(pallas_ordered),
             p_inst_base=p_inst_b,
             p_inst_end=p_inst_e,

@@ -43,10 +43,13 @@ def test_every_module_imports_without_jax():
                                     "ptsharp_tpu_torch.accel.cluster",
                                     "ptsharp_tpu_torch.core.device",
                                     "ptsharp_tpu_torch.tape",
-                                    "ptsharp_tpu_torch.diff"])
+                                    "ptsharp_tpu_torch.diff",
+                                    "ptsharp_tpu_torch.core.transform",
+                                    "ptsharp_tpu_torch.core.color"])
 def test_new_module_imports_without_jax(module):
-    """The XLA walks' modules, the device default, the tape and the
-    differentiable render, each alone."""
+    """The XLA walks' modules, the device default, the tape, the
+    differentiable render and the transforms and colour constructors,
+    each alone."""
     assert module in MODULES
     code = (f"import importlib, sys; importlib.import_module({module!r})\n"
             "sys.exit(any(m.split('.')[0] in ('jax', 'ptsharp_tpu')"
@@ -106,8 +109,7 @@ def _plain_builder():
 
 
 @pytest.mark.parametrize("what", [
-    "sdf", "volume", "function", "mesh_light", "wide_intersector",
-    "per_instance_tables", "tlas", "surface_maps", "example"])
+    "sdf", "volume", "function", "mesh_light", "surface_maps", "example"])
 def test_outside_the_slice_raises(what):
     b = _plain_builder()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -120,24 +122,6 @@ def test_outside_the_slice_raises(what):
         elif what == "mesh_light":
             b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
                        light_material([1, 1, 1], 5.0))
-        elif what == "wide_intersector":
-            # the XLA walks are ported; their TLAS path is not
-            b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
-                       diffuse_material([1, 1, 1]))
-            b.build(intersector="wide", use_tlas=True, device="cpu")
-        elif what == "per_instance_tables":
-            # a reference scene whose meshes keep per-instance tables
-            convert.scene_from_reference(
-                {"em_v0": np.zeros((0, 3, 3)),
-                 "inst_inv": np.zeros((1, 3, 4))},
-                {"use_tlas": False, "sdf_objects": (), "volumes": (),
-                 "functions": (), "has_surface_maps": False,
-                 "light_types": (), "intersector": "pallas",
-                 "p_flat": False}, device="cpu")
-        elif what == "tlas":
-            for i in range(64):
-                b.add_sphere([i, 1, 0], 0.4, diffuse_material([1, 1, 1]))
-            b.build(device="cpu")
         elif what == "surface_maps":
             b.add_sphere([0, 1, 0], 1.0, Material(normal_texture=0))
             b.build(device="cpu")
