@@ -10,7 +10,13 @@ unpacked parent commit, to compare two commits in one call). For each
 render of RENDERS (the main path: "pallas" with the ordered walk, the
 bunny at 1920x1080 and dragon_hd at 960x540; the bunny's "pallas" build
 with the preorder walk; the bunny's default build, "wide"; and its
-"walk" build, the binary walk), at 1 spp: one warm-up render; `reps`
+"walk" build, the binary walk; then the integrator modes: the "pallas"
+bunny under specular "first" with light "all", specular "all" and
+closest-hit shadows, toybrick at 1920x1080 through the TLAS,
+chip_smoke.lit_bunny's "pallas" and "wide" builds (normal and bump maps,
+mesh lights; the "wide" one through the TLAS) and examples.veach at
+1920x1080),
+at 1 spp: one warm-up render; `reps`
 unprofiled renders, wall seconds each (host clock, ending in
 torch.cuda.synchronize()), in turns across the renders; then one render
 under torch.profiler (CPU and CUDA activities), whose device kernels are
@@ -39,16 +45,28 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PALLAS = dict(intersector="pallas", wide_k=8)
-# render -> (examples scene, build)
+# render -> (scene: an example's name or "lit_bunny", build, the
+# IntegratorConfig fields it changes)
 RENDERS = {
-    "bunny/pallas": ("bunny", PALLAS),
-    "dragon_hd/pallas": ("dragon_hd", PALLAS),
-    "bunny/pallas_preorder": ("bunny", dict(PALLAS, pallas_ordered=False)),
-    "bunny/wide": ("bunny", dict()),  # examples.bunny()'s default build
-    "bunny/walk": ("bunny", dict(intersector="walk")),
+    "bunny/pallas": ("bunny", PALLAS, {}),
+    "dragon_hd/pallas": ("dragon_hd", PALLAS, {}),
+    "bunny/pallas_preorder": ("bunny", dict(PALLAS, pallas_ordered=False),
+                              {}),
+    "bunny/wide": ("bunny", dict(), {}),  # examples.bunny()'s default build
+    "bunny/walk": ("bunny", dict(intersector="walk"), {}),
+    "bunny/pallas specular first, light all": (
+        "bunny", PALLAS, dict(specular_mode="first", light_mode="all")),
+    "bunny/pallas specular all": ("bunny", PALLAS,
+                                  dict(specular_mode="all")),
+    "bunny/pallas closest-hit shadows": ("bunny", PALLAS,
+                                         dict(anyhit_shadows=False)),
+    "toybrick/wide": ("toybrick", dict(width=1920, height=1080), {}),
+    "lit_bunny/pallas": ("lit_bunny", dict(intersector="pallas"), {}),
+    "lit_bunny/wide": ("lit_bunny", dict(intersector="wide"), {}),
+    "veach": ("veach", dict(width=1920, height=1080), {}),
 }
 # kernel-name fragments -> kind; the first match wins
-KINDS = (("traversal", ("closest_hit", "any_hit")),
+KINDS = (("traversal", ("closest_hit", "any_hit", "tlas_walk")),
          ("sort", ("sort", "radix", "Sort")),
          ("gather/scatter", ("index", "gather", "scatter", "Index")),
          ("reduction", ("reduce", "Reduce")))
@@ -98,9 +116,16 @@ def main() -> int:
     print(f"{card}; ptsharp_tpu_torch from {os.path.abspath(args.repo)}",
           flush=True)
     renderers = {}
-    for name, (scene_name, kw) in RENDERS.items():
-        scene, cam, rcfg, icfg = examples.build(scene_name, device=dev, **kw)
-        r = Renderer(scene, cam, replace(rcfg, spp=1), icfg)
+    for name, (scene_name, kw, fields) in RENDERS.items():
+        if scene_name == "lit_bunny":
+            from chip_smoke import lit_bunny
+
+            scene, cam, rcfg, icfg = lit_bunny(device=dev, **kw)
+        else:
+            scene, cam, rcfg, icfg = examples.build(scene_name, device=dev,
+                                                    **kw)
+        r = Renderer(scene, cam, replace(rcfg, spp=1),
+                     replace(icfg, **fields))
         r.render(key=rng.PRNGKey(0))  # warm-up
         renderers[name] = r
     torch.cuda.synchronize(dev)

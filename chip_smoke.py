@@ -153,6 +153,25 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               512x512; and 32x24 renders on the card, the bunny in both
               walk orders, "walk" and "wide", and toybrick, held against
               the same renders on the CPU (the plain versions);
+  6b. modes   Renderer.render() at 1 spp, 1920x1080, of the bunny of 3
+              (pallas ordered, K=8: #1/#2) and of its default "wide"
+              build (4w/7w) under the integrator modes (MODES:
+              specular "first" with light "all", veach's; specular "all"
+              at all_split_depth 2, four wavefronts, with its peak device
+              memory; closest-hit shadow rays); of the lit bunny built in
+              this script (lit_bunny: the bunny's mesh under a 512x512
+              normal map and a 512x512 bump map, a ground plane, an
+              emissive quad_mesh, a cube whose per-triangle materials make
+              four of its twelve triangles emissive, and a sphere light:
+              three lights), as "pallas" (one flat tree over its three
+              instances: #1/#2) and as "wide" (the TLAS: tw/ta), each
+              with any-hit shadows, closest-hit shadows and light "all";
+              and of examples.veach (analytic, no launch); each with every
+              launch count set to 0 just before and read just after:
+              exactly the build's kernels, the closest-hit alone (any-hit
+              0 launches) with closest-hit shadows, none for veach; and
+              32x24 versions (bunny subdivisions=3) on the card against
+              the CPU, as in 6;
   7. grad     the gradient path on the bunny of 3 (pallas ordered, K=8)
               at 1920x1080, 1 spp, through diff.render_image, with
               respect to the DiffParams leaves (material color,
@@ -296,7 +315,22 @@ RENDER_KERNELS = {
     "walk": {"closest_hit_binary", "any_hit_wide_rows"},
     "cluster": {"closest_hit_binary", "any_hit_wide_rows"},
     "tlas": {"closest_hit_tlas", "any_hit_tlas"},
+    "none": set(),  # analytic primitives outside a TLAS: no kernel
 }
+# the integrator modes of the modes phase: (label, IntegratorConfig fields)
+MODES = (
+    ("specular first, light all", dict(specular_mode="first",
+                                       light_mode="all")),
+    ("specular all", dict(specular_mode="all", all_split_depth=2)),
+    ("closest-hit shadows", dict(anyhit_shadows=False)),
+)
+# the lit bunny's renders: its build's shadow and light modes
+LIT_MODES = (
+    ("any-hit shadows", dict()),
+    ("closest-hit shadows", dict(anyhit_shadows=False)),
+    ("light all", dict(light_mode="all")),
+)
+MAP_SIZE = 512  # texels a side of the lit bunny's normal and bump maps
 XLA_INTERSECTORS = ("wide", "walk", "cluster")
 # the split-table kernels: no render launches them
 SPLIT = ("closest_hit_split", "any_hit_split", "closest_hit_packet")
@@ -1889,6 +1923,7 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
     (launches, rays of those launches)}."""
     from ptsharp_tpu_torch.kernels import traverse
 
+    _reset_peak(scene.device)
     traverse.reset_launch_counts()
     film, rays, sec = render(scene, cam, rcfg, icfg)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
@@ -1896,14 +1931,20 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
               if w.launches}
     if scene.use_tlas:
         walk = "tlas"
+    elif not scene.has_meshes:
+        walk = "none"
     elif scene.intersector == "pallas":
         walk = "ordered" if scene.p_ordered else "preorder"
     else:
         walk = scene.intersector
+    expected = RENDER_KERNELS[walk]
+    if not icfg.anyhit_shadows:
+        # shadow rays take the build's closest-hit, bounded past the light
+        expected = {n for n in expected if not n.startswith("any_hit")}
     n_inst = scene.inst_inv.shape[0]
     per_instance = scene.intersector == "pallas" and not scene.p_flat
     if per_instance:
-        for name in RENDER_KERNELS[walk]:
+        for name in expected:
             if launches[name] % n_inst:
                 raise AssertionError(f"{label}: {name} launched "
                                      f"{launches[name]} times, not once an "
@@ -1914,10 +1955,10 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
         f"walk={walk} primary_rays={rcfg.width * rcfg.height * rcfg.spp} "
         f"rays_traced={rays} seconds={sec:.3f} "
         f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
-        f"{float(film.mean.mean()):.6f} launches={launches} rays a launch="
-        f"{widths} [{card}]")
+        f"{float(film.mean.mean()):.6f} peak_mb={_peak_mb(scene.device)} "
+        f"launches={launches} rays a launch={widths} [{card}]")
     for name, count in launches.items():
-        if (name in RENDER_KERNELS[walk]) != (count > 0):
+        if (name in expected) != (count > 0):
             raise AssertionError(f"{label} ({walk} walk) launched "
                                  f"{name} {count} times")
     return {w.__name__: (w.launches, w.rays) for w in traverse.WRAPPERS}
@@ -1926,29 +1967,41 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
 def reference_phase(device):
     """Small renders on the card against the same renders on the CPU,
     where the wrappers run the plain versions: the bunny in both walk
-    orders, "walk" and "wide", and toybrick (the TLAS walk)."""
+    orders, "walk" and "wide", toybrick (the TLAS walk), the ordered
+    and the "wide" bunny under each of MODES, and the lit bunny's two
+    builds under each of LIT_MODES."""
     from ptsharp_tpu_torch import examples
     from ptsharp_tpu_torch.renderer import RenderConfig
 
-    builds = {"bunny pallas_ordered=True": dict(intersector="pallas",
-                                                wide_k=8),
-              "bunny pallas_ordered=False": dict(intersector="pallas",
-                                                 wide_k=8,
-                                                 pallas_ordered=False),
-              "bunny intersector=walk": dict(intersector="walk"),
-              "bunny intersector=wide": dict(intersector="wide"),
-              "toybrick (TLAS)": None}
-    for name, kw in builds.items():
+    ordered = dict(intersector="pallas", wide_k=8)
+    builds = {"bunny pallas_ordered=True": (examples.bunny, ordered, {}),
+              "bunny pallas_ordered=False": (examples.bunny, dict(
+                  ordered, pallas_ordered=False), {}),
+              "bunny intersector=walk": (examples.bunny,
+                                         dict(intersector="walk"), {}),
+              "bunny intersector=wide": (examples.bunny,
+                                         dict(intersector="wide"), {}),
+              "toybrick (TLAS)": (examples.toybrick, None, {})}
+    for label, fields in MODES:
+        builds[f"bunny pallas_ordered=True, {label}"] = (examples.bunny,
+                                                         ordered, fields)
+        builds[f"bunny intersector=wide, {label}"] = (
+            examples.bunny, dict(intersector="wide"), fields)
+    for build in ("pallas", "wide"):
+        for label, fields in LIT_MODES:
+            builds[f"lit bunny {build}, {label}"] = (lit_bunny, dict(
+                intersector=build), fields)
+    for name, (make, kw, fields) in builds.items():
         means = []
         for dev in (device, torch.device("cpu")):
             if kw is None:
-                scene, cam, _rc, icfg = examples.toybrick(32, 24, device=dev)
+                scene, cam, _rc, icfg = make(32, 24, device=dev)
             else:
-                scene, cam, _rc, icfg = examples.bunny(
-                    32, 24, subdivisions=3, device=dev, **kw)
+                scene, cam, _rc, icfg = make(32, 24, subdivisions=3,
+                                             device=dev, **kw)
             film, _rays, _sec = render(scene, cam,
-                                       RenderConfig(32, 24, spp=1), icfg,
-                                       seed=5)
+                                       RenderConfig(32, 24, spp=1),
+                                       replace(icfg, **fields), seed=5)
             means.append(film.mean.cpu().numpy().reshape(-1, 3))
         close = np.all(np.isclose(means[0], means[1], rtol=1e-4, atol=1e-4),
                        axis=-1)
@@ -1957,6 +2010,102 @@ def reference_phase(device):
             f"pixels_within_1e-4={close.mean():.4f} mean_rel_diff={rel:.3e}")
         if close.mean() < PIXEL_FRAC or rel > 1e-3:
             raise AssertionError("card render disagrees with the CPU render")
+
+
+def surface_maps(size=MAP_SIZE, seed=14):
+    """(normal map, bump map) of size x size texels, made with numpy from
+    a fixed seed: a height field of sines and noise; the normal map its
+    tangent-space normals mapped to [0, 1], the bump map its heights."""
+    g = np.random.default_rng(seed)
+    y, x = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size),
+                       indexing="ij")
+    h = (0.5 + 0.2 * np.sin(40 * x) * np.cos(33 * y)
+         + 0.1 * np.sin(90 * (x + y)) + 0.05 * g.random((size, size)))
+    gy, gx = np.gradient(h * 8.0)
+    n = np.stack([-gx, -gy, np.ones_like(h)], axis=-1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    return ((n * 0.5 + 0.5).astype(np.float32),
+            np.repeat(h[..., None], 3, axis=-1).astype(np.float32))
+
+
+def lit_bunny(width=1920, height=1080, subdivisions=6,
+              intersector="pallas", device=None):
+    """The bunny's mesh under a normal map and a bump map, a ground plane,
+    an emissive quad (quad_mesh), a cube whose per-triangle materials make
+    four of its twelve triangles emissive (the OBJ Ke case) and the
+    bunny's sphere light: three lights, two of them mesh lights, three
+    mesh instances. "pallas" builds one flat tree (K=8, leaf 14), "wide"
+    the TLAS over the three instances (K=4, leaf 8). Returns
+    examples.bunny's four."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.camera import Camera
+    from ptsharp_tpu_torch.geometry.mesh import TriMesh, cube_mesh, quad_mesh
+    from ptsharp_tpu_torch.integrator import IntegratorConfig
+    from ptsharp_tpu_torch.materials import (
+        Material, diffuse_material, light_material,
+    )
+    from ptsharp_tpu_torch.renderer import RenderConfig
+    from ptsharp_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    nmap, bmap = surface_maps()
+    mat = Material(color=(0.7, 0.65, 0.55), normal_texture=b.add_texture(nmap),
+                   bump_texture=b.add_texture(bmap), bump_multiplier=1.5)
+    m = examples._bunny_mesh(subdivisions)
+    b.add_mesh(m.fit_inside([-1, 0, -1], [1, 2, 1], [0.5, 0.0, 0.5]), mat)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.75, 0.72, 0.68]))
+    b.add_mesh(quad_mesh([-2.2, 3.0, -1.6], [-1.0, 3.0, -1.6],
+                         [-1.0, 3.0, -0.4], [-2.2, 3.0, -0.4]),
+               light_material([1.0, 0.85, 0.7], 6.0))
+    lit = b.material_id(light_material([0.7, 0.9, 1.0], 5.0))
+    dark = b.material_id(diffuse_material([0.3, 0.3, 0.35]))
+    cube = cube_mesh([1.3, 0.0, -0.9], [1.9, 0.6, -0.3])
+    b.add_mesh(TriMesh(v=cube.v, mat=np.array([lit] * 4 + [dark] * 8,
+                                              np.int32)))
+    b.add_sphere([3.5, 6, -3], 1.6, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.10, 0.11, 0.14])
+    pallas = intersector == "pallas"
+    scene = b.build(leaf_size=14 if pallas else 8, intersector=intersector,
+                    wide_k=8 if pallas else 4, device=device)
+    cam = Camera.look_at([0, 1.8, -4.2], [0, 0.9, 0], [0, 1, 0], 38.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=1), \
+        IntegratorConfig(max_bounces=4)
+
+
+def modes_phase(bunnies, rcfg, device, card):
+    """The integrator modes at the bunny's 1920x1080, 1 spp: each of
+    `bunnies` (examples.bunny's four: the ordered pallas build of 3 and
+    the default "wide" build) under MODES, the lit bunny's two builds
+    under LIT_MODES, veach; each through render_main. Returns their
+    runs."""
+    from ptsharp_tpu_torch import examples
+
+    runs = [render_main(f"bunny [{label}]", scene, cam, rcfg,
+                        replace(icfg, **fields), card)
+            for scene, cam, _rc, icfg in bunnies
+            for label, fields in MODES]
+    for build in ("pallas", "wide"):
+        t0 = time.perf_counter()
+        lit = lit_bunny(rcfg.width, rcfg.height, intersector=build,
+                        device=device)
+        n_tri = scene_line(f"lit bunny ({build})", lit[0],
+                           time.perf_counter() - t0)
+        if n_tri != 81920 + 2 + 12 or lit[0].num_lights != 3:
+            raise AssertionError("the lit bunny: 81,934 triangles, three "
+                                 "lights")
+        if (lit[0].em_v0.shape[0] != 2 + 4 or not lit[0].has_surface_maps
+                or lit[0].use_tlas != (build == "wide")):
+            raise AssertionError(f"the lit bunny ({build}): six emissive "
+                                 f"triangles, its maps, the TLAS for wide")
+        for label, fields in LIT_MODES:
+            runs.append(render_main(f"lit bunny [{label}]", lit[0], lit[1],
+                                    lit[2], replace(lit[3], **fields), card))
+        del lit
+    vs, vc, _vrc, vic = examples.build("veach", width=rcfg.width,
+                                       height=rcfg.height, device=device)
+    runs.append(render_main("veach", vs, vc, rcfg, vic, card))
+    return runs
 
 
 # ---- grad -----------------------------------------------------------------
@@ -2541,11 +2690,15 @@ def main() -> int:
            "cluster": cluster_bunny}
     if xla["wide"][0].intersector != "wide":
         raise AssertionError("examples.bunny() must build the wide walk")
+    wide_bunny = xla["wide"]
     for name in XLA_INTERSECTORS:
         xs, xc, xrc, xic = xla.pop(name)
         runs.append(render_main("bunny", xs, xc, replace(xrc, spp=1), xic,
                                 card))
     del wscene, cluster_bunny
+    runs += modes_phase(((scene, cam, rcfg, icfg), wide_bunny), rcfg1,
+                        device, card)
+    del wide_bunny
     cs, cc, crc, cic = examples.build("cornell", device=device)
     film, rays, sec = render(cs, cc, crc, cic)
     log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "

@@ -12,19 +12,22 @@ for.
 
 Layer map:
   core/          vec math, sampling, color, filters, threefry rng, device
-  geometry/      mesh container, analytic primitives
+  geometry/      mesh container (cube, quad, icosphere), analytic primitives
   accel/         host BVH build, K-wide collapse, fat-table packing; the
                  XLA walks (traverse.py) and the cluster cull (cluster.py)
   kernels/       CUDA kernel build, wrappers and plain versions
   scene.py       host scene builder -> SceneData of tensors on one device
-  intersect.py   closest-hit, occlusion, shading data
-  integrator.py  wavefront path integrator (plain and compacted),
+                 (mesh lights' area tables included)
+  intersect.py   closest-hit, occlusion, shading data (normal, bump maps)
+  integrator.py  wavefront path integrator (plain and compacted; the
+                 specular branch split, every light mode, mesh lights),
                  differentiable in materials, textures and environment
   tape.py        analytic tape backward (trace_tape_radiance)
   diff.py        differentiable render_image, material_color_grad
   film.py        Welford film
   renderer.py    chunked progressive renderer
-  examples.py    scene catalog (cornell, bunny, dragon_hd)
+  examples.py    scene catalog (cornell, bunny, dragon_hd, toybrick,
+                 cube_field, veach)
   convert.py     JAX-package scene/camera/DiffParams -> port
 """
 

@@ -17,7 +17,9 @@ from HBM (`p_hbm`); flat or per-instance (`p_flat`) and the walk order
 (`p_ordered`) carry over as they are. For the XLA walks ("wide", "walk",
 "cluster") the reference's row tables (u_rows, w_rows, leaf_rows, the
 cluster tables), each instance's ranges in them, the TLAS heads' row
-counts and `use_tlas` carry over.
+counts and `use_tlas` carry over. The slot-ordered edges `tri_e1`/`tri_e2`
+(the port shares the reference's slot order), the mesh lights' `em_*`
+and `light_tri_*` tables and `has_surface_maps` carry over as they are.
 
 Each function puts the tensors on the card unless device="cpu" is asked
 for.
@@ -50,10 +52,12 @@ _ARRAY_FIELDS = (
     "cube_min", "cube_max", "cube_inv", "cube_mat",
     "cyl_radius", "cyl_z0", "cyl_z1", "cyl_inv", "cyl_mat",
     "tri_n0", "tri_n1", "tri_n2", "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat",
+    "tri_e1", "tri_e2",
     "inst_inv", "inst_mat", "p_rows", "p_fat", "p_slot_tri", "p_slot_inst",
     "light_ptype", "light_pindex", "light_center", "light_radius",
-    "light_mat", "light_cdf", "light_pmf", "em_v0", "env_color",
-    "texture_angle",
+    "light_mat", "light_tri_start", "light_tri_end", "light_area",
+    "light_cdf", "light_pmf", "em_v0", "em_e1", "em_e2", "em_nrm", "em_cdf",
+    "em_mat", "env_color", "texture_angle",
 ) + _XLA_TABLES + _XLA_RANGES
 _META_FIELDS = (
     "use_tlas", "sdf_objects", "volumes", "functions", "has_surface_maps",
@@ -85,10 +89,6 @@ def scene_from_reference(fields: dict, meta: dict,
     if meta["sdf_objects"] or meta["volumes"] or meta["functions"]:
         raise not_ported("SDF, volume and function shapes",
                          "Queue 1 item 10c")
-    if meta["has_surface_maps"]:
-        raise not_ported("normal and bump maps", "Queue 1 item 10b")
-    if np.asarray(fields["em_v0"]).shape[0] or 5 in meta["light_types"]:
-        raise not_ported("mesh lights", "Queue 1 item 10b")
     n_inst = np.asarray(fields["inst_inv"]).shape[0]
     pallas = meta["intersector"] == "pallas"
     slot_tri = np.asarray(fields["p_slot_tri"], np.int32)
@@ -156,6 +156,8 @@ def scene_from_reference(fields: dict, meta: dict,
         tri_uv1=t("tri_uv1"),
         tri_uv2=t("tri_uv2"),
         tri_mat=t("tri_mat", np.int32),
+        tri_e1=t("tri_e1"),
+        tri_e2=t("tri_e2"),
         inst_inv=t("inst_inv"),
         inst_mat=t("inst_mat", np.int32),
         p_fat=torch.from_numpy(fat.copy()).to(dev),
@@ -169,8 +171,17 @@ def scene_from_reference(fields: dict, meta: dict,
         light_center=t("light_center"),
         light_radius=t("light_radius"),
         light_mat=t("light_mat", np.int32),
+        light_tri_start=t("light_tri_start", np.int32),
+        light_tri_end=t("light_tri_end", np.int32),
+        light_area=t("light_area"),
         light_cdf=t("light_cdf"),
         light_pmf=t("light_pmf"),
+        em_v0=t("em_v0"),
+        em_e1=t("em_e1"),
+        em_e2=t("em_e2"),
+        em_nrm=t("em_nrm"),
+        em_cdf=t("em_cdf"),
+        em_mat=t("em_mat", np.int32),
         materials=MaterialTable.from_arrays(mats, dev),
         textures=TextureAtlas.from_arrays(tex["data"], tex["sizes"], dev),
         env_color=t("env_color"),
@@ -190,6 +201,7 @@ def scene_from_reference(fields: dict, meta: dict,
         p_stack_bound=int(stack_bound),
         **ranges,
         light_types=tuple(int(x) for x in meta["light_types"]),
+        has_surface_maps=bool(meta["has_surface_maps"]),
         bvh_builder="reference",
     )
 

@@ -1,8 +1,9 @@
 """Scene catalog: the scenes of the port's slice (counterpart of
 ptsharp_tpu/examples.py, same signatures and defaults plus a `device`,
-the card unless "cpu" is asked for): cornell, bunny, dragon_hd, and the
+the card unless "cpu" is asked for): cornell, bunny, dragon_hd, the
 instanced and many-object scenes that take the TLAS, toybrick and
-cube_field.
+cube_field, and veach, the integrator-correctness scene of the split and
+all-lights modes.
 
 Each builder returns (scene, camera, render_config, integrator_config).
 """
@@ -18,7 +19,9 @@ from ptsharp_tpu_torch.core import color as colorlib
 from ptsharp_tpu_torch.core import transform
 from ptsharp_tpu_torch.core.device import DEFAULT
 from ptsharp_tpu_torch.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
-from ptsharp_tpu_torch.integrator import IntegratorConfig
+from ptsharp_tpu_torch.integrator import (
+    LIGHT_MODE_ALL, SPECULAR_MODE_FIRST, IntegratorConfig,
+)
 from ptsharp_tpu_torch.materials import (
     Material, clear_material, diffuse_material, glossy_material,
     light_material, metallic_material,
@@ -234,6 +237,52 @@ def cube_field(width=512, height=384, n=12, device=DEFAULT):
                          device=device)
     return scene, cam, RenderConfig(width=width, height=height, spp=8), \
         IntegratorConfig(max_bounces=3)
+
+
+@example("veach")
+def veach(width=512, height=384, device=DEFAULT):
+    """Veach MIS stress scene: four lights of varying size and emittance
+    over metallic bars of varying gloss (reference veachscene,
+    Example.cs:1566-1611), the integrator-correctness scene: specular
+    mode "first", light mode "all". Analytic primitives only."""
+    b = SceneBuilder()
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.6, 0.6, 0.6]))
+    b.add_plane([0, 0, 6], [0, 0, -1], diffuse_material([0.55, 0.55, 0.55]))
+    # four spherical lights: radius shrinks as emittance grows
+    lights = [
+        (2.0, 2.0, [1.0, 0.8, 0.6]),
+        (0.9, 8.0, [0.9, 1.0, 0.7]),
+        (0.35, 40.0, [0.7, 0.9, 1.0]),
+        (0.12, 300.0, [1.0, 0.7, 0.9]),
+    ]
+    for i, (rad, e, c) in enumerate(lights):
+        b.add_sphere([-4.5 + i * 3.0, 5.0, 3.0], rad, light_material(c, e))
+    # metallic bars with increasing roughness
+    for i in range(4):
+        gloss = math.radians([2.0, 8.0, 18.0, 32.0][i])
+        b.add_cube([-1, -0.03, -0.15], [1, 0.03, 0.15],
+                   metallic_material([0.9, 0.9, 0.9], gloss, 0.9),
+                   transform=_bar_transform(0.6 + i * 0.9, 1.0 + i * 0.8))
+    b.set_environment(color=[0.03, 0.03, 0.04])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 3.0, -8.0], [0, 2.0, 2.0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=4, specular_mode=SPECULAR_MODE_FIRST,
+                         light_mode=LIGHT_MODE_ALL)
+
+
+def _bar_transform(y, z):
+    """A bar stretched 3x along x, tilted 25 degrees toward the camera
+    and placed at (0, y, z)."""
+    t = np.eye(4, dtype=np.float32)
+    t[:3, :3] = np.diag([3.0, 1.0, 1.0]).astype(np.float32)
+    ang = math.radians(-25.0)
+    c, s = math.cos(ang), math.sin(ang)
+    rot = np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+    t[:3, :3] = rot @ t[:3, :3]
+    t[:3, 3] = [0, y, z]
+    return t
 
 
 def build(name: str, **kw):

@@ -2,8 +2,8 @@
 
 A numpy copy of the parts of ptsharp_tpu/geometry/mesh.py that the render
 path uses (the port imports nothing from the JAX package): TriMesh with
-face/smooth normals and fit-into-box normalization, plus the cube and
-icosphere generators. The arithmetic is kept line for line so scenes
+face/smooth normals and fit-into-box normalization, plus the cube, quad
+and icosphere generators. The arithmetic is kept line for line so scenes
 built by the two packages are byte-equal.
 """
 
@@ -123,6 +123,16 @@ def cube_mesh(bmin, bmax) -> TriMesh:
         tris.append([corners[a], corners[b], corners[c]])
         tris.append([corners[a], corners[c], corners[d]])
     return TriMesh(np.array(tris, np.float32))
+
+
+def quad_mesh(p0, p1, p2, p3) -> TriMesh:
+    """Two-triangle quad (counter-clockwise corners): the standard area
+    light, whose triangles NEE samples by area when it emits."""
+    p0, p1, p2, p3 = (np.asarray(p, np.float32) for p in (p0, p1, p2, p3))
+    uv = np.array(
+        [[[0, 0], [1, 0], [1, 1]], [[0, 0], [1, 1], [0, 1]]], np.float32
+    )
+    return TriMesh(np.array([[p0, p1, p2], [p0, p2, p3]], np.float32), uv=uv)
 
 
 def sphere_mesh(center, radius, subdivisions: int = 3) -> TriMesh:

@@ -7,10 +7,12 @@ depths run as a Python loop. Every random draw comes from the threefry
 key chain of core/rng.py, with the JAX package's keys and layout, so the
 two integrators make the same decisions ray by ray.
 
-Covered here: the naive specular mode, light modes "random" and "power",
-analytic lights with any-hit shadow rays, and the sync-free compacted
-trace. The rest raises
-NotImplementedError naming the ROADMAP item that ports it.
+Covered here: the specular modes "naive", "first" and "all" (the branch
+split: one shared closest hit feeds a diffuse and a specular wavefront at
+each split depth), light modes "random", "power" and "all", analytic and
+mesh lights (emissive triangles sampled by area) with any-hit or
+closest-hit shadow rays, and the sync-free compacted trace (naive mode
+only; the split modes trace plainly, as in the JAX package).
 
 Radiance is differentiable in the material table, the texture atlas and
 the environment color, as in the JAX package: geometry and every discrete
@@ -35,15 +37,15 @@ from ptsharp_tpu_torch.core import rng, sampling, vec
 from ptsharp_tpu_torch.intersect import (
     Hit, HitInfo, closest_hit, hit_info, light_hit_t, occlusion_query,
 )
-from ptsharp_tpu_torch.scene import PT_NONE, SceneData, not_ported
+from ptsharp_tpu_torch.scene import PT_NONE, PT_TRIANGLE, SceneData
 
 LIGHT_MODE_RANDOM = "random"  # one random light x nLights
 LIGHT_MODE_ALL = "all"        # average over all lights
 LIGHT_MODE_POWER = "power"    # one light picked proportional to power
 
-SPECULAR_MODE_NAIVE = "naive"
-SPECULAR_MODE_FIRST = "first"
-SPECULAR_MODE_ALL = "all"
+SPECULAR_MODE_NAIVE = "naive"  # one coin-flipped branch every bounce
+SPECULAR_MODE_FIRST = "first"  # both branches at the first hit
+SPECULAR_MODE_ALL = "all"      # both at the first all_split_depth hits
 
 INF = vec.INF
 
@@ -55,6 +57,7 @@ class IntegratorConfig:
     soft_shadows: bool = True
     light_mode: str = LIGHT_MODE_RANDOM
     specular_mode: str = SPECULAR_MODE_NAIVE
+    all_split_depth: int = 2  # branch-split depths of SPECULAR_MODE_ALL
     russian_roulette: bool = False
     rr_start_depth: int = 2
     rr_min_prob: float = 0.05
@@ -67,24 +70,20 @@ class IntegratorConfig:
     # sort each bounce's wavefront by direction octant + origin Morton code
     # before closest-hit (results scattered back)
     sort_bounces: bool = True
-    # NEE shadow rays as any-hit queries bounded by the light's analytic
-    # hit distance (the closest-hit visibility variant is not ported)
+    # NEE shadow rays as any-hit queries bounded by the light's hit
+    # distance (every light the port builds has one: analytic primitives
+    # and sampled mesh-light points); False: a closest-hit bounded just
+    # past the light that must land on it
     anyhit_shadows: bool = True
 
     def __post_init__(self):
         if self.remat_policy not in ("full", "hits"):
             raise ValueError(self.remat_policy)
-        if not self.anyhit_shadows:
-            raise not_ported("closest-hit shadow rays (anyhit_shadows=False)",
-                             "Queue 1 item 10b")
-        if self.light_mode not in (LIGHT_MODE_RANDOM, LIGHT_MODE_POWER):
-            if self.light_mode == LIGHT_MODE_ALL:
-                raise not_ported("light mode 'all'", "Queue 1 item 10b")
+        if self.light_mode not in (LIGHT_MODE_RANDOM, LIGHT_MODE_ALL,
+                                   LIGHT_MODE_POWER):
             raise ValueError(self.light_mode)
-        if self.specular_mode != SPECULAR_MODE_NAIVE:
-            if self.specular_mode in (SPECULAR_MODE_FIRST, SPECULAR_MODE_ALL):
-                raise not_ported(f"specular mode {self.specular_mode!r}",
-                                 "Queue 1 item 10b")
+        if self.specular_mode not in (SPECULAR_MODE_NAIVE,
+                                      SPECULAR_MODE_FIRST, SPECULAR_MODE_ALL):
             raise ValueError(self.specular_mode)
 
 
@@ -177,10 +176,14 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
     BEFORE albedo weighting, and the shadow-ray count. Lanes where
     `active` is False skip all shadow traversal; their contribution is
     garbage the caller masks. The light pick and the sampled point are
-    detached.
+    detached. A mesh light (PT_TRIANGLE) samples one of its emissive
+    triangles by area and a point on it; any other light a point of the
+    disc facing the shading point.
 
     want_aux: also return the tape decomposition (lm (R,) i32, kappa (R,)
-    f32, detached) with direct = color[lm] * emittance[lm] * kappa."""
+    f32, detached) with direct = color[lm] * emittance[lm] * kappa; lm is
+    the sampled triangle's material for a mesh light. Light mode "all"
+    returns None there: it averages over the lights."""
     n_lights = scene.num_lights
     r = position.shape[0]
     dev = position.device
@@ -192,37 +195,58 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
         return zero, 0
     if active is None:
         active = torch.ones(r, dtype=torch.bool, device=dev)
+    has_em = scene.em_v0.shape[0] > 0  # some light samples triangles
 
     def one_light(lidx, key):
         center = scene.light_center[lidx]
         radius = scene.light_radius[lidx]
-        k1, k2, _k3 = rng.split(key, 3)
-        if cfg.soft_shadows:
+        is_tri = scene.light_ptype[lidx] == PT_TRIANGLE
+        k1, k2, k3 = rng.split(key, 3)
+        if cfg.soft_shadows or has_em:
             u1 = _uniform(k1, r, position)
             u2 = _uniform(k2, r, position)
+        if cfg.soft_shadows:
             dx, dy = sampling.uniform_disc_area(u1, u2)
             t_ax, b_ax = vec.orthonormal_basis(vec.normalize(center - position))
             point = (center + t_ax * (dx * radius)[:, None]
                      + b_ax * (dy * radius)[:, None])
         else:
             point = center
+        if has_em:
+            tri = _sample_triangle(scene, lidx, _uniform(k3, r, position))
+            su = torch.sqrt(u1)
+            b1 = su * (1.0 - u2)
+            b2 = su * u2
+            p_tri = (scene.em_v0[tri] + scene.em_e1[tri] * b1[:, None]
+                     + scene.em_e2[tri] * b2[:, None])
+            point = torch.where(is_tri[:, None], p_tri, point)
         point = point.detach()
         ray_dir = vec.normalize(point - position)
         cos_t = vec.dot(ray_dir, normal)
         facing = cos_t > 0.0
-        # the ray must reach the light's own surface: its analytic hit
-        # distance, less a margin so the light never self-occludes, bounds
-        # a boolean any-hit query
-        t_light = light_hit_t(scene, position, ray_dir, lidx)
-        t_hit = t_light < INF
-        t_cut = t_light * (1.0 - 1e-3) - 1e-3
-        t_cut = torch.where(facing & t_hit & active, t_cut,
-                            torch.full_like(t_cut, -INF))
-        if cfg.sort_bounces and scene.has_meshes:
-            occ = _sorted_occlusion(scene, position, ray_dir, t_cut)
+        if cfg.anyhit_shadows:
+            # the ray must reach the light's own surface: its analytic hit
+            # distance (a mesh light's: the sampled point's), less a margin
+            # so the light never self-occludes, bounds a boolean any-hit
+            # query. A closer emissive triangle of the same light occludes
+            # the sampled point, as its area pdf requires.
+            t_light = light_hit_t(scene, position, ray_dir, lidx)
+            if PT_TRIANGLE in scene.light_types:
+                t_light = torch.where(is_tri, vec.length(point - position),
+                                      t_light)
+            t_hit = t_light < INF
+            t_cut = t_light * (1.0 - 1e-3) - 1e-3
+            t_cut = torch.where(facing & t_hit & active, t_cut,
+                                torch.full_like(t_cut, -INF))
+            if cfg.sort_bounces and scene.has_meshes:
+                occ = _sorted_occlusion(scene, position, ray_dir, t_cut)
+            else:
+                occ = occlusion_query(scene, position, ray_dir, t_cut)
+            visible = t_hit & ~occ
         else:
-            occ = occlusion_query(scene, position, ray_dir, t_cut)
-        visible = t_hit & ~occ
+            visible = _shadow_hit_visible(scene, cfg, position, ray_dir,
+                                          point, center, radius, lidx,
+                                          is_tri, has_em, active)
         # solid-angle coverage ~ r^2/d^2 capped at 1 (Sampler.cs:277-289)
         hyp = vec.length(center - position)
         cov = (radius * radius) / torch.clamp(hyp * hyp - radius * radius,
@@ -232,10 +256,34 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
         lmat = scene.materials.gather(lm)
         scale = lmat.emittance * cos_t * cov
         contrib = lmat.color * scale[:, None]
+        kap = cos_t * cov
+        if has_em:
+            # area sampling: pdf 1 / light_area at the sampled point
+            em_mat = scene.em_mat[tri]
+            emat = scene.materials.gather(em_mat)
+            d2 = torch.sum((point - position) ** 2, dim=-1)
+            cos_l = torch.abs(vec.dot(scene.em_nrm[tri], ray_dir))
+            kap_tri = (cos_t * cos_l * scene.light_area[lidx]
+                       / torch.clamp(d2, min=1e-8))
+            scale_tri = emat.emittance * kap_tri
+            contrib = torch.where(is_tri[:, None],
+                                  emat.color * scale_tri[:, None], contrib)
+            lm = torch.where(is_tri, em_mat, lm)
+            kap = torch.where(is_tri, kap_tri, kap)
         ok = facing & visible
-        aux = (lm, torch.where(ok, cos_t * cov, 0.0).detach())
+        aux = (lm.to(torch.int32), torch.where(ok, kap, 0.0).detach())
         return torch.where(ok[:, None], contrib, 0.0), aux
 
+    if cfg.light_mode == LIGHT_MODE_ALL:
+        total = torch.zeros((r, 3), device=dev)
+        keys = rng.split(key, n_lights)
+        for li in range(n_lights):
+            c, _aux = one_light(
+                torch.full((r,), li, dtype=torch.long, device=dev), keys[li])
+            total = total + c
+        if want_aux:
+            return total / n_lights, n_lights * r, None
+        return total / n_lights, n_lights * r
     kpick, ksmp = rng.split(key)
     if cfg.light_mode == LIGHT_MODE_POWER:
         u = _uniform(kpick, r, position)
@@ -255,10 +303,61 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
     return contrib, r
 
 
+def _sample_triangle(scene: SceneData, lidx, uc):
+    """Each lane's emissive triangle of its light, by area: the first
+    index in [light_tri_start, light_tri_end) whose em_cdf is not below
+    uc, by a fixed 21-step binary search (up to 2**21 triangles a light).
+    Lanes of other lights get index 0."""
+    n_em = scene.em_v0.shape[0]
+    start = scene.light_tri_start[lidx].long()
+    end = scene.light_tri_end[lidx].long()
+    lo = start
+    hi = torch.maximum(end - 1, start)
+    for _ in range(21):
+        mid = (lo + hi) // 2
+        go_hi = scene.em_cdf[torch.clamp(mid, 0, n_em - 1)] < uc
+        lo = torch.where(go_hi, mid + 1, lo)
+        hi = torch.where(go_hi, hi, mid)
+    return torch.clamp(lo, start, torch.clamp(end - 1, min=0))
+
+
+def _shadow_hit_visible(scene: SceneData, cfg: IntegratorConfig, position,
+                        ray_dir, point, center, radius, lidx, is_tri, has_em,
+                        active):
+    """Visibility by a closest-hit bounded just past the light, which must
+    land on it: on the light's primitive (its instance, for a mesh light,
+    and there on an emissive triangle where the scene has mesh lights).
+    Dead lanes carry a -INF bound."""
+    hyp0 = vec.length(center - position)
+    shadow_tmax = torch.where(
+        is_tri, vec.length(point - position) * 1.001 + 1e-3,
+        hyp0 + 2.0 * radius + 1e-3)
+    shadow_tmax = torch.where(active, shadow_tmax,
+                              torch.full_like(shadow_tmax, -INF))
+    if cfg.sort_bounces and scene.has_meshes:
+        hit = _sorted_closest_hit(scene, position, ray_dir, shadow_tmax)
+    else:
+        hit = closest_hit(scene, position, ray_dir, t_max=shadow_tmax)
+    pindex = scene.light_pindex[lidx]
+    idx_match = torch.where(is_tri, hit.inst == pindex, hit.pindex == pindex)
+    if has_em:
+        hp = torch.clamp(hit.pindex, 0, scene.tri_mat.shape[0] - 1).long()
+        hover = scene.inst_mat[torch.clamp(hit.inst, min=0).long()]
+        htm = torch.where(hover >= 0, hover, scene.tri_mat[hp])
+        emissive = scene.materials.gather(htm).emittance > 0.0
+        idx_match = idx_match & (~is_tri | emissive)
+    return ((hit.ptype == scene.light_ptype[lidx]) & idx_match
+            & (hit.t < INF))
+
+
 def _bounce(scene: SceneData, cfg: IntegratorConfig, state: RayState,
-            info: HitInfo, mat, color, gloss, key, u1, u2):
+            info: HitInfo, mat, color, gloss, key, u1, u2,
+            force_mode: str | None = None):
     """One material-sampling event over the wavefront (Ray.Bounce,
-    Ray.cs:44-85). Returns (new_org, new_dirn, branch_weight, is_specular)."""
+    Ray.cs:44-85). force_mode: None flips the Fresnel coin; "specular" or
+    "diffuse" forces the reflect branch or the other one and weights it
+    by its probability (the branch split, Sampler.cs:85-131). Returns
+    (new_org, new_dirn, branch_weight, is_specular)."""
     n = info.normal
     d = state.dirn
     n1 = torch.where(info.inside, mat.index, 1.0)
@@ -269,7 +368,11 @@ def _bounce(scene: SceneData, cfg: IntegratorConfig, state: RayState,
 
     r = p.shape[0]
     kcoin, kcone = rng.split(key)
-    reflect_branch = _uniform(kcoin, r, p) < p
+    if force_mode is None:
+        reflect_branch = _uniform(kcoin, r, p) < p
+    else:
+        reflect_branch = torch.full_like(p, force_mode == "specular",
+                                         dtype=torch.bool)
     ku, kv = rng.split(kcone)
     cu = _uniform(ku, r, p)
     cv = _uniform(kv, r, p)
@@ -292,6 +395,9 @@ def _bounce(scene: SceneData, cfg: IntegratorConfig, state: RayState,
     one = torch.ones_like(color)
     tinted = one + (color - one) * mat.tint[:, None]
     branch_weight = torch.where(is_specular[:, None], tinted, color)
+    if force_mode is not None:
+        weight = p if force_mode == "specular" else 1.0 - p
+        branch_weight = branch_weight * weight[:, None]
     new_org = info.position + new_dir * 1e-4
     return new_org, new_dir, branch_weight, is_specular
 
@@ -345,23 +451,33 @@ def _depth_hit(scene: SceneData, cfg: IntegratorConfig, state: RayState,
 
 def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
           depth_key, u1, u2, depth: int, sort_rays: bool = False,
-          pre_hit: Hit | None = None, want_tape: bool = False):
+          pre_hit: Hit | None = None, want_tape: bool = False,
+          force_mode: str | None = None, count_primary: bool = True,
+          suppress_shared: bool = False):
     """One wavefront bounce. Returns (state, rays, first_albedo,
     first_normal), and the depth's TapeRecord last with want_tape.
-    pre_hit: the depth's closest hit, found by the caller."""
+    pre_hit: the depth's closest hit, found by the caller (a branch split
+    shares one between its two wavefronts). force_mode: _bounce's.
+    count_primary: count the depth's rays. suppress_shared: this is the
+    second wavefront of a split, whose environment and emission at this
+    hit the first one added (the caller zeroes its inherited radiance),
+    so only its continuation adds radiance."""
     hit = (pre_hit if pre_hit is not None
            else _depth_hit(scene, cfg, state, sort_rays))
-    rays = rays + torch.sum(state.alive)
+    if count_primary:
+        rays = rays + torch.sum(state.alive)
     info = hit_info(scene, state.org, state.dirn, hit)
     mat = scene.materials.gather(info.mat_id)
     color = _resolve_color(scene, mat, info)
     gloss = _resolve_gloss(scene, mat, info)
 
     missed = hit.ptype == PT_NONE
-    env = sample_environment(scene, state.dirn)
     miss_env = state.alive & missed
-    radiance = state.radiance + torch.where(
-        miss_env[:, None], state.throughput * env, 0.0)
+    radiance = state.radiance
+    if not suppress_shared:
+        env = sample_environment(scene, state.dirn)
+        radiance = radiance + torch.where(
+            miss_env[:, None], state.throughput * env, 0.0)
     alive = state.alive & ~missed
 
     # emissive hit: with NEE only specular-continued paths add emission
@@ -369,15 +485,16 @@ def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
     allowed = (state.emission_ok if cfg.direct_lighting
                else torch.ones_like(state.emission_ok))
     emit_add = alive & emissive & allowed
-    radiance = radiance + torch.where(
-        emit_add[:, None], state.throughput * color * mat.emittance[:, None],
-        0.0)
+    if not suppress_shared:
+        radiance = radiance + torch.where(
+            emit_add[:, None],
+            state.throughput * color * mat.emittance[:, None], 0.0)
     if cfg.direct_lighting:
         alive = alive & ~(emissive & ~state.emission_ok)
 
     kb, kn, krr = rng.split(depth_key, 3)
     new_org, new_dir, branch_w, is_spec = _bounce(
-        scene, cfg, state, info, mat, color, gloss, kb, u1, u2)
+        scene, cfg, state, info, mat, color, gloss, kb, u1, u2, force_mode)
     throughput = state.throughput * branch_w
 
     # NEE on the diffuse branch: post-branch throughput * direct
@@ -487,12 +604,9 @@ def _trace_span(scene, cfg: IntegratorConfig, state, rays, krest, d0: int,
     return state, rays
 
 
-def _trace_prefix(scene, cfg: IntegratorConfig, org, dirn, key, strat_idx,
-                  n_strat: int, d_stop: int, tape: list | None = None):
-    """Depths [0, d_stop). Returns the carried state, the ray count, the
-    depth-0 albedo and normal, and krest for the later depths. Depth 0 is
-    never a checkpoint. `tape`, if a list, collects each depth's
-    TapeRecord."""
+def _depth0_draws(org, key, strat_idx, n_strat: int):
+    """Depth 0's key k0a and (possibly stratified) uniforms u1, u2, and
+    krest for the later depths."""
     r = org.shape[0]
     k0, krest = rng.split(key)
     k0a, k0u, k0v = rng.split(k0, 3)
@@ -500,6 +614,16 @@ def _trace_prefix(scene, cfg: IntegratorConfig, org, dirn, key, strat_idx,
     u2 = _uniform(k0v, r, org)
     if strat_idx is not None and n_strat > 1:
         u1, u2 = sampling.stratified_pair(u1, u2, n_strat, strat_idx)
+    return k0a, u1, u2, krest
+
+
+def _trace_prefix(scene, cfg: IntegratorConfig, org, dirn, key, strat_idx,
+                  n_strat: int, d_stop: int, tape: list | None = None):
+    """Depths [0, d_stop). Returns the carried state, the ray count, the
+    depth-0 albedo and normal, and krest for the later depths. Depth 0 is
+    never a checkpoint. `tape`, if a list, collects each depth's
+    TapeRecord."""
+    k0a, u1, u2, krest = _depth0_draws(org, key, strat_idx, n_strat)
     rays = torch.zeros((), dtype=torch.int64, device=org.device)
     out = _step(scene, cfg, _initial_state(org, dirn), rays, k0a, u1, u2, 0,
                 want_tape=tape is not None)
@@ -511,15 +635,68 @@ def _trace_prefix(scene, cfg: IntegratorConfig, org, dirn, key, strat_idx,
     return state, rays, alb, nrm, krest
 
 
+def _n_split(cfg: IntegratorConfig) -> int:
+    """Depths that force both branches (the wavefront doubles at each)."""
+    if cfg.specular_mode == SPECULAR_MODE_FIRST:
+        return 1
+    if cfg.specular_mode == SPECULAR_MODE_ALL:
+        return max(1, min(cfg.all_split_depth, cfg.max_bounces + 1))
+    return 0
+
+
 def trace(scene: SceneData, cfg: IntegratorConfig, org, dirn, key,
           strat_idx=None, n_strat: int = 1) -> TraceResult:
     """Trace a wavefront of R primary rays to completion. strat_idx:
     optional (R,) sample index in [0, n_strat^2) for stratified first-hit
     sampling. Differentiable in the scene's material table, texture atlas
-    and environment color where autograd is on (Renderer turns it off)."""
-    state, rays, alb, nrm, _ = _trace_prefix(
-        scene, cfg, org, dirn, key, strat_idx, n_strat, cfg.max_bounces + 1)
-    return TraceResult(state.radiance, alb, nrm, rays)
+    and environment color where autograd is on (Renderer turns it off).
+
+    The split modes run each split depth d on every state si with the key
+    fold_in(fold_in(k0a, d*131), si) (the specular wavefront's folded
+    with 1) from one unsorted closest hit the two branches share, then
+    each state's remaining depths with _trace_span's key chain of index
+    si; the radiances are summed in state order."""
+    n_split = _n_split(cfg)
+    if n_split == 0:
+        state, rays, alb, nrm, _ = _trace_prefix(
+            scene, cfg, org, dirn, key, strat_idx, n_strat,
+            cfg.max_bounces + 1)
+        return TraceResult(state.radiance, alb, nrm, rays)
+    r = org.shape[0]
+    k0a, u1, u2, krest = _depth0_draws(org, key, strat_idx, n_strat)
+    rays = torch.zeros((), dtype=torch.int64, device=org.device)
+    states = [_initial_state(org, dirn)]
+    alb = nrm = None
+    for d in range(n_split):
+        split = []
+        for si, st in enumerate(states):
+            dk = rng.fold_in(rng.fold_in(k0a, d * 131), si)
+            if d == 0:
+                uu, vv = u1, u2
+            else:
+                ku, kv = rng.split(rng.fold_in(dk, 7))
+                uu = _uniform(ku, r, org)
+                vv = _uniform(kv, r, org)
+            hit0 = closest_hit(scene, st.org, st.dirn)
+            s_d, rays, a_, n_ = _step(scene, cfg, st, rays, dk, uu, vv, d,
+                                      pre_hit=hit0, force_mode="diffuse")
+            st_z = st._replace(radiance=torch.zeros_like(st.radiance))
+            s_s, rays, _, _ = _step(scene, cfg, st_z, rays,
+                                    rng.fold_in(dk, 1), uu, vv, d,
+                                    pre_hit=hit0, force_mode="specular",
+                                    count_primary=False,
+                                    suppress_shared=True)
+            if d == 0 and si == 0:
+                alb, nrm = a_, n_
+            split += [s_d, s_s]
+        states = split
+    radiance = None
+    for si, st in enumerate(states):
+        cur, rays = _trace_span(scene, cfg, st, rays, krest, n_split,
+                                cfg.max_bounces + 1, si=si)
+        radiance = (cur.radiance if radiance is None
+                    else radiance + cur.radiance)
+    return TraceResult(radiance, alb, nrm, rays)
 
 
 def _morton_key(p, d, box=None):

@@ -24,7 +24,8 @@ two tiers, chosen per scene at build time (`scene.use_tlas`), as there:
     instance's BLAS (`traverse_scene`: closest_hit_tlas, any_hit_tlas
     for shadow rays; binary rows for "walk", K-wide rows else).
 Object-space rays are not normalised: t is parametric in the world ray.
-Hit records follow Hit.Info (Hit.cs:26-55): the shading normal is flipped
+Hit records follow Hit.Info (Hit.cs:26-55): the shading normal, on a
+mapped scene's triangles after its normal and bump maps, is flipped
 toward the ray and `inside` set on a flip.
 """
 
@@ -357,6 +358,34 @@ def light_hit_t(scene: SceneData, org, dirn, lidx) -> torch.Tensor:
     return t_light
 
 
+def _surface_maps(scene: SceneData, i, tm, n_obj, uv):
+    """The object-space shading normal of triangle slots i under their
+    materials' normal map (tangent-space RGB) and then bump map (a height
+    gradient along tangent and bitangent), each where the material has
+    one (Triangle.cs:142-186). The tangent frame comes from the slot's
+    object-space edges and uv deltas; a zero uv delta gives a zero axis,
+    as vec.normalize leaves it."""
+    mat = scene.materials.gather(tm)
+    duv1 = scene.tri_uv1[i] - scene.tri_uv0[i]
+    duv2 = scene.tri_uv2[i] - scene.tri_uv0[i]
+    e1 = scene.tri_e1[i]
+    e2 = scene.tri_e2[i]
+    tangent = vec.normalize(e1 * duv2[..., 1:2] - e2 * duv1[..., 1:2])
+    bitangent = vec.normalize(e2 * duv1[..., 0:1] - e1 * duv2[..., 0:1])
+    ns = scene.textures.normal_sample(mat.normal_texture, uv[..., 0],
+                                      uv[..., 1])
+    tbn_n = vec.normalize(vec.cross(tangent, bitangent))
+    mapped = vec.normalize(tangent * ns[..., 0:1] + bitangent * ns[..., 1:2]
+                           + tbn_n * ns[..., 2:3])
+    n_obj = torch.where((mat.normal_texture >= 0)[..., None], mapped, n_obj)
+    bump = scene.textures.bump_sample(mat.bump_texture, uv[..., 0],
+                                      uv[..., 1])
+    k = mat.bump_multiplier[..., None]
+    bumped = vec.normalize(n_obj + tangent * (bump[..., 0:1] * k)
+                           + bitangent * (bump[..., 1:2] * k))
+    return torch.where((mat.bump_texture >= 0)[..., None], bumped, n_obj)
+
+
 def hit_info(scene: SceneData, org, dirn, hit: Hit) -> HitInfo:
     """Shading data for the winning primitive of each ray: every present
     type's info is computed masked and selected."""
@@ -432,6 +461,8 @@ def hit_info(scene: SceneData, org, dirn, hit: Hit) -> HitInfo:
         inst = torch.clamp(hit.inst, min=0).long()
         over = scene.inst_mat[inst]
         tm = torch.where(over >= 0, over, scene.tri_mat[i])
+        if scene.has_surface_maps:
+            n_obj = _surface_maps(scene, i, tm, n_obj, uv)
         n = _xform_normal(scene.inst_inv[inst], n_obj)
         sel(hit.ptype == PT_TRIANGLE, n, tm, uv[..., 0], uv[..., 1])
 

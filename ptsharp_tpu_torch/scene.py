@@ -2,7 +2,9 @@
 
 Counterpart of ptsharp_tpu/scene.py for the slice the port covers:
 analytic primitives (sphere, plane, cube, cylinder, each with an optional
-affine) and triangle meshes with instances, in one of two table sets by
+affine) and triangle meshes with instances, emissive meshes as area lights
+(their emissive triangles in world space with an area CDF, `em_*`) and
+materials with normal and bump maps, in one of two table sets by
 `intersector`:
 
   * "pallas": the fat interleave `p_fat` (accel/tables.py), read by the
@@ -106,6 +108,8 @@ class SceneData:
     tri_uv1: torch.Tensor
     tri_uv2: torch.Tensor
     tri_mat: torch.Tensor         # (T,) i32
+    tri_e1: torch.Tensor          # (T, 3) object-space edges v1 - v0,
+    tri_e2: torch.Tensor          # v2 - v0 (the surface maps' tangent frame)
     # mesh instances
     inst_inv: torch.Tensor        # (I, 3, 4) world->object
     inst_mat: torch.Tensor        # (I,) material override, -1 = per-tri
@@ -133,8 +137,20 @@ class SceneData:
     light_center: torch.Tensor
     light_radius: torch.Tensor
     light_mat: torch.Tensor
+    # PT_TRIANGLE lights (emissive mesh instances): each light's emissive
+    # triangles are em_*[start:end], sampled by area; light_area their
+    # total world area (0 for other lights)
+    light_tri_start: torch.Tensor  # (L,) i32
+    light_tri_end: torch.Tensor
+    light_area: torch.Tensor
     light_cdf: torch.Tensor       # power-mode cumulative pmf
     light_pmf: torch.Tensor
+    em_v0: torch.Tensor           # (E, 3) world space
+    em_e1: torch.Tensor
+    em_e2: torch.Tensor
+    em_nrm: torch.Tensor          # (E, 3) unit face normal, world space
+    em_cdf: torch.Tensor          # (E,) cumulative area within its light
+    em_mat: torch.Tensor          # (E,) i32 the triangle's material
     materials: MaterialTable
     textures: TextureAtlas
     env_color: torch.Tensor       # (3,)
@@ -166,6 +182,7 @@ class SceneData:
     tlas_end: int
     w_tlas_end: int
     light_types: tuple
+    has_surface_maps: bool        # some material has a normal or bump map
     bvh_builder: str              # builder of the traversal tree
 
     @property
@@ -359,15 +376,25 @@ class SceneBuilder:
         mesh, def_mid = self._meshes[mesh_idx]
         mat = material if material is not None else (
             self._materials[def_mid] if def_mid >= 0 else None)
-        emissive = mat is not None and mat.emittance > 0
-        if mat is None and mesh.mat is not None:
-            emissive = any(self._materials[int(m)].emittance > 0
-                           for m in np.unique(mesh.mat))
-        if emissive:
-            raise not_ported("emissive meshes (mesh lights)",
-                             "Queue 1 item 10b")
+        idx = len(self._instances)
         self._instances.append((mesh_idx, inv, world, over))
-        return len(self._instances) - 1
+        if mat is None and mesh.mat is not None:
+            # per-triangle materials (OBJ Ke): any emissive triangle makes
+            # the instance a light, whose material is the first emissive one
+            mat = next((self._materials[int(m)] for m in np.unique(mesh.mat)
+                        if self._materials[int(m)].emittance > 0), None)
+        if mat is not None and mat.emittance > 0:
+            lo, hi = mesh.bounds()
+            center = 0.5 * (lo + hi)
+            radius = 0.5 * float(np.linalg.norm(hi - lo))
+            if transform is not None:
+                t = np.asarray(transform, np.float32)
+                center = t[:3, :3] @ center + t[:3, 3]
+                radius *= float(np.linalg.norm(t[:3, :3], 2))
+            # a mesh light is identified by its instance id in hit records
+            self._lights.append((PT_TRIANGLE, idx, center, radius,
+                                 self.material_id(mat)))
+        return idx
 
     def add_sdf(self, *args, **kwargs):
         raise not_ported("SDF shapes", "Queue 1 item 10c")
@@ -379,6 +406,63 @@ class SceneBuilder:
         raise not_ported("volumes", "Queue 1 item 10c")
 
     # -- freeze --------------------------------------------------------------
+
+    def _emissive_tables(self):
+        """Each PT_TRIANGLE light's emissive triangles in world space with
+        a cumulative area CDF within the light, for NEE's area sampling.
+        Returns (em_* arrays, light_tri_start, light_tri_end,
+        light_area)."""
+        n_l = len(self._lights)
+        lt_start = np.zeros(n_l, np.int32)
+        lt_end = np.zeros(n_l, np.int32)
+        lt_area = np.zeros(n_l, np.float32)
+        parts = {name: [] for name in ("em_v0", "em_e1", "em_e2", "em_nrm",
+                                       "em_cdf", "em_mat")}
+        emit_lut = np.asarray([m.emittance for m in self._materials],
+                              np.float32)
+        cursor = 0
+        for li, (ptype, pindex, _c, _r, _lm) in enumerate(self._lights):
+            if ptype != PT_TRIANGLE:
+                continue
+            mesh_idx, _inv, world, over = self._instances[pindex]
+            mesh, def_mid = self._meshes[mesh_idx]
+            n_tri = mesh.v.shape[0]
+            if over >= 0:
+                mids = np.full(n_tri, over, np.int32)
+            elif mesh.mat is not None:
+                mids = np.asarray(mesh.mat, np.int32)
+            else:
+                mids = np.full(n_tri, max(def_mid, 0), np.int32)
+            sel = emit_lut[mids] > 0
+            if not sel.any():
+                continue
+            wv = mesh.v[sel] @ world[:3, :3].T + world[:3, 3]
+            e1 = wv[:, 1] - wv[:, 0]
+            e2 = wv[:, 2] - wv[:, 0]
+            cr = np.cross(e1, e2)
+            area2 = np.linalg.norm(cr, axis=1)
+            area = 0.5 * area2
+            total = float(area.sum())
+            parts["em_v0"].append(wv[:, 0].astype(np.float32))
+            parts["em_e1"].append(e1.astype(np.float32))
+            parts["em_e2"].append(e2.astype(np.float32))
+            parts["em_nrm"].append(
+                (cr / np.maximum(area2, 1e-20)[:, None]).astype(np.float32))
+            parts["em_cdf"].append(
+                (np.cumsum(area) / max(total, 1e-20)).astype(np.float32))
+            parts["em_mat"].append(mids[sel])
+            lt_start[li] = cursor
+            cursor += int(sel.sum())
+            lt_end[li] = cursor
+            lt_area[li] = total
+        shapes = dict(em_v0=(3,), em_e1=(3,), em_e2=(3,), em_nrm=(3,),
+                      em_cdf=(), em_mat=())
+        em = {}
+        for name, ps in parts.items():
+            dtype = np.int32 if name == "em_mat" else np.float32
+            em[name] = (np.concatenate(ps).astype(dtype) if ps
+                        else np.zeros((0,) + shapes[name], dtype))
+        return em, lt_start, lt_end, lt_area
 
     def _mesh_slots(self, leaf_size: int):
         """Per-mesh BVH slot layout, as the JAX package lays out its scene
@@ -616,9 +700,6 @@ class SceneBuilder:
         "walk"."""
         if intersector not in ("wide", "walk", "cluster", "pallas"):
             raise ValueError(intersector)
-        for m in self._materials:
-            if m.normal_texture >= 0 or m.bump_texture >= 0:
-                raise not_ported("normal and bump maps", "Queue 1 item 10b")
         n_analytic = len(self._spheres) + len(self._cubes) + len(self._cyls)
         if intersector == "pallas":
             if leaf_size * 9 > tables.ROW or 9 + 7 * wide_k > tables.ROW:
@@ -689,15 +770,19 @@ class SceneBuilder:
                 p_slot_inst = np.full(tv.shape[0], -1, np.int32)
                 builder = blas[0][0].builder
 
+        em, lt_start, lt_end, lt_area = self._emissive_tables()
         n_l = len(self._lights)
         if n_l:
+            # power ~ emittance x luminance x area: the emissive area of a
+            # mesh light, the bounding r^2 of any other
             lum = np.array([0.2126, 0.7152, 0.0722], np.float32)
             power = np.zeros(n_l, np.float32)
-            for li, (_pt, _pi, _c, rad, lm) in enumerate(self._lights):
+            for li, (pt, _pi, _c, rad, lm) in enumerate(self._lights):
                 m = self._materials[lm]
+                area = (lt_area[li] if pt == PT_TRIANGLE
+                        else max(rad * rad, 1e-8))
                 power[li] = m.emittance * float(
-                    np.dot(np.asarray(m.color, np.float32), lum)) * max(
-                        rad * rad, 1e-8)
+                    np.dot(np.asarray(m.color, np.float32), lum)) * area
             total = float(power.sum())
             pmf = (power / total if total > 0
                    else np.full(n_l, 1.0 / n_l, np.float32))
@@ -739,6 +824,8 @@ class SceneBuilder:
             tri_uv1=tri_attr(tuv, 1, (2,)),
             tri_uv2=tri_attr(tuv, 2, (2,)),
             tri_mat=t(tmat, np.int32),
+            tri_e1=t((tv[:, 1] - tv[:, 0]).astype(np.float32)),
+            tri_e2=t((tv[:, 2] - tv[:, 0]).astype(np.float32)),
             inst_inv=soa(inst, 0, (3, 4)),
             inst_mat=soa(inst, 1, (), np.int32),
             p_fat=t(p_fat),
@@ -754,8 +841,12 @@ class SceneBuilder:
             light_center=soa(self._lights, 2, (3,)),
             light_radius=soa(self._lights, 3, ()),
             light_mat=soa(self._lights, 4, (), np.int32),
+            light_tri_start=t(lt_start, np.int32),
+            light_tri_end=t(lt_end, np.int32),
+            light_area=t(lt_area),
             light_cdf=t(cdf),
             light_pmf=t(pmf),
+            **{name: t(a, a.dtype) for name, a in em.items()},
             materials=MaterialTable.build(self._materials, dev),
             textures=TextureAtlas.build(self._textures, dev),
             env_color=t(self.env_color),
@@ -775,5 +866,7 @@ class SceneBuilder:
             p_stack_bound=int(stack_bound),
             **ranges,
             light_types=tuple(sorted({lt[0] for lt in self._lights})),
+            has_surface_maps=any(m.normal_texture >= 0 or m.bump_texture >= 0
+                                 for m in self._materials),
             bvh_builder=builder,
         )

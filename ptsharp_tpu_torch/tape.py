@@ -19,7 +19,8 @@ no shading re-run. Per-lane cotangents are summed into the (M,) and (M, 3)
 tables with index_add_ (_table_sum).
 
 Parameter contract (DiffParams): material color, emittance and tint
-(lights share the table), the environment color and the texture atlas's
+(lights share the table; a mesh light's NEE term reads the row of the
+triangle it sampled, lm), the environment color and the texture atlas's
 texels. Parameters whose gradient runs only through sampled directions
 (gloss, index of refraction) are dropped, as in the JAX package; use
 autograd through integrator.trace where those matter.

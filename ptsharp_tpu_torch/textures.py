@@ -3,7 +3,8 @@
 Counterpart of ptsharp_tpu/textures.py: every image is stacked into one
 (K, maxH, maxW, 3) atlas with a (K, 2) size table, so a wavefront's
 texture lookups are one batched bilinear gather indexed by the per-ray
-texture id.
+texture id. Normal and bump maps are read through the same gather, so
+texel gradients flow through them too.
 """
 
 from __future__ import annotations
@@ -82,3 +83,25 @@ class TextureAtlas(NamedTuple):
         c0 = c00 * (1 - fx) + c01 * fx
         c1 = c10 * (1 - fx) + c11 * fx
         return c0 * (1 - fy) + c1 * fy
+
+    def normal_sample(self, tex_id, u, v):
+        """RGB -> [-1, 1] tangent-space normal."""
+        return self.sample(tex_id, u, v) * 2.0 - 1.0
+
+    def bump_sample(self, tex_id, u, v):
+        """Central-difference luminance gradient, one texel in u and in v
+        -> (..., 2) (du, dv)."""
+        tid = torch.clamp(tex_id, 0, self.data.shape[0] - 1).long()
+        w = self.sizes[tid, 1].float()
+        h = self.sizes[tid, 0].float()
+        du = 1.0 / torch.clamp(w, min=1.0)
+        dv = 1.0 / torch.clamp(h, min=1.0)
+
+        def lum(c):
+            return torch.sum(c, dim=-1) / 3.0
+
+        gx = lum(self.sample(tex_id, u + du, v)) \
+            - lum(self.sample(tex_id, u - du, v))
+        gy = lum(self.sample(tex_id, u, v + dv)) \
+            - lum(self.sample(tex_id, u, v - dv))
+        return torch.stack([gx, gy], dim=-1)

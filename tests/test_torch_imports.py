@@ -13,10 +13,7 @@ import pytest
 
 import ptsharp_tpu_torch
 from ptsharp_tpu_torch import convert, examples, film
-from ptsharp_tpu_torch.geometry.mesh import cube_mesh
-from ptsharp_tpu_torch.materials import (
-    Material, diffuse_material, light_material,
-)
+from ptsharp_tpu_torch.materials import diffuse_material, light_material
 from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
 from ptsharp_tpu_torch.scene import SceneBuilder
 
@@ -108,8 +105,7 @@ def _plain_builder():
     return b
 
 
-@pytest.mark.parametrize("what", [
-    "sdf", "volume", "function", "mesh_light", "surface_maps", "example"])
+@pytest.mark.parametrize("what", ["sdf", "volume", "function", "example"])
 def test_outside_the_slice_raises(what):
     b = _plain_builder()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -119,12 +115,6 @@ def test_outside_the_slice_raises(what):
             b.add_volume(None)
         elif what == "function":
             b.add_function(None, diffuse_material([1, 1, 1]))
-        elif what == "mesh_light":
-            b.add_mesh(cube_mesh([0, 0, 0], [1, 1, 1]),
-                       light_material([1, 1, 1], 5.0))
-        elif what == "surface_maps":
-            b.add_sphere([0, 1, 0], 1.0, Material(normal_texture=0))
-            b.build(device="cpu")
         else:
             examples.build("dragon", device="cpu")
 

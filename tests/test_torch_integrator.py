@@ -155,10 +155,10 @@ def test_reservoir_compact_matches():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-@pytest.mark.parametrize("kw", [{"light_mode": "all"},
-                                {"specular_mode": "first"},
-                                {"specular_mode": "all"},
-                                {"anyhit_shadows": False}])
-def test_modes_outside_the_slice_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kw", [{"light_mode": "every"},
+                                {"specular_mode": "split"},
+                                {"remat_policy": "some"}])
+def test_unknown_modes_raise(kw):
+    """An unknown mode is refused where the JAX package asserts."""
+    with pytest.raises(ValueError):
         tint.IntegratorConfig(**kw)
