@@ -14,8 +14,9 @@ with the preorder walk; the bunny's default build, "wide"; and its
 bunny under specular "first" with light "all", specular "all" and
 closest-hit shadows, toybrick at 1920x1080 through the TLAS,
 chip_smoke.lit_bunny's "pallas" and "wide" builds (normal and bump maps,
-mesh lights; the "wide" one through the TLAS) and examples.veach at
-1920x1080),
+mesh lights; the "wide" one through the TLAS), examples.veach at
+1920x1080, and the marched shapes: examples.sdf (an SDF tree, depth of
+field) and examples.volume at 1920x1080),
 at 1 spp: one warm-up render; `reps`
 unprofiled renders, wall seconds each (host clock, ending in
 torch.cuda.synchronize()), in turns across the renders; then one render
@@ -25,8 +26,10 @@ median wall seconds and Mrays/s, the device milliseconds of the profiled
 render, the card's idle share at the median wall time (1 - device ms /
 median wall ms), device launches, and the device milliseconds of the
 traversal kernels (also by kernel instance), sorts, gathers and
-scatters, reductions and the other elementwise kernels; then one JSON
-line of the same. Exits non-zero without a CUDA device.
+scatters, reductions and the other elementwise kernels, and the device
+milliseconds of the kernels launched inside geometry/march.py's "march"
+ranges (the SDF, volume and heightfield marches, counted in the kinds
+too); then one JSON line of the same. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +67,8 @@ RENDERS = {
     "lit_bunny/pallas": ("lit_bunny", dict(intersector="pallas"), {}),
     "lit_bunny/wide": ("lit_bunny", dict(intersector="wide"), {}),
     "veach": ("veach", dict(width=1920, height=1080), {}),
+    "sdf": ("sdf", dict(width=1920, height=1080), {}),
+    "volume": ("volume", dict(width=1920, height=1080), {}),
 }
 # kernel-name fragments -> kind; the first match wins
 KINDS = (("traversal", ("closest_hit", "any_hit", "tlas_walk")),
@@ -151,9 +156,16 @@ def main() -> int:
         with torch.profiler.profile(activities=acts) as prof:
             r.render(key=rng.PRNGKey(99))
             torch.cuda.synchronize(dev)
-        kinds, walks, total, launches = {}, {}, 0.0, 0
+        kinds, walks, total, launches, march_us = {}, {}, 0.0, 0, 0.0
         for e in prof.key_averages():
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            on_card = str(getattr(e, "device_type", "")).endswith("CUDA")
+            if e.key == "march":
+                # the range on the host sums its kernels' device time; its
+                # image on the card's timeline is a span, not a kernel
+                if not on_card:
+                    march_us += float(getattr(e, "device_time_total", 0.0))
+                continue
+            if on_card:
                 us = device_us(e)
                 kinds[kind_of(e.key)] = kinds.get(kind_of(e.key), 0.0) + us
                 if kind_of(e.key) == "traversal":
@@ -166,7 +178,7 @@ def main() -> int:
                    wall_s=walls[name], mrays_per_s=rays[name] / wall / 1e6,
                    device_ms=total / 1e3,
                    idle_share=1.0 - total / 1e3 / (wall * 1e3),
-                   device_launches=launches,
+                   device_launches=launches, march_ms=march_us / 1e3,
                    kind_ms={k: v / 1e3 for k, v in sorted(kinds.items())},
                    traversal_ms={k: v / 1e3 for k, v in sorted(walks.items())})
         out[name] = res
@@ -174,7 +186,8 @@ def main() -> int:
               f"{wall:.4f} (runs {', '.join(f'{w:.4f}' for w in walls[name])})"
               f" mrays_per_s={res['mrays_per_s']:.3f} device_ms="
               f"{res['device_ms']:.2f} idle_share={res['idle_share']:.3f} "
-              f"launches={launches} " + " ".join(
+              f"launches={launches} march_ms={res['march_ms']:.2f} "
+              + " ".join(
                   f"{k}={v:.2f}ms" for k, v in res["kind_ms"].items())
               + " (" + ", ".join(f"{k} {v:.3f}ms" for k, v in
                                  res["traversal_ms"].items())

@@ -172,6 +172,23 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               0 launches) with closest-hit shadows, none for veach; and
               32x24 versions (bunny subdivisions=3) on the card against
               the CPU, as in 6;
+  6c. geometry  the marched shapes and the mesh I/O at 1920x1080, 1 spp
+              (geometry_phase): the bunny's mesh (81,920 triangles)
+              written with obj.save_obj into an OBJ with an MTL (its
+              triangles under a Kd material, an emissive quad under a Ke
+              one, no texture), read back by load_obj(builder=...) into a
+              "pallas" ordered build (#1/#2; the quad a mesh light), and
+              round-tripped through save_stl/load_stl (equal arrays); then
+              the eight catalog scenes of GEOMETRY_SCENES at their own
+              max_bounces: teapot (a marching-tetrahedra mesh, "wide":
+              4w/7w), ellipsoid and mol (analytic), sdf (an SDF tree under
+              depth of field), volume, heightfield and love (marched), sh
+              (two instances: the TLAS); each through render_main with its
+              seconds, Mrays/s, launches (exactly the build's kernels, none
+              for the analytic and marched scenes), peak MB and the march
+              counts (marches, steps, lane steps) of its closest-hit and
+              shadow queries; 32x24 versions of the nine (the OBJ bunny's
+              mesh at subdivisions 3) on the card against the CPU, as in 6;
   7. grad     the gradient path on the bunny of 3 (pallas ordered, K=8)
               at 1920x1080, 1 spp, through diff.render_image, with
               respect to the DiffParams leaves (material color,
@@ -230,6 +247,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -1921,12 +1939,16 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
     before and read just after: exactly the build's kernels
     (RENDER_KERNELS) must have launched. Returns {wrapper name:
     (launches, rays of those launches)}."""
+    from ptsharp_tpu_torch.geometry import march
+    from ptsharp_tpu_torch.integrator import uses_anyhit_shadows
     from ptsharp_tpu_torch.kernels import traverse
 
     _reset_peak(scene.device)
     traverse.reset_launch_counts()
+    march.reset_counts()
     film, rays, sec = render(scene, cam, rcfg, icfg)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    marches = {tag: tuple(c) for tag, c in sorted(march.COUNTS.items())}
     widths = {w.__name__: w.rays // w.launches for w in traverse.WRAPPERS
               if w.launches}
     if scene.use_tlas:
@@ -1938,7 +1960,7 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
     else:
         walk = scene.intersector
     expected = RENDER_KERNELS[walk]
-    if not icfg.anyhit_shadows:
+    if not uses_anyhit_shadows(scene, icfg):
         # shadow rays take the build's closest-hit, bounded past the light
         expected = {n for n in expected if not n.startswith("any_hit")}
     n_inst = scene.inst_inv.shape[0]
@@ -1956,7 +1978,14 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
         f"rays_traced={rays} seconds={sec:.3f} "
         f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
         f"{float(film.mean.mean()):.6f} peak_mb={_peak_mb(scene.device)} "
-        f"launches={launches} rays a launch={widths} [{card}]")
+        f"launches={launches} rays a launch={widths}"
+        + (f" march (marches, steps, lane steps)={marches}" if marches
+           else "") + f" [{card}]")
+    shapes = (len(scene.sdf_objects) + len(scene.volumes)
+              + len(scene.functions))
+    if bool(shapes) != bool(marches):
+        raise AssertionError(f"{label}: {shapes} marched shapes, marches "
+                             f"{marches}")
     for name, count in launches.items():
         if (name in expected) != (count > 0):
             raise AssertionError(f"{label} ({walk} walk) launched "
@@ -1968,8 +1997,9 @@ def reference_phase(device):
     """Small renders on the card against the same renders on the CPU,
     where the wrappers run the plain versions: the bunny in both walk
     orders, "walk" and "wide", toybrick (the TLAS walk), the ordered
-    and the "wide" bunny under each of MODES, and the lit bunny's two
-    builds under each of LIT_MODES."""
+    and the "wide" bunny under each of MODES, the lit bunny's two
+    builds under each of LIT_MODES, the scenes of GEOMETRY_SCENES and the
+    OBJ bunny (its mesh at subdivisions 3)."""
     from ptsharp_tpu_torch import examples
     from ptsharp_tpu_torch.renderer import RenderConfig
 
@@ -1991,25 +2021,37 @@ def reference_phase(device):
         for label, fields in LIT_MODES:
             builds[f"lit bunny {build}, {label}"] = (lit_bunny, dict(
                 intersector=build), fields)
-    for name, (make, kw, fields) in builds.items():
-        means = []
-        for dev in (device, torch.device("cpu")):
-            if kw is None:
-                scene, cam, _rc, icfg = make(32, 24, device=dev)
-            else:
-                scene, cam, _rc, icfg = make(32, 24, subdivisions=3,
-                                             device=dev, **kw)
-            film, _rays, _sec = render(scene, cam,
-                                       RenderConfig(32, 24, spp=1),
-                                       replace(icfg, **fields), seed=5)
-            means.append(film.mean.cpu().numpy().reshape(-1, 3))
-        close = np.all(np.isclose(means[0], means[1], rtol=1e-4, atol=1e-4),
-                       axis=-1)
-        rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
-        log(f"reference {name} 32x24: "
-            f"pixels_within_1e-4={close.mean():.4f} mean_rel_diff={rel:.3e}")
-        if close.mean() < PIXEL_FRAC or rel > 1e-3:
-            raise AssertionError("card render disagrees with the CPU render")
+    for name in GEOMETRY_SCENES:
+        builds[name] = (functools.partial(examples.build, name), "catalog",
+                        {})
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        obj_path, _mesh = obj_bunny_files(tmp, subdivisions=3)
+        builds["OBJ bunny"] = (functools.partial(obj_bunny, obj_path),
+                               "catalog", {})
+        for name, (make, kw, fields) in builds.items():
+            means = []
+            for dev in (device, torch.device("cpu")):
+                if kw == "catalog":
+                    scene, cam, _rc, icfg = make(width=32, height=24,
+                                                 device=dev)
+                elif kw is None:
+                    scene, cam, _rc, icfg = make(32, 24, device=dev)
+                else:
+                    scene, cam, _rc, icfg = make(32, 24, subdivisions=3,
+                                                 device=dev, **kw)
+                film, _rays, _sec = render(scene, cam,
+                                           RenderConfig(32, 24, spp=1),
+                                           replace(icfg, **fields), seed=5)
+                means.append(film.mean.cpu().numpy().reshape(-1, 3))
+            close = np.all(np.isclose(means[0], means[1], rtol=1e-4,
+                                      atol=1e-4), axis=-1)
+            rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
+            log(f"reference {name} 32x24: pixels_within_1e-4="
+                f"{close.mean():.4f} mean_rel_diff={rel:.3e}")
+            if close.mean() < PIXEL_FRAC or rel > 1e-3:
+                raise AssertionError("card render disagrees with the CPU "
+                                     "render")
 
 
 def surface_maps(size=MAP_SIZE, seed=14):
@@ -2105,6 +2147,215 @@ def modes_phase(bunnies, rcfg, device, card):
     vs, vc, _vrc, vic = examples.build("veach", width=rcfg.width,
                                        height=rcfg.height, device=device)
     runs.append(render_main("veach", vs, vc, rcfg, vic, card))
+    return runs
+
+
+# ---- geometry ---------------------------------------------------------------
+
+# the catalog scenes of the marched shapes and meshing
+GEOMETRY_SCENES = ("teapot", "ellipsoid", "sdf", "volume", "mol", "sh",
+                   "heightfield", "love")
+# the OBJ bunny's MTL: the bunny under a Kd material, a quad under a Ke one
+OBJ_MTL = "newmtl body\nKd 0.7 0.65 0.55\nnewmtl lamp\nKe 6.0 5.1 4.2\n"
+OBJ_LAMP = ("v -2.2 3.0 -1.6\nv -1.0 3.0 -1.6\nv -1.0 3.0 -0.4\n"
+            "v -2.2 3.0 -0.4\nusemtl lamp\nf -4 -3 -2 -1\n")
+
+
+def obj_bunny_files(directory, subdivisions=6):
+    """Write the bunny's mesh (examples._bunny_mesh: 81,920 triangles at
+    subdivisions 6, fitted as examples.bunny fits it) to bunny.obj with
+    bunny.mtl: its triangles under the Kd material, then an emissive quad
+    (a four-corner face by negative indices) under the Ke one; no texture.
+    Returns (the OBJ's path, the mesh)."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.io import obj
+
+    m = examples._bunny_mesh(subdivisions).fit_inside([-1, 0, -1], [1, 2, 1],
+                                                      [0.5, 0.0, 0.5])
+    body = os.path.join(directory, "body.obj")
+    obj.save_obj(m, body)
+    with open(os.path.join(directory, "bunny.mtl"), "w") as f:
+        f.write(OBJ_MTL)
+    path = os.path.join(directory, "bunny.obj")
+    with open(path, "w") as f, open(body) as src:
+        f.write("mtllib bunny.mtl\nusemtl body\n")
+        f.write(src.read())
+        f.write(OBJ_LAMP)
+    return path, m
+
+
+def obj_bunny(path, width=1920, height=1080, device=None):
+    """The OBJ bunny read back with load_obj(builder=...): its per-triangle
+    materials make the Ke quad a mesh light; a ground plane and the
+    bunny's sphere light; built "pallas" ordered (K=8, leaf 14). Returns
+    examples.bunny's four."""
+    from ptsharp_tpu_torch.camera import Camera
+    from ptsharp_tpu_torch.integrator import IntegratorConfig
+    from ptsharp_tpu_torch.io import obj
+    from ptsharp_tpu_torch.materials import diffuse_material, light_material
+    from ptsharp_tpu_torch.renderer import RenderConfig
+    from ptsharp_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_mesh(obj.load_obj(path, builder=b))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.75, 0.72, 0.68]))
+    b.add_sphere([3.5, 6, -3], 1.6, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.10, 0.11, 0.14])
+    scene = b.build(leaf_size=14, intersector="pallas", wide_k=8,
+                    pallas_ordered=True, device=device)
+    cam = Camera.look_at([0, 1.8, -4.2], [0, 0.9, 0], [0, 1, 0], 38.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=1), \
+        IntegratorConfig(max_bounces=4)
+
+
+def stl_round_trip(mesh, directory):
+    """save_stl then load_stl: the same vertices, each facet's normal its
+    face normal."""
+    from ptsharp_tpu_torch.io import stl
+
+    path = os.path.join(directory, "bunny.stl")
+    stl.save_stl(mesh, path)
+    back = stl.load_stl(path)
+    if not (np.array_equal(back.v, mesh.v) and np.array_equal(
+            back.n, np.repeat(mesh.face_normals()[:, None], 3, axis=1))):
+        raise AssertionError("the STL round trip changed the mesh")
+    log(f"stl round trip: {back.num_triangles} triangles, "
+        f"{os.path.getsize(path)} bytes, equal arrays")
+
+
+NUMERICS_N = 200_000  # inputs of each card-against-CPU numerics check
+
+
+def rays_at_box(lo, hi, n, seed):
+    """n rays from a sphere around the box [lo, hi] toward points in and
+    around it, made with numpy from `seed`: (org, dirn) CPU tensors."""
+    g = np.random.default_rng(seed)
+    lo, hi = np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+    c, ext = (lo + hi) / 2, (hi - lo) / 2
+    u = g.normal(size=(n, 3))
+    org = c + (2.5 * float(np.linalg.norm(ext)) + 0.5) * u / np.linalg.norm(
+        u, axis=1, keepdims=True)
+    d = c + ext * g.uniform(-1.2, 1.2, (n, 3)) - org
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(org.astype(np.float32)),
+            torch.from_numpy(d.astype(np.float32)))
+
+
+def numerics_check(device):
+    """The card against the CPU, bit for bit, on inputs made with numpy
+    from a seed: core/vec.py's device-independent scalar functions and
+    products (NUMERICS_N inputs each), and the marched shapes: sdf's and
+    love's trees evaluated, sphere traced and their normals, volume's
+    trilinear sample and march, heightfield's march (NUMERICS_N / 4 rays
+    at each box). Raises on any differing bit (the SDF normals: any
+    difference above 1e-9)."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.core import vec
+    from ptsharp_tpu_torch.geometry import function, primitives, sdf, volume
+
+    cpu = torch.device("cpu")
+
+    def same(what, fn, *args, atol=0.0):
+        a = fn(*args)
+        b = fn(*(x.to(device) for x in args)).cpu()
+        share = float((a == b).float().mean())
+        worst = float((a - b).abs().max()) if a.numel() else 0.0
+        log(f"numerics {what}: card == CPU on {share:.6f} of {a.numel()} "
+            f"values, at most {worst:.3e} apart")
+        if worst > atol:
+            raise AssertionError(f"{what}: the card's bits differ")
+
+    g = np.random.default_rng(15)
+    pos = torch.from_numpy(g.uniform(0.01, 9.0, NUMERICS_N).astype(
+        np.float32))
+    unit = torch.from_numpy(g.uniform(-1, 1, NUMERICS_N).astype(np.float32))
+    a, b = (torch.from_numpy(g.normal(size=(NUMERICS_N, 3)).astype(
+        np.float32)) for _ in range(2))
+    m = torch.from_numpy(g.normal(size=(NUMERICS_N, 3, 4)).astype(
+        np.float32))
+    for name in ("sqrt", "rsqrt", "sin", "cos"):
+        same(f"vec.{name}", getattr(vec, name), pos)
+    same("vec.acos", vec.acos, unit)
+    same("vec.atan2", vec.atan2, a[:, 0], a[:, 1])
+    for name in ("dot", "cross"):
+        same(f"vec.{name}", getattr(vec, name), a, b)
+    same("vec.normalize", vec.normalize, a)
+    same("vec.affine", vec.affine, m, a)
+    n = NUMERICS_N // 4
+    for name in ("sdf", "love"):
+        tree = examples.build(name, width=8, height=8,
+                              device=cpu)[0].sdf_objects[0][0]
+        lo, hi = (torch.tensor(x) for x in tree.bounds())
+        org, dirn = rays_at_box(lo, hi, n, seed=16)
+        te, tx = primitives.box_entry_exit(org, dirn, lo, hi)
+        same(f"{name} tree distances", tree.evaluate,
+             lo + (hi - lo) * torch.rand(n, 3, generator=torch.Generator(
+             ).manual_seed(17)))
+        same(f"{name} sphere trace t", functools.partial(
+            sdf.sphere_trace, tree), org, dirn, te, tx)
+        t = sdf.sphere_trace(tree, org, dirn, te, tx)
+        hit = t < INF
+        # in float64: torch's CPU float64 sqrt misses by an ulp on ~0.9%
+        # of inputs, which moves a float32 normal component of magnitude
+        # below ~1e-5 by less than 1e-12
+        same(f"{name} normals", functools.partial(sdf.sdf_normal, tree),
+             org[hit] + dirn[hit] * t[hit, None], atol=1e-9)
+    vs = examples.build("volume", width=8, height=8, device=cpu)[0]
+    vol, data = vs.volumes[0], vs.volume_data[0]
+    org, dirn = rays_at_box(vol.bmin, vol.bmax, n, seed=18)
+    te, tx = primitives.box_entry_exit(org, dirn, *vol.box(cpu))
+    same("volume samples", lambda d, p: volume.sample(d, vol, p), data,
+         org + dirn * 3.0)
+    same("volume march t", lambda d, *r: volume.intersect(d, vol, *r), data,
+         org, dirn, te, tx)
+    hf = examples.build("heightfield", width=8, height=8,
+                        device=cpu)[0].functions[0][0]
+    org, dirn = rays_at_box(hf.bmin, hf.bmax, n, seed=19)
+    te, tx = primitives.box_entry_exit(org, dirn, torch.tensor(hf.bmin),
+                                       torch.tensor(hf.bmax))
+    same("heightfield march t", functools.partial(function.intersect, hf),
+         org, dirn, te, tx)
+
+
+def geometry_phase(device, card):
+    """The marched shapes and the mesh I/O at 1920x1080, 1 spp, after
+    numerics_check: the OBJ bunny (written with an MTL, read back by
+    load_obj, "pallas" ordered: #1/#2) and the STL round trip of its mesh,
+    then each scene of GEOMETRY_SCENES at its own max_bounces, each
+    through render_main. Returns their runs."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.scene import PT_TRIANGLE
+
+    numerics_check(device)
+    runs = []
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        path, mesh = obj_bunny_files(tmp)
+        stl_round_trip(mesh, tmp)
+        ob = obj_bunny(path, device=device)
+        n_tri = scene_line("OBJ bunny", ob[0], time.perf_counter() - t0)
+        if (n_tri != 81920 + 2 or PT_TRIANGLE not in ob[0].light_types
+                or ob[0].em_v0.shape[0] != 2):
+            raise AssertionError("the OBJ bunny: 81,922 triangles, two of "
+                                 "them a Ke mesh light")
+        runs.append(render_main("OBJ bunny", *ob, card))
+        del ob
+    for name in GEOMETRY_SCENES:
+        t0 = time.perf_counter()
+        scene, cam, rcfg, icfg = examples.build(name, width=1920,
+                                                height=1080, device=device)
+        n_analytic = (scene.sphere_center.shape[0] + scene.cube_min.shape[0]
+                      + scene.cyl_radius.shape[0])
+        log(f"{name} scene: build {time.perf_counter() - t0:.1f} s, "
+            f"{len(scene.sdf_objects)} SDF, {len(scene.volumes)} volume, "
+            f"{len(scene.functions)} heightfield, "
+            f"{scene.inst_inv.shape[0]} mesh instances, "
+            f"{n_analytic} analytic, use_tlas={scene.use_tlas}, "
+            f"max_bounces={icfg.max_bounces}")
+        runs.append(render_main(name, scene, cam, replace(rcfg, spp=1), icfg,
+                                card))
     return runs
 
 
@@ -2699,6 +2950,7 @@ def main() -> int:
     runs += modes_phase(((scene, cam, rcfg, icfg), wide_bunny), rcfg1,
                         device, card)
     del wide_bunny
+    runs += geometry_phase(device, card)
     cs, cc, crc, cic = examples.build("cornell", device=device)
     film, rays, sec = render(cs, cc, crc, cic)
     log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "

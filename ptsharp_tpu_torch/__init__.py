@@ -11,8 +11,12 @@ Entry points that take a `device` run on the card unless "cpu" is asked
 for.
 
 Layer map:
-  core/          vec math, sampling, color, filters, threefry rng, device
-  geometry/      mesh container (cube, quad, icosphere), analytic primitives
+  core/          vec math (the card's bits equal to the CPU's), sampling,
+                 color, filters, threefry rng, device, Poisson discs
+  geometry/      mesh container (cube, quad, icosphere), analytic primitives,
+                 SDF trees, voxel volumes and heightfields with their
+                 marches (march.py), marching tetrahedra, SH lobe meshes
+  io/            OBJ/MTL, STL and molfile readers and writers
   accel/         host BVH build, K-wide collapse, fat-table packing; the
                  XLA walks (traverse.py) and the cluster cull (cluster.py)
   kernels/       CUDA kernel build, wrappers and plain versions
@@ -27,7 +31,8 @@ Layer map:
   film.py        Welford film
   renderer.py    chunked progressive renderer
   examples.py    scene catalog (cornell, bunny, dragon_hd, toybrick,
-                 cube_field, veach)
+                 cube_field, veach, teapot, ellipsoid, sdf, volume, mol,
+                 sh, heightfield, love)
   convert.py     JAX-package scene/camera/DiffParams -> port
 """
 

@@ -1,7 +1,8 @@
 """Look-at thin-lens camera with batched ray generation.
 
-Counterpart of ptsharp_tpu/camera.py: `look_at` builds the basis and
-`cast_rays` makes a whole batch of rays at once (Camera.cs:23-35, 98-119).
+Counterpart of ptsharp_tpu/camera.py: `look_at` builds the basis,
+`set_focus` opens a thin lens (depth of field) and `cast_rays` makes a
+whole batch of rays at once (Camera.cs:23-35, 98-119).
 """
 
 from __future__ import annotations
@@ -44,6 +45,14 @@ class Camera(NamedTuple):
                       focal_distance=_f32(0.0, device),
                       aperture_radius=_f32(0.0, device))
 
+    def set_focus(self, focal_point, aperture_radius: float) -> "Camera":
+        """Thin lens focused at |focal_point - eye| (Camera.SetFocus):
+        cast_rays then spreads origins over the aperture disc."""
+        fp = _f32(focal_point, self.p.device)
+        return self._replace(
+            focal_distance=vec.length(fp - self.p),
+            aperture_radius=_f32(aperture_radius, self.p.device))
+
     def to(self, device) -> "Camera":
         return Camera(*(f.to(device) for f in self))
 
@@ -58,8 +67,12 @@ class Camera(NamedTuple):
         x = x.to(torch.float32)
         y = y.to(torch.float32)
         aspect = width / float(height)
-        px = ((x + jitter_u - 0.5) / (width - 1.0)) * 2.0 - 1.0
-        py = ((y + jitter_v - 0.5) / (height - 1.0)) * 2.0 - 1.0
+        # divisors as tensors on the rays' device: the card divides by a
+        # Python number as a product with its reciprocal, the CPU (and the
+        # JAX package) divide
+        w1, h1 = (_f32(n - 1.0, x.device) for n in (width, height))
+        px = ((x + jitter_u - 0.5) / w1) * 2.0 - 1.0
+        py = ((y + jitter_v - 0.5) / h1) * 2.0 - 1.0
         d = (self.u * (-px * aspect)[..., None]
              + self.v * (-py)[..., None]
              + self.w * self.m)
@@ -71,8 +84,8 @@ class Camera(NamedTuple):
             angle = lens_u * 2.0 * math.pi
             radius = lens_v * self.aperture_radius
             focal = org + d * self.focal_distance
-            offset = (self.u * (torch.cos(angle) * radius)[..., None]
-                      + self.v * (torch.sin(angle) * radius)[..., None])
+            offset = (self.u * (vec.cos(angle) * radius)[..., None]
+                      + self.v * (vec.sin(angle) * radius)[..., None])
             lens_org = org + offset
             lens_dir = vec.normalize(focal - lens_org)
             use_lens = self.aperture_radius > 0.0

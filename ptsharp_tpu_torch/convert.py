@@ -21,6 +21,13 @@ counts and `use_tlas` carry over. The slot-ordered edges `tri_e1`/`tri_e2`
 (the port shares the reference's slot order), the mesh lights' `em_*`
 and `light_tri_*` tables and `has_surface_maps` carry over as they are.
 
+The marched shapes: SDF trees carry over node by node (`sdf_from_reference`
+reads each node's class name and fields: numbers, arrays, a transform's
+4x4), volumes as their numpy grids and windows. A heightfield's `f` is a
+jnp callable, which cannot run without JAX, so `scene_from_reference`
+takes the matching torch callables (`functions=[...]`, one per
+heightfield, in order).
+
 Each function puts the tensors on the card unless device="cpu" is asked
 for.
 """
@@ -33,9 +40,12 @@ import torch
 from ptsharp_tpu_torch.accel import tables
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import device as devices
+from ptsharp_tpu_torch.geometry import sdf as sdf_mod
+from ptsharp_tpu_torch.geometry.function import Heightfield
+from ptsharp_tpu_torch.geometry.volume import VolumeGrid, VolumeWindow
 from ptsharp_tpu_torch.materials import MaterialTable
 from ptsharp_tpu_torch.scene import (
-    SceneData, check_stack_bound, inst_range, no_xla_tables, not_ported,
+    SceneData, check_stack_bound, inst_range, no_xla_tables,
 )
 from ptsharp_tpu_torch.tape import DiffParams
 from ptsharp_tpu_torch.textures import TextureAtlas
@@ -67,6 +77,55 @@ _META_FIELDS = (
 )
 
 
+# SDF primitives: class name -> its fields
+_SDF_PRIMITIVES = {
+    "SdfSphere": ("radius", "exponent"),
+    "SdfCube": ("size",),
+    "SdfCylinder": ("radius", "height"),
+    "SdfCapsule": ("a", "b", "radius", "exponent"),
+    "SdfTorus": ("major", "minor", "major_exponent", "minor_exponent"),
+}
+_SDF_OPERATORS = ("SdfUnion", "SdfDifference", "SdfIntersection")
+
+
+def _number(x):
+    a = np.asarray(x, np.float32)
+    return float(a) if a.ndim == 0 else a
+
+
+def sdf_from_reference(node) -> sdf_mod.Sdf:
+    """The port's copy of a reference SDF tree, read node by node by class
+    name and fields."""
+    name = type(node).__name__
+    if name in _SDF_PRIMITIVES:
+        return getattr(sdf_mod, name)(**{f: _number(getattr(node, f))
+                                         for f in _SDF_PRIMITIVES[name]})
+    if name in _SDF_OPERATORS:
+        return getattr(sdf_mod, name)(*(sdf_from_reference(c)
+                                        for c in node.items))
+    if name == "SdfTransform":
+        return sdf_mod.SdfTransform(sdf_from_reference(node.sdf),
+                                    np.asarray(node.matrix, np.float32))
+    if name == "SdfScale":
+        return sdf_mod.SdfScale(sdf_from_reference(node.sdf),
+                                _number(node.factor))
+    if name == "SdfRepeat":
+        return sdf_mod.SdfRepeat(sdf_from_reference(node.sdf), node.step,
+                                 node._lo, node._hi)
+    raise ValueError(f"no SDF node {name!r} in the port")
+
+
+def volume_from_reference(vol) -> VolumeGrid:
+    """The port's VolumeGrid of a reference one: its numpy grid, windows
+    and box."""
+    return VolumeGrid(
+        data=np.asarray(vol.data, np.float32),
+        windows=[VolumeWindow(float(w.lo), float(w.hi), int(w.material_id))
+                 for w in vol.windows],
+        bmin=np.asarray(vol.bmin, np.float32),
+        bmax=np.asarray(vol.bmax, np.float32))
+
+
 def _as_dict(x) -> dict:
     return dict(x._asdict()) if hasattr(x, "_asdict") else dict(x)
 
@@ -79,16 +138,24 @@ def reference_arrays(ref_scene) -> tuple[dict, dict]:
     for name in ("materials", "textures"):
         fields[name] = {k: np.asarray(v) for k, v in
                         _as_dict(getattr(ref_scene, name)).items()}
+    fields["volume_data"] = [np.asarray(v) for v in ref_scene.volume_data]
     meta = {name: getattr(ref_scene, name) for name in _META_FIELDS}
     return fields, meta
 
 
-def scene_from_reference(fields: dict, meta: dict,
-                         device=devices.DEFAULT) -> SceneData:
+def scene_from_reference(fields: dict, meta: dict, device=devices.DEFAULT,
+                         functions=None) -> SceneData:
+    """`functions`: the torch callables of the reference's heightfields,
+    one each, in order (their jnp `f` cannot run here); ValueError where
+    the reference has heightfields and they are not given."""
     dev = devices.resolve(device)
-    if meta["sdf_objects"] or meta["volumes"] or meta["functions"]:
-        raise not_ported("SDF, volume and function shapes",
-                         "Queue 1 item 10c")
+    ref_functions = tuple(meta["functions"])
+    if ref_functions and (functions is None
+                          or len(functions) != len(ref_functions)):
+        raise ValueError(
+            f"the reference scene has {len(ref_functions)} heightfield(s), "
+            f"whose f is a jnp callable that cannot run without JAX: pass "
+            f"their torch counterparts as functions=[...], one each")
     n_inst = np.asarray(fields["inst_inv"]).shape[0]
     pallas = meta["intersector"] == "pallas"
     slot_tri = np.asarray(fields["p_slot_tri"], np.int32)
@@ -184,6 +251,8 @@ def scene_from_reference(fields: dict, meta: dict,
         em_mat=t("em_mat", np.int32),
         materials=MaterialTable.from_arrays(mats, dev),
         textures=TextureAtlas.from_arrays(tex["data"], tex["sizes"], dev),
+        volume_data=tuple(torch.from_numpy(np.array(v, np.float32)).to(dev)
+                          for v in fields.get("volume_data", ())),
         env_color=t("env_color"),
         texture_angle=float(np.asarray(fields["texture_angle"])),
         env_texture=int(meta["env_texture"]),
@@ -201,6 +270,14 @@ def scene_from_reference(fields: dict, meta: dict,
         p_stack_bound=int(stack_bound),
         **ranges,
         light_types=tuple(int(x) for x in meta["light_types"]),
+        sdf_objects=tuple((sdf_from_reference(node), int(mid),
+                           tuple(map(float, lo)), tuple(map(float, hi)))
+                          for node, mid, lo, hi in meta["sdf_objects"]),
+        volumes=tuple(volume_from_reference(v) for v in meta["volumes"]),
+        functions=tuple(
+            (Heightfield(f=f, bmin=np.asarray(hf.bmin, np.float32),
+                         bmax=np.asarray(hf.bmax, np.float32)), int(mid))
+            for f, (hf, mid) in zip(functions or (), ref_functions)),
         has_surface_maps=bool(meta["has_surface_maps"]),
         bvh_builder="reference",
     )

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ptsharp_tpu_torch.core import vec
+
 GAMMA = 2.2
 
 
@@ -28,7 +30,7 @@ def hex_color(x: int):
 def luminance(c):
     """Rec.709 luma."""
     w = torch.tensor([0.2126, 0.7152, 0.0722], dtype=c.dtype, device=c.device)
-    return torch.sum(c * w, dim=-1)
+    return vec.sum_last(c * w)
 
 
 def to_srgb(c):

@@ -17,18 +17,18 @@ from ptsharp_tpu_torch.core import vec
 def uniform_disc_area(u1, u2):
     """Area-uniform unit disc point (sqrt radius), used for NEE light discs."""
     angle = u1 * 2.0 * math.pi
-    radius = torch.sqrt(u2)
-    return torch.cos(angle) * radius, torch.sin(angle) * radius
+    radius = vec.sqrt(u2)
+    return vec.cos(angle) * radius, vec.sin(angle) * radius
 
 
 def cosine_hemisphere(n, u1, u2):
     """Cosine-weighted hemisphere direction about unit normal n."""
     t, b = vec.orthonormal_basis(n)
-    radius = torch.sqrt(u1)
+    radius = vec.sqrt(u1)
     theta = 2.0 * math.pi * u2
-    x = radius * torch.cos(theta)
-    y = radius * torch.sin(theta)
-    z = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))
+    x = radius * vec.cos(theta)
+    y = radius * vec.sin(theta)
+    z = vec.sqrt(torch.clamp(1.0 - u1, min=0.0))
     return t * x[..., None] + b * y[..., None] + n * z[..., None]
 
 
@@ -36,15 +36,15 @@ def cone(d, theta_max, u1, u2):
     """Perturb unit direction d inside a cone of half-angle theta_max
     (..., per ray). theta_max < EPS returns d unchanged."""
     theta_max = torch.broadcast_to(theta_max, u1.shape)
-    theta = theta_max * (1.0 - 2.0 * torch.acos(torch.clamp(u1, 0.0, 1.0))
+    theta = theta_max * (1.0 - 2.0 * vec.acos(torch.clamp(u1, 0.0, 1.0))
                          / math.pi)
-    m1 = torch.sin(theta)
-    m2 = torch.cos(theta)
+    m1 = vec.sin(theta)
+    m2 = vec.cos(theta)
     a = u2 * 2.0 * math.pi
     s, t = vec.orthonormal_basis(d)
     out = (
-        s * (m1 * torch.cos(a))[..., None]
-        + t * (m1 * torch.sin(a))[..., None]
+        s * (m1 * vec.cos(a))[..., None]
+        + t * (m1 * vec.sin(a))[..., None]
         + d * m2[..., None]
     )
     out = vec.normalize(out)

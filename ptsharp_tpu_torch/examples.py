@@ -2,8 +2,11 @@
 ptsharp_tpu/examples.py, same signatures and defaults plus a `device`,
 the card unless "cpu" is asked for): cornell, bunny, dragon_hd, the
 instanced and many-object scenes that take the TLAS, toybrick and
-cube_field, and veach, the integrator-correctness scene of the split and
-all-lights modes.
+cube_field, veach, the integrator-correctness scene of the split and
+all-lights modes, and the scenes of the marched shapes and meshing:
+teapot (an SDF tree meshed by marching tetrahedra), ellipsoid, sdf
+(depth of field), volume, mol (a molfile's ball-and-stick), sh (two
+spherical-harmonics lobe meshes), heightfield and love.
 
 Each builder returns (scene, camera, render_config, integrator_config).
 """
@@ -16,9 +19,15 @@ import numpy as np
 
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import color as colorlib
-from ptsharp_tpu_torch.core import transform
+from ptsharp_tpu_torch.core import transform, vec
 from ptsharp_tpu_torch.core.device import DEFAULT
+from ptsharp_tpu_torch.geometry import mc
+from ptsharp_tpu_torch.geometry import sdf as sdf_mod
+from ptsharp_tpu_torch.geometry import volume as vol_mod
+from ptsharp_tpu_torch.geometry.function import Heightfield
 from ptsharp_tpu_torch.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
+from ptsharp_tpu_torch.geometry.sh_shape import add_sh_shape
+from ptsharp_tpu_torch.io.mol import add_molecule, benzene
 from ptsharp_tpu_torch.integrator import (
     LIGHT_MODE_ALL, SPECULAR_MODE_FIRST, IntegratorConfig,
 )
@@ -283,6 +292,212 @@ def _bar_transform(y, z):
     t[:3, :3] = rot @ t[:3, :3]
     t[:3, 3] = [0, y, z]
     return t
+
+
+@example("teapot")
+def teapot(width=512, height=384, device=DEFAULT):
+    """CSG-meshed teapot stand-in (reference teapot, Example.cs:1349-1382):
+    supersphere body, torus handle and capsule spout, iso-surfaced by
+    marching tetrahedra into a triangle mesh (the default "wide" build)."""
+    body = sdf_mod.SdfSphere(radius=1.0, exponent=3.0)
+    handle = sdf_mod.SdfTransform(sdf_mod.SdfTorus(major=0.45, minor=0.1),
+                                  transform.translate([-1.05, 0.1, 0.0]))
+    spout = sdf_mod.SdfTransform(
+        sdf_mod.SdfCapsule(a=[0, 0, 0], b=[0.9, 0.55, 0.0], radius=0.14),
+        transform.translate([0.8, 0.0, 0.0]))
+    pot = sdf_mod.SdfUnion(body, handle, spout)
+    m = mc.sdf_mesh(pot.evaluate, [-2.2, -1.4, -1.4], [2.2, 1.4, 1.4], 0.06)
+    m = m.smooth_normals_threshold(math.radians(40))
+    b = SceneBuilder()
+    b.add_mesh(m.fit_inside([-1, 0, -1], [1, 1.4, 1], [0.5, 0, 0.5]),
+               glossy_material([0.75, 0.78, 0.82], 1.6, math.radians(18)))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.7, 0.68, 0.62]))
+    b.add_sphere([2.5, 5, -2.5], 1.2, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.12, 0.13, 0.16])
+    scene = b.build(leaf_size=8, device=device)
+    cam = Camera.look_at([0, 1.6, -3.4], [0, 0.6, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("ellipsoid")
+def ellipsoid(width=512, height=384, device=DEFAULT):
+    """Non-uniformly scaled sphere instancing (reference ellipsoid,
+    Example.cs:1104-1125): the per-primitive affine path."""
+    b = SceneBuilder()
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.8, 0.8, 0.8]))
+    for i in range(4):
+        t = np.eye(4, dtype=np.float32)
+        ang = i * math.pi / 4
+        c, s = math.cos(ang), math.sin(ang)
+        rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        scl = np.diag([2.0, 0.6, 0.6]).astype(np.float32)
+        t[:3, :3] = rot @ scl
+        t[:3, 3] = [0, 0.8, 0]
+        b.add_sphere([0, 0, 0], 1.0, glossy_material(
+            [0.7, 0.2, 0.2], 1.5, math.radians(30)), transform=t)
+    b.add_sphere([3, 7, -3], 1.5, light_material([1, 1, 1], 10.0))
+    b.set_environment(color=[0.07, 0.08, 0.1])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 3, -7], [0, 0.8, 0], [0, 1, 0], 35.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("sdf")
+def sdf_scene(width=512, height=384, device=DEFAULT):
+    """BASELINE config #4: an SDF CSG shape (a rounded cube drilled by
+    three cylinders) under a depth-of-field camera (reference sdf,
+    Example.cs:1399-1425)."""
+    b = SceneBuilder()
+    shape = sdf_mod.SdfIntersection(
+        sdf_mod.SdfCube((1.6, 1.6, 1.6)),
+        sdf_mod.SdfSphere(1.05),
+    ) - sdf_mod.SdfUnion(
+        sdf_mod.SdfCylinder(0.55, 4.0),
+        sdf_mod.SdfTransform(sdf_mod.SdfCylinder(0.55, 4.0),
+                             transform.rotate([1.0, 0, 0], math.pi / 2)),
+        sdf_mod.SdfTransform(sdf_mod.SdfCylinder(0.55, 4.0),
+                             transform.rotate([0.0, 0, 1], math.pi / 2)),
+    )
+    shape = sdf_mod.SdfTransform(shape, transform.translate([0.0, 1.0, 0.0]))
+    b.add_sdf(shape, glossy_material([0.85, 0.55, 0.15], 1.4,
+                                     math.radians(25)))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.78, 0.78, 0.78]))
+    b.add_sphere([3, 6, -4], 1.5, light_material([1, 1, 1], 10.0))
+    b.set_environment(color=[0.08, 0.09, 0.11])
+    scene = b.build(device=device)
+    cam = Camera.look_at([2.8, 2.8, -4.5], [0, 1, 0], [0, 1, 0], 35.0,
+                         device=device)
+    cam = cam.set_focus([0.0, 1.0, 0.0], 0.06)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+def volume_density(n: int = 64) -> np.ndarray:
+    """volume's procedural (n, n, n) density: a radial falloff plus an
+    angular ripple, clipped to [0, 1]."""
+    g = np.mgrid[0:n, 0:n, 0:n].astype(np.float32) / (n - 1) * 2.0 - 1.0
+    x, y, z = g[0], g[1], g[2]
+    r = np.sqrt(x**2 + y**2 + z**2)
+    density = (np.clip(1.0 - r, 0, 1)
+               + 0.12 * np.sin(6 * x) * np.sin(6 * y) * np.sin(6 * z))
+    return np.clip(density, 0.0, 1.0)
+
+
+@example("volume")
+def volume_scene(width=384, height=384, device=DEFAULT):
+    """BASELINE config #5: windowed iso-surface volume rendering over a
+    procedural 64^3 density grid (reference volume, Example.cs:1427-1474,
+    minus the CT-slice asset)."""
+    b = SceneBuilder()
+    id_out = b.material_id(diffuse_material([0.9, 0.5, 0.3]))
+    id_in = b.material_id(diffuse_material([0.3, 0.5, 0.9]))
+    b.add_volume(vol_mod.VolumeGrid(
+        data=volume_density(),
+        windows=[vol_mod.VolumeWindow(0.25, 0.6, id_out),
+                 vol_mod.VolumeWindow(0.6, 1.1, id_in)],
+        bmin=np.array([-1, 0, -1], np.float32),
+        bmax=np.array([1, 2, 1], np.float32)))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.8, 0.8, 0.8]))
+    b.add_sphere([3, 6, -3], 1.5, light_material([1, 1, 1], 10.0))
+    b.set_environment(color=[0.09, 0.1, 0.12])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 2.2, -4.5], [0, 1, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
+        IntegratorConfig(max_bounces=2)
+
+
+@example("mol")
+def mol(width=512, height=384, device=DEFAULT):
+    """Ball-and-stick molecule (reference mol, Example.cs:538-816) from the
+    embedded benzene structure: spheres and transformed cylinders."""
+    b = SceneBuilder()
+    add_molecule(b, benzene())
+    b.add_plane([0, 0, -1.2], [0, 0, 1], diffuse_material([0.85, 0.85, 0.85]))
+    b.add_sphere([4, 6, 6], 2.0, light_material([1, 1, 1], 8.0))
+    b.set_environment(color=[0.12, 0.13, 0.16])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, -7, 4], [0, 0, 0], [0, 0, 1], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("sh")
+def sh(width=448, height=448, device=DEFAULT):
+    """Spherical-harmonics lobe shape, its positive and negative lobes two
+    meshes of two materials (reference sh, SH.cs, Example.cs:942-975):
+    two instances, so the TLAS."""
+    b = SceneBuilder()
+    t = np.eye(4, dtype=np.float32)
+    t[:3, :3] *= 2.2
+    t[:3, 3] = [0, 1.4, 0]
+    add_sh_shape(b, 3, 2,
+                 glossy_material([0.8, 0.25, 0.2], 1.4, math.radians(15)),
+                 glossy_material([0.2, 0.3, 0.8], 1.4, math.radians(15)),
+                 transform=t, step=0.035)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.8, 0.8, 0.8]))
+    b.add_sphere([3, 6, -3], 1.5, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.09, 0.1, 0.12])
+    scene = b.build(leaf_size=8, device=device)
+    cam = Camera.look_at([0, 2.6, -4.5], [0, 1.2, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+def terrain(x, y):
+    """heightfield's f over tensors: a product of sines (vec.sin, vec.cos:
+    the same bits on the CPU and the card)."""
+    return (0.6 * vec.sin(x) * vec.cos(y)
+            + 0.2 * vec.sin(3 * x) * vec.sin(2 * y))
+
+
+@example("heightfield")
+def heightfield(width=512, height=384, device=DEFAULT):
+    """z < f(x, y) terrain shape (reference Function.cs capability)."""
+    b = SceneBuilder()
+    hf = Heightfield(f=terrain, bmin=np.array([-4, -4, -2], np.float32),
+                     bmax=np.array([4, 4, 2], np.float32))
+    b.add_function(hf, glossy_material([0.4, 0.55, 0.35], 1.3,
+                                       math.radians(25)))
+    b.add_sphere([5, 6, 8], 2.0, light_material([1, 1, 1], 8.0))
+    b.set_environment(color=[0.2, 0.25, 0.33])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, -8, 5], [0, 0, 0], [0, 0, 1], 42.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
+        IntegratorConfig(max_bounces=2)
+
+
+@example("love")
+def love(width=512, height=384, device=DEFAULT):
+    """Heart-ish CSG of two spheres and a rotated cube (reference love)."""
+    b = SceneBuilder()
+    red = glossy_material([0.8, 0.1, 0.15], 1.5, math.radians(20))
+    heart = sdf_mod.SdfUnion(
+        sdf_mod.SdfTransform(sdf_mod.SdfSphere(0.72),
+                             transform.translate([-0.45, 1.6, 0.0])),
+        sdf_mod.SdfTransform(sdf_mod.SdfSphere(0.72),
+                             transform.translate([0.45, 1.6, 0.0])),
+        sdf_mod.SdfTransform(
+            sdf_mod.SdfCube((1.35, 1.35, 1.0)),
+            transform.mul(transform.translate([0.0, 0.9, 0.0]),
+                          transform.rotate([0.0, 0.0, 1.0], math.pi / 4))),
+    )
+    b.add_sdf(heart, red)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.9, 0.88, 0.86]))
+    b.add_sphere([3, 6, -4], 1.5, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.12, 0.1, 0.12])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 2.2, -5], [0, 1.1, 0], [0, 1, 0], 38.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
 
 
 def build(name: str, **kw):

@@ -1,0 +1,92 @@
+"""Lockstep ray marches over a wavefront, with no device-side while loop.
+
+The JAX package marches its SDF, volume and heightfield shapes with
+`lax.while_loop(cond, body)` (ptsharp_tpu/geometry/sdf.py:313,
+volume.py:145): `cond` stops once no lane is active or at the step cap.
+torch has no such loop, and asking the host whether any lane is active
+after every step would synchronise with the card on each of up to 1,000
+(SDF) or ~1,840 (volume) steps.
+
+`march` asks every CHECK_EVERY steps instead, and between two checks runs
+the step on the lanes that were active at the last one, gathered to the
+front: the rays that miss a shape's box are never marched, and a lane that
+has finished costs nothing after the next check. Every march writes a
+lane's result only where the lane is active, and a lane never becomes
+active again, so a finished lane's result is final: the step run on a
+gathered subset gives every lane the bits of the full-width loop, whatever
+CHECK_EVERY is (tests/test_torch_shapes.py pins CHECK_EVERY=1 against the
+default, bit for bit).
+
+CHECK_EVERY = 8: a check costs one synchronisation and the gather of the
+lanes' state (a few launches), against the tens of launches of one step of
+an SDF tree or a volume sample, so at 8 the checks add a few percent of a
+march's launches, and a march overruns its last active lane by at most 7
+steps.
+
+COUNTS[tag] holds [marches, steps, lane steps] for each tag a caller names
+(intersect.py: "closest" and "shadow"); reset_counts() clears them. Each
+march runs inside a profiler range named "march" (torch.profiler:
+chip_profile.py reads its device time).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+CHECK_EVERY = 8
+
+COUNTS: dict[str, list[int]] = {}
+
+
+def reset_counts() -> None:
+    COUNTS.clear()
+
+
+def march(step: Callable, lanes: dict, active: torch.Tensor,
+          results: tuple, max_steps: int, tag: str | None = None) -> dict:
+    """Run `step(lanes, active) -> active` at most `max_steps` times, the
+    JAX loop's cap, while some lane is active. `lanes` maps names to
+    per-lane tensors (first dimension R) that `step` reads and replaces in
+    the dict; it must write a result lane only where `active` is set.
+    Returns the `results` lanes over all R lanes."""
+    with torch.profiler.record_function("march"):
+        return _march(step, lanes, active, results, max_steps, tag)
+
+
+def _march(step, lanes, active, results, max_steps, tag):
+    every = CHECK_EVERY
+    out = {k: lanes[k].clone() for k in results}
+    idx = None  # the lanes in `lanes`, as indices into the R lanes
+    steps = lane_steps = 0
+    for i in range(max_steps):
+        if i % every == 0:
+            keep = torch.nonzero(active).squeeze(1)
+            for k in results:
+                if idx is None:
+                    out[k] = lanes[k].clone()
+                else:
+                    out[k][idx] = lanes[k]
+            if keep.numel() == 0:
+                idx = keep
+                break
+            if keep.numel() < active.shape[0]:
+                lanes = {k: v[keep] for k, v in lanes.items()}
+                active = active[keep]
+                idx = keep if idx is None else idx[keep]
+        active = step(lanes, active)
+        steps += 1
+        lane_steps += active.shape[0]
+    else:
+        for k in results:
+            if idx is None:
+                out[k] = lanes[k]
+            else:
+                out[k][idx] = lanes[k]
+    if tag is not None:
+        c = COUNTS.setdefault(tag, [0, 0, 0])
+        c[0] += 1
+        c[1] += steps
+        c[2] += lane_steps
+    return out

@@ -1,9 +1,9 @@
 """Host-side triangle mesh container and utilities.
 
-A numpy copy of the parts of ptsharp_tpu/geometry/mesh.py that the render
-path uses (the port imports nothing from the JAX package): TriMesh with
-face/smooth normals and fit-into-box normalization, plus the cube, quad
-and icosphere generators. The arithmetic is kept line for line so scenes
+A numpy copy of ptsharp_tpu/geometry/mesh.py (the port imports nothing
+from the JAX package): TriMesh with face, smooth and thresholded smooth
+normals, move-to and fit-into-box normalization, plus the cube, quad and
+icosphere generators. The arithmetic is kept line for line so scenes
 built by the two packages are byte-equal.
 """
 
@@ -37,6 +37,10 @@ class TriMesh:
             self.uv = np.asarray(self.uv, np.float32)
         if self.mat is not None:
             self.mat = np.asarray(self.mat, np.int32)
+
+    @property
+    def num_triangles(self) -> int:
+        return self.v.shape[0]
 
     def face_normals(self) -> np.ndarray:
         e1 = self.v[:, 1] - self.v[:, 0]
@@ -73,6 +77,31 @@ class TriMesh:
         n = acc[inv].reshape(self.v.shape).astype(np.float32)
         return TriMesh(self.v, n, self.uv, self.mat)
 
+    def smooth_normals_threshold(self, radians: float) -> "TriMesh":
+        """Only average normals whose face normals are within the angle
+        threshold (Mesh.SmoothNormalsThreshold)."""
+        fn = self.face_normals()
+        flat_v = self.v.reshape(-1, 3)
+        key = np.round(flat_v * 1e5).astype(np.int64)
+        uniq, inv = np.unique(key, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        cos_t = np.cos(radians)
+        flat_fn = np.repeat(fn, 3, axis=0)  # (3T, 3) face normal per corner
+        # group corners by vertex; average only similar normals
+        n_out = np.empty_like(flat_fn)
+        order = np.argsort(inv, kind="stable")
+        sorted_inv = inv[order]
+        boundaries = np.searchsorted(sorted_inv, np.arange(uniq.shape[0] + 1))
+        for g in range(uniq.shape[0]):
+            idxs = order[boundaries[g]:boundaries[g + 1]]
+            group = flat_fn[idxs]  # (k, 3)
+            sim = group @ group.T >= cos_t  # (k, k)
+            avg = (sim[:, :, None] * group[None, :, :]).sum(axis=1)
+            ln = np.linalg.norm(avg, axis=-1, keepdims=True)
+            n_out[idxs] = avg / np.maximum(ln, 1e-20)
+        return TriMesh(self.v, n_out.reshape(self.v.shape).astype(np.float32),
+                       self.uv, self.mat)
+
     def transform(self, matrix: np.ndarray) -> "TriMesh":
         m = np.asarray(matrix, np.float32)
         v = self.v @ m[:3, :3].T + m[:3, 3]
@@ -82,6 +111,16 @@ class TriMesh:
         n = np.where(ln > 1e-20, n / np.maximum(ln, 1e-20), n)
         return TriMesh(v.astype(np.float32), n.astype(np.float32), self.uv,
                        self.mat)
+
+    def move_to(self, position, anchor) -> "TriMesh":
+        """Translate so the box anchor (0..1 per axis) lands at position
+        (Mesh.MoveTo)."""
+        lo, hi = self.bounds()
+        anchor_pt = lo + (hi - lo) * np.asarray(anchor, np.float32)
+        offset = np.asarray(position, np.float32) - anchor_pt
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = offset
+        return self.transform(m)
 
     def fit_inside(self, bmin, bmax, anchor) -> "TriMesh":
         """Uniform-scale + translate into box (Mesh.FitInside)."""

@@ -36,11 +36,11 @@ def intersect_spheres(org, dirn, centers, radii):
     """org/dirn (R, 1, 3) or (R, S, 3); returns t (R, S)."""
     oc = org - centers[None, :, :]
     d = dirn
-    a = torch.sum(d * d, dim=-1)
-    b = 2.0 * torch.sum(oc * d, dim=-1)
-    c = torch.sum(oc * oc, dim=-1) - (radii**2)[None, :]
+    a = vec.dot(d, d)
+    b = 2.0 * vec.dot(oc, d)
+    c = vec.dot(oc, oc) - (radii**2)[None, :]
     disc = b * b - 4.0 * a * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = vec.sqrt(torch.clamp(disc, min=0.0))
     inv2a = 0.5 / torch.clamp(a, min=1e-30)
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a
@@ -55,9 +55,9 @@ def sphere_normal(p, center):
 def sphere_uv(p, center, radius):
     """Spherical lat-long UV."""
     d = vec.normalize(p - center)
-    u = torch.atan2(d[..., 2], d[..., 0])
+    u = vec.atan2(d[..., 2], d[..., 0])
     flat = vec.vec3(d[..., 0], torch.zeros_like(d[..., 1]), d[..., 2])
-    v = torch.atan2(d[..., 1], vec.length(flat))
+    v = vec.atan2(d[..., 1], vec.length(flat))
     u = 1.0 - (u + math.pi) / (2.0 * math.pi)
     v = (v + math.pi / 2.0) / math.pi
     return u, v
@@ -68,9 +68,9 @@ def sphere_uv(p, center, radius):
 
 def intersect_planes(org, dirn, points, normals):
     """org/dirn (R, 1, 3) or (R, P, 3); returns t (R, P)."""
-    d_dot_n = torch.sum(dirn * normals[None, :, :], dim=-1)
+    d_dot_n = vec.dot(dirn, normals[None, :, :])
     po = points[None, :, :] - org
-    t = _safe_div(torch.sum(po * normals[None, :, :], dim=-1), d_dot_n)
+    t = _safe_div(vec.dot(po, normals[None, :, :]), d_dot_n)
     valid = (torch.abs(d_dot_n) > vec.EPS) & (t > EPS_T)
     return _where_inf(valid, t)
 
@@ -134,7 +134,7 @@ def intersect_cylinders(org, dirn, radius, z0, z1):
     b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 1] * d[..., 1])
     c = o[..., 0] ** 2 + o[..., 1] ** 2 - r * r
     disc = b * b - 4.0 * a * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = vec.sqrt(torch.clamp(disc, min=0.0))
     inv2a = 0.5 / torch.clamp(a, min=1e-30)
     tl0 = (-b - sq) * inv2a
     tl1 = (-b + sq) * inv2a
@@ -165,3 +165,14 @@ def triangle_interpolate(attr0, attr1, attr2, u, v):
     w = 1.0 - u - v
     return attr0 * w[..., None] + attr1 * u[..., None] + attr2 * v[..., None]
 
+
+
+def box_entry_exit(org, dirn, bmin, bmax):
+    """Slab entry and exit t (tmin, tmax) of rays against boxes, with
+    broadcasting over the leading axes of bmin/bmax; the SDF, volume and
+    heightfield marches clip to their shape's box with it."""
+    invd = _safe_div(torch.ones_like(dirn), dirn)
+    n = (bmin - org) * invd
+    f = (bmax - org) * invd
+    return (torch.amax(torch.minimum(n, f), dim=-1),
+            torch.amin(torch.maximum(n, f), dim=-1))

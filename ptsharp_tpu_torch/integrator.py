@@ -37,7 +37,9 @@ from ptsharp_tpu_torch.core import rng, sampling, vec
 from ptsharp_tpu_torch.intersect import (
     Hit, HitInfo, closest_hit, hit_info, light_hit_t, occlusion_query,
 )
-from ptsharp_tpu_torch.scene import PT_NONE, PT_TRIANGLE, SceneData
+from ptsharp_tpu_torch.scene import (
+    PT_CUBE, PT_CYLINDER, PT_NONE, PT_SPHERE, PT_TRIANGLE, SceneData,
+)
 
 LIGHT_MODE_RANDOM = "random"  # one random light x nLights
 LIGHT_MODE_ALL = "all"        # average over all lights
@@ -48,6 +50,10 @@ SPECULAR_MODE_FIRST = "first"  # both branches at the first hit
 SPECULAR_MODE_ALL = "all"      # both at the first all_split_depth hits
 
 INF = vec.INF
+
+# the light types whose own hit distance light_hit_t knows (a mesh light's:
+# the sampled point's), which any-hit shadows need
+_ANALYTIC_LIGHT_TYPES = (PT_SPHERE, PT_CUBE, PT_CYLINDER, PT_TRIANGLE)
 
 
 @dataclass(frozen=True)
@@ -71,9 +77,10 @@ class IntegratorConfig:
     # before closest-hit (results scattered back)
     sort_bounces: bool = True
     # NEE shadow rays as any-hit queries bounded by the light's hit
-    # distance (every light the port builds has one: analytic primitives
-    # and sampled mesh-light points); False: a closest-hit bounded just
-    # past the light that must land on it
+    # distance, where every light has one (analytic primitives, sampled
+    # mesh-light points; not an emissive SDF: uses_anyhit_shadows); else,
+    # and with False, a closest-hit bounded just past the light that must
+    # land on it
     anyhit_shadows: bool = True
 
     def __post_init__(self):
@@ -153,8 +160,8 @@ def _resolve_gloss(scene: SceneData, mat, info: HitInfo):
 def env_uv(scene: SceneData, dirn):
     """Lat-long env coordinates for a direction batch."""
     d = dirn
-    u = torch.atan2(d[..., 2], d[..., 0]) + scene.texture_angle
-    v = torch.atan2(d[..., 1], torch.sqrt(d[..., 0] ** 2 + d[..., 2] ** 2))
+    u = vec.atan2(d[..., 2], d[..., 0]) + scene.texture_angle
+    v = vec.atan2(d[..., 1], vec.sqrt(d[..., 0] ** 2 + d[..., 2] ** 2))
     u = (u + math.pi) / (2.0 * math.pi)
     v = (v + math.pi / 2.0) / math.pi
     return u, v
@@ -214,7 +221,7 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
             point = center
         if has_em:
             tri = _sample_triangle(scene, lidx, _uniform(k3, r, position))
-            su = torch.sqrt(u1)
+            su = vec.sqrt(u1)
             b1 = su * (1.0 - u2)
             b2 = su * u2
             p_tri = (scene.em_v0[tri] + scene.em_e1[tri] * b1[:, None]
@@ -224,7 +231,7 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
         ray_dir = vec.normalize(point - position)
         cos_t = vec.dot(ray_dir, normal)
         facing = cos_t > 0.0
-        if cfg.anyhit_shadows:
+        if uses_anyhit_shadows(scene, cfg):
             # the ray must reach the light's own surface: its analytic hit
             # distance (a mesh light's: the sampled point's), less a margin
             # so the light never self-occludes, bounds a boolean any-hit
@@ -261,7 +268,7 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
             # area sampling: pdf 1 / light_area at the sampled point
             em_mat = scene.em_mat[tri]
             emat = scene.materials.gather(em_mat)
-            d2 = torch.sum((point - position) ** 2, dim=-1)
+            d2 = vec.dot(point - position, point - position)
             cos_l = torch.abs(vec.dot(scene.em_nrm[tri], ray_dir))
             kap_tri = (cos_t * cos_l * scene.light_area[lidx]
                        / torch.clamp(d2, min=1e-8))
@@ -301,6 +308,16 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
     if want_aux:
         return contrib, r, (lm, kap)
     return contrib, r
+
+
+def uses_anyhit_shadows(scene: SceneData, cfg: IntegratorConfig) -> bool:
+    """Shadow rays take the any-hit query where the config asks for it and
+    every light type's own hit distance is known (an emissive SDF's is
+    not: light_hit_t would read INF and every such shadow ray "invisible");
+    else a closest-hit bounded just past the light, as the JAX package
+    decides (ptsharp_tpu/integrator.py:298-302)."""
+    return (cfg.anyhit_shadows and len(scene.light_types) > 0
+            and all(t in _ANALYTIC_LIGHT_TYPES for t in scene.light_types))
 
 
 def _sample_triangle(scene: SceneData, lidx, uc):

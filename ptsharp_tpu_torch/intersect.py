@@ -23,29 +23,42 @@ two tiers, chosen per scene at build time (`scene.use_tlas`), as there:
     then every other object in one walk of the TLAS that re-enters each
     instance's BLAS (`traverse_scene`: closest_hit_tlas, any_hit_tlas
     for shadow rays; binary rows for "walk", K-wide rows else).
+In both tiers the marched shapes come last, each clipped to its box and
+bounded by the best t so far (the shadow cut for occlusion): SDF trees
+sphere traced (geometry/sdf.py), volumes (geometry/volume.py) and
+heightfields (geometry/function.py), in geometry/march.py's lockstep loop,
+which counts their steps under "closest" and "shadow".
 Object-space rays are not normalised: t is parametric in the world ray.
 Hit records follow Hit.Info (Hit.cs:26-55): the shading normal, on a
 mapped scene's triangles after its normal and bump maps, is flipped
-toward the ray and `inside` set on a flip.
+toward the ray and `inside` set on a flip, never for SDF and volume
+hits.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ptsharp_tpu_torch.accel import cluster
 from ptsharp_tpu_torch.core import vec
+from ptsharp_tpu_torch.geometry import function as fn_mod
 from ptsharp_tpu_torch.geometry import primitives
+from ptsharp_tpu_torch.geometry import sdf as sdf_mod
+from ptsharp_tpu_torch.geometry import volume as vol_mod
 from ptsharp_tpu_torch.kernels import traverse
 from ptsharp_tpu_torch.scene import (
     PT_CUBE,
     PT_CYLINDER,
+    PT_FUNCTION,
     PT_NONE,
     PT_PLANE,
+    PT_SDF,
     PT_SPHERE,
     PT_TRIANGLE,
+    PT_VOLUME,
     SceneData,
 )
 
@@ -77,16 +90,16 @@ class HitInfo(NamedTuple):
 
 def _xform_point(aff, p):
     """aff (..., 3, 4) applied to points p (..., 3)."""
-    return torch.einsum("...ij,...j->...i", aff[..., :3], p) + aff[..., 3]
+    return vec.affine(aff, p)
 
 
 def _xform_dir(aff, d):
-    return torch.einsum("...ij,...j->...i", aff[..., :3], d)
+    return vec.linear(aff, d)
 
 
 def _xform_normal(aff_inv, n):
     """Normal transform: n_world ~ aff_inv_lin^T n_obj."""
-    return vec.normalize(torch.einsum("...ji,...j->...i", aff_inv[..., :3], n))
+    return vec.normalize(vec.linear(aff_inv[..., :3].transpose(-1, -2), n))
 
 
 def _local(inv, xform: bool, o1, d1):
@@ -137,6 +150,38 @@ def _as_rays(x, r, like):
         torch.as_tensor(x, dtype=torch.float32, device=like.device), (r,))
 
 
+def _box(lo, hi, device):
+    return (torch.tensor(lo, dtype=torch.float32, device=device),
+            torch.tensor(hi, dtype=torch.float32, device=device))
+
+
+def marched(scene: SceneData, org, dirn, bound, tag: str):
+    """Each marched shape's t (INF on a miss) with its type code and index,
+    in the JAX package's order (SDFs, volumes, heightfields;
+    ptsharp_tpu/intersect.py:553-578): each clipped to its box and its
+    march bounded at `bound()`, called before each shape (the best t so
+    far, or the shadow cut), so a shape takes the bound left by those
+    before it. A generator: the caller folds each t in before the next
+    shape starts."""
+    dev = org.device
+    for i, (sdf_obj, _mid, lo, hi) in enumerate(scene.sdf_objects):
+        te, tx = primitives.box_entry_exit(org, dirn, *_box(lo, hi, dev))
+        yield sdf_mod.sphere_trace(sdf_obj, org, dirn, te,
+                                   torch.minimum(tx, bound()),
+                                   tag=tag), PT_SDF, i
+    for i, vol in enumerate(scene.volumes):
+        te, tx = primitives.box_entry_exit(org, dirn, *vol.box(dev))
+        yield vol_mod.intersect(scene.volume_data[i], vol, org, dirn, te,
+                                torch.minimum(tx, bound()),
+                                tag=tag), PT_VOLUME, i
+    for i, (hf, _mid) in enumerate(scene.functions):
+        te, tx = primitives.box_entry_exit(
+            org, dirn, *_box(np.asarray(hf.bmin, np.float32),
+                             np.asarray(hf.bmax, np.float32), dev))
+        yield fn_mod.intersect(hf, org, dirn, te, torch.minimum(tx, bound()),
+                               tag=tag), PT_FUNCTION, i
+
+
 def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
     """org/dirn (R, 3), unit directions. Returns the closest hit per ray;
     t_max (scalar or (R,)) bounds the search. Detached where the JAX
@@ -171,19 +216,29 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
         idx = torch.argmin(ts, dim=1)
         take(torch.amin(ts, dim=1), ptype, idx.to(torch.int32))
 
+    def finish():
+        # the marched shapes, each bounded by the best t so far
+        for t, ptype, i in marched(scene, org, dirn, lambda: best_t,
+                                   "closest"):
+            take(t, ptype, i)
+        bt = best_t
+        if t_max is not None:
+            bt = torch.where(best_type == PT_NONE, torch.full_like(bt, INF),
+                             bt)
+        return Hit(bt, best_type, best_idx, best_inst, best_u, best_v)
+
     o1 = org[:, None, :]
     d1 = dirn[:, None, :]
     if scene.plane_point.shape[0] > 0:
         take_min(primitives.intersect_planes(o1, d1, scene.plane_point,
                                              scene.plane_normal), PT_PLANE)
+
     if scene.use_tlas:
-        # planes are never in the TLAS; everything else is
+        # planes are never in the TLAS; everything else but the marched
+        # shapes is
         t, k, i, binst, u, v = traverse_scene(scene, org, dirn, best_t)
         take(t, k, i, inst=binst, u=u, v=v)
-        if t_max is not None:
-            best_t = torch.where(best_type == PT_NONE,
-                                 torch.full_like(best_t, INF), best_t)
-        return Hit(best_t, best_type, best_idx, best_inst, best_u, best_v)
+        return finish()
     if scene.sphere_center.shape[0] > 0:
         o, d = _local(scene.sphere_inv, scene.sphere_xform, o1, d1)
         take_min(primitives.intersect_spheres(o, d, scene.sphere_center,
@@ -249,10 +304,7 @@ def closest_hit(scene: SceneData, org, dirn, t_max=None) -> Hit:
                     scene.w_inst_base[i], scene.w_inst_end[i],
                     scene.max_leaf, scene.wide_k)
             take(t, PT_TRIANGLE, slot, inst=i, u=u, v=v)
-    if t_max is not None:
-        best_t = torch.where(best_type == PT_NONE,
-                             torch.full_like(best_t, INF), best_t)
-    return Hit(best_t, best_type, best_idx, best_inst, best_u, best_v)
+    return finish()
 
 
 def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
@@ -265,7 +317,8 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
     t_cut there and tests t < INF: the same boolean wherever t_cut <= INF,
     which every cut the integrator passes is. A `use_tlas` scene's objects
     other than planes go through the TLAS any-hit walk, the boolean of
-    the bounded TLAS closest-hit's kind != PT_NONE (:624-626). Discrete, so
+    the bounded TLAS closest-hit's kind != PT_NONE (:624-626). The marched
+    shapes come last, each marched up to the cut (:730-752). Discrete, so
     every input is detached (ptsharp_tpu/intersect.py:602-606)."""
     org, dirn = org.detach(), dirn.detach()
     r = org.shape[0]
@@ -285,9 +338,17 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
         # already-occluded lanes carry a -INF bound and test nothing
         return torch.where(occ, torch.full_like(tc, -INF), tc).contiguous()
 
+    def finish():
+        # the marched shapes, each bounded by the cut left by those before
+        nonlocal occ
+        for t, _ptype, _i in marched(scene, org, dirn, cut, "shadow"):
+            occ = occ | (t < tc)
+        return occ
+
     if scene.use_tlas:
-        return occ | traverse.any_hit_tlas(scene_tlas(scene), org.contiguous(),
-                                           dirn.contiguous(), cut())
+        occ = occ | traverse.any_hit_tlas(scene_tlas(scene), org.contiguous(),
+                                          dirn.contiguous(), cut())
+        return finish()
     if scene.sphere_center.shape[0] > 0:
         o, d = _local(scene.sphere_inv, scene.sphere_xform, o1, d1)
         occ = occ | any_below(primitives.intersect_spheres(
@@ -321,7 +382,7 @@ def occlusion_query(scene: SceneData, org, dirn, t_cut) -> torch.Tensor:
                 scene.w_rows, scene.leaf_rows, o, d, cut(),
                 scene.w_inst_base[i], scene.w_inst_end[i], scene.max_leaf,
                 scene.wide_k)
-    return occ
+    return finish()
 
 
 def light_hit_t(scene: SceneData, org, dirn, lidx) -> torch.Tensor:
@@ -466,9 +527,32 @@ def hit_info(scene: SceneData, org, dirn, hit: Hit) -> HitInfo:
         n = _xform_normal(scene.inst_inv[inst], n_obj)
         sel(hit.ptype == PT_TRIANGLE, n, tm, uv[..., 0], uv[..., 1])
 
-    # flip toward the ray + inside flag (Hit.cs:36-47)
+    # the marched shapes' normals and materials, on their hit lanes only
+    def on_hits(ptype, i, shade):
+        nonlocal normal, mat_id
+        lane = torch.nonzero((hit.ptype == ptype)
+                             & (hit.pindex == i)).squeeze(1)
+        if lane.numel():
+            n, m = shade(pos[lane])
+            normal = normal.index_put((lane,), n)
+            mat_id = mat_id.index_put(
+                (lane,), torch.as_tensor(m, dtype=torch.int32,
+                                         device=dev).expand(lane.shape))
+
+    for i, (sdf_obj, mid, _lo, _hi) in enumerate(scene.sdf_objects):
+        on_hits(PT_SDF, i, lambda p: (sdf_mod.sdf_normal(sdf_obj, p), mid))
+    for i, vol in enumerate(scene.volumes):
+        data = scene.volume_data[i]
+        on_hits(PT_VOLUME, i, lambda p: (vol_mod.normal_at(data, vol, p),
+                                         vol_mod.material_at(data, vol, p)))
+    for i, (hf, mid) in enumerate(scene.functions):
+        on_hits(PT_FUNCTION, i, lambda p: (fn_mod.normal_at(hf, p), mid))
+
+    # flip toward the ray + inside flag (Hit.cs:36-47); SDF and volume
+    # hits never report inside (ptsharp_tpu/intersect.py:954-958)
     facing = vec.dot(normal, dirn) > 0.0
     normal = torch.where(facing[:, None], -normal, normal)
-    inside = facing & (hit.ptype != PT_NONE)
+    no_inside = (hit.ptype == PT_SDF) | (hit.ptype == PT_VOLUME)
+    inside = facing & ~no_inside & (hit.ptype != PT_NONE)
     return HitInfo(position=pos, normal=normal, inside=inside, mat_id=mat_id,
                    tex_u=tex_u, tex_v=tex_v)

@@ -107,6 +107,8 @@ from typing import NamedTuple
 
 import torch
 
+from ptsharp_tpu_torch.core import vec
+
 INF = 1e9
 ROW = 128
 # traversal stack entries per ray of the ordered walk, as the JAX ordered
@@ -855,7 +857,7 @@ def _sphere_t(o, d, c, rad):
     b = 2.0 * ((ocx * dx + ocy * dy) + ocz * dz)
     cq = ((ocx * ocx + ocy * ocy) + ocz * ocz) - rad * rad
     disc = b * b - (4.0 * a) * cq
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = vec.sqrt(torch.clamp(disc, min=0.0))
     inv2a = 0.5 / torch.clamp(a, min=1e-30)
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a
@@ -895,7 +897,7 @@ def _cyl_t(o, d, rad, z0, z1):
     b = 2.0 * (ox * dx + oy * dy)
     c = (ox * ox + oy * oy) - r2
     disc = b * b - (4.0 * a) * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    sq = vec.sqrt(torch.clamp(disc, min=0.0))
     inv2a = 0.5 / torch.clamp(a, min=1e-30)
     tl0 = (-b - sq) * inv2a
     tl1 = (-b + sq) * inv2a

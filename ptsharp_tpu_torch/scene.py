@@ -33,8 +33,11 @@ materials with normal and bump maps, in one of two table sets by
     whole scene in one walk over the TLAS that re-enters each instance's
     BLAS (kernels.traverse.closest_hit_tlas).
 
-What the port does not cover yet raises NotImplementedError naming the
-ROADMAP item that will port it.
+SDF trees (geometry/sdf.py), heightfield functions (geometry/function.py)
+and voxel volumes (geometry/volume.py) sit outside both table sets, as in
+the JAX package: SceneData holds them as host objects (with each volume's
+grid as a device tensor), and intersect.py marches them. An emissive SDF
+becomes a PT_SDF light over its bounding sphere.
 """
 
 from __future__ import annotations
@@ -60,6 +63,9 @@ PT_PLANE = 2
 PT_CUBE = 3
 PT_CYLINDER = 4
 PT_TRIANGLE = 5
+PT_SDF = 6
+PT_VOLUME = 7
+PT_FUNCTION = 8
 PT_INSTANCE = 9  # TLAS leaf: a mesh instance
 
 # consecutive leaves are padded to a multiple of this per mesh, so scene
@@ -153,6 +159,7 @@ class SceneData:
     em_mat: torch.Tensor          # (E,) i32 the triangle's material
     materials: MaterialTable
     textures: TextureAtlas
+    volume_data: tuple            # per volume its (W, H, D) grid tensor
     env_color: torch.Tensor       # (3,)
     texture_angle: float
     # --- static metadata ---
@@ -182,6 +189,11 @@ class SceneData:
     tlas_end: int
     w_tlas_end: int
     light_types: tuple
+    # the marched shapes, host objects: (Sdf, mat_id, bmin, bmax) tuples,
+    # VolumeGrids (their windows carry material ids), (Heightfield, mat_id)
+    sdf_objects: tuple
+    volumes: tuple
+    functions: tuple
     has_surface_maps: bool        # some material has a normal or bump map
     bvh_builder: str              # builder of the traversal tree
 
@@ -255,6 +267,9 @@ class SceneBuilder:
         self._meshes: list[tuple[TriMesh, int]] = []  # (mesh, default mat)
         self._instances = []  # (mesh_idx, inv, world, mat_override)
         self._lights = []     # (ptype, pindex, center, radius, mat)
+        self._sdfs = []       # (sdf, mat, bmin, bmax)
+        self._volumes = []
+        self._functions = []  # (heightfield, mat)
         self._textures: list[np.ndarray] = []
         self.env_color = np.zeros(3, np.float32)
         self.env_texture = -1
@@ -396,14 +411,34 @@ class SceneBuilder:
                                  self.material_id(mat)))
         return idx
 
-    def add_sdf(self, *args, **kwargs):
-        raise not_ported("SDF shapes", "Queue 1 item 10c")
+    def add_sdf(self, sdf, material: Material) -> int:
+        """Add an SDF tree (geometry/sdf.py), sphere traced inside its
+        bounds; an emissive one is a PT_SDF light over its bounding
+        sphere."""
+        mid = self.material_id(material)
+        idx = len(self._sdfs)
+        lo, hi = (tuple(map(float, b)) for b in sdf.bounds())
+        self._sdfs.append((sdf, mid, lo, hi))
+        if material.emittance > 0:
+            center = 0.5 * (np.asarray(lo) + np.asarray(hi))
+            radius = 0.5 * float(np.linalg.norm(np.asarray(hi)
+                                                - np.asarray(lo)))
+            self._lights.append((PT_SDF, idx, center.astype(np.float32),
+                                 radius, mid))
+        return idx
 
-    def add_function(self, *args, **kwargs):
-        raise not_ported("function (heightfield) shapes", "Queue 1 item 10c")
+    def add_function(self, heightfield, material: Material) -> int:
+        """Add a z < f(x, y) heightfield (geometry/function.py,
+        Function.cs)."""
+        mid = self.material_id(material)
+        self._functions.append((heightfield, mid))
+        return len(self._functions) - 1
 
-    def add_volume(self, *args, **kwargs):
-        raise not_ported("volumes", "Queue 1 item 10c")
+    def add_volume(self, volume) -> int:
+        """Add a geometry.volume.VolumeGrid whose windows carry material
+        ids already registered with material_id()."""
+        self._volumes.append(volume)
+        return len(self._volumes) - 1
 
     # -- freeze --------------------------------------------------------------
 
@@ -849,6 +884,7 @@ class SceneBuilder:
             **{name: t(a, a.dtype) for name, a in em.items()},
             materials=MaterialTable.build(self._materials, dev),
             textures=TextureAtlas.build(self._textures, dev),
+            volume_data=tuple(t(v.data) for v in self._volumes),
             env_color=t(self.env_color),
             texture_angle=float(self.texture_angle),
             env_texture=int(self.env_texture),
@@ -866,6 +902,9 @@ class SceneBuilder:
             p_stack_bound=int(stack_bound),
             **ranges,
             light_types=tuple(sorted({lt[0] for lt in self._lights})),
+            sdf_objects=tuple(self._sdfs),
+            volumes=tuple(self._volumes),
+            functions=tuple(self._functions),
             has_surface_maps=any(m.normal_texture >= 0 or m.bump_texture >= 0
                                  for m in self._materials),
             bvh_builder=builder,

@@ -4,7 +4,9 @@ Counterpart of ptsharp_tpu/textures.py: every image is stacked into one
 (K, maxH, maxW, 3) atlas with a (K, 2) size table, so a wavefront's
 texture lookups are one batched bilinear gather indexed by the per-ray
 texture id. Normal and bump maps are read through the same gather, so
-texel gradients flow through them too.
+texel gradients flow through them too. The host helpers decode an image
+file (load_texture, which needs PIL) and adjust an image before it is
+registered (pow_texture, mul_texture).
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ptsharp_tpu_torch.core import color as colorlib
+from ptsharp_tpu_torch.core import vec
 
 
 class TextureAtlas(NamedTuple):
@@ -98,10 +103,34 @@ class TextureAtlas(NamedTuple):
         dv = 1.0 / torch.clamp(h, min=1.0)
 
         def lum(c):
-            return torch.sum(c, dim=-1) / 3.0
+            return vec.sum_last(c) / 3.0
 
         gx = lum(self.sample(tex_id, u + du, v)) \
             - lum(self.sample(tex_id, u - du, v))
         gy = lum(self.sample(tex_id, u, v + dv)) \
             - lum(self.sample(tex_id, u, v - dv))
         return torch.stack([gx, gy], dim=-1)
+
+
+def load_texture(path: str) -> np.ndarray:
+    """Decode and linearize an image file (host) -> (H, W, 3) float32.
+    Needs PIL: without it this raises ImportError."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"load_texture({path!r}) needs PIL (Pillow) to "
+                          f"decode the image") from e
+    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    return img**colorlib.GAMMA
+
+
+def pow_texture(image: np.ndarray, exponent: float) -> np.ndarray:
+    """Per-texel power before registration (ITexture.Pow,
+    Texture.cs:170-178): adjust the host image, then pass it to
+    SceneBuilder.add_texture."""
+    return np.power(np.asarray(image, np.float32), exponent)
+
+
+def mul_texture(image: np.ndarray, scalar: float) -> np.ndarray:
+    """Per-texel scale (ITexture.MulScalar, Texture.cs:180-186)."""
+    return np.asarray(image, np.float32) * scalar
