@@ -8,7 +8,9 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
 
   1. device   name and power limit as nvidia-smi reports them;
   2. build    nvcc build time and each kernel's registers, stack frame,
-              spills and static shared memory as ptxas reports them, and
+              spills and static shared memory as ptxas reports them (each
+              tlas_walk instance: closest or any, its K, its leaf loads),
+              and
               the dynamic shared memory each staged kernel's launch asks
               for;
   3. bunny    examples.build("bunny", intersector="pallas", wide_k=8): the
@@ -120,12 +122,22 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               driven once with every launch count set to 0 just before and
               read just after; each against its plain version in every
               output on every lane, the any-hit against the bounded
-              closest-hit's kind != PT_NONE on every shadow lane; times
-              beside the plain versions and the bound; per ray kind the
-              kernel-counted steps (equal to the plain versions'), lane use
-              and time; then the same over toybrick's binary rows (the
-              "walk" walk of the same tables) and over cube_field at
-              1920x1080 (145 analytic primitives, no mesh);
+              closest-hit's kind != PT_NONE on every shadow lane; the
+              tlas_walk.cu instance each launch ran (traverse.
+              tlas_instance); times (CUDA events around the call, and the
+              device time: CUDA events queued behind a spin kernel, as
+              device_ms takes them) beside the plain versions and the
+              bound; per ray kind the kernel-counted steps (equal to the
+              plain versions'), lane use and both times; then the same
+              over toybrick's binary rows (the "walk" walk of the same
+              tables) and over cube_field at 1920x1080 (145 analytic
+              primitives, no mesh); then every other instance
+              (tlas_instance_phase: toybrick rebuilt at K=8, at leaf 6,
+              at K=8 and leaf 6, its binary rows at leaf 6, at K=3 and
+              with its rows off a 16-byte boundary, the run-time-K
+              instance) on 65,536 camera + 65,536 bounce rays and their
+              shadow rays, each launch's instance named, every output and
+              the counted steps against the plain version on every lane;
   5g. inst    four instances of dragon_hd's mesh built in this script
               (4 x 1,310,720 triangles, past FLAT_TRI_CAP): the "pallas"
               build (K=8, leaf 14) keeps one table of the one mesh (checked:
@@ -151,8 +163,8 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               any_hit_wide_rows for "walk" and "cluster", closest_hit_tlas
               and any_hit_tlas for a TLAS build); one cornell pass at
               512x512; and 32x24 renders on the card, the bunny in both
-              walk orders, "walk" and "wide", and toybrick, held against
-              the same renders on the CPU (the plain versions);
+              walk orders, "walk" and "wide", and toybrick, equal bit for
+              bit to the same renders on the CPU (the plain versions);
   6b. modes   Renderer.render() at 1 spp, 1920x1080, of the bunny of 3
               (pallas ordered, K=8: #1/#2) and of its default "wide"
               build (4w/7w) under the integrator modes (MODES:
@@ -171,8 +183,14 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               exactly the build's kernels, the closest-hit alone (any-hit
               0 launches) with closest-hit shadows, none for veach; and
               32x24 versions (bunny subdivisions=3) on the card against
-              the CPU, as in 6;
-  6c. geometry  the marched shapes and the mesh I/O at 1920x1080, 1 spp
+              the CPU, as in 6 (each with its mean and largest absolute
+              difference);
+  6c. geometry  first numerics_check, the card against the CPU bit for
+              bit (core/vec.py's functions; the divisions by Python
+              numbers, which the port takes by a float32 tensor on the
+              operand's device, vec.div: the bump map's luminance, the
+              cone, env_uv, sphere_uv; the marches); then the marched
+              shapes and the mesh I/O at 1920x1080, 1 spp
               (geometry_phase): the bunny's mesh (81,920 triangles)
               written with obj.save_obj into an OBJ with an MTL (its
               triangles under a Kd material, an emissive quad under a Ke
@@ -233,7 +251,8 @@ and the grad phase's main-path runs and SGD steps (the split-table and
 the staged kernels': over their phases' driven calls, both scenes), its
 largest
 error against its plain version, its times at the bunny's 1080p
-main-path width (the TLAS walk's at toybrick's) and its bound there; the
+main-path width (the TLAS walk's at toybrick's, with its device time)
+and its bound there; the
 last line is {"ok": true,
 "device": {...}}.
 """
@@ -242,6 +261,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -249,6 +269,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from dataclasses import replace
 
 import numpy as np
@@ -259,7 +280,6 @@ INF = 1e9
 CLOSEST_TOL = dict(rtol=1e-5, atol=1e-5)
 ANYHIT_EDGE = 1e-5          # relative band around t_cut
 ANYHIT_MAX_EDGE_FRAC = 1e-4  # share of lanes allowed in that band
-PIXEL_FRAC = 0.995           # card-vs-CPU render: pixels within 1e-4
 DRAGON_TRIANGLES = 1_310_720
 
 # walk order -> its (closest-hit, any-hit) wrappers in kernels/traverse.py
@@ -322,6 +342,8 @@ NOTES = {
                     "PT_NONE (ptsharp_tpu/intersect.py:624-626), not a "
                     "Pallas kernel",
 }
+# tlas_walk.cu's K template argument: 0 binary rows, -1 K at run time
+TLAS_K = {0: "binary", -1: "run-time K"}
 # the XLA walks' kernels
 ROWS = ("closest_hit_binary", "closest_hit_wide_rows", "any_hit_wide_rows")
 # the kernels a render of each build launches, exactly: the XLA builds'
@@ -490,10 +512,18 @@ def ptxas_report(text: str) -> dict:
     rows, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        tlas = m and re.search(r"tlas_walk_kernelILb(\d)ELb(\d)E", m.group(1))
+        # tlas_walk<kAny, K, kVecLeaf>; earlier trees had <kAny, kWide>
+        tlas = m and re.search(r"tlas_walk_kernelILb(\d)E(?:Lb(\d)E|"
+                               r"Li(n?\d+)ELb(\d)E)", m.group(1))
         if tlas:
-            name = (f"tlas_walk<{('closest', 'any')[int(tlas.group(1))]},"
-                    f"{('binary', 'wide')[int(tlas.group(2))]}>")
+            walk = ("closest", "any")[int(tlas.group(1))]
+            if tlas.group(2) is not None:
+                kind = ("binary", "wide")[int(tlas.group(2))]
+            else:
+                k = int(tlas.group(3).replace("n", "-"))
+                kind = (f"{TLAS_K.get(k, f'K={k}')},"
+                        f"{('scalar', 'float4')[int(tlas.group(4))]} leaves")
+            name = f"tlas_walk<{walk},{kind}>"
             rows[name] = {"smem": 0}
             continue
         if m:
@@ -1675,7 +1705,9 @@ def tlas_phase(scene, rays, label):
     for name, count in launches.items():
         if count != int(name in runs):
             raise AssertionError(f"tlas phase launched {name} {count} times")
-    log(f"tlas path [{label}]: launches={launches}")
+    log(f"tlas path [{label}]: launches={launches}; instances: "
+        + "; ".join(f"{name} {getattr(traverse, name).instance}"
+                    for name in runs))
     out = {}
     for name, (kernel, plain, inputs, kind) in runs.items():
         with traverse.count_work() as work:
@@ -1687,16 +1719,18 @@ def tlas_phase(scene, rays, label):
         _equal(f"{name} against its plain version", got[name], want)
         err = float((got[name][0].float() - want[0].float()).abs().max())
         ms = time_ms(lambda: kernel(tabs, *inputs), dev)
+        kernel_ms = device_ms(lambda: kernel(tabs, *inputs))
         plain_ms = time_ms(lambda: plain(tabs, *inputs), dev, PLAIN_REPS)
         what = (f"occluded={float(want[0].float().mean()):.4f}"
                 if kind == "any" else f"kinds: {_kinds_text(want[1])}")
         log(f"{name} [{label}] rays={inputs[0].shape[0]} {what} "
             f"max_abs_err={err:.3e} every output equal to its plain version "
-            f"on every lane; kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"{bound_text(bnd)} (analytic tests {dict(work.analytic)}, "
-            f"affine transforms {work.affine}, instance entries "
-            f"{work.instances})")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
+            f"on every lane; kernel_ms={ms:.3f} device_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.3f} {bound_text(bnd)} (analytic tests "
+            f"{dict(work.analytic)}, affine transforms {work.affine}, "
+            f"instance entries {work.instances})")
+        out[name] = dict(max_abs_err=err, ms=ms, device_ms=kernel_ms,
+                         plain_ms=plain_ms, **bnd)
     bounded = traverse.closest_hit_tlas(tabs, so, sd, t_cut)[1] != 0
     _equal("any_hit_tlas against the bounded closest-hit's kind != PT_NONE",
            (got["any_hit_tlas"][0],), (bounded,))
@@ -1714,10 +1748,96 @@ def tlas_phase(scene, rays, label):
                           traverse.closest_hit_tlas_plain))
         ms, use, steps = _kind_stats(kernel, plain, (tabs,), *rk, (),
                                      f"the {kind} rays", dev)
+        kernel_ms = device_ms(lambda: kernel(tabs, *rk))
         log(f"{kernel.__name__} [{label}] {kind} rays={rk[0].shape[0]} "
-            f"kernel_ms={ms:.4f} lane_use={use:.3f} {_steps_text(steps)} "
-            f"(kernel's step count equal)")
+            f"kernel_ms={ms:.4f} device_ms={kernel_ms:.4f} lane_use={use:.3f}"
+            f" {_steps_text(steps)} (kernel's step count equal)")
     return out, launches
+
+
+# toybrick's builds and views of its tables whose TLAS walks run the
+# tlas_walk.cu instances that the tlas phases' scenes do not (label ->
+# (examples.toybrick fields, intersector, rows off a 16-byte boundary)):
+# with the toybrick and binary-rows phases they run every instance
+TLAS_INSTANCE_BUILDS = {
+    "K=8, leaf 4": (dict(wide_k=8), "wide", False),
+    "K=4, leaf 6": (dict(leaf_size=6), "wide", False),
+    "K=8, leaf 6": (dict(wide_k=8, leaf_size=6), "wide", False),
+    "binary rows, leaf 6": (dict(leaf_size=6), "walk", False),
+    "K=3, leaf 4": (dict(wide_k=3), "wide", False),
+    "K=4, leaf 4, rows off a 16-byte boundary": (dict(), "wide", True),
+}
+# rays of each kind (camera, bounce; and shadow) a build of the sweep
+TLAS_INSTANCE_RAYS = 1 << 16
+
+
+def _offset_rows(rows):
+    """A copy of `rows` whose base lies 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(rows.numel() + 4, dtype=rows.dtype, device=rows.device)
+    off = next(i for i in range(4) if (buf.data_ptr() + 4 * i) % 16 == 4)
+    view = buf[off:off + rows.numel()].view(rows.shape)
+    view.copy_(rows)
+    return view
+
+
+def tlas_instance_phase(device, label):
+    """Every tlas_walk.cu instance that the tlas phases' scenes do not
+    run, on toybrick rebuilt at TLAS_INSTANCE_BUILDS (K=8; leaf 6, whose
+    leaf_rows of 54 floats are not a 16-byte stride: scalar leaves; K=3
+    and rows off a 16-byte boundary: the run-time-K instance), on
+    TLAS_INSTANCE_RAYS camera + bounce rays at 1920x1080 and their shadow
+    rays: each launch's instance as tlas_instance names it, every output
+    equal to the plain version on every lane, the kernel-counted steps
+    equal to the plain version's, the any-hit equal to the bounded
+    closest-hit's kind != PT_NONE; each kernel's time."""
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.intersect import scene_tlas
+    from ptsharp_tpu_torch.kernels import traverse
+
+    n = TLAS_INSTANCE_RAYS
+    for name, (fields, walk, offset) in TLAS_INSTANCE_BUILDS.items():
+        scene, cam, _rc, _ic = examples.toybrick(1920, 1080, device=device,
+                                                 **fields)
+        rays = tlas_rays(scene, cam, 1920, 1080, n, n)
+        tabs = scene_tlas(replace(scene, intersector=walk))
+        if offset:
+            tabs = tabs._replace(rows=_offset_rows(tabs.rows))
+        inst = traverse.tlas_instance(tabs)
+        org, dirn = rays["org"], rays["dirn"]
+        tmax = torch.full((org.shape[0],), INF, device=device)
+        shadow = (rays["shadow_org"], rays["shadow_dirn"], rays["t_cut"])
+        line = []
+        for kernel, plain, inputs in (
+                (traverse.closest_hit_tlas, traverse.closest_hit_tlas_plain,
+                 (org, dirn, tmax)),
+                (traverse.any_hit_tlas, traverse.any_hit_tlas_plain,
+                 shadow)):
+            counts = torch.zeros(2, dtype=torch.int64, device=device)
+            got = kernel(tabs, *inputs, counts=counts)
+            sync(device)
+            if kernel.instance != inst:
+                raise AssertionError(f"{kernel.__name__} [{name}] ran "
+                                     f"{kernel.instance}, not {inst}")
+            *want, steps = plain(tabs, *inputs, return_iters=True)
+            if kernel is traverse.any_hit_tlas:
+                got = (got,)
+                bounded = traverse.closest_hit_tlas(tabs, *shadow)[1] != 0
+                _equal(f"any_hit_tlas [{name}] against the bounded "
+                       f"closest-hit", got, (bounded,))
+            _equal(f"{kernel.__name__} [{name}] against its plain version",
+                   got, tuple(want))
+            if int(counts[0]) != int(steps.sum()):
+                raise AssertionError(f"{kernel.__name__} [{name}]: "
+                                     f"{int(counts[0])} steps counted, the "
+                                     f"plain version's {int(steps.sum())}")
+            ms = device_ms(lambda: kernel(tabs, *inputs))
+            line.append(f"{kernel.__name__} rays={inputs[0].shape[0]} "
+                        f"device_ms={ms:.4f} steps={int(counts[0])} "
+                        f"lane_use={int(counts[0]) / int(counts[1]):.3f}")
+        log(f"tlas instance [{label}, toybrick {name}] {inst}: every output "
+            f"and the counted steps equal to the plain version's on every "
+            f"lane, any_hit_tlas to the bounded closest-hit's; "
+            + "; ".join(line))
 
 
 def four_dragons(mesh, device, **build):
@@ -1995,7 +2115,9 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
 
 def reference_phase(device):
     """Small renders on the card against the same renders on the CPU,
-    where the wrappers run the plain versions: the bunny in both walk
+    where the wrappers run the plain versions, equal bit for bit (the
+    kernels equal their plain versions, and core/vec.py gives the card
+    the CPU's float32 arithmetic): the bunny in both walk
     orders, "walk" and "wide", toybrick (the TLAS walk), the ordered
     and the "wide" bunny under each of MODES, the lit bunny's two
     builds under each of LIT_MODES, the scenes of GEOMETRY_SCENES and the
@@ -2047,10 +2169,13 @@ def reference_phase(device):
             close = np.all(np.isclose(means[0], means[1], rtol=1e-4,
                                       atol=1e-4), axis=-1)
             rel = abs(means[0].mean() - means[1].mean()) / means[1].mean()
+            diff = np.abs(means[0] - means[1])
             log(f"reference {name} 32x24: pixels_within_1e-4="
-                f"{close.mean():.4f} mean_rel_diff={rel:.3e}")
-            if close.mean() < PIXEL_FRAC or rel > 1e-3:
-                raise AssertionError("card render disagrees with the CPU "
+                f"{close.mean():.4f} mean_rel_diff={rel:.3e} "
+                f"mean_abs_diff={diff.mean():.3e} "
+                f"max_abs_diff={diff.max():.3e}")
+            if diff.max() > 0:
+                raise AssertionError("card render differs from the CPU "
                                      "render")
 
 
@@ -2245,14 +2370,18 @@ def rays_at_box(lo, hi, n, seed):
 def numerics_check(device):
     """The card against the CPU, bit for bit, on inputs made with numpy
     from a seed: core/vec.py's device-independent scalar functions and
-    products (NUMERICS_N inputs each), and the marched shapes: sdf's and
+    products (NUMERICS_N inputs each); the four expressions that divided
+    a tensor by a Python number, which the card took as a product with
+    its reciprocal (vec.div by 3 and pi, the bump map's luminance, the
+    cone's angle, env_uv and sphere_uv); and the marched shapes: sdf's and
     love's trees evaluated, sphere traced and their normals, volume's
     trilinear sample and march, heightfield's march (NUMERICS_N / 4 rays
     at each box). Raises on any differing bit (the SDF normals: any
     difference above 1e-9)."""
-    from ptsharp_tpu_torch import examples
-    from ptsharp_tpu_torch.core import vec
+    from ptsharp_tpu_torch import examples, integrator
+    from ptsharp_tpu_torch.core import sampling, vec
     from ptsharp_tpu_torch.geometry import function, primitives, sdf, volume
+    from ptsharp_tpu_torch.textures import TextureAtlas
 
     cpu = torch.device("cpu")
 
@@ -2282,6 +2411,26 @@ def numerics_check(device):
         same(f"vec.{name}", getattr(vec, name), a, b)
     same("vec.normalize", vec.normalize, a)
     same("vec.affine", vec.affine, m, a)
+    # the divisions by Python numbers, each by a float32 tensor on the
+    # operand's device (vec.div): the bump map's luminance, the cone's
+    # angle, the environment's and the sphere's lat-long coordinates
+    for d in (3.0, math.pi):
+        same(f"vec.div by {d:.6g}", functools.partial(vec.div, d=d), a)
+    unit_a = vec.normalize(a)
+    tex = torch.from_numpy(g.uniform(0, 1, (2, 64, 48, 3)).astype(
+        np.float32))
+    sizes = torch.tensor([[64, 48], [40, 33]], dtype=torch.int32)
+    tid = torch.from_numpy(g.integers(0, 2, NUMERICS_N).astype(np.int32))
+    u1 = torch.from_numpy(g.uniform(0, 1, NUMERICS_N).astype(np.float32))
+    same("bump map luminance (textures.py)",
+         lambda x, sz, *r: TextureAtlas(x, sz).bump_sample(*r), tex, sizes,
+         tid, u1, unit.abs())
+    same("cone (core/sampling.py)", sampling.cone, unit_a, u1 * 0.6, u1,
+         unit.abs())
+    same("env_uv (integrator.py)", lambda d: torch.stack(integrator.env_uv(
+        types.SimpleNamespace(texture_angle=0.3), d)), unit_a)
+    same("sphere_uv (geometry/primitives.py)",
+         lambda p, c: torch.stack(primitives.sphere_uv(p, c, 1.0)), a, b)
     n = NUMERICS_N // 4
     for name in ("sdf", "love"):
         tree = examples.build(name, width=8, height=8,
@@ -2844,6 +2993,8 @@ def main() -> int:
     phases.append(tlas_phase(cf[0], cf_rays, f"cube_field 1080p: {n_tb} "
                              f"camera + {n_tb} bounce")[0])
     del cf_rays
+    tlas_instance_phase(device, f"{TLAS_INSTANCE_RAYS} camera + "
+                        f"{TLAS_INSTANCE_RAYS} bounce")
 
     # dragon_hd: built once, in the preorder walk this slice brings; the
     # ordered walk runs the same tables (its stack bound is checked)
@@ -2976,6 +3127,8 @@ def main() -> int:
             max_abs_err=max(p[name]["max_abs_err"] for p in phases
                             if name in p),
             ms=main_width[name]["ms"], plain_ms=main_width[name]["plain_ms"],
+            **({"device_ms": main_width[name]["device_ms"]}
+               if "device_ms" in main_width[name] else {}),
             bound_ms=main_width[name]["bound_ms"],
             bound_by=main_width[name]["bound_by"],
             # no single PyTorch call walks a BVH

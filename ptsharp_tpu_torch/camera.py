@@ -67,12 +67,8 @@ class Camera(NamedTuple):
         x = x.to(torch.float32)
         y = y.to(torch.float32)
         aspect = width / float(height)
-        # divisors as tensors on the rays' device: the card divides by a
-        # Python number as a product with its reciprocal, the CPU (and the
-        # JAX package) divide
-        w1, h1 = (_f32(n - 1.0, x.device) for n in (width, height))
-        px = ((x + jitter_u - 0.5) / w1) * 2.0 - 1.0
-        py = ((y + jitter_v - 0.5) / h1) * 2.0 - 1.0
+        px = vec.div(x + jitter_u - 0.5, width - 1.0) * 2.0 - 1.0
+        py = vec.div(y + jitter_v - 0.5, height - 1.0) * 2.0 - 1.0
         d = (self.u * (-px * aspect)[..., None]
              + self.v * (-py)[..., None]
              + self.w * self.m)

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from ptsharp_tpu_torch.core import vec
+
 BOX = "box"
 TRIANGLE = "triangle"
 GAUSSIAN = "gaussian"
@@ -20,7 +22,7 @@ def evaluate(name: str, dx, dy, radius: float = 0.5, alpha: float = 2.0):
     if name == TRIANGLE:
         wx = torch.clamp(radius - torch.abs(dx), min=0.0)
         wy = torch.clamp(radius - torch.abs(dy), min=0.0)
-        return (wx * wy) / (radius * radius)
+        return vec.div(wx * wy, radius * radius)
     if name == GAUSSIAN:
         floor = math.exp(-alpha * radius * radius)
 

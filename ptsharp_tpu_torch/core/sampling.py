@@ -36,8 +36,8 @@ def cone(d, theta_max, u1, u2):
     """Perturb unit direction d inside a cone of half-angle theta_max
     (..., per ray). theta_max < EPS returns d unchanged."""
     theta_max = torch.broadcast_to(theta_max, u1.shape)
-    theta = theta_max * (1.0 - 2.0 * vec.acos(torch.clamp(u1, 0.0, 1.0))
-                         / math.pi)
+    theta = theta_max * (1.0 - vec.div(
+        2.0 * vec.acos(torch.clamp(u1, 0.0, 1.0)), math.pi))
     m1 = vec.sin(theta)
     m2 = vec.cos(theta)
     a = u2 * 2.0 * math.pi
@@ -57,4 +57,4 @@ def stratified_pair(base_u, base_v, n: int, idx):
     iu = (idx % n).to(base_u.dtype)
     iv = torch.div(idx, n, rounding_mode="floor").to(base_v.dtype)
     nf = float(n)
-    return (iu + base_u) / nf, (iv + base_v) / nf
+    return vec.div(iu + base_u, nf), vec.div(iv + base_v, nf)

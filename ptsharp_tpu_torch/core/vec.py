@@ -6,7 +6,7 @@ tensors on whatever device it lives on. Precision is float32.
 
 The scalar functions below (sqrt, rsqrt, sin, cos, acos, atan2, pow_f32)
 and the 3x3 products (linear, affine) give the same float32 bits on the
-CPU and on the card: torch's float32 kernels of the two differ by an ulp
+CPU and on the card, and so does div, a division by a Python number: torch's float32 kernels of the two differ by an ulp
 on a share of inputs (the CPU's sqrt on ~0.7%, the card's rsqrt, sin and
 cos, the card's matrix library's summation order), and a ray a ulp away
 can take another path at a silhouette or a light's edge. The
@@ -86,6 +86,23 @@ def acos(x):
 
 def atan2(y, x):
     return _f64(torch.atan2, y, x)
+
+
+# (divisor, dtype, device) -> the divisor as a 0-d tensor there
+_DIVISORS = {}
+
+
+def div(x, d):
+    """x / d for a Python number d, rounded as the CPU and the JAX package
+    round it: by a 0-d tensor of x's dtype on x's device (the card takes a
+    division by a Python number as a product with its reciprocal, which
+    differs on a share of values unless d is a power of two)."""
+    key = (float(d), x.dtype, x.device)
+    t = _DIVISORS.get(key)
+    if t is None:
+        t = _DIVISORS[key] = torch.tensor(float(d), dtype=x.dtype,
+                                          device=x.device)
+    return x / t
 
 
 def linear(m, v):

@@ -676,6 +676,25 @@ struct PreorderRow {
   }
 };
 
+// The hit child of smallest preorder index among the K children whose
+// fields `row` holds (packet_descend; absent children carry index 0), -1
+// where the ray enters none before bt.
+template <int K, bool kVec>
+__device__ __forceinline__ int first_hit_child(const PreorderRow<K, kVec>& row,
+                                               const Ray& r, float bt) {
+  int target = -1;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const int ci = __float_as_int(row.f[9 + 6 * K + c]);
+    float ctmin, ctmax;
+    slab(row.f + 9 + 6 * c, r, ctmin, ctmax);
+    if (box_hit(ctmin, ctmax, bt) && ci > 0 && (target < 0 || ci < target)) {
+      target = ci;
+    }
+  }
+  return target;
+}
+
 // One step of the preorder walk at node `cur`: test its own box against
 // bt; at a leaf the ray enters, leaf(block, first, cnt) tests its
 // triangles and returns true to end the walk; at an internal node the ray
@@ -700,16 +719,7 @@ __device__ __forceinline__ int preorder_step(const Table& tab, int cur,
     return leaf(tab.leaf(node, first), first, cnt) ? end : skip;
   }
   row.template load<3, PreorderRow<K, kVec>::kQuads>(node);
-  int target = -1;
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const int ci = __float_as_int(row.f[9 + 6 * K + c]);
-    float ctmin, ctmax;
-    slab(row.f + 9 + 6 * c, r, ctmin, ctmax);
-    if (box_hit(ctmin, ctmax, bt) && ci > 0 && (target < 0 || ci < target)) {
-      target = ci;
-    }
-  }
+  const int target = first_hit_child(row, r, bt);
   return target >= 0 ? target : skip;
 }
 
@@ -727,18 +737,25 @@ __device__ __forceinline__ int preorder_step(const Table& tab, int cur,
 // at an internal node it enters, go to cur + 1, its left child in
 // preorder; otherwise, and after a leaf, follow the skip link. Returns the
 // next node.
-template <class Leaf>
-__device__ __forceinline__ int binary_step(const RowTable& tab, int cur,
-                                           const Ray& r, float bt,
-                                           Leaf leaf) {
-  const float2* row = reinterpret_cast<const float2*>(tab.node(cur));
-  float f[10];
+// Fields [0, 10) of a binary row (8-byte aligned) into f: five float2
+// loads through the read-only path.
+__device__ __forceinline__ void load_binary_row(const float* __restrict__ node,
+                                                float* f) {
+  const float2* row = reinterpret_cast<const float2*>(node);
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
     const float2 v = __ldg(row + i);
     f[2 * i] = v.x;
     f[2 * i + 1] = v.y;
   }
+}
+
+template <class Leaf>
+__device__ __forceinline__ int binary_step(const RowTable& tab, int cur,
+                                           const Ray& r, float bt,
+                                           Leaf leaf) {
+  float f[10];
+  load_binary_row(tab.node(cur), f);
   float tmin, tmax;
   slab(f, r, tmin, tmax);
   const int skip = __float_as_int(f[8]);
@@ -1119,14 +1136,18 @@ __device__ __forceinline__ void warp_packet_closest(
 //
 // tlas_walk.cu walks the whole scene in one walk: a TLAS over the scene's
 // objects (typed singleton leaves: spheres, cubes, cylinders and mesh
-// instances) at the head of the XLA walks' node rows (RowTable: u_rows, or
-// w_rows at a K given at run time), whose instance leaves re-enter the
-// instance's BLAS with the ray in its object space (ptsharp_tpu/intersect.py
-// traverse_scene). Every field is read with scalar loads through the
-// read-only path. The analytic tests and the affine transforms below take
-// the order of operations of the plain version (kernels/traverse.py
-// _sphere_t, _cube_t, _cyl_t, _affine), so that the kernel equals it on
-// every lane.
+// instances) at the head of the XLA walks' node rows (RowTable: binary
+// u_rows, or K-wide w_rows), whose instance leaves re-enter the instance's
+// BLAS with the ray in its object space (ptsharp_tpu/intersect.py
+// traverse_scene). A step (tlas_step) reads a row as the preorder and the
+// binary walks read theirs: K-wide rows with PreorderRow's float4 loads,
+// fields [0, 12) first and the child quads only at an internal node the
+// ray enters; binary rows with binary_step's five float2 loads; at a K
+// given at run time, scalar loads. The world->object affines are read as
+// three float4 loads (their tables start on 16-byte boundaries, rows of 48
+// bytes). The analytic tests and the affine transforms below take the
+// order of operations of the plain version (kernels/traverse.py _sphere_t,
+// _cube_t, _cyl_t, _affine), so that the kernel equals it on every lane.
 
 // type codes of the TLAS leaves and hit records (ptsharp_tpu_torch/scene.py)
 constexpr int kNone = 0, kSphere = 1, kCube = 3, kCylinder = 4;
@@ -1159,21 +1180,21 @@ struct TlasScene {
   int sph_xform, cube_xform, cyl_xform;
 };
 
-// The ray r under the affine m (3x4, row-major): the origin with the
-// translation added last, the direction unnormalised (so that t stays the
-// parameter of the untransformed ray), and its safe inverse.
+// The ray r under the affine m (3x4, row-major, on a 16-byte boundary:
+// three float4 loads): the origin with the translation added last, the
+// direction unnormalised (so that t stays the parameter of the
+// untransformed ray), and its safe inverse.
 __device__ __forceinline__ Ray affine_ray(const float* __restrict__ m,
                                           const Ray& r) {
-  float a[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) a[i] = __ldg(m + i);
+  const float4* q = reinterpret_cast<const float4*>(m);
+  const float4 a0 = __ldg(q), a1 = __ldg(q + 1), a2 = __ldg(q + 2);
   Ray o;
-  o.ox = ((a[0] * r.ox + a[1] * r.oy) + a[2] * r.oz) + a[3];
-  o.oy = ((a[4] * r.ox + a[5] * r.oy) + a[6] * r.oz) + a[7];
-  o.oz = ((a[8] * r.ox + a[9] * r.oy) + a[10] * r.oz) + a[11];
-  o.dx = (a[0] * r.dx + a[1] * r.dy) + a[2] * r.dz;
-  o.dy = (a[4] * r.dx + a[5] * r.dy) + a[6] * r.dz;
-  o.dz = (a[8] * r.dx + a[9] * r.dy) + a[10] * r.dz;
+  o.ox = ((a0.x * r.ox + a0.y * r.oy) + a0.z * r.oz) + a0.w;
+  o.oy = ((a1.x * r.ox + a1.y * r.oy) + a1.z * r.oz) + a1.w;
+  o.oz = ((a2.x * r.ox + a2.y * r.oy) + a2.z * r.oz) + a2.w;
+  o.dx = (a0.x * r.dx + a0.y * r.dy) + a0.z * r.dz;
+  o.dy = (a1.x * r.dx + a1.y * r.dy) + a1.z * r.dz;
+  o.dz = (a2.x * r.dx + a2.y * r.dy) + a2.z * r.dz;
   o.ix = safe_inv(o.dx);
   o.iy = safe_inv(o.dy);
   o.iz = safe_inv(o.dz);
@@ -1270,6 +1291,98 @@ __device__ __forceinline__ float analytic_t(const TlasScene& sc, int kind,
                  __ldg(sc.cyl_z1 + p));
   }
   return kInf;
+}
+
+// leaf_slots for the TLAS walk, which holds the analytic tests' and the
+// instance entry's state beside a leaf's: one triangle at a time, its
+// nine floats from the three float4 loads that cover them (triangle l
+// starts l mod 4 floats past a 16-byte boundary of a block whose stride is
+// a multiple of 4 floats: leaf 4, 8, ...), or with kVec false from nine
+// scalar loads; so at most twelve floats of the block are live, where
+// leaf_slots<true> holds four triangles' 36.
+template <bool kVec, class Keep>
+__device__ __forceinline__ void leaf_each(const float* __restrict__ leaf,
+                                          int cnt, const Ray& r, Keep keep) {
+  if constexpr (!kVec) {
+    leaf_slots<false>(leaf, cnt, r, keep);
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(leaf);
+    for (int g = 0; g < cnt; g += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int l = g + j;
+        if (l >= cnt) return;
+        float f[12];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          const float4 v = __ldg(p + 9 * (g / 4) + (9 * j) / 4 + i);
+          f[4 * i + 0] = v.x;
+          f[4 * i + 1] = v.y;
+          f[4 * i + 2] = v.z;
+          f[4 * i + 3] = v.w;
+        }
+        float tt, uu, vv;
+        if (mt(f + j, r, tt, uu, vv) && keep(l, tt, uu, vv)) return;
+      }
+    }
+  }
+}
+
+// K of a TLAS walk instance that reads K from the table at run time
+constexpr int kRunTimeK = -1;
+
+// One step of the TLAS walk at node `cur` of `tab`, whose rows hold K
+// children (K = 4, 8: w_rows, float4 loads; K = 0: binary u_rows, five
+// float2 loads; K = kRunTimeK: k children, 0 for binary rows, scalar
+// loads): test the node's own box against bt; at a leaf the ray enters
+// (a kind other than kNone in bits 8-11 of its count field), return
+// leaf(kind, first, count, skip), the next node; at an internal node it
+// enters, go to the hit child of smallest preorder index (binary rows: to
+// cur + 1), as preorder_step does; otherwise, and where no child is hit,
+// follow the skip link.
+template <int K, class Leaf>
+__device__ __forceinline__ int tlas_step(const RowTable& tab, int k, int cur,
+                                         const Ray& r, float bt, Leaf leaf) {
+  const float* node = tab.node(cur);
+  // the row's fields; at K <= 0 only [0, 10) are used
+  PreorderRow<(K > 0 ? K : 1), true> row;
+  if constexpr (K > 0) {
+    row.template load<0, 3>(node);
+  } else if constexpr (K == 0) {
+    load_binary_row(node, row.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) row.f[i] = __ldg(node + i);
+  }
+  const int skip = __float_as_int(row.f[8]);
+  float tmin, tmax;
+  slab(row.f, r, tmin, tmax);
+  if (!box_hit(tmin, tmax, bt)) return skip;
+  const int meta = __float_as_int(row.f[7]);
+  const int kind = (meta >> 8) & 0xF;
+  if (kind != kNone) {
+    return leaf(kind, __float_as_int(row.f[6]), meta & 0xFF, skip);
+  }
+  int target = -1;
+  if constexpr (K > 0) {
+    row.template load<3, PreorderRow<K, true>::kQuads>(node);
+    target = first_hit_child(row, r, bt);
+  } else {
+    if (K == 0 || k == 0) return cur + 1;
+    for (int c = 0; c < k; ++c) {
+      float b6[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) b6[i] = __ldg(node + 9 + 6 * c + i);
+      const int ci = __float_as_int(__ldg(node + 9 + 6 * k + c));
+      float ctmin, ctmax;
+      slab(b6, r, ctmin, ctmax);
+      if (box_hit(ctmin, ctmax, bt) && ci > 0 &&
+          (target < 0 || ci < target)) {
+        target = ci;
+      }
+    }
+  }
+  return target >= 0 ? target : skip;
 }
 
 }  // namespace ptk

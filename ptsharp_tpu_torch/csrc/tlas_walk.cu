@@ -42,18 +42,46 @@
 // the bounded closest-hit walks with best t = t_cut too.
 //
 // What bounds it on an H100: as the other walks, a chain of dependent row
-// loads a ray, and rays of one warp that end after very different numbers
-// of steps; here also the instance entries, which re-enter BLAS trees of
-// very different depths. The design is the persistent walk of
-// bvh_common.cuh (persistent_walk: refill idle lanes below kRefillBelow
-// live) with the walk state a lane in registers: cursor, return slot,
-// instance and its range end, the world ray and the ray in the current
-// space, and the best hit. A simple kernel: every field is a scalar load
-// through the read-only path, the row's meta fields first and the child
-// fields only at an internal node the ray enters, K a run-time value. The
-// plain versions (kernels/traverse.py closest_hit_tlas_plain,
-// any_hit_tlas_plain) take the same steps in the same order with the same
-// arithmetic (-fmad=false), so the kernel equals them on every lane.
+// loads a ray (the next row is known only after the box and child tests),
+// and rays of one warp that end after very different numbers of steps;
+// here also the instance entries, which re-enter BLAS trees of very
+// different depths, and the analytic tests and the instance entry beside
+// the triangle tests in one step, whose union a diverged warp runs and
+// whose live values set the registers a lane holds. With a TLAS and its
+// BLAS small enough for L1 and L2 (toybrick: 118 node rows, 48 leaf
+// blocks), registers, through the resident warps, set the time more than
+// the width of the loads (PERF.md section 6: the first design's scalar
+// loads and this one's float4 loads take the same time at the same
+// registers; four triangles of float4 leaf loads in registers at once
+// took 21 more registers and 0-20% more time). The design (bvh_common.cuh
+// tlas_step and leaf_each, in persistent_walk's persistent warps, which
+// refill their idle lanes below kRefillBelow live):
+//   - K at compile time: instances for K = 4 and 8 over w_rows, K = 0 over
+//     binary u_rows, and one that reads K from the table (any other K the
+//     scene build takes, or tables off the boundaries below), so the child
+//     loop is unrolled and the child boxes stay in registers;
+//   - the node row in wide loads: fields [0, 12) (own box, first slot,
+//     count with the kind bits, skip link) as three float4 loads, the
+//     child quads only at an internal node the ray enters (PreorderRow);
+//     binary rows as five float2 loads;
+//   - a leaf's `count` triangles one at a time, each from the three float4
+//     loads that cover its nine floats where leaf_rows is a 16-byte stride
+//     from a 16-byte aligned base (leaf 4, 8, ...), else nine scalar loads
+//     (leaf 6): twelve floats live, not four triangles' 36;
+//   - an instance entry's world->object affine as three float4 loads and
+//     its BLAS range as one int2; a transformed primitive's affine alike;
+//   - one ray in registers: the ray in the current space with its safe
+//     inverse, and the ray's index; leaving a BLAS re-reads the world ray
+//     from org and dir (an L2 hit), which gives the bits a kept copy would
+//     (ptxas: 7-10 registers fewer than keeping both rays, no spills).
+// ptxas (nvcc 12.8, sm_90a): closest-hit 64 registers at K=4, 92 at K=8,
+// 59 binary, 63 at run-time K; any-hit 56, 86, 56, 56; no stack frame,
+// no spills (the first design: 68 closest, 60-63 any). The wrapper
+// (kernels/traverse.py tlas_instance) picks the instance from the
+// tables' K, strides and base alignment. The plain versions
+// (kernels/traverse.py closest_hit_tlas_plain, any_hit_tlas_plain) take
+// the same steps in the same order with the same arithmetic (-fmad=false),
+// so every instance equals them on every lane, step counts included.
 
 #include <climits>
 
@@ -64,7 +92,7 @@ namespace {
 // the cursor of a ray whose walk is over
 constexpr int kDone = INT_MAX;
 
-template <bool kAny, bool kWide>
+template <bool kAny, int K, bool kVecLeaf>
 __global__ void __launch_bounds__(ptk::kWalkThreads,
                                   ptk::kPreorderMinBlocks)
 tlas_walk_kernel(ptk::TlasScene sc, const float* __restrict__ org,
@@ -75,10 +103,12 @@ tlas_walk_kernel(ptk::TlasScene sc, const float* __restrict__ org,
                  float* __restrict__ u_out, float* __restrict__ v_out,
                  bool* __restrict__ occ_out, int* __restrict__ next_ray,
                  unsigned long long* __restrict__ counts) {
-  ptk::Ray world, local;
+  const ptk::RowTable tab{sc.rows, sc.leaves, sc.node_stride, sc.leaf_stride,
+                          sc.leaf_size};
+  ptk::Ray r;  // the ray in the current space
   float bt = 0.0f, bu = 0.0f, bv = 0.0f;
   int bk = ptk::kNone, bi = -1, binst = -1;
-  int ret = tlas_end, inst = -1, bend = 0;
+  int ray = 0, ret = tlas_end, inst = -1, bend = 0;
   bool occ = false;
   ptk::persistent_walk(
       n, kDone, max_iters, next_ray, counts,
@@ -92,91 +122,62 @@ tlas_walk_kernel(ptk::TlasScene sc, const float* __restrict__ org,
         bend = 0;
         occ = false;
         if (kAny && !(bt > 0.0f)) return kDone;
-        world = ptk::load_ray(org, dir, i);
-        local = world;
+        ray = i;
+        r = ptk::load_ray(org, dir, i);
         return root;
       },
       [&](int cur) {
-        const float* node =
-            sc.rows + static_cast<size_t>(cur) * sc.node_stride;
-        float box[6];
-#pragma unroll
-        for (int i = 0; i < 6; ++i) box[i] = __ldg(node + i);
-        const int first = __float_as_int(__ldg(node + 6));
-        const int meta = __float_as_int(__ldg(node + 7));
-        const int skip = __float_as_int(__ldg(node + 8));
-        const int kind = (meta >> 8) & 0xF;
-        float tmin, tmax;
-        ptk::slab(box, local, tmin, tmax);
-        int nxt = skip;
         bool stop = false;
-        if (ptk::box_hit(tmin, tmax, bt)) {
-          if (kind == ptk::kTriangle) {
-            const float* leaf =
-                sc.leaves + static_cast<size_t>(first / sc.leaf_size) *
-                                sc.leaf_stride;
-            ptk::leaf_slots<false>(
-                leaf, meta & 0xFF, local,
-                [&](int l, float tt, float uu, float vv) {
-                  if (!(tt < bt)) return false;
-                  if (kAny) {
-                    stop = true;
-                    return true;
+        int nxt = ptk::tlas_step<K>(
+            tab, sc.k, cur, r, bt, [&](int kind, int first, int cnt,
+                                       int skip) {
+              if (kind == ptk::kTriangle) {
+                ptk::leaf_each<kVecLeaf>(
+                    tab.leaf(nullptr, first), cnt, r,
+                    [&](int l, float tt, float uu, float vv) {
+                      if (!(tt < bt)) return false;
+                      if (kAny) {
+                        stop = true;
+                        return true;
+                      }
+                      bt = tt;
+                      bk = ptk::kTriangle;
+                      bi = first + l;
+                      binst = inst;
+                      bu = uu;
+                      bv = vv;
+                      return false;
+                    });
+              } else if (kind == ptk::kSphere || kind == ptk::kCube ||
+                         kind == ptk::kCylinder) {
+                const float t = ptk::analytic_t(sc, kind, first, r);
+                if (t < bt) {
+                  stop = kAny;
+                  if (!kAny) {
+                    bt = t;
+                    bk = kind;
+                    bi = first;
+                    binst = -1;
                   }
-                  bt = tt;
-                  bk = ptk::kTriangle;
-                  bi = first + l;
-                  binst = inst;
-                  bu = uu;
-                  bv = vv;
-                  return false;
-                });
-          } else if (kind == ptk::kSphere || kind == ptk::kCube ||
-                     kind == ptk::kCylinder) {
-            const float t = ptk::analytic_t(sc, kind, first, local);
-            if (t < bt) {
-              stop = kAny;
-              if (!kAny) {
-                bt = t;
-                bk = kind;
-                bi = first;
-                binst = -1;
-              }
-            }
-          } else if (kind == ptk::kNone) {
-            if (kWide) {
-              int target = -1;
-              for (int c = 0; c < sc.k; ++c) {
-                const float* cb = node + 9 + 6 * c;
-                float b6[6];
-#pragma unroll
-                for (int i = 0; i < 6; ++i) b6[i] = __ldg(cb + i);
-                const int ci = __float_as_int(__ldg(node + 9 + 6 * sc.k + c));
-                float ctmin, ctmax;
-                ptk::slab(b6, local, ctmin, ctmax);
-                if (ptk::box_hit(ctmin, ctmax, bt) && ci > 0 &&
-                    (target < 0 || ci < target)) {
-                  target = ci;
                 }
+              } else if (kind == ptk::kInstance && sc.n_inst > 0) {
+                // the ray is in world space here: instances lie in the TLAS
+                const int ii = first < 0 ? 0
+                               : (first >= sc.n_inst ? sc.n_inst - 1 : first);
+                const int2 range =
+                    __ldg(reinterpret_cast<const int2*>(sc.inst_range) + ii);
+                bend = range.y;
+                ret = skip;
+                inst = ii;
+                r = ptk::affine_ray(sc.inst_inv + 12 * ii, r);
+                return range.x;
               }
-              if (target >= 0) nxt = target;
-            } else {
-              nxt = cur + 1;
-            }
-          } else if (kind == ptk::kInstance && sc.n_inst > 0) {
-            const int ii =
-                first < 0 ? 0 : (first >= sc.n_inst ? sc.n_inst - 1 : first);
-            nxt = __ldg(sc.inst_range + 2 * ii);
-            bend = __ldg(sc.inst_range + 2 * ii + 1);
-            ret = skip;
-            inst = ii;
-            local = ptk::affine_ray(sc.inst_inv + 12 * ii, world);
-          }
-        }
+              return skip;
+            });
         if (inst >= 0 && nxt >= bend) {  // the BLAS is done: back to the TLAS
           nxt = ret;
           inst = -1;
-          local = world;
+          r = ptk::load_ray(org, dir, ray);  // the world ray, as it began
         }
         if (stop) {
           occ = true;
@@ -198,59 +199,93 @@ tlas_walk_kernel(ptk::TlasScene sc, const float* __restrict__ org,
       });
 }
 
-template <bool kAny, bool kWide>
-int launch(const ptk::TlasScene& sc, const float* org, const float* dir,
-           const float* t_in, int n, int root, int tlas_end, int max_iters,
-           float* t_out, int* kind_out, int* idx_out, int* inst_out,
-           float* u_out, float* v_out, bool* occ_out, int* next_ray,
-           unsigned long long* counts, cudaStream_t s) {
+// a launch's inputs and outputs (an output a kernel does not write is null)
+struct Launch {
+  ptk::TlasScene sc;
+  const float* org;
+  const float* dir;
+  const float* t_in;
+  int n, root, tlas_end, max_iters;
+  float* t;
+  int* kind;
+  int* idx;
+  int* inst;
+  float* u;
+  float* v;
+  bool* occ;
+  int* next_ray;
+  unsigned long long* counts;
+  cudaStream_t stream;
+};
+
+template <bool kAny, int K, bool kVecLeaf>
+int launch(const Launch& a) {
   static const int resident =
-      ptk::resident_blocks(tlas_walk_kernel<kAny, kWide>);
-  tlas_walk_kernel<kAny, kWide>
-      <<<ptk::persistent_blocks(n, resident), ptk::kWalkThreads, 0, s>>>(
-          sc, org, dir, t_in, n, root, tlas_end, max_iters, t_out, kind_out,
-          idx_out, inst_out, u_out, v_out, occ_out, next_ray, counts);
+      ptk::resident_blocks(tlas_walk_kernel<kAny, K, kVecLeaf>);
+  tlas_walk_kernel<kAny, K, kVecLeaf>
+      <<<ptk::persistent_blocks(a.n, resident), ptk::kWalkThreads, 0,
+         a.stream>>>(a.sc, a.org, a.dir, a.t_in, a.n, a.root, a.tlas_end,
+                     a.max_iters, a.t, a.kind, a.idx, a.inst, a.u, a.v,
+                     a.occ, a.next_ray, a.counts);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instance for K (4, 8, 0 or ptk::kRunTimeK) and the leaf loads
+// (vec_leaf 1: float4; the run-time-K instance reads leaves with scalar
+// loads only), else cudaErrorInvalidValue
+template <bool kAny>
+int launch_instance(int k, int vec_leaf, const Launch& a) {
+  switch (k) {
+    case 4:
+      return vec_leaf ? launch<kAny, 4, true>(a) : launch<kAny, 4, false>(a);
+    case 8:
+      return vec_leaf ? launch<kAny, 8, true>(a) : launch<kAny, 8, false>(a);
+    case 0:
+      return vec_leaf ? launch<kAny, 0, true>(a) : launch<kAny, 0, false>(a);
+    case ptk::kRunTimeK:
+      if (!vec_leaf) return launch<kAny, ptk::kRunTimeK, false>(a);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // scene: the tables (kernels/traverse.py fills it), copied into the
-// kernel's parameters at launch; [root, tlas_end) the TLAS head; next_ray
-// and counts as in pt_closest_hit. Each ray takes at most max_iters steps.
-extern "C" int pt_closest_hit_tlas(const ptk::TlasScene* scene,
-                                   const float* org, const float* dir,
-                                   const float* t_max, int n, int root,
-                                   int tlas_end, int max_iters, float* t_out,
-                                   int* kind_out, int* idx_out, int* inst_out,
-                                   float* u_out, float* v_out, int* next_ray,
-                                   unsigned long long* counts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return scene->k > 0
-             ? launch<false, true>(*scene, org, dir, t_max, n, root, tlas_end,
-                                   max_iters, t_out, kind_out, idx_out,
-                                   inst_out, u_out, v_out, nullptr, next_ray,
-                                   counts, s)
-             : launch<false, false>(*scene, org, dir, t_max, n, root,
-                                    tlas_end, max_iters, t_out, kind_out,
-                                    idx_out, inst_out, u_out, v_out, nullptr,
-                                    next_ray, counts, s);
+// kernel's parameters at launch; k_inst the instance's K (4, 8: w_rows
+// from a 16-byte aligned base, float4 loads; 0: u_rows from an 8-byte
+// aligned base, float2 loads; -1: K = scene->k, scalar loads), vec_leaf 1
+// where leaf_rows is a 16-byte stride from a 16-byte aligned base (not
+// with k_inst -1); the affine tables start on 16-byte boundaries and
+// inst_range on an 8-byte one (the wrapper checks all of it); [root,
+// tlas_end) the TLAS head; next_ray and counts as in pt_closest_hit. Each
+// ray takes at most max_iters steps.
+extern "C" int pt_closest_hit_tlas(const ptk::TlasScene* scene, int k_inst,
+                                   int vec_leaf, const float* org,
+                                   const float* dir, const float* t_max, int n,
+                                   int root, int tlas_end, int max_iters,
+                                   float* t_out, int* kind_out, int* idx_out,
+                                   int* inst_out, float* u_out, float* v_out,
+                                   int* next_ray, unsigned long long* counts,
+                                   void* stream) {
+  const Launch a{*scene,   org,     dir,      t_max,    n,
+                 root,     tlas_end, max_iters, t_out,  kind_out,
+                 idx_out,  inst_out, u_out,    v_out,   nullptr,
+                 next_ray, counts,   static_cast<cudaStream_t>(stream)};
+  return launch_instance<false>(k_inst, vec_leaf, a);
 }
 
 // as pt_closest_hit_tlas, with t_cut for t_max and one bool a ray
-extern "C" int pt_any_hit_tlas(const ptk::TlasScene* scene, const float* org,
+extern "C" int pt_any_hit_tlas(const ptk::TlasScene* scene, int k_inst,
+                               int vec_leaf, const float* org,
                                const float* dir, const float* t_cut, int n,
                                int root, int tlas_end, int max_iters,
                                bool* occ_out, int* next_ray,
                                unsigned long long* counts, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return scene->k > 0
-             ? launch<true, true>(*scene, org, dir, t_cut, n, root, tlas_end,
-                                  max_iters, nullptr, nullptr, nullptr,
-                                  nullptr, nullptr, nullptr, occ_out,
-                                  next_ray, counts, s)
-             : launch<true, false>(*scene, org, dir, t_cut, n, root, tlas_end,
-                                   max_iters, nullptr, nullptr, nullptr,
-                                   nullptr, nullptr, nullptr, occ_out,
-                                   next_ray, counts, s);
+  const Launch a{*scene,  org,      dir,     t_cut,   n,
+                 root,    tlas_end, max_iters, nullptr, nullptr,
+                 nullptr, nullptr,  nullptr, nullptr, occ_out,
+                 next_ray, counts,  static_cast<cudaStream_t>(stream)};
+  return launch_instance<true>(k_inst, vec_leaf, a);
 }

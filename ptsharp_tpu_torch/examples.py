@@ -193,10 +193,12 @@ def _brick_mesh() -> TriMesh:
 
 
 @example("toybrick")
-def toybrick(width=512, height=384, rows=6, cols=6, device=DEFAULT):
+def toybrick(width=512, height=384, rows=6, cols=6, device=DEFAULT,
+             leaf_size=4, wide_k=4):
     """Instanced toy-brick wall (reference toybrick, Example.cs:1229-1272):
     one brick mesh, rows x cols instances with per-instance material
-    overrides, walked through the TLAS."""
+    overrides, walked through the TLAS (K-wide rows at `wide_k`, leaves
+    of `leaf_size` triangles: the JAX example's 4 and 4)."""
     rng = np.random.default_rng(4)
     palette = [
         diffuse_material(c) for c in
@@ -218,7 +220,7 @@ def toybrick(width=512, height=384, rows=6, cols=6, device=DEFAULT):
     b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.7, 0.7, 0.7]))
     b.add_sphere([6, 14, -12], 3.0, light_material([1, 1, 1], 7.0))
     b.set_environment(color=[0.25, 0.28, 0.33])
-    scene = b.build(leaf_size=4, device=device)
+    scene = b.build(leaf_size=leaf_size, wide_k=wide_k, device=device)
     cam = Camera.look_at([2, 5.5, -16], [0, 3, 0], [0, 1, 0], 40.0,
                          device=device)
     return scene, cam, RenderConfig(width=width, height=height, spp=12), \

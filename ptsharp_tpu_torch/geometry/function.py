@@ -90,6 +90,6 @@ def normal_at(hf: Heightfield, p, eps: float = 1e-3):
     x, y = p[..., 0], p[..., 1]
     z = hf.f(torch.stack([x + eps, x - eps, x, x]),
              torch.stack([y, y, y + eps, y - eps]))
-    fx = (z[0] - z[1]) / (2 * eps)
-    fy = (z[2] - z[3]) / (2 * eps)
+    fx = vec.div(z[0] - z[1], 2 * eps)
+    fy = vec.div(z[2] - z[3], 2 * eps)
     return vec.normalize(vec.vec3(-fx, -fy, torch.ones_like(fx)))

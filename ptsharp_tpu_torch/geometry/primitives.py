@@ -58,8 +58,8 @@ def sphere_uv(p, center, radius):
     u = vec.atan2(d[..., 2], d[..., 0])
     flat = vec.vec3(d[..., 0], torch.zeros_like(d[..., 1]), d[..., 2])
     v = vec.atan2(d[..., 1], vec.length(flat))
-    u = 1.0 - (u + math.pi) / (2.0 * math.pi)
-    v = (v + math.pi / 2.0) / math.pi
+    u = 1.0 - vec.div(u + math.pi, 2.0 * math.pi)
+    v = vec.div(v + math.pi / 2.0, math.pi)
     return u, v
 
 

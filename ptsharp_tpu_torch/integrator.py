@@ -162,8 +162,8 @@ def env_uv(scene: SceneData, dirn):
     d = dirn
     u = vec.atan2(d[..., 2], d[..., 0]) + scene.texture_angle
     v = vec.atan2(d[..., 1], vec.sqrt(d[..., 0] ** 2 + d[..., 2] ** 2))
-    u = (u + math.pi) / (2.0 * math.pi)
-    v = (v + math.pi / 2.0) / math.pi
+    u = vec.div(u + math.pi, 2.0 * math.pi)
+    v = vec.div(v + math.pi / 2.0, math.pi)
     return u, v
 
 
@@ -289,8 +289,8 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
                 torch.full((r,), li, dtype=torch.long, device=dev), keys[li])
             total = total + c
         if want_aux:
-            return total / n_lights, n_lights * r, None
-        return total / n_lights, n_lights * r
+            return vec.div(total, n_lights), n_lights * r, None
+        return vec.div(total, n_lights), n_lights * r
     kpick, ksmp = rng.split(key)
     if cfg.light_mode == LIGHT_MODE_POWER:
         u = _uniform(kpick, r, position)
@@ -766,7 +766,8 @@ def _reservoir_compact(state: RayState, cap: int, key):
     rank = torch.empty_like(order)
     rank[order] = torch.arange(r, device=order.device)
     keep = alive & (rank < cap)
-    w = torch.where(s_cnt > cap, s_cnt.to(torch.float32) / cap, 1.0).detach()
+    w = torch.where(s_cnt > cap, vec.div(s_cnt.to(torch.float32), cap),
+                    1.0).detach()
     throughput = torch.where(keep[:, None], state.throughput * w,
                              state.throughput)
     pack = torch.where(keep, _morton_key(state.org, state.dirn), 0xFFFFFFFF)

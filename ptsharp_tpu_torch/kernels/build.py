@@ -96,12 +96,13 @@ def _bind(lib):
                     vp, vp, vp, vp, vp, vp, vp]
     rows_any = [vp, vp, ci, ci, ci, vp, vp, vp, ci, ci, ci, ci, ci, ci,
                 vp, vp, vp, vp]
-    # the TLAS walks: the TlasScene, rays, t, n, the TLAS head [root,
-    # tlas_end), max_iters, outputs (t, kind, index, inst, u, v; or the
-    # occlusion), the ray counter, [steps, lane slots] or null, stream
-    tlas_closest = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp,
-                    vp, vp, vp]
-    tlas_any = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+    # the TLAS walks: the TlasScene, the instance's K and leaf loads, rays,
+    # t, n, the TLAS head [root, tlas_end), max_iters, outputs (t, kind,
+    # index, inst, u, v; or the occlusion), the ray counter, [steps, lane
+    # slots] or null, stream
+    tlas_closest = [vp, ci, ci, vp, vp, vp, ci, ci, ci, ci,
+                    vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    tlas_any = [vp, ci, ci, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
     for fn, argtypes in ((lib.pt_closest_hit, persistent_closest),
                          (lib.pt_any_hit, persistent_any),
                          (lib.pt_closest_hit_preorder, persistent_closest),

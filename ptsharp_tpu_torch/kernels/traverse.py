@@ -50,9 +50,11 @@ Over the whole scene (intersect.py, a `use_tlas` scene):
   of the XLA walks' node rows (w_rows, or u_rows for "walk") whose
   analytic leaves are tested in place and whose instance leaves re-enter
   the instance's BLAS with the ray in its object space
-  (csrc/tlas_walk.cu, persistent warps, scalar loads; `TlasTables` names
-  what they read; their plain versions are the torch counterpart of
-  ptsharp_tpu/intersect.py traverse_scene, `_TlasWalk`).
+  (csrc/tlas_walk.cu, persistent warps; K at compile time, float4 rows
+  (float2 for binary rows) and leaves, the instance `tlas_instance(tabs)`
+  picks; `TlasTables` names what they read; their plain versions are the
+  torch counterpart of ptsharp_tpu/intersect.py traverse_scene,
+  `_TlasWalk`).
 On a CUDA tensor each wrapper launches its hand-written kernel on the
 current stream, adds one to its `launches` count and the launch's rays
 to its `rays`; on a CPU tensor it runs its plain version below; any
@@ -103,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -1695,7 +1698,8 @@ def _check_tlas(tabs: TlasTables, org, dirn, t):
     blocks of at least leaf_size * 9), the TLAS head [0, tlas_end) and
     every instance's BLAS range inside the node rows; the instance and
     primitive tables float32 (the ranges int32), contiguous, of matching
-    lengths, on the tables' device and not requiring grad."""
+    lengths, on the tables' device and not requiring grad; the affine
+    tables on 16-byte boundaries and the ranges on an 8-byte one."""
     if tabs.k != 0 and not 2 <= tabs.k <= 17:
         raise ValueError(f"k={tabs.k}: 0 (binary rows) or 2..17")
     if tabs.tlas_end < 1:
@@ -1722,12 +1726,70 @@ def _check_tlas(tabs: TlasTables, org, dirn, t):
             raise ValueError(f"{name} is on {x.device}, the tables on "
                              f"{tabs.rows.device}")
     _check_detached(**{name: getattr(tabs, name) for name in shapes})
+    # the kernel reads each world->object affine (48-byte rows) with float4
+    # loads and each instance's BLAS range as an int2
+    _aligned(16, tabs.inst_inv, tabs.sphere_inv, tabs.cube_inv, tabs.cyl_inv)
+    _aligned(8, tabs.inst_range)
     if n_inst:
-        rng = tabs.inst_range
-        if not bool(((rng[:, 0] >= 0) & (rng[:, 0] <= rng[:, 1])
-                     & (rng[:, 1] <= tabs.rows.shape[0])).all()):
-            raise ValueError("an instance's node range lies outside the "
-                             "table")
+        _check_ranges(tabs.inst_range, tabs.rows.shape[0])
+
+
+# id(inst_range) -> (a weak reference to it, its version, the node rows
+# it was checked against)
+_CHECKED_RANGES = {}
+
+
+def _check_ranges(rng, n_rows: int):
+    """Raise unless every instance's node range lies inside n_rows node
+    rows. Reading the ranges waits for the card, so a range table is
+    checked once, and again only after it is written to (its version
+    counter) or against other node rows: a render passes the scene's
+    same tensors to every traversal call, which then waits for nothing."""
+    seen = _CHECKED_RANGES.get(id(rng))
+    if seen is not None and seen[0]() is rng \
+            and seen[1:] == (rng._version, n_rows):
+        return
+    if not bool(((rng[:, 0] >= 0) & (rng[:, 0] <= rng[:, 1])
+                 & (rng[:, 1] <= n_rows)).all()):
+        raise ValueError("an instance's node range lies outside the table")
+    key = id(rng)
+    _CHECKED_RANGES[key] = (
+        weakref.ref(rng, lambda _ref: _CHECKED_RANGES.pop(key, None)),
+        rng._version, n_rows)
+
+
+class TlasInstance(NamedTuple):
+    """The instance of csrc/tlas_walk.cu that a launch over given tables
+    runs: its K (4 or 8 over w_rows; 0 over binary u_rows; -1 reads K
+    from the tables at run time) and how it reads the node rows
+    ("float4", "float2" or "scalar") and the leaf blocks ("float4" or
+    "scalar")."""
+
+    k: int
+    rows: str
+    leaf: str
+
+    def __str__(self):
+        k = {0: "binary", -1: "run-time K"}.get(self.k, f"K={self.k}")
+        return f"{k}, {self.rows} rows, {self.leaf} leaves"
+
+
+def tlas_instance(tabs: TlasTables) -> TlasInstance:
+    """The tlas_walk.cu instance closest_hit_tlas and any_hit_tlas launch
+    over `tabs`: K = 4 or 8 with float4 row loads where the node rows are
+    a stride of a multiple of 4 floats from a 16-byte aligned base (w_rows
+    are); binary rows with float2 loads where they are a stride of an
+    even number of floats from an 8-byte aligned base (u_rows are);
+    leaves with float4 loads where row_loads(leaf) says so. Any other
+    tables (another K, or a base off those boundaries) take the instance
+    that reads K at run time, with scalar loads of rows and leaves."""
+    rows, ptr = tabs.rows, tabs.rows.data_ptr()
+    leaf = row_loads(tabs.leaf)
+    if tabs.k in KERNEL_K and ptr % 16 == 0 and rows.shape[1] % 4 == 0:
+        return TlasInstance(tabs.k, "float4", leaf)
+    if tabs.k == 0 and ptr % 8 == 0 and rows.shape[1] % 2 == 0:
+        return TlasInstance(0, "float2", leaf)
+    return TlasInstance(-1, "scalar", "scalar")
 
 
 class _TlasScene(ctypes.Structure):
@@ -1746,7 +1808,10 @@ class _TlasScene(ctypes.Structure):
 
 def _tlas_launch(wrapper, entry, tabs: TlasTables, org, dirn, t, counts,
                  out):
+    """Launch the instance tlas_instance(tabs) names and record it as
+    wrapper.instance."""
     _kernel_lib(tabs.rows)
+    inst = tlas_instance(tabs)
     scene = _TlasScene(
         *(_ptr(x) for x in (
             tabs.rows, tabs.leaf, tabs.inst_inv, tabs.inst_range,
@@ -1758,16 +1823,21 @@ def _tlas_launch(wrapper, entry, tabs: TlasTables, org, dirn, t, counts,
         tabs.cube_min.shape[0], tabs.cyl_radius.shape[0],
         int(tabs.sphere_xform), int(tabs.cube_xform), int(tabs.cyl_xform))
     # the launch copies the struct into the kernel's parameters
-    return _persistent(wrapper, entry, tabs.rows, (ctypes.addressof(scene),),
-                       org, dirn, t, 0, tabs.tlas_end, (MAX_ITERS,), counts,
-                       out)
+    out = _persistent(wrapper, entry, tabs.rows,
+                      (ctypes.addressof(scene), inst.k,
+                       int(inst.leaf == "float4")),
+                      org, dirn, t, 0, tabs.tlas_end, (MAX_ITERS,), counts,
+                      out)
+    wrapper.instance = inst
+    return out
 
 
 def closest_hit_tlas(tabs: TlasTables, org, dirn, t_max, counts=None):
     """Closest hit per ray over the whole scene by one walk of the TLAS
     (ptsharp_tpu/intersect.py traverse_scene): (t, kind, index, inst, u,
     v), as closest_hit_tlas_plain gives them, each ray capped at
-    MAX_ITERS steps. csrc/tlas_walk.cu on CUDA tensors,
+    MAX_ITERS steps. csrc/tlas_walk.cu (the instance tlas_instance(tabs)
+    names, recorded as closest_hit_tlas.instance) on CUDA tensors,
     closest_hit_tlas_plain on CPU tensors; `counts` as in closest_hit."""
     _check_tlas(tabs, org, dirn, t_max)
     if tabs.rows.device.type == "cpu":
@@ -1786,8 +1856,9 @@ def any_hit_tlas(tabs: TlasTables, org, dirn, t_cut, counts=None):
     """Occlusion per ray over the whole scene by the TLAS walk: (R,) bool,
     True where a primitive lies at t in (1e-4, t_cut); a lane with
     t_cut <= 0 is never occluded. The same boolean as closest_hit_tlas
-    bounded by t_cut, kind != PT_NONE. csrc/tlas_walk.cu on CUDA tensors,
-    any_hit_tlas_plain on CPU tensors; `counts` as in closest_hit."""
+    bounded by t_cut, kind != PT_NONE. csrc/tlas_walk.cu (recorded as
+    any_hit_tlas.instance) on CUDA tensors, any_hit_tlas_plain on CPU
+    tensors; `counts` as in closest_hit."""
     _check_tlas(tabs, org, dirn, t_cut)
     if tabs.rows.device.type == "cpu":
         _plain_counts(counts)
@@ -1804,6 +1875,8 @@ WRAPPERS = (closest_hit, any_hit, closest_hit_preorder, any_hit_preorder,
             any_hit_wide_rows, closest_hit_tlas, any_hit_tlas)
 for _w in WRAPPERS:
     _w.launches = _w.rays = 0
+# the tlas_walk.cu instance of the last launch (TlasInstance), None before
+closest_hit_tlas.instance = any_hit_tlas.instance = None
 
 
 def reset_launch_counts() -> None:

@@ -17,7 +17,7 @@ import torch
 
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import color as colorlib
-from ptsharp_tpu_torch.core import filters, rng
+from ptsharp_tpu_torch.core import filters, rng, vec
 from ptsharp_tpu_torch.film import Film, save_png
 from ptsharp_tpu_torch.integrator import (
     IntegratorConfig, trace, trace_compacted_static,
@@ -108,9 +108,9 @@ class Renderer:
             s = torch.broadcast_to(
                 torch.arange(spp, device=dev)[:, None, None] % (n * n),
                 (spp, rows, w)).reshape(-1)
-            ju = ((s % n).to(torch.float32) + ju) / n
-            jv = (torch.div(s, n, rounding_mode="floor").to(torch.float32)
-                  + jv) / n
+            ju = vec.div((s % n).to(torch.float32) + ju, n)
+            jv = vec.div(torch.div(s, n, rounding_mode="floor").to(
+                torch.float32) + jv, n)
             if n_strat > 1:
                 sidx = s
         lens_u, lens_v = rng.uniform(kl, (2, r), device=dev)
@@ -196,7 +196,8 @@ class Renderer:
         film = self._render_pass(film, k1, cfg.spp)
         if cfg.adaptive_samples > 0:
             stddev = colorlib.luminance(film.stddev())
-            frac = torch.clamp(stddev / cfg.adaptive_threshold, 0.0, 1.0)
+            frac = torch.clamp(vec.div(stddev, cfg.adaptive_threshold), 0.0,
+                               1.0)
             extra = cfg.adaptive_samples * frac**cfg.adaptive_exponent
             lane = torch.arange(cfg.adaptive_samples, dtype=torch.float32,
                                 device=extra.device)[:, None, None]

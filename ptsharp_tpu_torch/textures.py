@@ -103,7 +103,7 @@ class TextureAtlas(NamedTuple):
         dv = 1.0 / torch.clamp(h, min=1.0)
 
         def lum(c):
-            return vec.sum_last(c) / 3.0
+            return vec.div(vec.sum_last(c), 3.0)
 
         gx = lum(self.sample(tex_id, u + du, v)) \
             - lum(self.sample(tex_id, u - du, v))

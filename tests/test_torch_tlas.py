@@ -16,7 +16,9 @@ per-pixel rtol/atol 1e-4 on at least 99.5% of pixels, mean within 1e-3,
 rays traced within 0.5%. The plain any-hit walk equals the bounded
 closest-hit's kind != PT_NONE on every lane (the JAX package's shadow
 query); the wrappers on CPU tensors equal their plain versions bit for
-bit.
+bit. The launcher's choice of csrc/tlas_walk.cu instance (traverse.
+tlas_instance) is pinned for every instance's tables, and the card case
+holds each instance against the plain versions, steps included.
 """
 
 import dataclasses
@@ -342,26 +344,107 @@ def test_render_film_matches(name):
     np.testing.assert_array_equal(film.n.numpy(), np.asarray(ref.n))
 
 
+def _offset(x, nbytes=4):
+    """A copy of x whose base lies `nbytes` past a 16-byte boundary."""
+    step = x.element_size()
+    buf = torch.empty(x.numel() + 16 // step, dtype=x.dtype, device=x.device)
+    off = next(i for i in range(16 // step)
+               if (buf.data_ptr() + step * i) % 16 == nbytes)
+    view = buf[off:off + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+# (build fields, intersector, rows off a 16-byte boundary) -> the
+# tlas_walk.cu instance the launcher picks
+INSTANCES = {
+    "wide": (dict(), "wide", False, (4, "float4", "float4")),
+    "walk": (dict(), "walk", False, (0, "float2", "float4")),
+    "wide8": (dict(wide_k=8), "wide", False, (8, "float4", "float4")),
+    "wide leaf6": (dict(leaf_size=6), "wide", False, (4, "float4", "scalar")),
+    "wide8 leaf6": (dict(wide_k=8, leaf_size=6), "wide", False,
+                    (8, "float4", "scalar")),
+    "walk leaf6": (dict(leaf_size=6), "walk", False, (0, "float2", "scalar")),
+    "wide3": (dict(wide_k=3), "wide", False, (-1, "scalar", "scalar")),
+    "misaligned": (dict(), "wide", True, (-1, "scalar", "scalar")),
+}
+
+
+def _instance_tables(name, device):
+    fields, walk, offset, _want = INSTANCES[name]
+    st = _mixed(tpt, tmesh, device=device, **fields)
+    tabs = tint.scene_tlas(dataclasses.replace(st, intersector=walk))
+    return tabs._replace(rows=_offset(tabs.rows)) if offset else tabs
+
+
+@pytest.mark.parametrize("name", list(INSTANCES))
+def test_launcher_picks_the_instance(name):
+    """tlas_instance maps the tables to the tlas_walk.cu instance the
+    wrappers launch: K = 4 and 8 over w_rows with float4 rows, binary
+    u_rows with float2 rows, leaves in float4 loads at leaf 8 and scalar
+    loads at leaf 6 (54 floats, not a 16-byte stride), the run-time-K
+    instance (scalar loads) for another K or rows off a 16-byte boundary;
+    the wrappers on those tables still equal the plain versions."""
+    tabs = _instance_tables(name, "cpu")
+    want = INSTANCES[name][3]
+    assert tuple(traverse.tlas_instance(tabs)) == want
+    assert tabs.leaf_size == INSTANCES[name][0].get("leaf_size", 8)
+    org, d, t_cut, _l = _rays(seed=13, n=256)
+    o, dd, tc = (torch.from_numpy(x) for x in (org, d, t_cut))
+    tm = torch.full((256,), 1e9)
+    got = traverse.closest_hit_tlas(tabs, o, dd, tm)
+    want_hits = traverse.closest_hit_tlas_plain(tabs, o, dd, tm)
+    assert all(torch.equal(a, b) for a, b in zip(got, want_hits))
+    assert torch.equal(traverse.any_hit_tlas(tabs, o, dd, tc),
+                       traverse.any_hit_tlas_plain(tabs, o, dd, tc))
+
+
+@pytest.mark.parametrize("table", ["inst_inv", "sphere_inv", "cube_inv",
+                                   "cyl_inv", "inst_range"])
+def test_wrappers_reject_misaligned_tables(table):
+    """The kernel reads each world->object affine with three float4 loads
+    and each BLAS range as an int2: an affine table off a 16-byte boundary
+    or a range table off an 8-byte one raises ValueError."""
+    _sj, st = _builds(_mixed)
+    tabs = tint.scene_tlas(st)
+    tabs = tabs._replace(**{table: _offset(getattr(tabs, table))})
+    org, d, t_cut, _l = _rays(seed=3, n=64)
+    o, dd, tc = (torch.from_numpy(x) for x in (org, d, t_cut))
+    for fn, t in ((traverse.closest_hit_tlas, torch.full((64,), 1e9)),
+                  (traverse.any_hit_tlas, tc)):
+        with pytest.raises(ValueError, match="byte boundary"):
+            fn(tabs, o, dd, t)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("walk", ["wide", "walk"])
+@pytest.mark.parametrize("walk", list(INSTANCES))
 def test_cuda_kernels_match_plain_versions(walk):
-    """csrc/tlas_walk.cu against its plain versions on the card: every
-    output on every lane, and the launch counts."""
+    """csrc/tlas_walk.cu against its plain versions on the card, for every
+    compiled instance (INSTANCES): every output on every lane, the steps
+    the kernel counts equal to the plain versions', the instance launched
+    and the launch counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     dev = torch.device("cuda")
-    st = _mixed(tpt, tmesh, device=dev)
-    st = dataclasses.replace(st, intersector=walk)
-    tabs = tint.scene_tlas(st)
+    tabs = _instance_tables(walk, dev)
     org, d, t_cut, _l = _rays(seed=11)
     o, dd, tc = (torch.from_numpy(x).to(dev) for x in (org, d, t_cut))
     tm = torch.full((N,), 1e9, device=dev)
+    counts = [torch.zeros(2, dtype=torch.int64, device=dev)
+              for _ in range(2)]
     traverse.reset_launch_counts()
-    got = traverse.closest_hit_tlas(tabs, o, dd, tm)
-    occ = traverse.any_hit_tlas(tabs, o, dd, tc)
+    got = traverse.closest_hit_tlas(tabs, o, dd, tm, counts=counts[0])
+    occ = traverse.any_hit_tlas(tabs, o, dd, tc, counts=counts[1])
     torch.cuda.synchronize()
     assert traverse.closest_hit_tlas.launches == 1
     assert traverse.any_hit_tlas.launches == 1
-    want = traverse.closest_hit_tlas_plain(tabs, o, dd, tm)
+    for fn in (traverse.closest_hit_tlas, traverse.any_hit_tlas):
+        assert tuple(fn.instance) == INSTANCES[walk][3]
+    *want, steps = traverse.closest_hit_tlas_plain(tabs, o, dd, tm,
+                                                   return_iters=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert torch.equal(occ, traverse.any_hit_tlas_plain(tabs, o, dd, tc))
+    assert int(counts[0][0]) == int(steps.sum())
+    want_occ, steps = traverse.any_hit_tlas_plain(tabs, o, dd, tc,
+                                                  return_iters=True)
+    assert torch.equal(occ, want_occ)
+    assert int(counts[1][0]) == int(steps.sum())
