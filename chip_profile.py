@@ -16,7 +16,11 @@ closest-hit shadows, toybrick at 1920x1080 through the TLAS,
 chip_smoke.lit_bunny's "pallas" and "wide" builds (normal and bump maps,
 mesh lights; the "wide" one through the TLAS), examples.veach at
 1920x1080, and the marched shapes: examples.sdf (an SDF tree, depth of
-field) and examples.volume at 1920x1080),
+field) and examples.volume at 1920x1080; and four scenes of the rest
+of the catalog at 1920x1080: dragon (one 81,920-triangle mesh, "wide"),
+hits (60 scaled spheres outside a TLAS: one batched test of every ray
+against every sphere), craft (173 textured cubes through the TLAS) and
+runway (126 sphere lights under light mode "power", the TLAS)),
 at 1 spp: one warm-up render; `reps`
 unprofiled renders, wall seconds each (host clock, ending in
 torch.cuda.synchronize()), in turns across the renders; then one render
@@ -69,6 +73,10 @@ RENDERS = {
     "veach": ("veach", dict(width=1920, height=1080), {}),
     "sdf": ("sdf", dict(width=1920, height=1080), {}),
     "volume": ("volume", dict(width=1920, height=1080), {}),
+    "dragon/wide": ("dragon", dict(width=1920, height=1080), {}),
+    "hits": ("hits", dict(width=1920, height=1080), {}),
+    "craft/wide": ("craft", dict(width=1920, height=1080), {}),
+    "runway/wide": ("runway", dict(width=1920, height=1080), {}),
 }
 # kernel-name fragments -> kind; the first match wins
 KINDS = (("traversal", ("closest_hit", "any_hit", "tlas_walk")),

@@ -207,6 +207,34 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               counts (marches, steps, lane steps) of its closest-hit and
               shadow queries; 32x24 versions of the nine (the OBJ bunny's
               mesh at subdivisions 3) on the card against the CPU, as in 6;
+  6d. catalog  the rest of the catalog (catalog_phase): the fourteen
+              scenes of CATALOG_SCENES at 1920x1080, 1 spp, each built on
+              the card (its build seconds, instances, analytic
+              primitives, lights, walk) and rendered through render_main
+              (seconds, Mrays/s, peak MB, launches: 4w/7w for mesh,
+              dragon and suzanne, tw/ta for craft, runway, qbert and maze,
+              none for the seven analytic scenes; the walk each build
+              takes checked against CATALOG_SCENES); their 32x24 versions
+              join the card-vs-CPU renders of 6 (bit for bit); then
+              compacted_phase: integrator.trace_compacted (one host sync)
+              on cornell's Russian-roulette configuration at 1920x1080
+              beside trace and trace_compacted_static on the same camera
+              rays and key (lines "compacted cornell ...": seconds, rays,
+              Mrays/s, the mean against trace's, within 1%; for
+              trace_compacted the compacted width, the survivors at the
+              compaction depth, and every lane dead before it equal to
+              trace's bit for bit); then cli_phase (lines "cli ..."):
+              examples.main([CLI_SCENE, CLI_ITERS, <tmp>/maze_%d.png]) on
+              the card, its PNGs decoded with zlib (decode_png);
+              iterative_render of the same scene with a checkpoint every
+              iteration, denoise=True and a ViewerServer on a free
+              loopback port (frame.png fetched with urllib, equal to the
+              last frame's encoding), the last PNG and *_denoised.png equal
+              to the quantised film and denoised film; a resume from the
+              checkpoint to RESUME_ITERS iterations equal bit for bit to an
+              uninterrupted run; denoise_film's milliseconds on a 1080p
+              film of the scene (CUDA events); render_animation of
+              BEADS_FRAMES beads frames, decoded;
   7. grad     the gradient path on the bunny of 3 (pallas ordered, K=8)
               at 1920x1080, 1 spp, through diff.render_image, with
               respect to the DiffParams leaves (material color,
@@ -270,6 +298,7 @@ import sys
 import tempfile
 import time
 import types
+import zlib
 from dataclasses import replace
 
 import numpy as np
@@ -2120,8 +2149,8 @@ def reference_phase(device):
     the CPU's float32 arithmetic): the bunny in both walk
     orders, "walk" and "wide", toybrick (the TLAS walk), the ordered
     and the "wide" bunny under each of MODES, the lit bunny's two
-    builds under each of LIT_MODES, the scenes of GEOMETRY_SCENES and the
-    OBJ bunny (its mesh at subdivisions 3)."""
+    builds under each of LIT_MODES, the scenes of GEOMETRY_SCENES and of
+    CATALOG_SCENES and the OBJ bunny (its mesh at subdivisions 3)."""
     from ptsharp_tpu_torch import examples
     from ptsharp_tpu_torch.renderer import RenderConfig
 
@@ -2143,7 +2172,7 @@ def reference_phase(device):
         for label, fields in LIT_MODES:
             builds[f"lit bunny {build}, {label}"] = (lit_bunny, dict(
                 intersector=build), fields)
-    for name in GEOMETRY_SCENES:
+    for name in GEOMETRY_SCENES + tuple(CATALOG_SCENES):
         builds[name] = (functools.partial(examples.build, name), "catalog",
                         {})
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -2505,6 +2534,263 @@ def geometry_phase(device, card):
             f"max_bounces={icfg.max_bounces}")
         runs.append(render_main(name, scene, cam, replace(rcfg, spp=1), icfg,
                                 card))
+    return runs
+
+
+# ---- catalog --------------------------------------------------------------
+
+# the fourteen scenes of the rest of the catalog and the walk each build
+# takes: one mesh of the default "wide" build (4w/7w), the TLAS (64 or more
+# analytic primitives: tw/ta), or analytic primitives alone (no kernel)
+CATALOG_SCENES = {
+    "simple_sphere": "none", "material_spheres": "none",
+    "refraction": "none", "mesh": "wide", "dragon": "wide",
+    "suzanne": "wide", "gopher": "none", "cylinder_field": "none",
+    "hits": "none", "craft": "tlas", "runway": "tlas", "go": "none",
+    "qbert": "tlas", "maze": "tlas",
+}
+CLI_SCENE = "maze"
+CLI_ITERS = 2       # examples.main's iterations
+RESUME_ITERS = 4    # the checkpointed render's iterations
+BEADS_FRAMES = 2
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 of an 8-bit RGB PNG whose scanlines are all filter
+    0 (what film.encode_png writes), read with zlib alone."""
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h = int.from_bytes(body[:4], "big"), int.from_bytes(
+                body[4:8], "big")
+            if tuple(body[8:13]) != (8, 2, 0, 0, 0):
+                raise AssertionError(f"PNG header {tuple(body[8:13])}")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError("a scanline filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def _png_equal(path, image01, what):
+    from ptsharp_tpu_torch.film import quantize
+
+    with open(path, "rb") as f:
+        got = decode_png(f.read())
+    if not np.array_equal(got, quantize(image01)):
+        raise AssertionError(f"{what}: {os.path.basename(path)} is not the "
+                             f"quantised film")
+    return got.shape
+
+
+def compacted_phase(device, card):
+    """integrator.trace_compacted (one host sync) on cornell's RR
+    configuration at 1920x1080, 1 spp, the renderer's camera rays, beside
+    trace and trace_compacted_static on the same rays and key: seconds,
+    rays and the compacted width (the survivors' power of two); its mean
+    within 1% of trace's, and every lane that died before the compaction
+    point equal to trace's bit for bit."""
+    from ptsharp_tpu_torch import examples, integrator
+    from ptsharp_tpu_torch.core import rng
+
+    scene, cam, _rc, icfg = examples.build("cornell", width=1920,
+                                           height=1080, device=device)
+    org, dirn = camera_rays(scene, cam, 1920, 1080, 1920 * 1080)
+    key = rng.PRNGKey(3)
+    caps = []
+    finish = integrator._compact_and_finish
+
+    def record_cap(scene_, cfg, state, krest, cap, d0, d1):
+        caps.append(cap)
+        return finish(scene_, cfg, state, krest, cap, d0, d1)
+
+    out = {}
+    with torch.no_grad():
+        for name in ("trace", "trace_compacted_static", "trace_compacted"):
+            fn = getattr(integrator, name)
+            integrator._compact_and_finish = record_cap
+            try:
+                fn(scene, icfg, org, dirn, key)  # warm-up
+                sync(device)
+                t0 = time.perf_counter()
+                res = fn(scene, icfg, org, dirn, key)
+                sync(device)
+                sec = time.perf_counter() - t0
+            finally:
+                integrator._compact_and_finish = finish
+            rad = res.radiance
+            if not bool(torch.isfinite(rad).all()):
+                raise AssertionError(f"cornell {name}: radiance not finite")
+            out[name] = (rad, int(res.rays_traced), sec)
+        d_stop = icfg.rr_start_depth + 1
+        state, *_rest = integrator._trace_prefix(scene, icfg, org, dirn, key,
+                                                 None, 1, d_stop)
+    dead = ~state.alive
+    n = org.shape[0]
+    ref = out["trace"][0]
+    for name, (rad, rays, sec) in out.items():
+        rel = abs(float(rad.mean()) - float(ref.mean())) / float(ref.mean())
+        extra = ""
+        if name == "trace_compacted":
+            if len(caps) != 2 or caps[0] >= n:
+                raise AssertionError(f"trace_compacted did not compact: "
+                                     f"caps {caps}")
+            same = bool(torch.equal(rad[dead], ref[dead]))
+            extra = (f" compacted_width={caps[-1]} of {n} (alive at depth "
+                     f"{d_stop}: {int((~dead).sum())}) dead lanes equal "
+                     f"to trace={same}")
+            if not same:
+                raise AssertionError("trace_compacted changed a lane dead "
+                                     "before its compaction")
+        if rel > 0.01:
+            raise AssertionError(f"cornell {name}: mean {rel:.3e} from "
+                                 f"trace's")
+        log(f"compacted cornell 1920x1080 RR (max_bounces="
+            f"{icfg.max_bounces}, rr_start_depth={icfg.rr_start_depth}) "
+            f"{name}: seconds={sec:.3f} rays_traced={rays} "
+            f"mrays_per_s={rays / sec / 1e6:.3f} mean_rel_to_trace="
+            f"{rel:.3e}{extra} [{card}]")
+
+
+def cli_phase(device, card):
+    """The command line and iterative_render's options on the card:
+    examples.main on CLI_SCENE with CLI_ITERS iterations into a temporary
+    directory (its PNGs decoded with zlib); then iterative_render of the
+    same scene for CLI_ITERS iterations with a checkpoint every
+    iteration, denoise=True and a ViewerServer on a free loopback port
+    (frame.png fetched with urllib and equal to the last frame's
+    encoding), each PNG equal to the quantised film; a resume from that
+    checkpoint to RESUME_ITERS iterations, equal bit for bit to an
+    uninterrupted run; denoise_film's milliseconds at 1920x1080; and
+    render_animation's BEADS_FRAMES beads frames."""
+    import socket
+    import urllib.request
+
+    from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.core import color as colorlib
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.denoise import denoise_film
+    from ptsharp_tpu_torch.film import encode_png
+    from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
+    from ptsharp_tpu_torch.viewer import ViewerServer
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, f"{CLI_SCENE}_%d.png")
+        if examples.main([CLI_SCENE, str(CLI_ITERS), out]) != 0:
+            raise AssertionError("examples.main failed")
+        shapes = []
+        for it in range(1, CLI_ITERS + 1):
+            with open(out % it, "rb") as f:
+                shapes.append(decode_png(f.read()).shape)
+        log(f"cli examples.main([{CLI_SCENE!r}, '{CLI_ITERS}', ...]): "
+            f"{time.perf_counter() - t0:.2f} s, PNGs {shapes}")
+
+        scene, cam, rcfg, icfg = examples.build(CLI_SCENE, device=device)
+        key = rng.PRNGKey(0)
+        ckpt = os.path.join(tmp, "state.npz")
+        frames = os.path.join(tmp, "it_%d.png")
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        viewer = ViewerServer(port=port).start()
+        try:
+            t0 = time.perf_counter()
+            first = Renderer(scene, cam, rcfg, icfg).iterative_render(
+                CLI_ITERS, key=key, path_template=frames, denoise=True,
+                checkpoint_path=ckpt, checkpoint_every=1, viewer=viewer)
+            sync(device)
+            sec = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{port}"
+            page = urllib.request.urlopen(url + "/", timeout=10).read()
+            served = urllib.request.urlopen(url + "/frame.png",
+                                            timeout=10).read()
+        finally:
+            viewer.stop()
+        if b"frame.png" not in page or served != encode_png(
+                first.color_srgb()):
+            raise AssertionError("the viewer did not serve the last frame")
+        shape = _png_equal(frames % CLI_ITERS, first.color_srgb(),
+                           "iterative_render")
+        _png_equal((frames % CLI_ITERS).replace(".png", "_denoised.png"),
+                   colorlib.to_srgb(denoise_film(first)), "denoise")
+        log(f"cli iterative_render {CLI_SCENE} {rcfg.width}x{rcfg.height} "
+            f"spp={rcfg.spp} x {CLI_ITERS} with a checkpoint every "
+            f"iteration, denoise and the viewer on 127.0.0.1:{port}: "
+            f"{sec:.2f} s; PNG {shape} equal to the quantised film, "
+            f"*_denoised.png to the denoised one, frame.png "
+            f"{len(served)} bytes served")
+
+        t0 = time.perf_counter()
+        resumed = Renderer(scene, cam, rcfg, icfg).iterative_render(
+            RESUME_ITERS, key=key, checkpoint_path=ckpt, checkpoint_every=1)
+        sync(device)
+        t_resume = time.perf_counter() - t0
+        whole = Renderer(scene, cam, rcfg, icfg).iterative_render(
+            RESUME_ITERS, key=key)
+        same = all(torch.equal(a, b) for a, b in zip(resumed, whole))
+        log(f"cli resume from iteration {CLI_ITERS} to {RESUME_ITERS}: "
+            f"{t_resume:.2f} s, film equal bit for bit to an uninterrupted "
+            f"{RESUME_ITERS}-iteration run={same}")
+        if not same:
+            raise AssertionError("the resumed render differs")
+
+        big = render(*examples.build(CLI_SCENE, width=1920, height=1080,
+                                     device=device)[:2],
+                     RenderConfig(1920, 1080, spp=1), icfg)[0]
+        ms = time_ms(lambda: denoise_film(big), device)
+        log(f"cli denoise_film 1920x1080 (4 a-trous passes, albedo and "
+            f"normal guides): {ms:.3f} ms [{card}]")
+
+        t0 = time.perf_counter()
+        beads = os.path.join(tmp, "beads_%03d.png")
+        examples.render_animation(BEADS_FRAMES, beads, device=device)
+        shapes = []
+        for f in range(BEADS_FRAMES):
+            with open(beads % f, "rb") as fh:
+                shapes.append(decode_png(fh.read()).shape)
+        log(f"cli render_animation({BEADS_FRAMES}): "
+            f"{time.perf_counter() - t0:.2f} s, PNGs {shapes}")
+
+
+def catalog_phase(device, card):
+    """The rest of the catalog at 1920x1080, 1 spp: each scene of
+    CATALOG_SCENES built on the card and rendered through render_main
+    (its seconds, Mrays/s, peak MB and launches: exactly its walk's
+    kernels), the walk checked against CATALOG_SCENES; then
+    compacted_phase and cli_phase. Returns the renders' runs."""
+    from ptsharp_tpu_torch import examples
+
+    runs = []
+    for name, walk in CATALOG_SCENES.items():
+        t0 = time.perf_counter()
+        scene, cam, rcfg, icfg = examples.build(name, width=1920,
+                                                height=1080, device=device)
+        n_analytic = (scene.sphere_center.shape[0] + scene.cube_min.shape[0]
+                      + scene.cyl_radius.shape[0])
+        built = ("tlas" if scene.use_tlas else scene.intersector
+                 if scene.has_meshes else "none")
+        log(f"{name} scene: build {time.perf_counter() - t0:.1f} s, "
+            f"{scene.inst_inv.shape[0]} mesh instances, {n_analytic} "
+            f"analytic, {scene.num_lights} lights, use_tlas="
+            f"{scene.use_tlas}, walk={built}, max_bounces="
+            f"{icfg.max_bounces}, light_mode={icfg.light_mode}")
+        if built != walk:
+            raise AssertionError(f"{name}: walk {built}, expected {walk}")
+        runs.append(render_main(name, scene, cam, replace(rcfg, spp=1), icfg,
+                                card))
+        del scene
+    compacted_phase(device, card)
+    cli_phase(device, card)
     return runs
 
 
@@ -3102,6 +3388,7 @@ def main() -> int:
                         device, card)
     del wide_bunny
     runs += geometry_phase(device, card)
+    runs += catalog_phase(device, card)
     cs, cc, crc, cic = examples.build("cornell", device=device)
     film, rays, sec = render(cs, cc, crc, cic)
     log(f"render cornell {crc.width}x{crc.height} spp={crc.spp} "

@@ -28,11 +28,14 @@ Layer map:
                  differentiable in materials, textures and environment
   tape.py        analytic tape backward (trace_tape_radiance)
   diff.py        differentiable render_image, material_color_grad
-  film.py        Welford film
-  renderer.py    chunked progressive renderer
-  examples.py    scene catalog (cornell, bunny, dragon_hd, toybrick,
-                 cube_field, veach, teapot, ellipsoid, sdf, volume, mol,
-                 sh, heightfield, love)
+  film.py        Welford film, AOV images, PNG encoder (zlib)
+  renderer.py    chunked progressive renderer, iterative_render
+  checkpoint.py  film/iteration/key .npz, shared with the JAX package
+  denoise.py     a-trous wavelet denoiser
+  viewer.py      HTTP live preview
+  profiling.py   torch.profiler traces, render stats, card memory
+  examples.py    the 28-scene catalog, the beads animation and the
+                 command line (python -m ptsharp_tpu_torch.examples)
   convert.py     JAX-package scene/camera/DiffParams -> port
 """
 

@@ -3,7 +3,9 @@
 A numpy copy of ptsharp_tpu/accel/bvh.py: the native binned-SAH builder
 when it can be compiled, else the Morton LBVH, both returning preorder
 node arrays with skip links. The result also names the builder that made
-it (`FlatBVH.builder`), so a run can report which one fed its tables.
+it (`FlatBVH.builder`), so a run can report which one fed its tables;
+`last_builder` and `build_counts` keep the same per process, and each
+build logs its builder at INFO, as in the JAX package.
 
 Flattened node arrays (all length N, preorder):
   bmin, bmax : (N, 3) float32 node AABB
@@ -14,10 +16,17 @@ Flattened node arrays (all length N, preorder):
 
 from __future__ import annotations
 
+import logging
 import sys
 from typing import NamedTuple
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
+
+# the builder of the last build() ("sah" or "morton") and a count of each
+last_builder: str | None = None
+build_counts = {"sah": 0, "morton": 0}
 
 
 class FlatBVH(NamedTuple):
@@ -57,12 +66,17 @@ def build(tri_bmin: np.ndarray, tri_bmax: np.ndarray,
     builder, or the Morton LBVH where it cannot be compiled. Callers
     reorder their vertex/attribute arrays by `order` so leaf blocks are
     contiguous."""
+    global last_builder
     t = tri_bmin.shape[0]
     if t <= 0:
         raise ValueError("empty BVH")
     from ptsharp_tpu_torch.accel import native
 
     out = native.build_bvh_sah(tri_bmin, tri_bmax, leaf_size)
+    last_builder = "sah" if out is not None else "morton"
+    build_counts[last_builder] += 1
+    logger.info("bvh.build: %s, %d tris, leaf_size=%d", last_builder, t,
+                leaf_size)
     if out is not None:
         bmin, bmax, first, count, skip, order = out
         return FlatBVH(bmin, bmax, first, count, skip, order, leaf_size,

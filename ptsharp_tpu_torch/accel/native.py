@@ -67,6 +67,11 @@ def _load():
         return _lib
 
 
+def available() -> bool:
+    """The native builder compiled and loaded."""
+    return _load() is not None
+
+
 def build_bvh_sah(tri_bmin: np.ndarray, tri_bmax: np.ndarray,
                   leaf_size: int = 8):
     """Binned-SAH build. Returns (bmin, bmax, first, count, skip, order)

@@ -82,11 +82,23 @@ def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     return (b0 ^ b1).reshape(shape)
 
 
-def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
-    """float32 uniforms in [0, 1) of the given shape, made on `device`."""
-    bits = random_bits(key, shape, device)
+def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """float32 uniforms in [0, 1) of the given shape, made on `device`."""
+    return _to_uniform(random_bits(key, shape, device))
+
+
+def uniform_per_key(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) float32 uniforms for keys of shape (..., 2): row i is
+    uniform(keys[i], (n,)), as jax.vmap of uniform over the keys."""
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b0, b1 = _threefry2x32(keys[..., 0:1], keys[..., 1:2], idx >> 32,
+                           idx & _MASK)
+    return _to_uniform(b0 ^ b1)
 
 
 def _mul32(a, b):

@@ -11,7 +11,15 @@ import math
 
 import torch
 
-from ptsharp_tpu_torch.core import vec
+from ptsharp_tpu_torch.core import rng, vec
+
+
+def uniform_disc(u1, u2):
+    """Polar mapping to the unit disc -> (x, y), each (...,): angle
+    uniform, radius uniform (not sqrt), as the reference's aperture
+    sampling (Camera.cs:110-113)."""
+    angle = u1 * 2.0 * math.pi
+    return vec.cos(angle) * u2, vec.sin(angle) * u2
 
 
 def uniform_disc_area(u1, u2):
@@ -19,6 +27,14 @@ def uniform_disc_area(u1, u2):
     angle = u1 * 2.0 * math.pi
     radius = vec.sqrt(u2)
     return vec.cos(angle) * radius, vec.sin(angle) * radius
+
+
+def uniform_sphere(u1, u2):
+    """Uniform direction on the unit sphere (Vector.RandomUnitVector)."""
+    z = 1.0 - 2.0 * u1
+    r = vec.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * u2
+    return vec.vec3(r * vec.cos(phi), r * vec.sin(phi), z)
 
 
 def cosine_hemisphere(n, u1, u2):
@@ -58,3 +74,16 @@ def stratified_pair(base_u, base_v, n: int, idx):
     iv = torch.div(idx, n, rounding_mode="floor").to(base_v.dtype)
     nf = float(n)
     return vec.div(iu + base_u, nf), vec.div(iv + base_v, nf)
+
+
+def uniforms(key, shape_or_num, num=None):
+    """float32 uniforms on the key's device. uniforms(key, 3) -> a tuple
+    of 3 (...,)-shaped draws for a batch of keys of shape (..., 2), each
+    key's draws uniform(key_i, (3,)); uniforms(key, shape, num) -> a
+    tensor of shape + (num,)."""
+    if num is not None:
+        return rng.uniform(key, tuple(shape_or_num) + (num,))
+    n = int(shape_or_num)
+    draws = (rng.uniform_per_key(key, n) if key.ndim > 1
+             else rng.uniform(key, (n,)))
+    return tuple(draws[..., i] for i in range(n))

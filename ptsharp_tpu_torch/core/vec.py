@@ -169,6 +169,30 @@ def normalize(a, eps: float = 1e-20):
     return a * rsqrt(torch.clamp(dot(a, a), min=eps))[..., None]
 
 
+def distance(a, b):
+    return length(a - b)
+
+
+def min_axis(a):
+    """Unit axis of the smallest |component| (reference Vector.MinAxis);
+    ties go to x, then y."""
+    ax = torch.abs(a)
+    x, y, z = ax[..., 0], ax[..., 1], ax[..., 2]
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    use_x = (x <= y) & (x <= z)
+    use_y = (y <= x) & (y <= z)
+    return torch.where(use_x[..., None], eye[0],
+                       torch.where(use_y[..., None], eye[1], eye[2]))
+
+
+def min_component(a):
+    return torch.amin(a, dim=-1)
+
+
+def max_component(a):
+    return torch.amax(a, dim=-1)
+
+
 def reflect(n, i):
     """Mirror reflect incident direction `i` about normal `n`."""
     return i - 2.0 * vdot(n, i) * n

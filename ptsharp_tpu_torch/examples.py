@@ -1,26 +1,31 @@
-"""Scene catalog: the scenes of the port's slice (counterpart of
-ptsharp_tpu/examples.py, same signatures and defaults plus a `device`,
-the card unless "cpu" is asked for): cornell, bunny, dragon_hd, the
-instanced and many-object scenes that take the TLAS, toybrick and
-cube_field, veach, the integrator-correctness scene of the split and
-all-lights modes, and the scenes of the marched shapes and meshing:
-teapot (an SDF tree meshed by marching tetrahedra), ellipsoid, sdf
-(depth of field), volume, mol (a molfile's ball-and-stick), sh (two
-spherical-harmonics lobe meshes), heightfield and love.
+"""Scene catalog (counterpart of ptsharp_tpu/examples.py: the same 28
+scenes, signatures and defaults plus a `device`, the card unless "cpu" is
+asked for), the beads animation and the command line:
+
+    python -m ptsharp_tpu_torch.examples <name> [iterations] [out.png]
 
 Each builder returns (scene, camera, render_config, integrator_config).
+The analytic scenes (simple_sphere, cornell, material_spheres,
+refraction, gopher, cylinder_field, hits, ellipsoid, veach, go, mol)
+intersect their primitives in plain torch; the one-mesh scenes (mesh,
+bunny, dragon, dragon_hd, suzanne, teapot) walk their mesh with the
+K-wide kernels; the scenes of many instances or of 64 or more analytic
+primitives (toybrick, cube_field, craft, runway, qbert, maze, sh) walk
+the TLAS; sdf, volume, heightfield and love are marched.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import color as colorlib
-from ptsharp_tpu_torch.core import transform, vec
+from ptsharp_tpu_torch.core import rng, transform, vec
 from ptsharp_tpu_torch.core.device import DEFAULT
+from ptsharp_tpu_torch.film import save_png
 from ptsharp_tpu_torch.geometry import mc
 from ptsharp_tpu_torch.geometry import sdf as sdf_mod
 from ptsharp_tpu_torch.geometry import volume as vol_mod
@@ -29,14 +34,15 @@ from ptsharp_tpu_torch.geometry.mesh import TriMesh, cube_mesh, sphere_mesh
 from ptsharp_tpu_torch.geometry.sh_shape import add_sh_shape
 from ptsharp_tpu_torch.io.mol import add_molecule, benzene
 from ptsharp_tpu_torch.integrator import (
-    LIGHT_MODE_ALL, SPECULAR_MODE_FIRST, IntegratorConfig,
+    LIGHT_MODE_ALL, LIGHT_MODE_POWER, SPECULAR_MODE_FIRST, IntegratorConfig,
 )
 from ptsharp_tpu_torch.materials import (
     Material, clear_material, diffuse_material, glossy_material,
-    light_material, metallic_material,
+    light_material, metallic_material, specular_material,
+    transparent_material,
 )
-from ptsharp_tpu_torch.renderer import RenderConfig
-from ptsharp_tpu_torch.scene import SceneBuilder, not_ported
+from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
+from ptsharp_tpu_torch.scene import SceneBuilder
 
 CATALOG = {}
 
@@ -47,6 +53,22 @@ def example(name):
         return fn
 
     return deco
+
+
+@example("simple_sphere")
+def simple_sphere(width=256, height=256, device=DEFAULT):
+    """A diffuse sphere, a ground plane and a sphere light (reference
+    simplesphere, Example.cs:1670)."""
+    b = SceneBuilder()
+    b.add_sphere([0, 1, 0], 1.0, diffuse_material([0.65, 0.22, 0.18]))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.8, 0.8, 0.8]))
+    b.add_sphere([3, 6, -3], 1.5, light_material([1, 1, 1], 8.0))
+    b.set_environment(color=[0.08, 0.09, 0.12])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 2, -6], [0, 1, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
 
 
 @example("cornell")
@@ -74,6 +96,70 @@ def cornell(width=512, height=512, device=DEFAULT):
     return scene, cam, RenderConfig(width=width, height=height, spp=16), \
         IntegratorConfig(max_bounces=5, russian_roulette=True,
                          rr_start_depth=2)
+
+
+@example("material_spheres")
+def material_spheres(width=512, height=384, device=DEFAULT):
+    """All seven material archetypes on one stage (reference
+    materialspheres, Example.cs:1204-1227)."""
+    b = SceneBuilder()
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.75, 0.75, 0.75]))
+    slate = colorlib.hex_color(0x334D5C)
+    mats = [
+        diffuse_material(slate),
+        specular_material(slate, 2.0),
+        glossy_material(slate, 2.0, math.radians(50)),
+        transparent_material(slate, 2.0, math.radians(20), 1.0),
+        clear_material(2.0, 0.0),
+        metallic_material(colorlib.hex_color(0xD1B897), math.radians(10),
+                          0.8),
+        light_material([1.0, 1.0, 1.0], 2.0),
+    ]
+    for i, m in enumerate(mats):
+        b.add_sphere([(i - 3) * 2.2, 1.0, 0.0], 1.0, m)
+    b.add_sphere([0, 12, -6], 3.0, light_material([1, 1, 1], 10.0))
+    b.set_environment(color=[0.06, 0.07, 0.09])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 3.5, -12], [0, 1, 0], [0, 1, 0], 45.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=4)
+
+
+@example("refraction")
+def refraction(width=512, height=384, device=DEFAULT):
+    """A glass and a specular sphere over a plane (reference refraction,
+    Example.cs:1127-1147)."""
+    b = SceneBuilder()
+    b.add_sphere([-1.5, 1.0, 0], 1.0, clear_material(1.5, 0.0))
+    b.add_sphere([1.5, 1.0, 0], 1.0, specular_material([0.3, 0.3, 0.9], 1.5))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.8, 0.8, 0.8]))
+    b.add_sphere([0, 6, -4], 1.5, light_material([1, 1, 1], 12.0))
+    b.set_environment(color=[0.1, 0.1, 0.12])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 2.5, -7], [0, 1, 0], [0, 1, 0], 38.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=6)
+
+
+@example("mesh")
+def mesh_scene(width=512, height=512, subdivisions=4, device=DEFAULT):
+    """A glossy icosphere mesh (5,120 triangles at the default
+    subdivisions=4) over a plane: the mesh path of the reference bunny
+    (Example.cs:1084) without its OBJ asset; leaf 8, "wide"."""
+    b = SceneBuilder()
+    m = sphere_mesh([0, 0, 0], 1.0, subdivisions=subdivisions)
+    m = m.fit_inside([-1, 0, -1], [1, 2, 1], [0.5, 0.0, 0.5])
+    b.add_mesh(m, glossy_material([0.7, 0.6, 0.3], 1.4, math.radians(20)))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.75, 0.75, 0.75]))
+    b.add_sphere([3, 6, -3], 1.5, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.08, 0.09, 0.12])
+    scene = b.build(leaf_size=8, device=device)
+    cam = Camera.look_at([0, 2.2, -5], [0, 1, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
 
 
 def _bunny_mesh(subdivisions: int = 6, seed: int = 11) -> TriMesh:
@@ -142,9 +228,10 @@ def bunny(width=1920, height=1080, subdivisions: int = 6,
 
 
 def dragon_mesh(subdivisions: int = 8) -> TriMesh:
-    """dragon_hd's mesh: the displaced icosphere of _bunny_mesh (seed 23)
-    with a serpentine warp, fitted inside [-1.6, 0, -0.8] .. [1.6, 1.2,
-    0.8]; 1,310,720 triangles at subdivisions=8."""
+    """dragon's and dragon_hd's mesh: the displaced icosphere of
+    _bunny_mesh (seed 23) with a serpentine warp, fitted inside
+    [-1.6, 0, -0.8] .. [1.6, 1.2, 0.8]; 1,310,720 triangles at
+    subdivisions=8, 81,920 at 6."""
     m = _bunny_mesh(subdivisions, seed=23)
     v = m.v.reshape(-1, 3).copy()
     t = v[:, 0] * 1.5
@@ -155,6 +242,24 @@ def dragon_mesh(subdivisions: int = 8) -> TriMesh:
     v[:, 0] *= 1.9
     m = TriMesh(v=v.reshape(-1, 3, 3), uv=m.uv).smooth_normals()
     return m.fit_inside([-1.6, 0, -0.8], [1.6, 1.2, 0.8], [0.5, 0, 0.5])
+
+
+@example("dragon")
+def dragon(width=512, height=288, device=DEFAULT):
+    """High-poly glossy showcase (reference dragon, Example.cs:977-995;
+    its OBJ asset is not shipped): the serpentine displaced icosphere of
+    81,920 triangles in gold, leaf 8, the default "wide" build."""
+    b = SceneBuilder()
+    gold = glossy_material([0.85, 0.64, 0.23], 1.8, math.radians(12))
+    b.add_mesh(dragon_mesh(6), gold)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.4, 0.42, 0.45]))
+    b.add_sphere([-2.5, 5, -3], 1.4, light_material([1, 1, 1], 10.0))
+    b.set_environment(color=[0.16, 0.18, 0.22])
+    scene = b.build(leaf_size=8, device=device)
+    cam = Camera.look_at([0, 1.6, -3.6], [0, 0.5, 0], [0, 1, 0], 42.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=4)
 
 
 @example("dragon_hd")
@@ -250,6 +355,63 @@ def cube_field(width=512, height=384, n=12, device=DEFAULT):
         IntegratorConfig(max_bounces=3)
 
 
+@example("craft")
+def craft(width=512, height=384, n=10, device=DEFAULT):
+    """Textured voxel blocks (reference craft, Example.cs:72-117) under a
+    grass-and-dirt texture made in code (seed 7): hollow columns of unit
+    cubes, walked through the TLAS."""
+    g = np.random.default_rng(7)
+    b = SceneBuilder()
+    tex = np.zeros((32, 32, 3), np.float32)
+    noise = g.uniform(0.75, 1.0, (32, 32, 1)).astype(np.float32)
+    tex[:10] = np.array([0.13, 0.45, 0.10], np.float32) * noise[:10]
+    tex[10:] = np.array([0.35, 0.22, 0.12], np.float32) * noise[10:]
+    block = Material(color=(0.6, 0.5, 0.3), texture=b.add_texture(tex))
+    heights = (
+        2.0 + 1.6 * np.sin(np.arange(n)[:, None] * 0.7)
+        * np.cos(np.arange(n)[None, :] * 0.9)
+        + g.uniform(0, 0.8, (n, n))
+    )
+    for i in range(n):
+        for j in range(n):
+            h = float(np.ceil(heights[i, j]))
+            for k in range(int(h)):
+                if k < h - 1 and 0 < i < n - 1 and 0 < j < n - 1:
+                    continue  # hollow interior, as the reference's mesh
+                x, z = i - n / 2, j - n / 2
+                b.add_cube([x, k, z], [x + 1, k + 1, z + 1], block)
+    b.add_sphere([0, 16, -8], 4.0, light_material([1, 1, 1], 6.0))
+    b.set_environment(color=[0.35, 0.48, 0.65])
+    scene = b.build(device=device)
+    cam = Camera.look_at([-8, 9, -10], [0, 1, 0], [0, 1, 0], 45.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("runway")
+def runway(width=512, height=288, device=DEFAULT):
+    """Runway of Kelvin-temperature lights (reference runway,
+    Example.cs:1028-1082): 126 sphere lights under light mode "power",
+    one light picked by the power CDF a bounce, so a trace's work is flat
+    in the light count; walked through the TLAS."""
+    b = SceneBuilder()
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.05, 0.05, 0.06]))
+    for i in range(60):
+        c = colorlib.kelvin(2000.0 + (i % 20) * 700.0)
+        for x in (-3.0, 3.0):
+            b.add_sphere([x, 0.3, i * 4.0], 0.3, light_material(c, 6.0))
+    for i in range(6):  # approach strobes
+        b.add_sphere([0, 0.25, -8.0 - i * 5.0], 0.25,
+                     light_material(colorlib.kelvin(6500.0), 10.0))
+    b.set_environment(color=[0.01, 0.012, 0.02])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 6, -20], [0, 0, 30], [0, 1, 0], 50.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=2, light_mode=LIGHT_MODE_POWER)
+
+
 @example("veach")
 def veach(width=512, height=384, device=DEFAULT):
     """Veach MIS stress scene: four lights of varying size and emittance
@@ -318,6 +480,118 @@ def teapot(width=512, height=384, device=DEFAULT):
     b.set_environment(color=[0.12, 0.13, 0.16])
     scene = b.build(leaf_size=8, device=device)
     cam = Camera.look_at([0, 1.6, -3.4], [0, 0.6, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("suzanne")
+def suzanne(width=512, height=384, device=DEFAULT):
+    """Head-ish displaced mesh (reference suzanne, Example.cs:1318-1347):
+    an icosphere of 20,480 triangles with a brow ridge, a muzzle and two
+    ears; leaf 8, "wide"."""
+    m = sphere_mesh([0, 0, 0], 1.0, subdivisions=5)
+    v = m.v.reshape(-1, 3).astype(np.float64)
+    d = v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+    x, y, z = d[:, 0], d[:, 1], d[:, 2]
+    disp = (
+        0.30 * np.exp(-14.0 * ((np.abs(x) - 0.75) ** 2 + (y - 0.72) ** 2
+                               + z**2))
+        + 0.25 * np.exp(-10.0 * (x**2 + (y + 0.35) ** 2 + (z + 0.9) ** 2))
+        + 0.08 * np.sin(3.0 * y) * np.cos(2.0 * x)
+    )
+    v2 = (d * (1.0 + disp)[:, None]) * np.array([1.0, 0.85, 0.8])
+    m = TriMesh(v=v2.reshape(-1, 3, 3).astype(np.float32),
+                uv=m.uv).smooth_normals()
+    b = SceneBuilder()
+    b.add_mesh(m.fit_inside([-1, 0.2, -1], [1, 2.2, 1], [0.5, 0, 0.5]),
+               diffuse_material([0.62, 0.45, 0.3]))
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.72, 0.7, 0.66]))
+    b.add_sphere([2, 5, -3], 1.3, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.1, 0.11, 0.14])
+    scene = b.build(leaf_size=8, device=device)
+    cam = Camera.look_at([0, 1.7, -3.8], [0, 1.1, 0], [0, 1, 0], 38.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("gopher")
+def gopher(width=448, height=448, device=DEFAULT):
+    """Mascot from analytic parts (reference gopher, Example.cs:1542-1564):
+    body and head spheres, transformed-cylinder arms, sphere eyes."""
+    b = SceneBuilder()
+    blue = diffuse_material([0.35, 0.65, 0.85])
+    cream = diffuse_material([0.9, 0.85, 0.75])
+    dark = diffuse_material([0.05, 0.05, 0.06])
+    b.add_sphere([0, 0.9, 0], 0.9, blue,
+                 transform=transform.scale([0.85, 1.0, 0.7]))
+    b.add_sphere([0, 2.1, 0], 0.62, blue)
+    for sx in (-1, 1):
+        b.add_sphere([0.42 * sx, 2.55, -0.25], 0.22, cream)  # ears
+        b.add_sphere([0.26 * sx, 2.2, -0.5], 0.17, cream)    # eye whites
+        b.add_sphere([0.26 * sx, 2.2, -0.64], 0.07, dark)    # pupils
+        t = transform.mul(transform.translate([0.75 * sx, 0.6, 0]),
+                          transform.rotate([0, 0, 1],
+                                           math.radians(25.0 * sx)))
+        b.add_cylinder(0.14, -0.45, 0.45, blue, transform=t)  # arms
+    b.add_sphere([0, 2.05, -0.62], 0.1, cream)  # snout
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.75, 0.73, 0.7]))
+    b.add_sphere([3, 6, -4], 1.6, light_material([1, 1, 1], 8.0))
+    b.set_environment(color=[0.2, 0.23, 0.28])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 1.9, -4.6], [0, 1.4, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("cylinder_field")
+def cylinder_field(width=512, height=288, n=24, device=DEFAULT):
+    """Row of overlapping transformed glossy cylinders (reference
+    cylinder, Example.cs:997-1026)."""
+    b = SceneBuilder()
+    for i in range(n):
+        hue = i / n
+        col = np.array([0.5 + 0.5 * math.cos(6.28 * hue),
+                        0.5 + 0.5 * math.cos(6.28 * hue + 2.1),
+                        0.5 + 0.5 * math.cos(6.28 * hue + 4.2)])
+        t = transform.mul(
+            transform.mul(transform.translate([i * 0.6 - n * 0.3, 0.0, 0.0]),
+                          transform.rotate([1, 0, 0], math.radians(90))),
+            transform.rotate([0, 0, 1], math.radians(8.0 * i)))
+        b.add_cylinder(0.5, -0.6, 0.6,
+                       glossy_material(col * 0.8, 1.4, math.radians(15)),
+                       transform=t)
+    b.add_plane([0, -0.8, 0], [0, 1, 0], diffuse_material([0.6, 0.6, 0.6]))
+    b.add_sphere([0, 7, -5], 2.0, light_material([1, 1, 1], 7.0))
+    b.set_environment(color=[0.18, 0.2, 0.24])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 2.4, -7], [0, 0, 0], [0, 1, 0], 42.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("hits")
+def hits(width=512, height=384, n=60, device=DEFAULT):
+    """Scatter field of squashed-sphere instances on a plane (reference
+    hits): n random ellipsoids, seed 9."""
+    g = np.random.default_rng(9)
+    b = SceneBuilder()
+    for _ in range(n):
+        p = g.uniform(-6, 6, 2)
+        s = g.uniform(0.2, 0.7)
+        sq = g.uniform(0.3, 1.0, 3)
+        col = g.uniform(0.2, 0.9, 3)
+        t = transform.mul(transform.translate([p[0], s * sq[1], p[1]]),
+                          transform.scale(s * sq))
+        b.add_sphere([0, 0, 0], 1.0, diffuse_material(col), transform=t)
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.75, 0.75, 0.75]))
+    b.add_sphere([5, 9, -6], 2.2, light_material([1, 1, 1], 8.0))
+    b.set_environment(color=[0.15, 0.17, 0.2])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 4.5, -11], [0, 0, 0], [0, 1, 0], 45.0,
                          device=device)
     return scene, cam, RenderConfig(width=width, height=height, spp=16), \
         IntegratorConfig(max_bounces=3)
@@ -429,6 +703,84 @@ def mol(width=512, height=384, device=DEFAULT):
         IntegratorConfig(max_bounces=3)
 
 
+@example("go")
+def go(width=512, height=384, device=DEFAULT):
+    """Go board with stones as squashed-sphere instances (reference go,
+    Example.cs:248-338), the stones drawn from seed 19."""
+    g = np.random.default_rng(19)
+    b = SceneBuilder()
+    b.add_cube([-9.5, -0.5, -9.5], [9.5, 0.0, 9.5],
+               diffuse_material([0.72, 0.55, 0.3]))
+    white = glossy_material([0.95, 0.95, 0.92], 1.4, math.radians(10))
+    black = glossy_material([0.06, 0.06, 0.07], 1.5, math.radians(10))
+    squash = np.diag([0.45, 0.22, 0.45, 1.0]).astype(np.float32)
+    for i in range(-4, 5):
+        for j in range(-4, 5):
+            if g.random() < 0.5:
+                continue
+            t = squash.copy()
+            t[:3, 3] = [i * 2.0, 0.22, j * 2.0]
+            b.add_sphere([0, 0, 0], 1.0, white if g.random() < 0.5 else black,
+                         transform=t)
+    b.add_sphere([0, 14, -6], 3.0, light_material([1, 1, 1], 7.0))
+    b.set_environment(color=[0.1, 0.1, 0.12])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 10, -13], [0, 0, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=16), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("qbert")
+def qbert(width=448, height=448, device=DEFAULT):
+    """Isometric cube pyramid (reference qbert): 84 cubes in colors drawn
+    from seed 23, walked through the TLAS."""
+    g = np.random.default_rng(23)
+    b = SceneBuilder()
+    palette = [0x334D5C, 0x45B29D, 0xEFC94C, 0xE27A3F, 0xDF5A49]
+    n = 7
+    for y in range(n):
+        for x in range(n - y):
+            for z in range(n - y):
+                if x + z >= n - y:
+                    continue
+                c = colorlib.hex_color(palette[int(g.integers(len(palette)))])
+                b.add_cube([x + y * 0.5, y * 0.9, z + y * 0.5],
+                           [x + y * 0.5 + 0.95, y * 0.9 + 0.95,
+                            z + y * 0.5 + 0.95],
+                           diffuse_material(c))
+    b.add_sphere([n, 3 * n, -n], 4.0, light_material([1, 1, 1], 5.0))
+    b.set_environment(color=[0.25, 0.3, 0.4])
+    scene = b.build(device=device)
+    cam = Camera.look_at([n * 2.2, n * 1.6, -n * 1.6], [n / 2, n / 3, n / 2],
+                         [0, 1, 0], 38.0, device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
+        IntegratorConfig(max_bounces=3)
+
+
+@example("maze")
+def maze(width=512, height=384, n=21, device=DEFAULT):
+    """Random wall maze of cubes (reference maze), the walls drawn from
+    seed 5, walked through the TLAS."""
+    g = np.random.default_rng(5)
+    b = SceneBuilder()
+    wall = diffuse_material([0.85, 0.83, 0.78])
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.2, 0.25, 0.3]))
+    for i in range(n):
+        for j in range(n):
+            edge = i in (0, n - 1) or j in (0, n - 1)
+            if edge or ((i % 2 == 0 or j % 2 == 0) and g.random() < 0.55):
+                x, z = i - n / 2, j - n / 2
+                b.add_cube([x, 0, z], [x + 1, 1.4, z + 1], wall)
+    b.add_sphere([0, 18, 0], 4.0, light_material([1, 1, 1], 6.0))
+    b.set_environment(color=[0.1, 0.12, 0.16])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 22, -14], [0, 0, 0], [0, 1, 0], 45.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
+        IntegratorConfig(max_bounces=2)
+
+
 @example("sh")
 def sh(width=448, height=448, device=DEFAULT):
     """Spherical-harmonics lobe shape, its positive and negative lobes two
@@ -502,7 +854,66 @@ def love(width=512, height=384, device=DEFAULT):
         IntegratorConfig(max_bounces=3)
 
 
+def beads_frame(frame: int, n_frames: int = 30, width=320, height=240,
+                device=DEFAULT):
+    """One frame of the beads animation (reference beads/Frame,
+    Example.cs:163-223): a spiral of 40 glossy beads turned by
+    2 pi frame / n_frames."""
+    phase = 2.0 * math.pi * frame / n_frames
+    b = SceneBuilder()
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.8, 0.8, 0.8]))
+    for i in range(40):
+        a = i * 0.31 + phase
+        r = 0.6 + i * 0.08
+        y = 0.35 + 0.15 * math.sin(a * 3)
+        c = colorlib.hex_color([0x45B29D, 0xEFC94C, 0xE27A3F][i % 3])
+        b.add_sphere([r * math.cos(a), y, r * math.sin(a)], 0.3,
+                     glossy_material(c, 1.4, math.radians(15)))
+    b.add_sphere([3, 7, -3], 1.5, light_material([1, 1, 1], 9.0))
+    b.set_environment(color=[0.1, 0.11, 0.14])
+    scene = b.build(device=device)
+    cam = Camera.look_at([0, 4, -7], [0, 0.5, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, RenderConfig(width=width, height=height, spp=8), \
+        IntegratorConfig(max_bounces=3)
+
+
+def render_animation(frames: int, out_template: str = "beads_%03d.png",
+                     **kw):
+    """Render beads_frame(f, frames, **kw) for f < frames, frame f from
+    key PRNGKey(f), each into out_template % f."""
+    for f in range(frames):
+        scene, cam, rcfg, icfg = beads_frame(f, frames, **kw)
+        film = Renderer(scene, cam, rcfg, icfg).render(key=rng.PRNGKey(f))
+        save_png(film.color_srgb(), out_template % f)
+
+
 def build(name: str, **kw):
-    if name not in CATALOG:
-        raise not_ported(f"example {name!r}", "Queue 1 item 10d")
     return CATALOG[name](**kw)
+
+
+def main(argv=None):
+    """python -m ptsharp_tpu_torch.examples <name> [iterations] [out.png]:
+    the scene at its own size on the card, `iterations` progressive passes
+    (1 unless given), each written to out.png (a %d in the name takes the
+    pass number). An unknown name prints the usage and the scenes and
+    returns 1."""
+    args = list(sys.argv[1:] if argv is None else argv)
+    if not args or args[0] not in CATALOG:
+        print("usage: python -m ptsharp_tpu_torch.examples <name> [iters] "
+              "[out.png]")
+        print("scenes:", ", ".join(sorted(CATALOG)))
+        return 1
+    name = args[0]
+    iters = int(args[1]) if len(args) > 1 else 1
+    out = args[2] if len(args) > 2 else f"{name}.png"
+    scene, cam, rcfg, icfg = build(name)
+    r = Renderer(scene, cam, rcfg, icfg)
+    r.iterative_render(iters, key=rng.PRNGKey(0), path_template=out,
+                       verbose=True)
+    print(f"wrote {out}; rays traced: {r.rays_traced}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

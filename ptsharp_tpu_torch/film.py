@@ -2,11 +2,14 @@
 
 Per-pixel running (count, mean, M2) of radiance samples plus mean
 albedo and normal, merged with the Chan parallel formula, so chunks and
-passes compose by merges in any order.
+passes compose by merges in any order. PNG output is encoded here with
+zlib (8-bit RGB, filter 0), so writing an image needs no imaging library.
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import NamedTuple
 
 import numpy as np
@@ -80,6 +83,19 @@ class Film(NamedTuple):
     def color_srgb(self):
         return colorlib.to_srgb(self.mean)
 
+    def samples_image(self):
+        mx = torch.clamp(torch.amax(self.n), min=1.0)
+        return (self.n / mx)[..., None].expand(*self.n.shape, 3)
+
+    def albedo_image(self):
+        """Albedo over its largest component (Buffer.CalculateAlbedo)."""
+        mx = torch.clamp(torch.amax(self.albedo, dim=-1, keepdim=True),
+                         min=1e-6)
+        return torch.clamp(self.albedo / mx, 0.0, 1.0)
+
+    def normal_image(self):
+        return 0.5 * (self.normal + 1.0)
+
 
 def _welford_merge(na, ma, m2a, nb, mb, m2b):
     """Chan et al. parallel Welford merge of (count, mean, M2)."""
@@ -97,11 +113,51 @@ def _mean_merge(na, ma, nb, mb):
     return ma + (mb - ma) * (nb / n)[..., None]
 
 
+def quantize(image01) -> np.ndarray:
+    """An (H, W, 3) [0, 1] image (tensor on any device, or array) as
+    (H, W, 3) uint8: clip(x * 255 + 0.5, 0, 255), truncated."""
+    if isinstance(image01, torch.Tensor):
+        image01 = image01.detach().cpu().numpy()
+    arr = np.asarray(image01)
+    return np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(image01) -> bytes:
+    """PNG bytes of an (H, W, 3) [0, 1] image: 8-bit RGB, no interlace,
+    every scanline filter 0, the pixels of quantize()."""
+    arr = quantize(image01)
+    h, w, c = arr.shape
+    if c != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {arr.shape}")
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # a filter byte a scanline
+    raw[:, 1:] = arr.reshape(h, 3 * w)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
 def save_png(image01, path: str) -> None:
-    """Write an (H, W, 3) [0,1] image as PNG. Pillow is imported here, so
-    the package itself does not need it."""
+    """Write an (H, W, 3) [0, 1] image as PNG (encode_png)."""
+    data = encode_png(image01)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def load_png(path: str, linearize: bool = True) -> np.ndarray:
+    """(H, W, 3) float32 in [0, 1], linearized by pow 2.2 unless
+    `linearize` is false. Pillow is imported here, as in the JAX package:
+    no path of a render reads a PNG, and the package needs it nowhere
+    else."""
     from PIL import Image
 
-    arr = np.asarray(torch.as_tensor(image01).detach().cpu().numpy())
-    arr = np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    Image.fromarray(arr, mode="RGB").save(path)
+    img = np.asarray(Image.open(path).convert("RGB"),
+                     dtype=np.float32) / 255.0
+    if linearize:
+        img = img**colorlib.GAMMA
+    return img

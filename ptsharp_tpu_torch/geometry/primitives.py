@@ -160,6 +160,27 @@ def cylinder_normal(p, z0, z1, eps: float = 1e-4):
     return n
 
 
+def intersect_triangles(org, dirn, v0, v1, v2, eps: float = 1e-9):
+    """Brute-force Moller-Trumbore over a triangle block: org/dirn (R, 3),
+    vertices (T, 3). Returns (t, u, v), each (R, T), t = INF on a miss;
+    u runs along v1 - v0, v along v2 - v0. The oracle the BVH walks are
+    tested against."""
+    e1 = (v1 - v0)[None, :, :]
+    e2 = (v2 - v0)[None, :, :]
+    d = dirn[:, None, :]
+    h = vec.cross(d, e2)
+    det = vec.dot(e1, h)
+    inv_det = _safe_div(torch.ones_like(det), det)
+    s = org[:, None, :] - v0[None, :, :]
+    u = vec.dot(s, h) * inv_det
+    q = vec.cross(s, e1)
+    v = vec.dot(d, q) * inv_det
+    t = vec.dot(e2, q) * inv_det
+    ok = ((torch.abs(det) > eps) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t > EPS_T))
+    return _where_inf(ok, t), u, v
+
+
 def triangle_interpolate(attr0, attr1, attr2, u, v):
     """Barycentric interpolation with w = 1-u-v at vertex 0."""
     w = 1.0 - u - v

@@ -11,8 +11,9 @@ Covered here: the specular modes "naive", "first" and "all" (the branch
 split: one shared closest hit feeds a diffuse and a specular wavefront at
 each split depth), light modes "random", "power" and "all", analytic and
 mesh lights (emissive triangles sampled by area) with any-hit or
-closest-hit shadow rays, and the sync-free compacted trace (naive mode
-only; the split modes trace plainly, as in the JAX package).
+closest-hit shadow rays, and the two compacted traces, the sync-free
+trace_compacted_static and trace_compacted with its one host sync (naive
+mode only; the split modes trace plainly, as in the JAX package).
 
 Radiance is differentiable in the material table, the texture atlas and
 the environment color, as in the JAX package: geometry and every discrete
@@ -716,6 +717,35 @@ def trace(scene: SceneData, cfg: IntegratorConfig, org, dirn, key,
     return TraceResult(radiance, alb, nrm, rays)
 
 
+def _compact_state(state: RayState, cap: int):
+    """Survivors to a dense prefix (a stable argsort of ~alive), the first
+    `cap` lanes kept. Returns (the small state with zero radiance,
+    src)."""
+    order = torch.argsort((~state.alive).to(torch.uint8), stable=True)
+    src = order[:cap]
+    small = RayState(
+        org=state.org[src],
+        dirn=state.dirn[src],
+        throughput=state.throughput[src],
+        radiance=torch.zeros((cap, 3), dtype=torch.float32,
+                             device=state.org.device),
+        emission_ok=state.emission_ok[src],
+        alive=state.alive[src],
+    )
+    return small, src
+
+
+def _compact_and_finish(scene, cfg: IntegratorConfig, state: RayState,
+                        krest, cap: int, d0: int, d1: int):
+    """Compact to `cap` lanes, run depths [d0, d1) at that width and add
+    the small buffer's radiance back at its source lanes. Returns
+    (radiance, the tail's rays)."""
+    small, src = _compact_state(state, cap)
+    rays = torch.zeros((), dtype=torch.int64, device=state.org.device)
+    small, rays = _trace_span(scene, cfg, small, rays, krest, d0, d1)
+    return state.radiance.index_add(0, src, small.radiance), rays
+
+
 def _morton_key(p, d, box=None):
     """(R,) coherence key in int64 holding a uint32: [31] mesh-root-box
     miss bit (with `box`) | [27:30] direction octant | [0:27] origin
@@ -840,4 +870,35 @@ def trace_compacted_static(scene: SceneData, cfg: IntegratorConfig, org,
         scene, cfg, org, dirn, key, strat_idx, n_strat, schedule[0][0])
     radiance, tail_rays = _static_tail(scene, cfg, state, krest, schedule,
                                        cfg.max_bounces + 1)
+    return TraceResult(radiance, alb, nrm, rays + tail_rays)
+
+
+def trace_compacted(scene: SceneData, cfg: IntegratorConfig, org, dirn,
+                    key, strat_idx=None, n_strat: int = 1,
+                    compact_at: int | None = None,
+                    min_cap: int = 1 << 12) -> TraceResult:
+    """trace() with one host-synced compaction point: depths up to
+    `compact_at` (default rr_start_depth + 1) run at full width; the
+    survivors are then compacted on the device into the smallest
+    power-of-two buffer (at least min_cap) and the remaining depths run at
+    that width. Its one host sync reads the survivor count. Falls back to
+    trace() where the JAX package's does: no Russian roulette, a split
+    specular mode, or nothing culled."""
+    if cfg.specular_mode != SPECULAR_MODE_NAIVE or not cfg.russian_roulette:
+        return trace(scene, cfg, org, dirn, key, strat_idx, n_strat)
+    d_stop = compact_at if compact_at is not None else cfg.rr_start_depth + 1
+    d_stop = min(d_stop, cfg.max_bounces + 1)
+    state, rays, alb, nrm, krest = _trace_prefix(
+        scene, cfg, org, dirn, key, strat_idx, n_strat, d_stop)
+    if d_stop > cfg.max_bounces:
+        return TraceResult(state.radiance, alb, nrm, rays)
+    r = org.shape[0]
+    n_alive = int(state.alive.sum())  # the one host sync
+    cap = max(min_cap, 1 << max(0, n_alive - 1).bit_length())
+    if cap >= r:  # nothing culled: finish at full width
+        state, rays = _trace_span(scene, cfg, state, rays, krest, d_stop,
+                                  cfg.max_bounces + 1)
+        return TraceResult(state.radiance, alb, nrm, rays)
+    radiance, tail_rays = _compact_and_finish(
+        scene, cfg, state, krest, cap, d_stop, cfg.max_bounces + 1)
     return TraceResult(radiance, alb, nrm, rays + tail_rays)

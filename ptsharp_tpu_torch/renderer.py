@@ -9,20 +9,23 @@ same wavefront with per-pixel sample masks.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ptsharp_tpu_torch import checkpoint
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import color as colorlib
 from ptsharp_tpu_torch.core import filters, rng, vec
+from ptsharp_tpu_torch.denoise import denoise_film
 from ptsharp_tpu_torch.film import Film, save_png
 from ptsharp_tpu_torch.integrator import (
     IntegratorConfig, trace, trace_compacted_static,
 )
-from ptsharp_tpu_torch.scene import SceneData, not_ported
+from ptsharp_tpu_torch.scene import SceneData
 
 
 @dataclass(frozen=True)
@@ -217,17 +220,26 @@ class Renderer:
                          verbose: bool = False,
                          checkpoint_path: str | None = None,
                          checkpoint_every: int = 0, viewer=None) -> Film:
-        """Progressive refinement loop: the film accumulates across
-        iterations; each may write `path_template % iteration` as PNG."""
-        if denoise or checkpoint_path or checkpoint_every or viewer:
-            raise not_ported("checkpoint, denoise and viewer",
-                             "Queue 1 item 7")
+        """Progressive refinement loop (IterativeRender,
+        Renderer.cs:702-765): the film accumulates across iterations, and
+        iteration it renders with fold_in(key, it). Each iteration may
+        write `path_template % iteration` as PNG and hand its frame to
+        `viewer.update`. With `checkpoint_path` the film, iteration and key
+        are saved every `checkpoint_every` iterations, and a render whose
+        file exists resumes from it (its key included). `denoise` writes
+        the a-trous filtered film beside the last PNG as *_denoised.png."""
         if key is None:
             key = rng.PRNGKey(0)
         cfg = self.config
+        start_it = 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            film, start_it, key = checkpoint.load_checkpoint(
+                checkpoint_path, self.scene.device)
+            if verbose:
+                print(f"resumed from {checkpoint_path} @ iter {start_it}")
         if film is None:
             film = Film.zeros(cfg.height, cfg.width, self.scene.device)
-        for it in range(iterations):
+        for it in range(start_it, iterations):
             t0 = time.perf_counter()
             film = self.render(film, rng.fold_in(key, it))
             if verbose:
@@ -239,4 +251,17 @@ class Renderer:
             if path_template:
                 save_png(film.color_srgb(), path_template % (it + 1)
                          if "%" in path_template else path_template)
+            if (checkpoint_path and checkpoint_every
+                    and (it + 1) % checkpoint_every == 0):
+                checkpoint.save_checkpoint(checkpoint_path, film, it + 1,
+                                           key)
+            if viewer is not None:
+                viewer.update(film.color_srgb())
+        if denoise:
+            img = denoise_film(film)
+            if path_template:
+                base = (path_template % iterations if "%" in path_template
+                        else path_template)
+                save_png(colorlib.to_srgb(img),
+                         base.replace(".png", "_denoised.png"))
         return film

@@ -79,11 +79,6 @@ FLAT_TRI_CAP = 4_000_000
 _IDENTITY34 = np.eye(4, dtype=np.float32)[:3, :4]
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ptsharp_tpu_torch yet (ROADMAP.md {item})")
-
-
 @dataclass(frozen=True, eq=False)
 class SceneData:
     """Frozen scene tables. Every tensor lives on `device`."""

@@ -31,11 +31,16 @@ class TextureAtlas(NamedTuple):
             sizes=torch.from_numpy(np.array(sizes, np.int32)).to(device))
 
     @staticmethod
+    def empty(device) -> "TextureAtlas":
+        """The (1, 1, 1, 3) atlas of a scene without textures."""
+        return TextureAtlas.from_arrays(np.zeros((1, 1, 1, 3)),
+                                        np.ones((1, 2)), device)
+
+    @staticmethod
     def build(images: list[np.ndarray], device) -> "TextureAtlas":
         """images: list of (H, W, 3) float32 arrays already in linear space."""
         if not images:
-            return TextureAtlas.from_arrays(np.zeros((1, 1, 1, 3)),
-                                            np.ones((1, 2)), device)
+            return TextureAtlas.empty(device)
         mh = max(im.shape[0] for im in images)
         mw = max(im.shape[1] for im in images)
         data = np.zeros((len(images), mh, mw, 3), np.float32)
