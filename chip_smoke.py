@@ -257,7 +257,35 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               the CPU's; and bench.py run_grad's shape through the port
               (cornell 1920x1080, 8 chunks of 1,048,576 rays, fwd+bwd
               Mrays/s by the tape and by autograd through
-              trace_compacted_static; no kernel launches there).
+              trace_compacted_static; no kernel launches there);
+  8. shard    parallel/ on torch.distributed (shard_phase): a world-1 NCCL
+              group on cuda:0 (distributed.initialize at a free localhost
+              port, global_mesh(1, 1), process_summary printed) over the
+              bunny of 3 at 1920x1080, 1 spp: render_image_sharded equal
+              bit for bit to render_shard(..., 0, 0), finite and positive,
+              launching #1 and #2 once a depth (seconds, closest-hit
+              Mrays/s, peak MB); three make_train_step steps (tape, lr
+              0.5) toward a target rendered from scaled colors, each with
+              its wall ms, peak MB and the launches of its forward and of
+              its backward (none: the tape), the last loss below the
+              first, step 1's gradient equal to autograd through trace of
+              the same shard's loss (GRAD_RTOL, GRAD_ATOL_REL); the group
+              destroyed; then four gloo ranks that share cuda:0
+              (ranks_phase: `chip_smoke.py --shard-rank` children under
+              distributed.run_ranks, dp=2, sp=2, test_distributed's cube
+              built "pallas" K=8 at 256x144, 2 spp): each rank's image
+              equal bit for bit to this process's emulation of the mesh
+              (four render_shard calls), the loss, gradient and new colors
+              the same bits on every rank, the gradient equal to autograd
+              over the emulated mesh, each rank's render and step
+              launching #1 and #2 once a depth; and
+              entry.dryrun_multichip(1) over NCCL in a process of its own
+              (its OK line).
+
+`python3 chip_smoke.py --shard-cards`, on a machine with four cards, runs
+the same check over NCCL, one rank a card (the bunny at 1920x1080, 2 spp,
+dp=2, sp=2), against the emulated mesh on cuda:0, then
+entry.dryrun_multichip(4).
 
 Every kernel's least time on the card (bound_ms) is computed from the
 work its plain version did on the main-path rays (kernels.traverse.
@@ -274,8 +302,9 @@ it.
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-of the sixteen kernel entry points' launches over the main-path renders
-and the grad phase's main-path runs and SGD steps (the split-table and
+of the sixteen kernel entry points' launches over the main-path renders,
+the grad phase's main-path runs and SGD steps and the shard phase's
+render and train steps (the split-table and
 the staged kernels': over their phases' driven calls, both scenes), its
 largest
 error against its plain version, its times at the bunny's 1080p
@@ -3141,6 +3170,350 @@ def grad_phase(scene, cam, icfg, width, height, card):
     return total
 
 
+# ---- shard: parallel/ on torch.distributed ----------------------------------
+
+SHARD_STEPS = 3
+# runs of several ranks, each rank a process (chip_smoke.py --shard-rank):
+# four gloo ranks that share cuda:0 over test_distributed's cube (the
+# shard phase), and four NCCL ranks, one a card, over the bunny at its
+# 1080p width (chip_smoke.py --shard-cards, on a four-card machine)
+RANK_RUNS = {
+    "gloo": dict(mesh=(2, 2), scene="cube", size=(256, 144, 2)),
+    "nccl": dict(mesh=(2, 2), scene="bunny", size=(1920, 1080, 2)),
+}
+RANK_LR = 0.5
+RANK_TIMEOUT = 300  # seconds the ranks may take, start-up included
+
+
+def gloo_cube(device):
+    """test_distributed.py's scene (a plane, a cube mesh and a sphere
+    light), built "pallas" K=8, leaf 4, as __graft_entry__'s dry run
+    builds it."""
+    from ptsharp_tpu_torch.camera import Camera
+    from ptsharp_tpu_torch.geometry.mesh import cube_mesh
+    from ptsharp_tpu_torch.integrator import IntegratorConfig
+    from ptsharp_tpu_torch.materials import diffuse_material, light_material
+    from ptsharp_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_plane([0, 0, 0], [0, 1, 0], diffuse_material([0.7, 0.7, 0.7]))
+    b.add_mesh(cube_mesh([-0.5, 0, -0.5], [0.5, 1, 0.5]),
+               diffuse_material([0.6, 0.3, 0.2]))
+    b.add_sphere([2, 4, -2], 1.0, light_material([1, 1, 1], 8.0))
+    scene = b.build(leaf_size=4, intersector="pallas", wide_k=8,
+                    device=device)
+    cam = Camera.look_at([0, 1.5, -4], [0, 0.5, 0], [0, 1, 0], 40.0,
+                         device=device)
+    return scene, cam, IntegratorConfig(max_bounces=2)
+
+
+def rank_scene(name, device):
+    """(scene, camera, config) of a RANK_RUNS scene."""
+    from ptsharp_tpu_torch import examples
+
+    if name == "cube":
+        return gloo_cube(device)
+    scene, cam, _rcfg, icfg = examples.build(name, intersector="pallas",
+                                             wide_k=8, device=device)
+    return scene, cam, icfg
+
+
+def shard_rank(backend: str, port: int, rank: int, out: str) -> int:
+    """One rank of a RANK_RUNS run (`chip_smoke.py --shard-rank <backend>
+    <port> <rank> <out>`): gloo ranks share cuda:0, NCCL rank r takes
+    cuda:r. The sharded render, the gradient and one make_train_step step
+    toward black, with the render's and the step's launches, saved to
+    <out>."""
+    torch.set_num_threads(1)
+    sys.path.insert(0, REPO)
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.kernels import traverse
+    from ptsharp_tpu_torch.parallel import distributed, shard
+
+    run = RANK_RUNS[backend]
+    dp, sp = run["mesh"]
+    width, height, spp = run["size"]
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    distributed.initialize(f"localhost:{port}", dp * sp, rank, device=dev,
+                           backend=backend)
+    try:
+        mesh = distributed.global_mesh(dp, sp, device=dev)
+        scene, cam, icfg = rank_scene(run["scene"], dev)
+        sync(dev)
+        traverse.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            img = shard.render_image_sharded(scene, cam, icfg,
+                                             rng.PRNGKey(0), width, height,
+                                             spp, mesh)
+        sync(dev)
+        render_ms = (time.perf_counter() - t0) * 1e3
+        render_counts = _counts()
+        target = torch.zeros_like(img)
+        loss, g = shard.loss_and_grad(scene, cam, icfg, rng.PRNGKey(1),
+                                      target, width, height, spp, mesh)
+        step = shard.make_train_step(cam, icfg, width, height, spp, mesh,
+                                     lr=RANK_LR)
+        sync(dev)
+        traverse.reset_launch_counts()
+        t0 = time.perf_counter()
+        new_scene, step_loss = step(scene, rng.PRNGKey(1), target)
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        torch.save({"summary": distributed.process_summary(dev),
+                    "index": (mesh.dp_index, mesh.sp_index),
+                    "img": img.cpu(), "loss": loss.cpu(), "grad": g.cpu(),
+                    "step_loss": step_loss.cpu(),
+                    "colors": new_scene.materials.color.cpu(),
+                    "render_ms": render_ms, "step_ms": step_ms,
+                    "render_launches": _launched(render_counts),
+                    "step_launches": _launched(_counts())}, out)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def ranks_phase(backend, device, card):
+    """A RANK_RUNS run: each rank's image equal bit for bit to this
+    process's emulation of the mesh on `device` (its render_shard calls,
+    each row block's shares summed and divided by sp), the loss, gradient
+    and new colors the same bits on every rank, the gradient equal to
+    autograd over the emulated mesh's one graph, each rank's render and
+    step launching #1 and #2 once a depth."""
+    from ptsharp_tpu_torch.core import rng, vec
+    from ptsharp_tpu_torch.parallel import distributed, shard
+
+    run = RANK_RUNS[backend]
+    dp, sp = run["mesh"]
+    width, height, spp = run["size"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        port = distributed.free_port()
+        distributed.run_ranks(
+            [[sys.executable, os.path.abspath(__file__), "--shard-rank",
+              backend, str(port), str(r), f"{out}/rank{r}.pt"]
+             for r in range(dp * sp)], RANK_TIMEOUT, cwd=REPO)
+        ranks = [torch.load(f"{out}/rank{r}.pt") for r in range(dp * sp)]
+    sec = time.perf_counter() - t0
+    scene, cam, icfg = rank_scene(run["scene"], device)
+    depths = icfg.max_bounces + 1
+    want_launches = {"closest_hit": depths, "any_hit": depths}
+    colors = scene.materials.color.clone().requires_grad_()
+    s = replace(scene, materials=scene.materials._replace(color=colors))
+
+    def emulate(key, use_tape):
+        blocks = []
+        for i in range(dp):
+            parts = [shard.render_shard(s, cam, icfg, key, width, height,
+                                        spp, dp, sp, i, j, use_tape=use_tape)
+                     for j in range(sp)]
+            blocks.append(vec.div(sum(parts[1:], parts[0]), sp))
+        return torch.cat(blocks)
+
+    with torch.no_grad():
+        want = emulate(rng.PRNGKey(0), False).cpu()
+    img = emulate(rng.PRNGKey(1), True)
+    (g,) = torch.autograd.grad(
+        vec.div(torch.sum(img ** 2), img.numel()), colors)
+    del img
+    label = (f"shard {backend} {dp * sp} ranks, mesh dp={dp} sp={sp}, "
+             f"{run['scene']} {width}x{height} spp={spp}")
+    for rank, res in enumerate(ranks):
+        if res["index"] != divmod(rank, sp):
+            raise AssertionError(f"{label}: rank {rank} sits at "
+                                 f"{res['index']}")
+        if res["summary"]["process_count"] != dp * sp or \
+                res["summary"]["platform"] != "gpu":
+            raise AssertionError(f"{label}: rank {rank}: {res['summary']}")
+        for what in ("render_launches", "step_launches"):
+            if res[what] != want_launches:
+                raise AssertionError(f"{label}: rank {rank}'s {what} "
+                                     f"{res[what]}, expected "
+                                     f"{want_launches}")
+        _equal(f"{label}: rank {rank}'s image against the emulated mesh",
+               (res["img"],), (want,))
+        for key in ("loss", "grad", "step_loss", "colors"):
+            if not torch.equal(res[key], ranks[0][key]):
+                raise AssertionError(f"{label}: rank {rank}'s {key} "
+                                     f"differs from rank 0's")
+    err = grads_close(f"{label}: gradient against autograd over the "
+                      f"emulated mesh", [ranks[0]["grad"]], [g])
+    log(f"{label}: images = emulation bit for bit, loss "
+        f"{float(ranks[0]['loss']):.9e}, gradient and colors equal on "
+        f"every rank, gradient against the emulated autograd: largest "
+        f"error over max |g| {err:.3e}; render ms by rank "
+        f"{[round(r['render_ms'], 1) for r in ranks]}, step ms "
+        f"{[round(r['step_ms'], 1) for r in ranks]}, launches a rank "
+        f"render {ranks[0]['render_launches']} step "
+        f"{ranks[0]['step_launches']}; {sec:.1f} s with start-up; "
+        f"{ranks[0]['summary']} [{card}]")
+
+
+def shard_cards() -> int:
+    """`chip_smoke.py --shard-cards`, on a machine with four cards: the
+    NCCL run of RANK_RUNS, one rank a card, against the emulated mesh on
+    cuda:0; then entry.dryrun_multichip(4)."""
+    if torch.cuda.device_count() < 4:
+        print("chip_smoke --shard-cards: needs four cards", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from ptsharp_tpu_torch.kernels import build
+    from ptsharp_tpu_torch.parallel import entry
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = "; ".join(smi.stdout.strip().splitlines())
+    log(card)
+    t0 = time.perf_counter()
+    build.load()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    ranks_phase("nccl", torch.device("cuda", 0), card)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(4)
+    log(f"shard dryrun_multichip(4) over NCCL, one rank a card: "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    return 0
+
+
+def shard_phase(scene, cam, icfg, width, height, card):
+    """parallel/ on the card: a world-1 NCCL group on cuda:0 over the
+    bunny of 3 at width x height, 1 spp: render_image_sharded bit-equal to
+    render_shard(0, 0), finite and positive, launching #1 and #2 once a
+    depth; SHARD_STEPS make_train_step steps (tape, SGD_LR) toward a
+    target rendered from scaled colors, each with wall ms, peak MB and the
+    launches of each half (the tape's backward launches nothing), the last
+    loss below the first, step 1's gradient equal to autograd through
+    trace of the same shard's loss; the group destroyed; then four gloo
+    ranks on the card (ranks_phase) and dryrun_multichip(1) over NCCL in
+    a process of its own. Returns the phase's launches and rays by wrapper
+    (the render and the steps)."""
+    import torch.distributed as dist
+
+    from ptsharp_tpu_torch.core import rng, vec
+    from ptsharp_tpu_torch.kernels import traverse
+    from ptsharp_tpu_torch.parallel import distributed, entry, shard
+
+    dev = scene.device
+    depths = icfg.max_bounces + 1
+    fwd_want = {"closest_hit": depths, "any_hit": depths}
+    total = {}
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0,
+                           device="cuda:0")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = distributed.global_mesh(1, 1)
+        log(f"shard process_summary {distributed.process_summary()} mesh "
+            f"{mesh.shape} on {mesh.device}")
+        _reset_peak(dev)
+        sync(dev)
+        traverse.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            img = shard.render_image_sharded(scene, cam, icfg, rng.PRNGKey(0),
+                                             width, height, 1, mesh)
+        sync(dev)
+        sec = time.perf_counter() - t0
+        counts = _counts()
+        _expect("shard render", counts, fwd_want)
+        _add_counts(total, counts)
+        with torch.no_grad():
+            ref = shard.render_shard(scene, cam, icfg, rng.PRNGKey(0), width,
+                                     height, 1, 1, 1, 0, 0)
+        _equal("render_image_sharded against render_shard(0, 0)", (img,),
+               (ref,))
+        if not (bool(torch.isfinite(img).all()) and float(img.min()) >= 0
+                and float(img.mean()) > 0):
+            raise AssertionError("the sharded image is not finite and "
+                                 "positive")
+        rays = counts["closest_hit"][1]
+        log(f"shard render bunny {width}x{height} spp=1 NCCL world 1: "
+            f"seconds={sec:.3f} closest-hit rays={rays} mrays_per_s="
+            f"{rays / sec / 1e6:.3f} mean={float(img.mean()):.6f} peak_mb="
+            f"{_peak_mb(dev)} launches {_launched(counts)} [{card}]")
+
+        mats = scene.materials
+        scaled = torch.where((mats.texture >= 0)[:, None], mats.color,
+                             mats.color * SGD_SCALE)
+        with torch.no_grad():
+            target = shard.render_image_sharded(
+                replace(scene, materials=mats._replace(color=scaled)), cam,
+                icfg, rng.PRNGKey(1), width, height, 1, mesh)
+        step = shard.make_train_step(cam, icfg, width, height, 1, mesh,
+                                     lr=SGD_LR)
+        # the step's backward starts at its torch.autograd.grad: split the
+        # launch counts and the clock there, and keep the gradient (the
+        # tape's backward calls torch.autograd.grad again inside it)
+        grad = torch.autograd.grad
+        halves = {}
+
+        def split_grad(*args, **kwargs):
+            if "fwd" in halves:
+                return grad(*args, **kwargs)
+            sync(dev)
+            halves["fwd"] = _counts()
+            halves["t_fwd"] = time.perf_counter()
+            traverse.reset_launch_counts()
+            halves["grad"] = grad(*args, **kwargs)
+            return halves["grad"]
+
+        losses = []
+        s = scene
+        for i in range(SHARD_STEPS):
+            halves.clear()
+            _reset_peak(dev)
+            sync(dev)
+            traverse.reset_launch_counts()
+            t0 = time.perf_counter()
+            torch.autograd.grad = split_grad
+            try:
+                s, loss = step(s, rng.PRNGKey(1), target)
+            finally:
+                torch.autograd.grad = grad
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            bwd = _counts()
+            _expect(f"shard step {i + 1} forward", halves["fwd"], fwd_want)
+            _expect(f"shard step {i + 1} backward (tape)", bwd, {})
+            _add_counts(total, halves["fwd"])
+            losses.append(float(loss))
+            if i == 0:
+                g1 = halves["grad"][0]
+            log(f"shard step {i + 1}/{SHARD_STEPS} bunny {width}x{height}: "
+                f"loss={losses[-1]:.9e} wall {ms:.1f} ms (forward "
+                f"{(halves['t_fwd'] - t0) * 1e3:.1f} ms), peak_mb="
+                f"{_peak_mb(dev)}, launches forward "
+                f"{_launched(halves['fwd'])} backward {_launched(bwd)} "
+                f"[{card}]")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the sharded steps did not lower the loss: "
+                                 f"{losses}")
+        # step 1's gradient against autograd through trace of the same
+        # shard's loss, without the mesh
+        colors = mats.color.clone().requires_grad_()
+        part = shard.render_shard(
+            replace(scene, materials=mats._replace(color=colors)), cam, icfg,
+            rng.PRNGKey(1), width, height, 1, 1, 1, 0, 0)
+        (g_ad,) = torch.autograd.grad(
+            vec.div(torch.sum((part - target) ** 2), part.numel()), colors)
+        traverse.reset_launch_counts()
+        err = grads_close("shard step 1's gradient against autograd of the "
+                          "unsharded shard", [g1], [g_ad])
+        log(f"shard steps: losses {losses}; step 1's gradient = unsharded "
+            f"autograd, largest error over max |g| {err:.3e}")
+    finally:
+        distributed.shutdown()
+    if dist.is_initialized():
+        raise AssertionError("the shard phase's process group is still up")
+    ranks_phase("gloo", dev, card)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    log(f"shard dryrun_multichip(1) over NCCL in its own process: "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+    return total
+
+
 def scene_line(name, scene, seconds):
     if scene.intersector != "pallas":
         # leaf slots holding a triangle (padding slots are all zero)
@@ -3397,6 +3770,7 @@ def main() -> int:
         f"film_mean={float(film.mean.mean()):.6f}")
     reference_phase(device)
     runs.append(grad_phase(scene, cam, icfg, rcfg.width, rcfg.height, card))
+    runs.append(shard_phase(scene, cam, icfg, rcfg.width, rcfg.height, card))
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
         f"of main")
@@ -3430,4 +3804,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        sys.exit(shard_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                            sys.argv[5]))
+    if sys.argv[1:] == ["--shard-cards"]:
+        sys.exit(shard_cards())
     sys.exit(main())

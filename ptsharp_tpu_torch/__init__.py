@@ -37,6 +37,10 @@ Layer map:
   examples.py    the 28-scene catalog, the beads animation and the
                  command line (python -m ptsharp_tpu_torch.examples)
   convert.py     JAX-package scene/camera/DiffParams -> port
+  parallel/      torch.distributed ranks (NCCL between cards, gloo between
+                 CPU processes) on a (dp, sp) mesh: image rows x samples,
+                 the scene replicated, film and gradients all_reduced;
+                 entry and dryrun_multichip, as __graft_entry__.py
 """
 
 from ptsharp_tpu_torch.camera import Camera

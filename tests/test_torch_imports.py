@@ -58,12 +58,17 @@ def test_every_module_imports_without_jax():
                                     "ptsharp_tpu_torch.viewer",
                                     "ptsharp_tpu_torch.profiling",
                                     "ptsharp_tpu_torch.version",
-                                    "ptsharp_tpu_torch.examples"])
+                                    "ptsharp_tpu_torch.examples",
+                                    "ptsharp_tpu_torch.parallel.mesh",
+                                    "ptsharp_tpu_torch.parallel.distributed",
+                                    "ptsharp_tpu_torch.parallel.shard",
+                                    "ptsharp_tpu_torch.parallel.entry"])
 def test_new_module_imports_without_jax(module):
     """The XLA walks' modules, the device default, the tape, the
     differentiable render, the transforms and colour constructors, the
     marched shapes, meshing and mesh I/O, the checkpoint, denoiser,
-    viewer, profiling and version modules and the catalog, each alone."""
+    viewer, profiling and version modules, the catalog and the sharding
+    modules, each alone."""
     assert module in MODULES
     code = (f"import importlib, sys; importlib.import_module({module!r})\n"
             "sys.exit(any(m.split('.')[0] in ('jax', 'ptsharp_tpu')"
