@@ -31,9 +31,9 @@ render, the card's idle share at the median wall time (1 - device ms /
 median wall ms), device launches, and the device milliseconds of the
 traversal kernels (also by kernel instance), sorts, gathers and
 scatters, reductions and the other elementwise kernels, and the device
-milliseconds of the kernels launched inside geometry/march.py's "march"
-ranges (the SDF, volume and heightfield marches, counted in the kinds
-too); then one JSON line of the same. Exits non-zero without a CUDA device.
+milliseconds of the kernels launched inside geometry/march.py's
+"pt.march" spans (the SDF, volume and heightfield marches, counted in
+the kinds too); then one JSON line of the same. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -167,10 +167,11 @@ def main() -> int:
         kinds, walks, total, launches, march_us = {}, {}, 0.0, 0, 0.0
         for e in prof.key_averages():
             on_card = str(getattr(e, "device_type", "")).endswith("CUDA")
-            if e.key == "march":
-                # the range on the host sums its kernels' device time; its
-                # image on the card's timeline is a span, not a kernel
-                if not on_card:
+            if e.key.startswith("pt."):
+                # the program's spans (profiling.span): a range on the host
+                # sums its kernels' device time; its image on the card's
+                # timeline is a span, not a kernel
+                if e.key == "pt.march" and not on_card:
                     march_us += float(getattr(e, "device_time_total", 0.0))
                 continue
             if on_card:

@@ -2949,8 +2949,11 @@ def grad_profile(scene, cam, icfg, width, height, weights, card):
             run = grad_run(scene, cam, replace(icfg, **fields), width,
                            height, weights, use_tape)
         events = prof.key_averages()
+        # the program's spans (profiling.span) are mirrored on the card's
+        # timeline around their kernels: ranges, not kernels
         kernels = sorted((e for e in events
-                          if e.device_type == DeviceType.CUDA),
+                          if e.device_type == DeviceType.CUDA
+                          and not e.key.startswith("pt.")),
                          key=lambda e: -e.self_device_time_total)
         device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         adds = [e for e in events if e.key == "aten::index_add_"]

@@ -33,7 +33,8 @@ Layer map:
   checkpoint.py  film/iteration/key .npz, shared with the JAX package
   denoise.py     a-trous wavelet denoiser
   viewer.py      HTTP live preview
-  profiling.py   torch.profiler traces, render stats, card memory
+  profiling.py   spans and lane counters (on while a torch profiler
+                 records), Chrome traces, card memory
   examples.py    the 28-scene catalog, the beads animation and the
                  command line (python -m ptsharp_tpu_torch.examples)
   convert.py     JAX-package scene/camera/DiffParams -> port

@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from ptsharp_tpu_torch import profiling
+
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -58,21 +60,28 @@ def PRNGKey(seed: int) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """(num, 2) new keys."""
-    cnt = torch.arange(num, dtype=torch.int64, device=key.device)
-    b0, b1 = _threefry2x32(key[0], key[1], torch.zeros_like(cnt), cnt)
-    return torch.stack([b0, b1], dim=-1)
+    with profiling.span("pt.rng.keys"):
+        cnt = torch.arange(num, dtype=torch.int64, device=key.device)
+        b0, b1 = _threefry2x32(key[0], key[1], torch.zeros_like(cnt), cnt)
+        return torch.stack([b0, b1], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """A new key that is a function of (key, data); data is a 32-bit int."""
     data = int(data) & _MASK
-    x = torch.tensor([0, data], dtype=torch.int64, device=key.device)
-    b0, b1 = _threefry2x32(key[0], key[1], x[:1], x[1:])
-    return torch.cat([b0, b1])
+    with profiling.span("pt.rng.keys"):
+        x = torch.tensor([0, data], dtype=torch.int64, device=key.device)
+        b0, b1 = _threefry2x32(key[0], key[1], x[:1], x[1:])
+        return torch.cat([b0, b1])
 
 
 def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """uint32 words (as int64) of the given shape, made on `device`."""
+    with profiling.span("pt.rng.draw"):
+        return _bits(key, shape, device)
+
+
+def _bits(key: torch.Tensor, shape, device) -> torch.Tensor:
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     dev = torch.device(device) if device is not None else key.device
@@ -89,16 +98,18 @@ def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     """float32 uniforms in [0, 1) of the given shape, made on `device`."""
-    return _to_uniform(random_bits(key, shape, device))
+    with profiling.span("pt.rng.draw"):
+        return _to_uniform(_bits(key, shape, device))
 
 
 def uniform_per_key(keys: torch.Tensor, n: int) -> torch.Tensor:
     """(..., n) float32 uniforms for keys of shape (..., 2): row i is
     uniform(keys[i], (n,)), as jax.vmap of uniform over the keys."""
-    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
-    b0, b1 = _threefry2x32(keys[..., 0:1], keys[..., 1:2], idx >> 32,
-                           idx & _MASK)
-    return _to_uniform(b0 ^ b1)
+    with profiling.span("pt.rng.draw"):
+        idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+        b0, b1 = _threefry2x32(keys[..., 0:1], keys[..., 1:2], idx >> 32,
+                               idx & _MASK)
+        return _to_uniform(b0 ^ b1)
 
 
 def _mul32(a, b):
@@ -112,15 +123,16 @@ def _mul32(a, b):
 def randint(key: torch.Tensor, shape, minval: int, maxval: int,
             device=None) -> torch.Tensor:
     """int32 draws in [minval, maxval), jax's two-word modulus method."""
-    k1, k2 = split(key)
-    higher = random_bits(k1, shape, device)
-    lower = random_bits(k2, shape, device)
-    span = (int(maxval) - int(minval)) & _MASK
-    if int(maxval) <= int(minval):
-        span = 1
-    mult = (2**16) % span
-    mult = ((mult * mult) & _MASK) % span
-    off = (_mul32(higher % span, torch.full_like(higher, mult))
-           + lower % span) & _MASK
-    off = off % span
-    return (int(minval) + off).to(torch.int32)
+    with profiling.span("pt.rng.draw"):
+        k1, k2 = split(key)
+        higher = _bits(k1, shape, device)
+        lower = _bits(k2, shape, device)
+        span = (int(maxval) - int(minval)) & _MASK
+        if int(maxval) <= int(minval):
+            span = 1
+        mult = (2**16) % span
+        mult = ((mult * mult) & _MASK) % span
+        off = (_mul32(higher % span, torch.full_like(higher, mult))
+               + lower % span) & _MASK
+        off = off % span
+        return (int(minval) + off).to(torch.int32)

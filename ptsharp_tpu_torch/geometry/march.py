@@ -25,8 +25,8 @@ steps.
 
 COUNTS[tag] holds [marches, steps, lane steps] for each tag a caller names
 (intersect.py: "closest" and "shadow"); reset_counts() clears them. Each
-march runs inside a profiler range named "march" (torch.profiler:
-chip_profile.py reads its device time).
+march runs inside the span "pt.march" (profiling.span: a torch.profiler
+range while a profiler records; chip_profile.py reads its device time).
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from ptsharp_tpu_torch import profiling
 
 CHECK_EVERY = 8
 
@@ -51,7 +53,7 @@ def march(step: Callable, lanes: dict, active: torch.Tensor,
     per-lane tensors (first dimension R) that `step` reads and replaces in
     the dict; it must write a result lane only where `active` is set.
     Returns the `results` lanes over all R lanes."""
-    with torch.profiler.record_function("march"):
+    with profiling.span("pt.march"):
         return _march(step, lanes, active, results, max_steps, tag)
 
 

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 from torch.utils import checkpoint
 
+from ptsharp_tpu_torch import profiling
 from ptsharp_tpu_torch.core import rng, sampling, vec
 from ptsharp_tpu_torch.intersect import (
     Hit, HitInfo, closest_hit, hit_info, light_hit_t, occlusion_query,
@@ -246,15 +247,17 @@ def sample_lights(scene: SceneData, cfg: IntegratorConfig, position, normal,
             t_cut = t_light * (1.0 - 1e-3) - 1e-3
             t_cut = torch.where(facing & t_hit & active, t_cut,
                                 torch.full_like(t_cut, -INF))
-            if cfg.sort_bounces and scene.has_meshes:
-                occ = _sorted_occlusion(scene, position, ray_dir, t_cut)
-            else:
-                occ = occlusion_query(scene, position, ray_dir, t_cut)
+            with profiling.span("pt.occlusion"):
+                if cfg.sort_bounces and scene.has_meshes:
+                    occ = _sorted_occlusion(scene, position, ray_dir, t_cut)
+                else:
+                    occ = occlusion_query(scene, position, ray_dir, t_cut)
             visible = t_hit & ~occ
         else:
-            visible = _shadow_hit_visible(scene, cfg, position, ray_dir,
-                                          point, center, radius, lidx,
-                                          is_tri, has_em, active)
+            with profiling.span("pt.occlusion"):
+                visible = _shadow_hit_visible(scene, cfg, position, ray_dir,
+                                              point, center, radius, lidx,
+                                              is_tri, has_em, active)
         # solid-angle coverage ~ r^2/d^2 capped at 1 (Sampler.cs:277-289)
         hyp = vec.length(center - position)
         cov = (radius * radius) / torch.clamp(hyp * hyp - radius * radius,
@@ -461,10 +464,12 @@ def _depth_hit(scene: SceneData, cfg: IntegratorConfig, state: RayState,
                sort_rays: bool) -> Hit:
     """The depth's closest hit. Dead lanes carry a collapsed t bound so
     traversal retires them."""
-    lane_tmax = torch.where(state.alive, INF, -INF)
-    if sort_rays and cfg.sort_bounces and scene.has_meshes:
-        return _sorted_closest_hit(scene, state.org, state.dirn, lane_tmax)
-    return closest_hit(scene, state.org, state.dirn, t_max=lane_tmax)
+    with profiling.span("pt.hit"):
+        lane_tmax = torch.where(state.alive, INF, -INF)
+        if sort_rays and cfg.sort_bounces and scene.has_meshes:
+            return _sorted_closest_hit(scene, state.org, state.dirn,
+                                       lane_tmax)
+        return closest_hit(scene, state.org, state.dirn, t_max=lane_tmax)
 
 
 def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
@@ -483,7 +488,10 @@ def _step(scene: SceneData, cfg: IntegratorConfig, state: RayState, rays,
     hit = (pre_hit if pre_hit is not None
            else _depth_hit(scene, cfg, state, sort_rays))
     if count_primary:
-        rays = rays + torch.sum(state.alive)
+        n_alive = torch.sum(state.alive)
+        rays = rays + n_alive
+        profiling.count(depth, "alive", n_alive)
+        profiling.count(depth, "carried", state.alive.shape[0])
     info = hit_info(scene, state.org, state.dirn, hit)
     mat = scene.materials.gather(info.mat_id)
     color = _resolve_color(scene, mat, info)
@@ -601,24 +609,25 @@ def _trace_span(scene, cfg: IntegratorConfig, state, rays, krest, d0: int,
     r = state.org.shape[0]
     remat = cfg.remat and torch.is_grad_enabled() and tape is None
     for depth in range(d0, d1):
-        dk = rng.fold_in(rng.fold_in(krest, si * 1024), depth)
-        ku, kv = rng.split(rng.fold_in(dk, 7))
-        uu = _uniform(ku, r, state.org)
-        vv = _uniform(kv, r, state.org)
-        if remat:
-            pre_hit = (_depth_hit(scene, cfg, state, sort_rays=True)
-                       if cfg.remat_policy == "hits" else None)
-            state, rays = checkpoint.checkpoint(
-                _remat_step, scene, cfg, state, rays, dk, uu, vv, depth,
-                pre_hit, use_reentrant=False, preserve_rng_state=False)
-        elif tape is not None:
-            state, rays, _, _, record = _step(scene, cfg, state, rays, dk, uu,
-                                              vv, depth, sort_rays=True,
-                                              want_tape=True)
-            tape.append(record)
-        else:
-            state, rays, _, _ = _step(scene, cfg, state, rays, dk, uu, vv,
-                                      depth, sort_rays=True)
+        with profiling.span("pt.depth"):
+            dk = rng.fold_in(rng.fold_in(krest, si * 1024), depth)
+            ku, kv = rng.split(rng.fold_in(dk, 7))
+            uu = _uniform(ku, r, state.org)
+            vv = _uniform(kv, r, state.org)
+            if remat:
+                pre_hit = (_depth_hit(scene, cfg, state, sort_rays=True)
+                           if cfg.remat_policy == "hits" else None)
+                state, rays = checkpoint.checkpoint(
+                    _remat_step, scene, cfg, state, rays, dk, uu, vv, depth,
+                    pre_hit, use_reentrant=False, preserve_rng_state=False)
+            elif tape is not None:
+                state, rays, _, _, record = _step(
+                    scene, cfg, state, rays, dk, uu, vv, depth,
+                    sort_rays=True, want_tape=True)
+                tape.append(record)
+            else:
+                state, rays, _, _ = _step(scene, cfg, state, rays, dk, uu,
+                                          vv, depth, sort_rays=True)
     return state, rays
 
 
@@ -641,10 +650,11 @@ def _trace_prefix(scene, cfg: IntegratorConfig, org, dirn, key, strat_idx,
     depth-0 albedo and normal, and krest for the later depths. Depth 0 is
     never a checkpoint. `tape`, if a list, collects each depth's
     TapeRecord."""
-    k0a, u1, u2, krest = _depth0_draws(org, key, strat_idx, n_strat)
-    rays = torch.zeros((), dtype=torch.int64, device=org.device)
-    out = _step(scene, cfg, _initial_state(org, dirn), rays, k0a, u1, u2, 0,
-                want_tape=tape is not None)
+    with profiling.span("pt.depth"):
+        k0a, u1, u2, krest = _depth0_draws(org, key, strat_idx, n_strat)
+        rays = torch.zeros((), dtype=torch.int64, device=org.device)
+        out = _step(scene, cfg, _initial_state(org, dirn), rays, k0a, u1, u2,
+                    0, want_tape=tape is not None)
     state, rays, alb, nrm = out[:4]
     if tape is not None:
         tape.append(out[4])
@@ -688,22 +698,25 @@ def trace(scene: SceneData, cfg: IntegratorConfig, org, dirn, key,
     for d in range(n_split):
         split = []
         for si, st in enumerate(states):
-            dk = rng.fold_in(rng.fold_in(k0a, d * 131), si)
-            if d == 0:
-                uu, vv = u1, u2
-            else:
-                ku, kv = rng.split(rng.fold_in(dk, 7))
-                uu = _uniform(ku, r, org)
-                vv = _uniform(kv, r, org)
-            hit0 = closest_hit(scene, st.org, st.dirn)
-            s_d, rays, a_, n_ = _step(scene, cfg, st, rays, dk, uu, vv, d,
-                                      pre_hit=hit0, force_mode="diffuse")
-            st_z = st._replace(radiance=torch.zeros_like(st.radiance))
-            s_s, rays, _, _ = _step(scene, cfg, st_z, rays,
-                                    rng.fold_in(dk, 1), uu, vv, d,
-                                    pre_hit=hit0, force_mode="specular",
-                                    count_primary=False,
-                                    suppress_shared=True)
+            with profiling.span("pt.depth"):
+                dk = rng.fold_in(rng.fold_in(k0a, d * 131), si)
+                if d == 0:
+                    uu, vv = u1, u2
+                else:
+                    ku, kv = rng.split(rng.fold_in(dk, 7))
+                    uu = _uniform(ku, r, org)
+                    vv = _uniform(kv, r, org)
+                with profiling.span("pt.hit"):
+                    hit0 = closest_hit(scene, st.org, st.dirn)
+                s_d, rays, a_, n_ = _step(scene, cfg, st, rays, dk, uu, vv,
+                                          d, pre_hit=hit0,
+                                          force_mode="diffuse")
+                st_z = st._replace(radiance=torch.zeros_like(st.radiance))
+                s_s, rays, _, _ = _step(scene, cfg, st_z, rays,
+                                        rng.fold_in(dk, 1), uu, vv, d,
+                                        pre_hit=hit0, force_mode="specular",
+                                        count_primary=False,
+                                        suppress_shared=True)
             if d == 0 and si == 0:
                 alb, nrm = a_, n_
             split += [s_d, s_s]
@@ -781,16 +794,20 @@ def _morton_key(p, d, box=None):
     return key
 
 
-def _reservoir_compact(state: RayState, cap: int, key):
+def _reservoir_compact(state: RayState, cap: int, key, *,
+                       depth: int | None = None):
     """Shrink the wavefront to `cap` lanes with no host sync and no bias:
     if S = #alive exceeds cap, a uniform-random subset of cap lanes
     survives and each survivor's throughput is reweighted by S/cap. Kept
     lanes are packed to the front in Morton/octant order (stable sorts, so
     equal keys keep lane order and the next depth's draws line up with the
-    reference). Returns (small_state, src)."""
+    reference). Returns (small_state, src). depth: the depth the small
+    state enters, under which a counted pass adds S to its survivors."""
     alive = state.alive
     r = alive.shape[0]
     s_cnt = torch.sum(alive)
+    if depth is not None:
+        profiling.count(depth, "survivors", s_cnt)
     u = _uniform(key, r, state.org)
     order = torch.argsort(torch.where(alive, u, 2.0), stable=True)
     rank = torch.empty_like(order)
@@ -824,7 +841,8 @@ def _static_tail(scene, cfg: IntegratorConfig, state: RayState, krest,
     cur = state
     for i, (d, cap) in enumerate(schedule):
         ck = rng.fold_in(krest, 70000 + 131 * d)
-        small, src = _reservoir_compact(cur, cap, ck)
+        with profiling.span("pt.compact"):
+            small, src = _reservoir_compact(cur, cap, ck, depth=d)
         stack.append((cur.radiance, src))
         d_next = schedule[i + 1][0] if i + 1 < len(schedule) else d_max
         cur, rays = _trace_span(scene, cfg, small, rays, krest, d, d_next)

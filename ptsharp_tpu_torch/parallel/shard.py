@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ptsharp_tpu_torch import profiling
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import rng, vec
 from ptsharp_tpu_torch.integrator import IntegratorConfig, trace
@@ -120,10 +121,12 @@ def loss_and_grad(scene: SceneData, camera: Camera, cfg: IntegratorConfig,
     with torch.enable_grad():
         colors = scene.materials.color.detach().clone().requires_grad_()
         s = replace(scene, materials=scene.materials._replace(color=colors))
-        img = render_image_sharded(s, camera, cfg, key, width, height, spp,
-                                   mesh, use_tape=use_tape)
-        loss = vec.div(torch.sum((img - target) ** 2), img.numel())
-        (g,) = torch.autograd.grad(loss, colors)
+        with profiling.span("pt.forward"):
+            img = render_image_sharded(s, camera, cfg, key, width, height,
+                                       spp, mesh, use_tape=use_tape)
+            loss = vec.div(torch.sum((img - target) ** 2), img.numel())
+        with profiling.span("pt.backward"):
+            (g,) = torch.autograd.grad(loss, colors)
     if mesh.size > 1:
         dist.all_reduce(g)
     return loss.detach(), g
@@ -140,11 +143,14 @@ def make_train_step(camera: Camera, cfg: IntegratorConfig, width: int,
     the same bits on every rank."""
 
     def step(scene: SceneData, key, target: torch.Tensor):
-        loss, g = loss_and_grad(scene, camera, cfg, key, target, width,
-                                height, spp, mesh, use_tape=use_tape)
-        new_colors = torch.clamp(scene.materials.color - lr * g, 0.0, 1.0)
-        new_scene = replace(
-            scene, materials=scene.materials._replace(color=new_colors))
-        return new_scene, loss
+        with profiling.span("pt.step"):
+            loss, g = loss_and_grad(scene, camera, cfg, key, target, width,
+                                    height, spp, mesh, use_tape=use_tape)
+            with profiling.span("pt.update"):
+                new_colors = torch.clamp(scene.materials.color - lr * g,
+                                         0.0, 1.0)
+                new_scene = replace(scene, materials=scene.materials._replace(
+                    color=new_colors))
+            return new_scene, loss
 
     return step

@@ -1,21 +1,127 @@
 """Profiling and observability (counterpart of ptsharp_tpu/profiling.py):
 
+  * `span(name)` marks a phase of the program as a torch.profiler range
+    while a profiler records, and costs one flag check otherwise. The
+    ranges land in the profiler's trace beside the device operations, on
+    their clock, each inside the range that encloses it on the host
+    thread. The program's spans (every name begins with "pt."):
+
+      pt.pass        Renderer._render_pass
+        pt.raygen      the chunk's camera rays and their Morton order
+        pt.depth       one depth step of a wavefront (every trace variant)
+          pt.hit         the depth's closest hit, sort and scatter back
+          pt.occlusion   NEE's shadow query
+        pt.compact     _reservoir_compact, before its depth's step
+        pt.merge       the chunk's film and its merge into the pass's film
+        pt.sync        the pass's one read of the card
+      pt.rng.keys    split and fold_in of host keys
+      pt.rng.draw    issuing random_bits, uniform, uniform_per_key, randint
+      pt.step        parallel.shard.make_train_step's step
+        pt.forward     the sharded render under grad and the loss
+        pt.backward    autograd.grad (the tape's backward inside it)
+        pt.update      the SGD update
+      pt.march       geometry.march's lockstep march
+
+  * lane counters: while a profiler records, each depth step of a
+    Renderer pass counts its alive lanes and the lanes it carried (its
+    width, the cap where a compaction precedes it), and each
+    _reservoir_compact the alive lanes offered to it (its survivors;
+    those beyond the cap are dropped, so the next step's alive lanes are
+    min(survivors, carried)). The alive and survivor counts are sums the
+    integrator makes anyway; they stay on the device until the pass's one
+    read of the card, which brings them back with the pass's ray count;
+    `counters()` gives them per depth, `reset_counters()` clears them.
+    With no profiler recording a pass reads its ray count alone, as
+    before;
   * `trace_to(dir)` runs a block under torch.profiler (CPU and, where
     there is a card, CUDA activities) and writes a Chrome trace into
     `dir` (open it in chrome://tracing or Perfetto);
-  * `RenderStats` adds up rays and pass times into Mrays/s;
   * `print_device_memory()` prints each card's allocated and reserved
     memory from torch.cuda.memory_stats.
+
+There is no setting: the spans and counters are on exactly while a torch
+profiler records (torch.autograd._profiler_enabled()).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from dataclasses import dataclass, field
 
 import torch
+
+_OFF = contextlib.nullcontext()
+
+FIELDS = ("alive", "carried", "survivors")
+
+# depth -> [alive, carried, survivors], summed over the passes
+_COUNTERS: dict[int, list[int]] = {}
+# the pass being counted; the integrator's depth steps find it here, since
+# the trace functions' signatures are the JAX package's
+_open: "_Tally | None" = None
+
+
+def span(name: str):
+    """A context: torch.profiler.record_function(name) while a profiler
+    records, else one shared no-op context (nothing is built)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def counters() -> dict:
+    """{depth: {"alive", "carried", "survivors"}} summed over the
+    Renderer passes made while a profiler recorded."""
+    return {d: dict(zip(FIELDS, c)) for d, c in sorted(_COUNTERS.items())}
+
+
+def reset_counters() -> None:
+    _COUNTERS.clear()
+
+
+def count(depth: int, field: str, n) -> None:
+    """Add n (an int, or a 0-d integer tensor, which stays on its device)
+    to the open pass's `field` count at `depth`; nothing outside a
+    counted pass."""
+    if _open is not None:
+        _open.items.append((depth, FIELDS.index(field), n))
+
+
+class _Tally:
+    """One pass's pending counts, read with its ray count."""
+
+    def __init__(self):
+        self.items = []
+
+    def read(self, rays: torch.Tensor) -> int:
+        """The ray count (a 0-d device tensor) as an int; the pending
+        counts come back in the same read and go into the counters."""
+        dev = [n for _d, _f, n in self.items if torch.is_tensor(n)]
+        if not dev:
+            vals = [int(rays.item())]
+        else:
+            vals = torch.stack([rays] + [n.to(rays.dtype) for n in dev]) \
+                .tolist()
+        it = iter(vals[1:])
+        for d, f, n in self.items:
+            row = _COUNTERS.setdefault(d, [0] * len(FIELDS))
+            row[f] += next(it) if torch.is_tensor(n) else int(n)
+        self.items = []
+        return vals[0]
+
+
+@contextlib.contextmanager
+def counted_pass():
+    """Yields the pass's tally; its depth steps count lanes into it while
+    a profiler records."""
+    global _open
+    tally, outer = _Tally(), _open
+    if torch.autograd._profiler_enabled():
+        _open = tally
+    try:
+        yield tally
+    finally:
+        _open = outer
 
 
 @contextlib.contextmanager
@@ -33,34 +139,6 @@ def trace_to(log_dir: str):
     n = len([f for f in os.listdir(log_dir) if f.startswith("trace_")])
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{n}.json"))
-
-
-@dataclass
-class RenderStats:
-    rays: int = 0
-    seconds: float = 0.0
-    passes: int = 0
-    history: list = field(default_factory=list)
-
-    @contextlib.contextmanager
-    def timed_pass(self):
-        t0 = time.time()
-        yield
-        dt = time.time() - t0
-        self.seconds += dt
-        self.passes += 1
-        self.history.append(dt)
-
-    def add_rays(self, n: int):
-        self.rays += int(n)
-
-    @property
-    def mrays_per_sec(self) -> float:
-        return self.rays / max(self.seconds, 1e-9) / 1e6
-
-    def summary(self) -> str:
-        return (f"{self.rays:,} rays in {self.seconds:.2f}s over "
-                f"{self.passes} passes = {self.mrays_per_sec:.1f} Mrays/s")
 
 
 def print_device_memory() -> None:

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ptsharp_tpu_torch import checkpoint
+from ptsharp_tpu_torch import checkpoint, profiling
 from ptsharp_tpu_torch.camera import Camera
 from ptsharp_tpu_torch.core import color as colorlib
 from ptsharp_tpu_torch.core import filters, rng, vec
@@ -139,8 +139,9 @@ class Renderer:
         the chunk's film and its ray count (a device scalar)."""
         cfg = self.config
         w = cfg.width
-        org, dirn, kt, sidx, n_strat, ju, jv, inv = self._raygen(
-            key, row0, rows, spp)
+        with profiling.span("pt.raygen"):
+            org, dirn, kt, sidx, n_strat, ju, jv, inv = self._raygen(
+                key, row0, rows, spp)
         tracer = trace_compacted_static if cfg.compaction else trace
         result = tracer(self.scene, self.integrator, org, dirn, kt, sidx,
                         n_strat)
@@ -151,19 +152,20 @@ class Renderer:
             return a.reshape((spp, rows * w) + a.shape[1:])[:, inv] \
                 .reshape(a.shape)
 
-        radiance = unshuf(result.radiance).reshape(spp, rows, w, 3)
-        albedo = unshuf(result.albedo).reshape(spp, rows, w, 3)
-        normal = unshuf(result.normal).reshape(spp, rows, w, 3)
-        if weight_rows is None:
-            weight = torch.ones((spp, rows, w), dtype=torch.float32,
-                                device=radiance.device)
-        else:
-            weight = weight_rows
-        if cfg.filter != filters.BOX:
-            fw = filters.evaluate(cfg.filter, ju - 0.5, jv - 0.5)
-            weight = weight * fw.reshape(spp, rows, w)
-        chunk = Film.zeros(rows, w, radiance.device).add_batch(
-            radiance, weight, albedo, normal)
+        with profiling.span("pt.merge"):
+            radiance = unshuf(result.radiance).reshape(spp, rows, w, 3)
+            albedo = unshuf(result.albedo).reshape(spp, rows, w, 3)
+            normal = unshuf(result.normal).reshape(spp, rows, w, 3)
+            if weight_rows is None:
+                weight = torch.ones((spp, rows, w), dtype=torch.float32,
+                                    device=radiance.device)
+            else:
+                weight = weight_rows
+            if cfg.filter != filters.BOX:
+                fw = filters.evaluate(cfg.filter, ju - 0.5, jv - 0.5)
+                weight = weight * fw.reshape(spp, rows, w)
+            chunk = Film.zeros(rows, w, radiance.device).add_batch(
+                radiance, weight, albedo, normal)
         return chunk, result.rays_traced
 
     def _render_pass(self, film: Film, key, spp: int, weight=None) -> Film:
@@ -172,19 +174,23 @@ class Renderer:
         cfg = self.config
         rows_per = self._rows_per_chunk(spp)
         n_chunks = -(-cfg.height // rows_per)
-        keys = rng.split(key, n_chunks)
-        counts = []
-        with torch.no_grad():
-            for ci in range(n_chunks):
-                row0 = ci * rows_per
-                rows = min(rows_per, cfg.height - row0)
-                wr = None if weight is None else weight[:, row0:row0 + rows]
-                chunk, rays = self._render_chunk(keys[ci], row0, rows, spp,
-                                                 wr)
-                film = _merge_rows(film, row0, chunk)
-                counts.append(rays)
-        # one device-to-host read per pass
-        self.rays_traced += int(torch.stack(counts).sum().item())
+        with profiling.span("pt.pass"), profiling.counted_pass() as tally:
+            keys = rng.split(key, n_chunks)
+            counts = []
+            with torch.no_grad():
+                for ci in range(n_chunks):
+                    row0 = ci * rows_per
+                    rows = min(rows_per, cfg.height - row0)
+                    wr = (None if weight is None
+                          else weight[:, row0:row0 + rows])
+                    chunk, rays = self._render_chunk(keys[ci], row0, rows,
+                                                     spp, wr)
+                    with profiling.span("pt.merge"):
+                        film = _merge_rows(film, row0, chunk)
+                    counts.append(rays)
+            # one device-to-host read per pass (the lane counts ride on it)
+            with profiling.span("pt.sync"):
+                self.rays_traced += tally.read(torch.stack(counts).sum())
         return film
 
     def render(self, film: Film | None = None, key=None) -> Film:

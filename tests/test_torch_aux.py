@@ -412,13 +412,12 @@ def test_viewer_serves_frames():
 
 def test_profiling(tmp_path, capsys):
     with profiling.trace_to(str(tmp_path)):
-        torch.ones(8).sum()
-    assert any(f.endswith(".json") for f in os.listdir(tmp_path))
-    stats = profiling.RenderStats()
-    with stats.timed_pass():
-        stats.add_rays(2_000_000)
-    assert stats.passes == 1 and stats.rays == 2_000_000
-    assert "Mrays/s" in stats.summary()
+        with profiling.span("pt.probe"):
+            torch.ones(8).sum()
+    files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
+    assert len(files) == 1
+    with open(tmp_path / files[0]) as f:
+        assert '"pt.probe"' in f.read()
     profiling.print_device_memory()
     assert capsys.readouterr().out.strip()
 
