@@ -13,6 +13,18 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               and
               the dynamic shared memory each staged kernel's launch asks
               for;
+  2b. rng    the threefry draws of core/rng.py (rng_phase): each
+              csrc/threefry.cu entry at the main path's shapes, a
+              (4,147,200,) and a (2, 4,147,200) uniform and a (4,147,200,)
+              randint over the bunny's one light, against the plain path
+              (the torch block on the card) bit for bit, timed beside it
+              (card ms by CUDA events, device ms behind a spin kernel)
+              and beside its bound (OPS_WORD integer operations a word at
+              PEAK_INT32, or WORD_BYTES a word written at PEAK_BYTES,
+              whichever is larger); and the host-device syncs a draw
+              makes, counted under torch.cuda.set_sync_debug_mode("warn"):
+              none by the kernel, one by a CPU key copied to the card as
+              the draw did before it;
   3. bunny    examples.build("bunny", intersector="pallas", wide_k=8): the
               full 81,920-triangle bunny, its BVH builder, table size and
               max_stack_bound;
@@ -282,6 +294,9 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               entry.dryrun_multichip(1) over NCCL in a process of its own
               (its OK line).
 
+`python3 chip_smoke.py --rng` runs phases 1, 2 and 2b alone and prints
+their JSON line.
+
 `python3 chip_smoke.py --shard-cards`, on a machine with four cards, runs
 the same check over NCCL, one rank a card (the bunny at 1920x1080, 2 spp,
 dp=2, sp=2), against the emulated mesh on cuda:0, then
@@ -302,14 +317,16 @@ it.
 Any failed check raises, so the exit code is non-zero; without a CUDA
 device, or without the package beside it, it exits non-zero before
 printing any result. The second-to-last line is a JSON object with each
-of the sixteen kernel entry points' launches over the main-path renders,
+of the sixteen traversal entry points' launches over the main-path renders,
 the grad phase's main-path runs and SGD steps and the shard phase's
 render and train steps (the split-table and
 the staged kernels': over their phases' driven calls, both scenes), its
 largest
 error against its plain version, its times at the bunny's 1080p
 main-path width (the TLAS walk's at toybrick's, with its device time)
-and its bound there; the
+and its bound there, and phase 2b's threefry rows, each with its
+kernel's launches and words over the main-path renders (every one of
+which must launch the threefry uniform); the
 last line is {"ok": true,
 "device": {...}}.
 """
@@ -471,6 +488,25 @@ OPS_AFFINE = 33
 RAY_BYTES = 28  # org, dir, t_max or t_cut: float32
 # t, slot, u, v; one bool; the TLAS walk's t, kind, index, inst, u, v
 OUT_BYTES = {"closest": 16, "any": 1, "tlas": 24}
+# the threefry draws' least time: the H100 SXM's 32-bit integer rate,
+# one instruction a lane a clock on each of an SM's four sub-partitions
+# (its dispatch limit: the compiler runs adds on the FMA pipe as IMAD beside
+# the integer pipe), 132 SMs at the 1.98 GHz boost clock
+PEAK_INT32 = 132 * 4 * 32 * 1.98e9  # operations/s
+# integer operations a word, counted from csrc/threefry.cu's loop over a
+# thread's words: the block 73 (2 adds of the key to the counter, 20
+# rounds of add, rotate and xor, 5 injections of 2 adds, the output xor;
+# the key schedule's xors and the injections' constants are computed once
+# a thread); a uniform's shift, or and subtract 3; a randint two blocks
+# and its three modulus, a multiply and two adds (each % counted as one
+# operation, the index and address arithmetic not at all: a lower bound)
+OPS_BLOCK = 73
+OPS_WORD = {"uniform": OPS_BLOCK + 3, "randint": 2 * OPS_BLOCK + 6}
+WORD_BYTES = {"uniform": 4, "randint": 4}  # float32, int32 written
+# the main path's draws: a pass's full-width uniforms, the camera jitter's
+# and lens's (2, r) pairs, NEE's light pick over the bunny's one light
+RNG_DRAWS = (("uniform", (4_147_200,)), ("uniform", (2, 4_147_200)),
+             ("randint", (4_147_200,)))
 
 
 def log(msg: str) -> None:
@@ -582,6 +618,14 @@ def ptxas_report(text: str) -> dict:
                 kind = (f"{TLAS_K.get(k, f'K={k}')},"
                         f"{('scalar', 'float4')[int(tlas.group(4))]} leaves")
             name = f"tlas_walk<{walk},{kind}>"
+            rows[name] = {"smem": 0}
+            continue
+        # threefry_words<T>, threefry_randint, threefry_uniform_keys
+        fry = m and re.search(r"\d(threefry_[a-z_]+?)(?:I([a-z])E)?E",
+                              m.group(1))
+        if fry:
+            name = fry.group(1) + (f"<{fry.group(2)}>" if fry.group(2)
+                                   else "")
             rows[name] = {"smem": 0}
             continue
         if m:
@@ -2115,17 +2159,21 @@ def render(scene, cam, rcfg, icfg, seed=0):
 def render_main(label, scene, cam, rcfg, icfg, card=""):
     """One render of the main path with every launch count set to 0 just
     before and read just after: exactly the build's kernels
-    (RENDER_KERNELS) must have launched. Returns {wrapper name:
-    (launches, rays of those launches)}."""
+    (RENDER_KERNELS) must have launched, and the threefry uniform at
+    least once. Returns {wrapper name: (launches, rays of those
+    launches)}, with {"threefry.<wrapper>": (launches, words)}."""
     from ptsharp_tpu_torch.geometry import march
     from ptsharp_tpu_torch.integrator import uses_anyhit_shadows
-    from ptsharp_tpu_torch.kernels import traverse
+    from ptsharp_tpu_torch.kernels import threefry, traverse
 
     _reset_peak(scene.device)
     traverse.reset_launch_counts()
+    threefry.reset_launch_counts()
     march.reset_counts()
     film, rays, sec = render(scene, cam, rcfg, icfg)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
+    draws = {f"threefry.{w.__name__}": (w.launches, w.words)
+             for w in threefry.WRAPPERS}
     marches = {tag: tuple(c) for tag, c in sorted(march.COUNTS.items())}
     widths = {w.__name__: w.rays // w.launches for w in traverse.WRAPPERS
               if w.launches}
@@ -2156,9 +2204,13 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
         f"rays_traced={rays} seconds={sec:.3f} "
         f"mrays_per_s={rays / sec / 1e6:.3f} film_mean="
         f"{float(film.mean.mean()):.6f} peak_mb={_peak_mb(scene.device)} "
-        f"launches={launches} rays a launch={widths}"
+        f"launches={launches} rays a launch={widths} threefry (launches, "
+        f"words)={draws}"
         + (f" march (marches, steps, lane steps)={marches}" if marches
            else "") + f" [{card}]")
+    if not draws["threefry.uniform"][0]:
+        raise AssertionError(f"{label}: no draw launched the threefry "
+                             f"uniform kernel")
     shapes = (len(scene.sdf_objects) + len(scene.volumes)
               + len(scene.functions))
     if bool(shapes) != bool(marches):
@@ -2168,7 +2220,8 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
         if (name in expected) != (count > 0):
             raise AssertionError(f"{label} ({walk} walk) launched "
                                  f"{name} {count} times")
-    return {w.__name__: (w.launches, w.rays) for w in traverse.WRAPPERS}
+    return {**{w.__name__: (w.launches, w.rays) for w in traverse.WRAPPERS},
+            **draws}
 
 
 def reference_phase(device):
@@ -3517,6 +3570,91 @@ def shard_phase(scene, cam, icfg, width, height, card):
     return total
 
 
+def _draw(kind, key, shape, device):
+    from ptsharp_tpu_torch.core import rng
+
+    if kind == "uniform":
+        return rng.uniform(key, shape, device=device)
+    return rng.randint(key, shape, 0, 1, device=device)
+
+
+def _plain_draw(kind, key, shape, device):
+    """The same draw through the torch block on the card (the kernel's
+    plain version)."""
+    from ptsharp_tpu_torch.core import rng
+
+    on_card = rng._on_card
+    rng._on_card = lambda dev: False
+    try:
+        return _draw(kind, key, shape, device)
+    finally:
+        rng._on_card = on_card
+
+
+def _syncs(fn) -> int:
+    """Host-device syncs fn makes, by torch's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(str(w.message).startswith("called a synchronizing")
+               for w in caught)
+
+
+def rng_phase(device) -> dict:
+    """Phase 2b: the threefry kernels at the main path's shapes against
+    their plain path, timed beside it and their bound; syncs a draw."""
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.kernels import threefry
+
+    key = rng.fold_in(rng.PRNGKey(2024), 22)
+    rows = []
+    for kind, shape in RNG_DRAWS:
+        got = _draw(kind, key, shape, device)
+        want = _plain_draw(kind, key, shape, device)
+        sync(device)
+        bits = (lambda x: x.view(torch.int32)) if kind == "uniform" \
+            else (lambda x: x)
+        _equal(f"rng {kind} {shape}", (bits(got),), (bits(want),))
+        threefry.reset_launch_counts()
+        ms = time_ms(lambda: _draw(kind, key, shape, device), device)
+        launches = sum(w.launches for w in threefry.WRAPPERS)
+        if launches != 6:  # a warm-up and 5 timed calls, one launch each
+            raise AssertionError(f"rng {kind}: {launches} launches for 6 "
+                                 f"draws")
+        dms = device_ms(lambda: _draw(kind, key, shape, device))
+        plain_ms = time_ms(lambda: _plain_draw(kind, key, shape, device),
+                           device)
+        n = math.prod(shape)
+        ops, nbytes = n * OPS_WORD[kind], n * WORD_BYTES[kind]
+        t_ops, t_bytes = ops / PEAK_INT32, nbytes / PEAK_BYTES
+        row = dict(kind=kind, shape=list(shape), ms=ms, device_ms=dms,
+                   plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   ops=ops, bytes=nbytes)
+        row["share"] = row["bound_ms"] / dms
+        rows.append(row)
+        log(f"rng {kind} {shape}: card {ms:.4f} ms, device {dms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, {bound_text(row)}, share of bound "
+            f"{100 * row['share']:.1f}%")
+    cpu_key = rng.PRNGKey(5)
+    syncs = dict(kernel=_syncs(lambda: rng.uniform(cpu_key, (4099,),
+                                                   device=device)),
+                 key_copy=_syncs(lambda: cpu_key.to(device)))
+    log(f"rng syncs: a kernel draw {syncs['kernel']}, a CPU key copied to "
+        f"the card {syncs['key_copy']}")
+    if syncs["kernel"] or not syncs["key_copy"]:
+        raise AssertionError(f"rng syncs {syncs}: a draw must make none, "
+                             f"the key copy one")
+    return {"rng": rows, "syncs": syncs}
+
+
 def scene_line(name, scene, seconds):
     if scene.intersector != "pallas":
         # leaf slots holding a triangle (padding slots are all zero)
@@ -3554,7 +3692,7 @@ def scene_line(name, scene, seconds):
 # ---- main -----------------------------------------------------------------
 
 
-def main() -> int:
+def main(rng_only: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -3587,6 +3725,10 @@ def main() -> int:
             f"{row.get('spill_loads')} B, static smem {row['smem']} B")
     log("  dynamic smem a launch: " + ", ".join(
         f"{name} {dynamic_smem(name)} B" for name in STAGED))
+    rng_res = rng_phase(device)
+    if rng_only:
+        print(json.dumps(rng_res))
+        return 0
 
     # bunny: the four kernels at two widths
     t0 = time.perf_counter()
@@ -3799,7 +3941,16 @@ def main() -> int:
             library_ms=None))
         if name in NOTES:
             kernels[-1]["note"] = NOTES[name]
-    print(json.dumps({"kernels": kernels}))
+    # each threefry wrapper's launches and words over the main-path renders
+    main_draws = {}
+    for kind in {kind for kind, _shape in RNG_DRAWS}:
+        counted = [run.get(f"threefry.{kind}", (0, 0)) for run in runs]
+        main_draws[kind] = (sum(n for n, _words in counted),
+                            sum(w for _n, w in counted))
+    log(f"rng over the main-path renders (launches, words): {main_draws}")
+    for row in rng_res["rng"]:
+        row["main_launches"], row["main_words"] = main_draws[row["kind"]]
+    print(json.dumps({"kernels": kernels, "rng": rng_res["rng"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3812,4 +3963,4 @@ if __name__ == "__main__":
                             sys.argv[5]))
     if sys.argv[1:] == ["--shard-cards"]:
         sys.exit(shard_cards())
-    sys.exit(main())
+    sys.exit(main(rng_only=sys.argv[1:] == ["--rng"]))

@@ -121,6 +121,16 @@ def _bind(lib):
                          (lib.pt_any_hit_tlas, tlas_any)):
         fn.restype = ci
         fn.argtypes = argtypes
+    # the threefry draws (csrc/threefry.cu): output, words, the key's words
+    # (randint: both sub-keys', the span, the multiplier and minval),
+    # stream
+    u32, i64 = ctypes.c_uint32, ctypes.c_int64
+    for fn, argtypes in (
+            (lib.pt_threefry_uniform, [vp, i64, u32, u32, vp]),
+            (lib.pt_threefry_randint,
+             [vp, i64, u32, u32, u32, u32, u32, u32, i64, vp])):
+        fn.restype = ci
+        fn.argtypes = argtypes
     # the warp packets' ring block (table rows), dynamic shared memory and
     # whether their rings prefetch
     for name in ("fat_cache", "block_cache", "row_stage"):

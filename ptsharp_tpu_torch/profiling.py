@@ -14,8 +14,10 @@
         pt.compact     _reservoir_compact, before its depth's step
         pt.merge       the chunk's film and its merge into the pass's film
         pt.sync        the pass's one read of the card
-      pt.rng.keys    split and fold_in of host keys
+      pt.rng.keys    split and fold_in of host keys (Python integers)
       pt.rng.draw    issuing random_bits, uniform, uniform_per_key, randint
+                     (uniform and randint: one csrc/threefry.cu launch
+                     each on a card)
       pt.step        parallel.shard.make_train_step's step
         pt.forward     the sharded render under grad and the loss
         pt.backward    autograd.grad (the tape's backward inside it)
@@ -33,6 +35,10 @@
     `counters()` gives them per depth, `reset_counters()` clears them.
     With no profiler recording a pass reads its ray count alone, as
     before;
+  * draw counter: while a profiler records, core/rng.py counts each draw
+    by the path it took, "kernel" (a CUDA device: one csrc/threefry.cu
+    launch) or "plain" (the torch block, any other device); `draws()`
+    gives them, `reset_counters()` clears them with the lane counters;
   * `trace_to(dir)` runs a block under torch.profiler (CPU and, where
     there is a card, CUDA activities) and writes a Chrome trace into
     `dir` (open it in chrome://tracing or Perfetto);
@@ -56,6 +62,9 @@ FIELDS = ("alive", "carried", "survivors")
 
 # depth -> [alive, carried, survivors], summed over the passes
 _COUNTERS: dict[int, list[int]] = {}
+# draws by path (core/rng.py), while a profiler records
+PATHS = ("kernel", "plain")
+_DRAWS = dict.fromkeys(PATHS, 0)
 # the pass being counted; the integrator's depth steps find it here, since
 # the trace functions' signatures are the JAX package's
 _open: "_Tally | None" = None
@@ -77,6 +86,20 @@ def counters() -> dict:
 
 def reset_counters() -> None:
     _COUNTERS.clear()
+    _DRAWS.update(dict.fromkeys(PATHS, 0))
+
+
+def draws() -> dict:
+    """{"kernel", "plain"}: the draws core/rng.py made by each path
+    while a profiler recorded."""
+    return dict(_DRAWS)
+
+
+def count_draw(path: str) -> None:
+    """Count one draw by `path` ("kernel" or "plain") while a profiler
+    records."""
+    if torch.autograd._profiler_enabled():
+        _DRAWS[path] += 1
 
 
 def count(depth: int, field: str, n) -> None:
