@@ -24,9 +24,13 @@ march's launches, and a march overruns its last active lane by at most 7
 steps.
 
 COUNTS[tag] holds [marches, steps, lane steps] for each tag a caller names
-(intersect.py: "closest" and "shadow"); reset_counts() clears them. Each
-march runs inside the span "pt.march" (profiling.span: a torch.profiler
-range while a profiler records; chip_profile.py reads its device time).
+(intersect.py: "closest" and "shadow") over every march; reset_counts()
+clears them. Each march runs inside the span "pt.march" and each check
+inside "pt.march.check" (profiling.span: a torch.profiler range while a
+profiler records). While a profiler records, a tagged march also counts
+into profiling.march_counters(): its checks, and beside the carried lane
+steps the active ones (the lanes still marching at each step), a device
+sum that the pass's one read brings back.
 """
 
 from __future__ import annotations
@@ -61,22 +65,32 @@ def _march(step, lanes, active, results, max_steps, tag):
     every = CHECK_EVERY
     out = {k: lanes[k].clone() for k in results}
     idx = None  # the lanes in `lanes`, as indices into the R lanes
-    steps = lane_steps = 0
+    steps = lane_steps = checks = 0
+    # the active masks since the last check, summed at the next one
+    counting = tag is not None and torch.autograd._profiler_enabled()
+    masks, active_sum = [], 0
     for i in range(max_steps):
         if i % every == 0:
-            keep = torch.nonzero(active).squeeze(1)
-            for k in results:
-                if idx is None:
-                    out[k] = lanes[k].clone()
-                else:
-                    out[k][idx] = lanes[k]
-            if keep.numel() == 0:
-                idx = keep
-                break
-            if keep.numel() < active.shape[0]:
-                lanes = {k: v[keep] for k, v in lanes.items()}
-                active = active[keep]
-                idx = keep if idx is None else idx[keep]
+            if masks:
+                active_sum = active_sum + torch.stack(masks).sum()
+                masks = []
+            with profiling.span("pt.march.check"):
+                keep = torch.nonzero(active).squeeze(1)
+                checks += 1
+                for k in results:
+                    if idx is None:
+                        out[k] = lanes[k].clone()
+                    else:
+                        out[k][idx] = lanes[k]
+                if keep.numel() == 0:
+                    idx = keep
+                    break
+                if keep.numel() < active.shape[0]:
+                    lanes = {k: v[keep] for k, v in lanes.items()}
+                    active = active[keep]
+                    idx = keep if idx is None else idx[keep]
+        if counting:
+            masks.append(active)
         active = step(lanes, active)
         steps += 1
         lane_steps += active.shape[0]
@@ -91,4 +105,8 @@ def _march(step, lanes, active, results, max_steps, tag):
         c[0] += 1
         c[1] += steps
         c[2] += lane_steps
+    if counting:
+        if masks:
+            active_sum = active_sum + torch.stack(masks).sum()
+        profiling.count_march(tag, steps, checks, lane_steps, active_sum)
     return out

@@ -23,6 +23,7 @@
         pt.backward    autograd.grad (the tape's backward inside it)
         pt.update      the SGD update
       pt.march       geometry.march's lockstep march
+        pt.march.check  a check: the active lanes' nonzero and gather
 
   * lane counters: while a profiler records, each depth step of a
     Renderer pass counts its alive lanes and the lanes it carried (its
@@ -35,6 +36,13 @@
     `counters()` gives them per depth, `reset_counters()` clears them.
     With no profiler recording a pass reads its ray count alone, as
     before;
+  * march counters: while a profiler records, each tagged march
+    ("closest", "shadow") counts its marches, steps, checks and carried
+    lane steps (host ints) and its active lane steps (the sum over its
+    steps of the lanes still marching, a device sum that a Renderer pass
+    reads with its ray count; a march outside a counted pass reads it
+    itself); `march_counters()` gives them per tag, `reset_counters()`
+    clears them;
   * draw counter: while a profiler records, core/rng.py counts each draw
     by the path it took, "kernel" (a CUDA device: one csrc/threefry.cu
     launch) or "plain" (the torch block, any other device); `draws()`
@@ -62,6 +70,9 @@ FIELDS = ("alive", "carried", "survivors")
 
 # depth -> [alive, carried, survivors], summed over the passes
 _COUNTERS: dict[int, list[int]] = {}
+MARCH_FIELDS = ("marches", "steps", "checks", "carried", "active")
+# march tag -> MARCH_FIELDS, summed over the marches
+_MARCHES: dict[str, list[int]] = {}
 # draws by path (core/rng.py), while a profiler records
 PATHS = ("kernel", "plain")
 _DRAWS = dict.fromkeys(PATHS, 0)
@@ -84,8 +95,16 @@ def counters() -> dict:
     return {d: dict(zip(FIELDS, c)) for d, c in sorted(_COUNTERS.items())}
 
 
+def march_counters() -> dict:
+    """{tag: {"marches", "steps", "checks", "carried", "active"}} summed
+    over the marches made while a profiler recorded."""
+    return {t: dict(zip(MARCH_FIELDS, c))
+            for t, c in sorted(_MARCHES.items())}
+
+
 def reset_counters() -> None:
     _COUNTERS.clear()
+    _MARCHES.clear()
     _DRAWS.update(dict.fromkeys(PATHS, 0))
 
 
@@ -107,7 +126,22 @@ def count(depth: int, field: str, n) -> None:
     to the open pass's `field` count at `depth`; nothing outside a
     counted pass."""
     if _open is not None:
-        _open.items.append((depth, FIELDS.index(field), n))
+        _open.items.append((_COUNTERS, depth, FIELDS, field, n))
+
+
+def count_march(tag: str, steps: int, checks: int, carried: int,
+                active) -> None:
+    """Add one march's counts under `tag` (geometry/march.py calls it
+    while a profiler records); `active` (a 0-d integer tensor) stays on
+    its device until the open pass's read, or is read here outside a
+    counted pass."""
+    row = _MARCHES.setdefault(tag, [0] * len(MARCH_FIELDS))
+    for i, n in enumerate((1, steps, checks, carried)):
+        row[i] += n
+    if _open is not None:
+        _open.items.append((_MARCHES, tag, MARCH_FIELDS, "active", active))
+    else:
+        row[-1] += int(active)
 
 
 class _Tally:
@@ -119,16 +153,17 @@ class _Tally:
     def read(self, rays: torch.Tensor) -> int:
         """The ray count (a 0-d device tensor) as an int; the pending
         counts come back in the same read and go into the counters."""
-        dev = [n for _d, _f, n in self.items if torch.is_tensor(n)]
+        dev = [n for *_k, n in self.items if torch.is_tensor(n)]
         if not dev:
             vals = [int(rays.item())]
         else:
             vals = torch.stack([rays] + [n.to(rays.dtype) for n in dev]) \
                 .tolist()
         it = iter(vals[1:])
-        for d, f, n in self.items:
-            row = _COUNTERS.setdefault(d, [0] * len(FIELDS))
-            row[f] += next(it) if torch.is_tensor(n) else int(n)
+        for table, key, fields, f, n in self.items:
+            row = table.setdefault(key, [0] * len(fields))
+            n = next(it) if torch.is_tensor(n) else int(n)
+            row[fields.index(f)] += n
         self.items = []
         return vals[0]
 
