@@ -25,6 +25,17 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               makes, counted under torch.cuda.set_sync_debug_mode("warn"):
               none by the kernel, one by a CPU key copied to the card as
               the draw did before it;
+  2c. march  the SDF sphere trace (march_phase): csrc/sdf_march.cu's one
+              launch a march at the sdf_csg configuration's main path
+              (examples.build("sdf") at 1920x1080, its 2,073,600 camera
+              rays, 1 spp through the thin lens, clipped to the tree's
+              box) against the lockstep march on the card (the kernel
+              route off), hit t bit for bit and the active lane steps
+              alike, timed beside it (card ms: median of 5 CUDA-event
+              timings; plain ms once after a warm-up) and beside its bound
+              (the active lane steps times perfbench.march_ops's
+              operations of a lane step of the configuration's tree, at
+              PEAK_F32);
   3. bunny    examples.build("bunny", intersector="pallas", wide_k=8): the
               full 81,920-triangle bunny, its BVH builder, table size and
               max_stack_bound;
@@ -295,7 +306,8 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               (its OK line).
 
 `python3 chip_smoke.py --rng` runs phases 1, 2 and 2b alone and prints
-their JSON line.
+their JSON line; `python3 chip_smoke.py --march` runs phases 1, 2 and 2c
+alone and prints theirs.
 
 `python3 chip_smoke.py --shard-cards`, on a machine with four cards, runs
 the same check over NCCL, one rank a card (the bunny at 1920x1080, 2 spp,
@@ -326,7 +338,8 @@ error against its plain version, its times at the bunny's 1080p
 main-path width (the TLAS walk's at toybrick's, with its device time)
 and its bound there, and phase 2b's threefry rows, each with its
 kernel's launches and words over the main-path renders (every one of
-which must launch the threefry uniform); the
+which must launch the threefry uniform), and phase 2c's march row, with its launches and rays over the main-path
+renders (each SDF march of which must launch it); the
 last line is {"ok": true,
 "device": {...}}.
 """
@@ -505,6 +518,11 @@ OPS_WORD = {"uniform": OPS_BLOCK + 3, "randint": 2 * OPS_BLOCK + 6}
 WORD_BYTES = {"uniform": 4, "randint": 4}  # float32, int32 written
 # the main path's draws: a pass's full-width uniforms, the camera jitter's
 # and lens's (2, r) pairs, NEE's light pick over the bunny's one light
+# a sphere trace's ray: active0 (bool) in and hit t out for every ray;
+# org, dir, t0 and t_exit (float32) in only for a ray that enters the
+# tree's box (active0 set)
+MARCH_RAY_BYTES = 1 + 4
+MARCH_ENTER_BYTES = 12 + 12 + 4 + 4
 RNG_DRAWS = (("uniform", (4_147_200,)), ("uniform", (2, 4_147_200)),
              ("randint", (4_147_200,)))
 
@@ -2159,21 +2177,26 @@ def render(scene, cam, rcfg, icfg, seed=0):
 def render_main(label, scene, cam, rcfg, icfg, card=""):
     """One render of the main path with every launch count set to 0 just
     before and read just after: exactly the build's kernels
-    (RENDER_KERNELS) must have launched, and the threefry uniform at
-    least once. Returns {wrapper name: (launches, rays of those
-    launches)}, with {"threefry.<wrapper>": (launches, words)}."""
+    (RENDER_KERNELS) must have launched, the threefry uniform at least
+    once, and the sphere-trace kernel once for each march of a scene whose
+    marched shapes are SDFs alone (never for a scene without one).
+    Returns {wrapper name: (launches, rays of those launches)}, with
+    {"threefry.<wrapper>": (launches, words)} and {"sdf_march": (launches,
+    rays)}."""
     from ptsharp_tpu_torch.geometry import march
     from ptsharp_tpu_torch.integrator import uses_anyhit_shadows
-    from ptsharp_tpu_torch.kernels import threefry, traverse
+    from ptsharp_tpu_torch.kernels import sdf_march, threefry, traverse
 
     _reset_peak(scene.device)
     traverse.reset_launch_counts()
     threefry.reset_launch_counts()
+    sdf_march.reset_launch_counts()
     march.reset_counts()
     film, rays, sec = render(scene, cam, rcfg, icfg)
     launches = {w.__name__: w.launches for w in traverse.WRAPPERS}
     draws = {f"threefry.{w.__name__}": (w.launches, w.words)
              for w in threefry.WRAPPERS}
+    traced = (sdf_march.march.launches, sdf_march.march.rays)
     marches = {tag: tuple(c) for tag, c in sorted(march.COUNTS.items())}
     widths = {w.__name__: w.rays // w.launches for w in traverse.WRAPPERS
               if w.launches}
@@ -2206,8 +2229,8 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
         f"{float(film.mean.mean()):.6f} peak_mb={_peak_mb(scene.device)} "
         f"launches={launches} rays a launch={widths} threefry (launches, "
         f"words)={draws}"
-        + (f" march (marches, steps, lane steps)={marches}" if marches
-           else "") + f" [{card}]")
+        + (f" march (marches, steps, lane steps)={marches} sdf march "
+           f"(launches, rays)={traced}" if marches else "") + f" [{card}]")
     if not draws["threefry.uniform"][0]:
         raise AssertionError(f"{label}: no draw launched the threefry "
                              f"uniform kernel")
@@ -2216,12 +2239,25 @@ def render_main(label, scene, cam, rcfg, icfg, card=""):
     if bool(shapes) != bool(marches):
         raise AssertionError(f"{label}: {shapes} marched shapes, marches "
                              f"{marches}")
+    n_marches = sum(c[0] for c in marches.values())
+    if not scene.sdf_objects:
+        sdf_ok = traced[0] == 0
+    elif scene.volumes or scene.functions:
+        sdf_ok = 0 < traced[0] < n_marches
+    else:
+        sdf_ok = traced[0] == n_marches
+    if not sdf_ok:
+        raise AssertionError(f"{label}: {traced[0]} sphere-trace kernel "
+                             f"launches for {n_marches} marches of "
+                             f"{len(scene.sdf_objects)} SDF and "
+                             f"{shapes - len(scene.sdf_objects)} other "
+                             f"marched shapes")
     for name, count in launches.items():
         if (name in expected) != (count > 0):
             raise AssertionError(f"{label} ({walk} walk) launched "
                                  f"{name} {count} times")
     return {**{w.__name__: (w.launches, w.rays) for w in traverse.WRAPPERS},
-            **draws}
+            **draws, "sdf_march": traced}
 
 
 def reference_phase(device):
@@ -3655,6 +3691,87 @@ def rng_phase(device) -> dict:
     return {"rng": rows, "syncs": syncs}
 
 
+def march_phase(device) -> dict:
+    """Phase 2c: the sphere-trace kernel at sdf_csg's main path against
+    the lockstep march on the card, timed beside it and its bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench import march_ops
+    from ptsharp_tpu_torch import examples, intersect, profiling
+    from ptsharp_tpu_torch.geometry import primitives
+    from ptsharp_tpu_torch.geometry import sdf as sdf_mod
+    from ptsharp_tpu_torch.kernels import build, sdf_march
+
+    with open(os.path.join(REPO, "perfbench", "configs",
+                           "sdf_csg.json")) as f:
+        step_ops = march_ops.lane_step_ops(json.load(f)["scene"]["sdf"]["tree"])
+    width, height = 1920, 1080
+    scene, cam, _rc, _ic = examples.build("sdf", width=width, height=height,
+                                          device=device)
+    tree, _mid, lo, hi = scene.sdf_objects[0]
+    org, dirn = camera_rays(scene, cam, width, height, width * height)
+    te, tx = primitives.box_entry_exit(org, dirn,
+                                       *intersect._box(lo, hi, device))
+    route = sdf_mod._kernel_program
+
+    def fused(tag=None):
+        return sdf_mod.sphere_trace(tree, org, dirn, te, tx, tag=tag)
+
+    def plain(tag=None):
+        sdf_mod._kernel_program = lambda *a: None
+        try:
+            return fused(tag)
+        finally:
+            sdf_mod._kernel_program = route
+
+    counted = []
+    for run in (fused, plain):
+        profiling.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            counted.append((run("closest"),
+                            profiling.march_counters()["closest"]))
+        profiling.reset_counters()
+    (got, c), (want, cp) = counted
+    sync(device)
+    _equal("sdf march hit t", (got,), (want,))
+    if c["active"] != cp["active"]:
+        raise AssertionError(f"sdf march: {c['active']} active lane steps, "
+                             f"the lockstep march {cp['active']}")
+    sdf_march.reset_launch_counts()
+    ms = time_ms(fused, device)
+    if sdf_march.march.launches != 6:  # a warm-up and 5 timed, one each
+        raise AssertionError(f"sdf march: {sdf_march.march.launches} "
+                             f"launches for 6 marches")
+    plain_ms = time_ms(plain, device, reps=PLAIN_REPS)
+    rays = width * height
+    entering = int((tx >= torch.clamp(te, min=0.0)).sum())
+    ops = c["active"] * step_ops
+    nbytes = rays * MARCH_RAY_BYTES + entering * MARCH_ENTER_BYTES
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    row = dict(rays=rays, entering=entering, hits=int((got < 1e8).sum()),
+               ms=ms,
+               plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ops=ops, bytes=nbytes, ops_lane_step=step_ops,
+               active=c["active"], carried=c["carried"],
+               most_steps=c["steps"], plain_steps=cp["steps"],
+               plain_checks=cp["checks"])
+    row["share"] = row["bound_ms"] / ms
+    regs = {k: v for k, v in ptxas_report(
+        build.build_info.get("ptxas", "")).items()
+        if k.startswith("sdf_march")}
+    row["ptxas"] = regs
+    log(f"sdf march {width}x{height} camera rays: card {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, {bound_text(row)}, share of bound "
+        f"{100 * row['share']:.2f}%; {entering} rays enter the box, hits "
+        f"{row['hits']}; active lane steps "
+        f"{c['active']} of {c['carried']} lane slots "
+        f"({100 * c['active'] / max(c['carried'], 1):.1f}%), most steps "
+        f"{c['steps']} (lockstep: {cp['steps']} steps, {cp['checks']} "
+        f"checks); ptxas {regs}")
+    return row
+
+
 def scene_line(name, scene, seconds):
     if scene.intersector != "pallas":
         # leaf slots holding a triangle (padding slots are all zero)
@@ -3692,7 +3809,7 @@ def scene_line(name, scene, seconds):
 # ---- main -----------------------------------------------------------------
 
 
-def main(rng_only: bool = False) -> int:
+def main(only: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -3725,10 +3842,14 @@ def main(rng_only: bool = False) -> int:
             f"{row.get('spill_loads')} B, static smem {row['smem']} B")
     log("  dynamic smem a launch: " + ", ".join(
         f"{name} {dynamic_smem(name)} B" for name in STAGED))
+    if only == "march":
+        print(json.dumps({"march": march_phase(device)}))
+        return 0
     rng_res = rng_phase(device)
-    if rng_only:
+    if only == "rng":
         print(json.dumps(rng_res))
         return 0
+    march_res = march_phase(device)
 
     # bunny: the four kernels at two widths
     t0 = time.perf_counter()
@@ -3950,7 +4071,17 @@ def main(rng_only: bool = False) -> int:
     log(f"rng over the main-path renders (launches, words): {main_draws}")
     for row in rng_res["rng"]:
         row["main_launches"], row["main_words"] = main_draws[row["kind"]]
-    print(json.dumps({"kernels": kernels, "rng": rng_res["rng"]}))
+    # the sphere-trace kernel's launches and rays over the same renders
+    traced = [run.get("sdf_march", (0, 0)) for run in runs]
+    march_res["main_launches"] = sum(n for n, _rays in traced)
+    march_res["main_rays"] = sum(r for _n, r in traced)
+    log(f"sdf march over the main-path renders (launches, rays): "
+        f"({march_res['main_launches']}, {march_res['main_rays']})")
+    if not march_res["main_launches"]:
+        raise AssertionError("no main-path render launched the sphere-trace "
+                             "kernel")
+    print(json.dumps({"kernels": kernels, "rng": rng_res["rng"],
+                      "march": march_res}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3963,4 +4094,5 @@ if __name__ == "__main__":
                             sys.argv[5]))
     if sys.argv[1:] == ["--shard-cards"]:
         sys.exit(shard_cards())
-    sys.exit(main(rng_only=sys.argv[1:] == ["--rng"]))
+    sys.exit(main(only={"--rng": "rng", "--march": "march"}.get(
+        " ".join(sys.argv[1:]))))

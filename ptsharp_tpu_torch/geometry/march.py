@@ -31,6 +31,12 @@ profiler records). While a profiler records, a tagged march also counts
 into profiling.march_counters(): its checks, and beside the carried lane
 steps the active ones (the lanes still marching at each step), a device
 sum that the pass's one read brings back.
+
+`fused` runs a march that one kernel takes to its end (geometry/sdf.py's
+sphere trace on a card, kernels/sdf_march.py) under the same span and
+counters: it adds its march to COUNTS at once, and its steps (the most a
+lane took) and lane steps (the lane slots its warps ran), which only the
+card knows, only while a profiler records, through the pass's one read.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ptsharp_tpu_torch import profiling
 CHECK_EVERY = 8
 
 COUNTS: dict[str, list[int]] = {}
+COUNT_FIELDS = ("marches", "steps", "lane steps")
 
 
 def reset_counts() -> None:
@@ -109,4 +116,34 @@ def _march(step, lanes, active, results, max_steps, tag):
         if masks:
             active_sum = active_sum + torch.stack(masks).sum()
         profiling.count_march(tag, steps, checks, lane_steps, active_sum)
+    return out
+
+
+def fused(launch: Callable, tag: str | None, device) -> torch.Tensor:
+    """A march that one kernel runs to its end: `launch(counts)` launches
+    it and returns its result, with `counts` None, or, while a profiler
+    records a tagged march, a zeroed (3,) int64 tensor on `device` to
+    which the kernel adds its active lane steps and lane slots and raises
+    the most steps a lane took. The launch runs inside "pt.march"; while
+    a profiler records, the stream is waited for before the span opens and
+    again inside it, so the span holds the kernel alone and nothing
+    queued before it. Otherwise nothing waits for the card."""
+    recording = torch.autograd._profiler_enabled()
+    wait = recording and torch.device(device).type == "cuda"
+    counts = None
+    if recording and tag is not None:
+        counts = torch.zeros(3, dtype=torch.int64, device=device)
+    if wait:
+        torch.cuda.current_stream(device).synchronize()
+    with profiling.span("pt.march"):
+        out = launch(counts)
+        if wait:
+            torch.cuda.current_stream(device).synchronize()
+    if tag is not None:
+        profiling.tally(COUNTS, tag, COUNT_FIELDS, "marches", 1)
+    if counts is not None:
+        active, carried, most = counts.unbind()
+        profiling.tally(COUNTS, tag, COUNT_FIELDS, "steps", most)
+        profiling.tally(COUNTS, tag, COUNT_FIELDS, "lane steps", carried)
+        profiling.count_march(tag, most, 0, carried, active)
     return out

@@ -9,6 +9,14 @@ tree is one branch-free distance function; the sphere trace runs it in
 geometry/march.py's lockstep loop. A node's vector constants are made once
 per device and kept.
 
+On a card the sphere trace is one kernel instead (csrc/sdf_march.cu,
+kernels/sdf_march.py), which marches each ray to its end over the tree
+compiled into a postfix program (`compile_program`), bit-equal to the
+lockstep loop, which stays its plain version: rays on a CUDA device whose
+tree holds only this module's node kinds take it (float32 rays and a tree
+no deeper than its stacks, else ValueError); rays on any other device, or
+a tree with any other Sdf subclass, take the lockstep loop.
+
 Distance parameters may be 0-d tensors; the march itself is detached, as
 in the JAX package.
 """
@@ -22,7 +30,8 @@ import numpy as np
 import torch
 
 from ptsharp_tpu_torch.core import vec
-from ptsharp_tpu_torch.geometry.march import march
+from ptsharp_tpu_torch.geometry import march
+from ptsharp_tpu_torch.kernels import sdf_march
 
 # Sphere-trace constants (reference SDFShape.Intersect, SDF.cs:34-37).
 TRACE_EPS = 1e-5
@@ -312,6 +321,177 @@ class SdfRepeat(Sdf):
 
 
 # ---------------------------------------------------------------------------
+# The tree as data: csrc/sdf_march.cu's program
+# ---------------------------------------------------------------------------
+
+
+class _Emitter:
+    """Collects a program's instructions, constants and stack depth."""
+
+    def __init__(self):
+        self.code, self.pieces = [], []
+        self.size = self.live = self.points = self.depth = 0
+        self.numbers = True
+
+    def op(self, name, *consts, flags=0, pushes=0):
+        """One instruction; each constant (value, length), a number, an
+        array or a tensor of that many values; `pushes` the distances it
+        adds to the stack (a leaf 1, a join -1)."""
+        self.code.append((sdf_march.OP[name], self.size, flags))
+        for value, n in consts:
+            if isinstance(value, torch.Tensor):
+                if value.numel() != n:
+                    raise _Unknown(f"{name}: {value.numel()} values")
+                self.numbers = False
+                piece = value.detach().reshape(-1)
+            else:
+                piece = np.asarray(value, np.float32).reshape(-1)
+                if piece.size != n:
+                    raise _Unknown(f"{name}: {piece.size} values")
+            self.pieces.append(piece)
+            self.size += n
+        self.live += pushes
+        self.depth = max(self.depth, self.live, self.points)
+
+    def point(self, name, *consts):
+        """A point op: saves the point for the subtree that follows."""
+        self.points += 1
+        self.op(name, *consts)
+
+    def pop(self):
+        self.points -= 1
+        self.op("pop")
+
+    def join(self, name, items):
+        if not items:
+            raise _Unknown(f"{name} of no items")
+        self.emit(items[0])
+        for it in items[1:]:
+            self.emit(it)
+            self.op(name, pushes=-1)
+
+    def exponent(self, e):
+        """length_n's float32 n and 1 / n (a float32 division)."""
+        n32 = torch.tensor(float(e), dtype=torch.float32)
+        return ((n32.item(), 1), ((1.0 / n32).item(), 1))
+
+    def emit(self, node):
+        kind = type(node)
+        if kind is SdfSphere:
+            if _is_two(node.exponent):
+                self.op("sphere", (node.radius, 1), pushes=1)
+            else:
+                self.op("sphere_n", *self.exponent(node.exponent),
+                        (node.radius, 1), pushes=1)
+        elif kind is SdfCube:
+            self.op("cube", (node.size, 3), pushes=1)
+        elif kind is SdfCylinder:
+            self.op("cylinder", (node.radius, 1), (node.height, 1),
+                    pushes=1)
+        elif kind is SdfCapsule:
+            ends = ((node.a, 3), (node.b, 3), (node.radius, 1))
+            if _is_two(node.exponent):
+                self.op("capsule", *ends, pushes=1)
+            else:
+                self.op("capsule_n", *ends, *self.exponent(node.exponent),
+                        pushes=1)
+        elif kind is SdfTorus:
+            flags, norms = 0, []
+            for e, two in ((node.major_exponent, sdf_march.TORUS_MAJOR_TWO),
+                           (node.minor_exponent, sdf_march.TORUS_MINOR_TWO)):
+                if _is_two(e):
+                    flags |= two
+                    norms += [(2.0, 1), (0.5, 1)]
+                else:  # SdfTorus._norm: float32(e), float32(1 / e)
+                    e = float(np.asarray(e))
+                    norms += [(np.float32(e), 1), (np.float32(1.0 / e), 1)]
+            self.op("torus", (node.major, 1), (node.minor, 1), *norms,
+                    flags=flags, pushes=1)
+        elif kind is SdfUnion:
+            self.join("union", node.items)
+        elif kind is SdfIntersection:
+            self.join("intersection", node.items)
+        elif kind is SdfDifference:
+            self.join("difference", node.items)
+        elif kind is SdfTransform:
+            self.point("affine", (node.inv[:3, :4], 12))
+            self.emit(node.sdf)
+            self.pop()
+        elif kind is SdfScale:
+            self.point("divide", (node.factor, 1))
+            self.emit(node.sdf)
+            self.pop()
+            self.op("scale", (node.factor, 1))
+        elif kind is SdfRepeat:
+            self.point("repeat", (node.step, 3))
+            self.emit(node.sdf)
+            self.pop()
+        else:
+            raise _Unknown(f"no program for {kind.__name__}")
+
+    def program(self, device) -> sdf_march.Program:
+        code = torch.as_tensor(np.asarray(self.code, np.int32),
+                               device=device)
+        if self.numbers:
+            consts = torch.as_tensor(np.concatenate(self.pieces),
+                                     device=device)
+        else:  # gathered on the device: no read of a tensor constant
+            consts = torch.cat([
+                p.to(device=device, dtype=torch.float32)
+                if isinstance(p, torch.Tensor)
+                else torch.as_tensor(p, device=device) for p in self.pieces])
+        return sdf_march.Program(code, consts, self.depth)
+
+
+class _Unknown(Exception):
+    """A tree the program cannot hold."""
+
+
+def compile_program(sdf: Sdf, device) -> sdf_march.Program | None:
+    """The tree as csrc/sdf_march.cu's postfix program on `device`, or
+    None where it holds a node of another kind than this module's (an Sdf
+    subclass, say). Each constant is rounded to float32 as the torch ops
+    round it; constants that are tensors are gathered into the buffer by
+    device ops, with no read of the card. A tree whose constants are all
+    numbers keeps its program, once per device. A tree deeper than the
+    kernel's stacks (sdf_march.STACK) raises ValueError."""
+    key = str(torch.device(device))
+    cache = sdf.__dict__.setdefault("_programs", {})
+    if key in cache:
+        return cache[key]
+    em = _Emitter()
+    try:
+        em.emit(sdf)
+    except _Unknown:
+        prog = None
+    else:
+        if em.depth > sdf_march.STACK:
+            raise ValueError(f"an SDF tree that holds {em.depth} distances "
+                             f"or points at once; the sphere-trace kernel "
+                             f"holds {sdf_march.STACK}")
+        prog = em.program(device)
+    if em.numbers:
+        cache[key] = prog
+    return prog
+
+
+def _kernel_program(sdf: Sdf, org, dirn, t_enter, t_exit):
+    """The tree's program for rays on a CUDA device, else None (the
+    lockstep loop): rays on any other device, or a tree with a node of
+    another kind than this module's. On a card, rays of another dtype than
+    float32 raise ValueError, as a tree deeper than the kernel's stacks
+    does (compile_program)."""
+    if org.device.type != "cuda":
+        return None
+    prog = compile_program(sdf, org.device)
+    dtypes = {x.dtype for x in (org, dirn, t_enter, t_exit)}
+    if prog is not None and dtypes != {torch.float32}:
+        raise ValueError(f"the sphere-trace kernel takes float32 rays, got "
+                         f"{sorted(map(str, dtypes))}")
+    return prog
+
+
+# ---------------------------------------------------------------------------
 # Sphere tracing (batched)
 # ---------------------------------------------------------------------------
 
@@ -324,11 +504,21 @@ def sphere_trace(sdf: Sdf, org, dirn, t_enter, t_exit,
     Step t += d; on the first sign flip jump back once and go on refining;
     accept where d < TRACE_EPS (SDF.cs:47-75). Returns t (R,), INF on a
     miss. Detached, as the JAX package's while_loop is: gradients stop at
-    the march (shading gradients flow outside it)."""
+    the march (shading gradients flow outside it). Rays on a card with a
+    tree of this module's kinds march in one kernel launch (march.fused),
+    any others in geometry/march.py's lockstep loop, with the same bits;
+    on a card, rays of another dtype than float32 or a tree deeper than
+    the kernel's stacks raise ValueError."""
     org, dirn = org.detach(), dirn.detach()
     t_enter, t_exit = t_enter.detach(), t_exit.detach()
     t0 = torch.clamp(t_enter, min=TRACE_START)
     active0 = t_exit >= torch.clamp(t_enter, min=0.0)
+    prog = _kernel_program(sdf, org, dirn, t_enter, t_exit)
+    if prog is not None:
+        lanes = [x.contiguous() for x in (org, dirn, t0, t_exit, active0)]
+        return march.fused(
+            lambda counts: sdf_march.march(prog, *lanes, max_steps, counts),
+            tag, org.device)
 
     def step(lanes, active):
         t, jump = lanes["t"], lanes["jump"]
@@ -346,8 +536,8 @@ def sphere_trace(sdf: Sdf, org, dirn, t_enter, t_exit,
 
     lanes = dict(org=org, dirn=dirn, t=t0, t_exit=t_exit, jump=active0,
                  hit_t=torch.full_like(t0, vec.INF))
-    return march(step, lanes, active0, ("hit_t",), max_steps,
-                 tag)["hit_t"]
+    return march.march(step, lanes, active0, ("hit_t",), max_steps,
+                       tag)["hit_t"]
 
 
 def sdf_normal(sdf: Sdf, p, eps: float = 1e-4):

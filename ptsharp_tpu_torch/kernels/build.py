@@ -131,6 +131,12 @@ def _bind(lib):
              [vp, i64, u32, u32, u32, u32, u32, u32, i64, vp])):
         fn.restype = ci
         fn.argtypes = argtypes
+    # the sphere trace (csrc/sdf_march.cu): the program's code, its op
+    # count and constants, org, dir, t0, t_exit, active0, n, max_steps,
+    # hit t, the ray counter, [3] counts or null, stream
+    lib.pt_sdf_march.restype = ci
+    lib.pt_sdf_march.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci,
+                                 vp, vp, vp, vp]
     # the warp packets' ring block (table rows), dynamic shared memory and
     # whether their rings prefetch
     for name in ("fat_cache", "block_cache", "row_stage"):

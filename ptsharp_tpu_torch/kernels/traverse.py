@@ -1280,6 +1280,22 @@ def _staged_tables(*tables):
 _RAY_COUNTERS = {}
 
 
+@contextlib.contextmanager
+def ray_counter(device, stream):
+    """The persistent walks' ray counter of `stream` on `device` (also
+    kernels/sdf_march.py's), made at first use; a launch inside the block
+    that raises RuntimeError drops it, since a failed launch may leave it
+    set."""
+    key = (device.index, stream)
+    if key not in _RAY_COUNTERS:
+        _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    try:
+        yield _RAY_COUNTERS[key]
+    except RuntimeError:
+        del _RAY_COUNTERS[key]
+        raise
+
+
 def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
                 counts, out, n_counts=2):
     """Launch a persistent walk (csrc/closest_hit.cu, any_hit.cu,
@@ -1301,19 +1317,12 @@ def _persistent(wrapper, entry, x, lead, org, dirn, t, base, end, tail,
     r = org.shape[0]
     if r:
         stream = _stream(x)
-        key = (x.device.index, stream)
-        if key not in _RAY_COUNTERS:
-            _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32,
-                                             device=x.device)
-        try:
+        with ray_counter(x.device, stream) as next_ray:
             _launch(wrapper, entry, _kernel_lib(x), *lead, _ptr(org),
                     _ptr(dirn), _ptr(t), r, base, end, *tail,
                     *(None if o is None else _ptr(o) for o in out),
-                    _ptr(_RAY_COUNTERS[key]),
+                    _ptr(next_ray),
                     None if counts is None else _ptr(counts), stream, rays=r)
-        except RuntimeError:
-            del _RAY_COUNTERS[key]  # a launch that failed may leave it set
-            raise
     return out
 
 

@@ -22,7 +22,10 @@
         pt.forward     the sharded render under grad and the loss
         pt.backward    autograd.grad (the tape's backward inside it)
         pt.update      the SGD update
-      pt.march       geometry.march's lockstep march
+      pt.march       a march: geometry.march's lockstep loop, or the one
+                     launch of an SDF's sphere trace on a card (which
+                     waits for the card before the span and inside it at
+                     its end, so the span holds the kernel alone)
         pt.march.check  a check: the active lanes' nonzero and gather
 
   * lane counters: while a profiler records, each depth step of a
@@ -38,11 +41,15 @@
     before;
   * march counters: while a profiler records, each tagged march
     ("closest", "shadow") counts its marches, steps, checks and carried
-    lane steps (host ints) and its active lane steps (the sum over its
-    steps of the lanes still marching, a device sum that a Renderer pass
-    reads with its ray count; a march outside a counted pass reads it
-    itself); `march_counters()` gives them per tag, `reset_counters()`
-    clears them;
+    lane steps and its active lane steps (the sum over its steps of the
+    lanes still marching). The lockstep loop's are host ints but the
+    active ones, a device sum; a march that one kernel runs (an SDF's on
+    a card) counts every one but its checks (0) on the device: its steps
+    are the most a lane took, its carried lane steps the lane slots its
+    warps ran. A Renderer pass reads the device counts with its ray
+    count; a march outside a counted pass reads them itself.
+    `march_counters()` gives them per tag, `reset_counters()` clears
+    them;
   * draw counter: while a profiler records, core/rng.py counts each draw
     by the path it took, "kernel" (a CUDA device: one csrc/threefry.cu
     launch) or "plain" (the torch block, any other device); `draws()`
@@ -129,19 +136,28 @@ def count(depth: int, field: str, n) -> None:
         _open.items.append((_COUNTERS, depth, FIELDS, field, n))
 
 
-def count_march(tag: str, steps: int, checks: int, carried: int,
-                active) -> None:
+def tally(table: dict, key, fields: tuple, field: str, n) -> None:
+    """Add n to table[key][fields.index(field)] (the row made at first
+    use): an int at once; a 0-d integer tensor at the open pass's read,
+    with its ray count, or read here outside a counted pass."""
+    row = table.setdefault(key, [0] * len(fields))
+    if torch.is_tensor(n):
+        if _open is not None:
+            _open.items.append((table, key, fields, field, n))
+            return
+        n = int(n)
+    row[fields.index(field)] += n
+
+
+def count_march(tag: str, steps, checks, carried, active) -> None:
     """Add one march's counts under `tag` (geometry/march.py calls it
-    while a profiler records); `active` (a 0-d integer tensor) stays on
-    its device until the open pass's read, or is read here outside a
-    counted pass."""
-    row = _MARCHES.setdefault(tag, [0] * len(MARCH_FIELDS))
-    for i, n in enumerate((1, steps, checks, carried)):
-        row[i] += n
-    if _open is not None:
-        _open.items.append((_MARCHES, tag, MARCH_FIELDS, "active", active))
-    else:
-        row[-1] += int(active)
+    while a profiler records); each an int or a 0-d integer tensor, which
+    stays on its device until the open pass's read (`tally`): the
+    lockstep loop's `active`, and every count but `checks` (0) of a march
+    that one kernel runs."""
+    tally(_MARCHES, tag, MARCH_FIELDS, "marches", 1)
+    for f, n in zip(MARCH_FIELDS[1:], (steps, checks, carried, active)):
+        tally(_MARCHES, tag, MARCH_FIELDS, f, n)
 
 
 class _Tally:
