@@ -29,8 +29,9 @@ summed by kind from key_averages(). Prints per build: rays traced, the
 median wall seconds and Mrays/s, the device milliseconds of the profiled
 render, the card's idle share at the median wall time (1 - device ms /
 median wall ms), device launches, and the device milliseconds of the
-traversal kernels (also by kernel instance), sorts, gathers and
-scatters, reductions and the other elementwise kernels, and the device
+traversal kernels (also by kernel instance), collectives, sorts,
+gathers and scatters, reductions and the other elementwise kernels (the
+classes of perfbench/common.py KINDS), and the device
 milliseconds of the kernels launched inside geometry/march.py's
 "pt.march" spans (the SDF, volume and heightfield marches, counted in
 the kinds too); then one JSON line of the same. Exits non-zero without a CUDA device.
@@ -49,6 +50,8 @@ import time
 from dataclasses import replace
 
 import torch
+
+from perfbench.common import kind_of
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PALLAS = dict(intersector="pallas", wide_k=8)
@@ -78,20 +81,6 @@ RENDERS = {
     "craft/wide": ("craft", dict(width=1920, height=1080), {}),
     "runway/wide": ("runway", dict(width=1920, height=1080), {}),
 }
-# kernel-name fragments -> kind; the first match wins
-KINDS = (("traversal", ("closest_hit", "any_hit", "tlas_walk")),
-         ("sort", ("sort", "radix", "Sort")),
-         ("gather/scatter", ("index", "gather", "scatter", "Index")),
-         ("reduction", ("reduce", "Reduce")))
-
-
-def kind_of(name: str) -> str:
-    for kind, frags in KINDS:
-        if any(f in name for f in frags):
-            return kind
-    return "elementwise/other"
-
-
 def kernel_instance(name: str) -> str:
     """A traversal kernel's name and template arguments, without its
     namespace and parameters."""

@@ -315,7 +315,7 @@ dp=2, sp=2), against the emulated mesh on cuda:0, then
 entry.dryrun_multichip(4).
 
 Every kernel's least time on the card (bound_ms) is computed from the
-work its plain version did on the main-path rays (kernels.traverse.
+work its plain version did on the main-path rays (accel.traverse.
 count_work): operations are box tests and triangle tests (a leaf's
 `count` triangles, not its padding slots, and an any-hit's only up to its
 first accepted one), and for the TLAS walk its analytic leaf tests,
@@ -347,6 +347,7 @@ last line is {"ok": true,
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import os
@@ -362,6 +363,17 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+
+# the least time of a walk or a draw on the card: the benchmark's H100 SXM
+# peaks (float32 outside the tensor cores, device memory) and the rays'
+# contract bytes
+from perfbench.common import (
+    ANY_OUT_BYTES,
+    CLOSEST_OUT_BYTES,
+    PEAK_BYTES,
+    PEAK_F32,
+    RAY_BYTES,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 INF = 1e9
@@ -473,15 +485,7 @@ PACKETS = ("closest_hit_fat_cache", "closest_hit_block_cache",
 # defaults (which intersect.py takes)
 CLUSTER_CHUNK = 8192
 CLUSTER_K_CAND = 12
-# (K, chain depth) of the hand-built trees whose stack bound lies in
-# (64, 128]
-STACK_CHAINS = ((4, 25), (8, 12))
 
-# the least time of a walk on the card: published H100 SXM peaks
-# (NVIDIA's data sheet, at the 700 W power limit), float32 outside the
-# tensor cores and device memory
-PEAK_F32 = 67e12     # operations/s
-PEAK_BYTES = 3.35e12  # bytes/s
 # operations counted from csrc/bvh_common.cuh (each add, multiply, divide,
 # min, max, abs and compare one operation)
 OPS_RAY = 9    # safe_inv of the direction: 3 x (abs, compare, divide)
@@ -498,9 +502,9 @@ OPS_MT = 55    # mt: 45 arithmetic, 9 compares, 1 add; and tt < best t
 # direction's safe inverse (OPS_RAY)
 OPS_ANALYTIC = {1: 38, 3: 34, 4: 68}
 OPS_AFFINE = 33
-RAY_BYTES = 28  # org, dir, t_max or t_cut: float32
-# t, slot, u, v; one bool; the TLAS walk's t, kind, index, inst, u, v
-OUT_BYTES = {"closest": 16, "any": 1, "tlas": 24}
+# the bytes out of a ray: t, slot, u, v; one bool; the TLAS walk's t,
+# kind, index, inst, u, v
+OUT_BYTES = {"closest": CLOSEST_OUT_BYTES, "any": ANY_OUT_BYTES, "tlas": 24}
 # the threefry draws' least time: the H100 SXM's 32-bit integer rate,
 # one instruction a lane a clock on each of an SM's four sub-partitions
 # (its dispatch limit: the compiler runs adds on the FMA pipe as IMAD beside
@@ -580,27 +584,36 @@ def device_ms(fn, reps: int = 20) -> float:
     (torch.cuda._sleep) holds the card while the host queues the first
     event, fn's launches and the second event, so the card runs the three
     back to back. Raises if the card reached the first event before the
-    second was queued: then the events would have timed the host."""
+    second was queued: then the events would have timed the host. The
+    garbage collector is off over the calls, as timeit turns it off: a
+    collection that starts inside one (1-5 ms, a full one 40-100 ms in
+    this process on the H100's host) outlasts the spin."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        if a.query():
-            raise AssertionError("the card ran out of queued work before "
-                                 "the timed call was queued")
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            fn()
+            b.record()
+            if a.query():
+                raise AssertionError("the card ran out of queued work "
+                                     "before the timed call was queued")
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    finally:
+        if collecting:
+            gc.enable()
     return statistics.median(times)
 
 
 def bound(work, n_rays: int, kind: str) -> dict:
-    """The least time of the work a plain walk counted (kernels.traverse.
+    """The least time of the work a plain walk counted (accel.traverse.
     count_work) on n_rays rays: the larger of its operations over
     PEAK_F32 and its bytes over PEAK_BYTES."""
     ops = (n_rays * OPS_RAY + work.boxes * OPS_BOX + work.triangles * OPS_MT
@@ -704,54 +717,12 @@ def camera_rays(scene, cam, width, height, n, seed=0):
     return cam.cast_rays(px, py, width, height, ju, jv)
 
 
-def bounce_rays(scene, org, dirn, n, seed=1):
-    """n bounce rays from the hit points of (org, dirn): cosine-weighted
-    about the shading normal, in random (scattered) order."""
-    from ptsharp_tpu_torch.core import sampling
-    from ptsharp_tpu_torch.intersect import closest_hit, hit_info
-
-    hit = closest_hit(scene, org, dirn)
-    info = hit_info(scene, org, dirn, hit)
-    hit_lanes = torch.nonzero(hit.t < INF).squeeze(1)
-    if hit_lanes.numel() == 0:
-        raise AssertionError("no camera ray hits the scene")
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    pick = hit_lanes[torch.randint(0, hit_lanes.numel(), (n,), generator=g)
-                     .to(org.device)]
-    u1, u2 = torch.rand((2, n), generator=g).to(org.device)
-    d = sampling.cosine_hemisphere(info.normal[pick], u1, u2)
-    o = info.position[pick] + d * 1e-4
-    return o.contiguous(), d.contiguous()
-
-
-def shadow_cut(scene, org, seed=2):
-    """Directions toward the light and t_cut as sample_lights forms them
-    (soft-shadow disc sample; analytic light distance less a margin)."""
-    from ptsharp_tpu_torch.core import sampling, vec
-    from ptsharp_tpu_torch.intersect import light_hit_t
-
-    r = org.shape[0]
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    lidx = torch.randint(0, scene.num_lights, (r,), generator=g) \
-        .to(org.device)
-    u1, u2 = torch.rand((2, r), generator=g).to(org.device)
-    center = scene.light_center[lidx]
-    radius = scene.light_radius[lidx]
-    dx, dy = sampling.uniform_disc_area(u1, u2)
-    t_ax, b_ax = vec.orthonormal_basis(vec.normalize(center - org))
-    point = center + t_ax * (dx * radius)[:, None] + b_ax * (dy * radius)[:, None]
-    d = vec.normalize(point - org)
-    t_light = light_hit_t(scene, org, d, lidx)
-    t_cut = t_light * (1.0 - 1e-3) - 1e-3
-    t_cut = torch.where(t_light < INF, t_cut, torch.full_like(t_cut, -INF))
-    return d.contiguous(), t_cut.contiguous()
-
-
 def phase_rays(scene, cam, width, height, n_cam, n_bounce):
     """The kernel phases' rays: camera rays then bounce rays from their
     hits (closest-hit), and shadow rays from the bounce origins with
     their t_cut and their nearest hit t (any-hit)."""
     from ptsharp_tpu_torch.kernels import traverse
+    from tests.torch_walk_cases import bounce_rays, shadow_cut
 
     oc, dc = camera_rays(scene, cam, width, height, n_cam)
     ob, db = bounce_rays(scene, oc, dc, n_bounce)
@@ -787,7 +758,7 @@ def _slot_triangles(scene):
 def _ties(scene, org, dirn, slot_a, slot_b, t_ref):
     """Of the lanes where two slots differ, those where both triangles hit
     at t within the closest-hit tolerance of each other: ties."""
-    from ptsharp_tpu_torch.kernels.traverse import _mt
+    from ptsharp_tpu_torch.accel.traverse import mt
 
     lanes = torch.nonzero(slot_a != slot_b).squeeze(1)
     if lanes.numel() == 0:
@@ -806,7 +777,7 @@ def _ties(scene, org, dirn, slot_a, slot_b, t_ref):
             tri = torch.gather(rows, 1, cols)[:, None, :]
         else:  # the XLA walks' slots index leaf_rows' triangles
             tri = scene.leaf_rows.reshape(-1, 9)[s][:, None, :]
-        ok, tt, _u, _v = _mt(tri, org[lanes], dirn[lanes])
+        ok, tt, _u, _v = mt(tri, org[lanes], dirn[lanes])
         tts.append(torch.where(ok[:, 0], tt[:, 0], torch.full_like(t_ref[lanes], INF)))
     tol = CLOSEST_TOL["atol"] + CLOSEST_TOL["rtol"] * t_ref[lanes].abs()
     return lanes, (tts[0] - tts[1]).abs() <= tol
@@ -831,15 +802,16 @@ def check_closest(scene, org, dirn, label, walk):
     """The walk's closest-hit kernel against its plain version: t, slot,
     u and v equal on every lane (each persistent kernel takes its plain
     version's steps in the same order)."""
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.kernels import traverse
 
     name = WALKS[walk][0]
     kernel = getattr(traverse, name)
-    plain = getattr(traverse, f"{name}_plain")
+    plain = getattr(walks, f"{name}_plain")
     args = _args(scene)
     tmax = torch.full((org.shape[0],), INF, device=org.device)
     t, s, u, v = kernel(scene.p_fat, org, dirn, tmax, *args)
-    with traverse.count_work() as work:
+    with walks.count_work() as work:
         tp, sp, up, vp = plain(scene.p_fat, org, dirn, tmax, *args)
     sync(org.device)
     bnd = bound(work, org.shape[0], "closest")
@@ -866,14 +838,15 @@ def check_closest(scene, org, dirn, label, walk):
 def check_any(scene, org, dirn, t_cut, label, walk):
     """The walk's any-hit kernel against its plain version, equal on every
     lane."""
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.kernels import traverse
 
     name = WALKS[walk][1]
     kernel = getattr(traverse, name)
-    plain = getattr(traverse, f"{name}_plain")
+    plain = getattr(walks, f"{name}_plain")
     args = _args(scene)
     occ = kernel(scene.p_fat, org, dirn, t_cut, *args)
-    with traverse.count_work() as work:
+    with walks.count_work() as work:
         occ_p = plain(scene.p_fat, org, dirn, t_cut, *args)
     sync(org.device)
     bnd = bound(work, org.shape[0], "any")
@@ -957,6 +930,7 @@ def walk_stats(scene, rays, label, walk):
     counted in the kernel), and steps per ray from the plain version,
     whose total the kernel's count must equal. Also one launch of fewer
     rays than a warp against the plain version. Returns {kind: ms}."""
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.kernels import traverse
 
     dev = scene.p_fat.device
@@ -976,7 +950,7 @@ def walk_stats(scene, rays, label, walk):
     out = {}
     for kind, (name, o, d, t) in kinds.items():
         kernel = getattr(traverse, name)
-        plain = getattr(traverse, f"{name}_plain")
+        plain = getattr(walks, f"{name}_plain")
         out[kind], use, steps = _kind_stats(
             kernel, plain, (scene.p_fat,), o, d, t, args,
             f"the {kind} rays", dev)
@@ -1022,6 +996,7 @@ def bench_shape_phase(scene, cam, label, chunks=4, chunk=1 << 20,
     pixels; the first `sample` rays of each chunk held against the plain
     version (t, slot, u and v on every lane), all chunks timed in full.
     Returns the ms of the full shape."""
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.kernels import traverse
 
     dev = scene.p_fat.device
@@ -1038,7 +1013,7 @@ def bench_shape_phase(scene, cam, label, chunks=4, chunk=1 << 20,
                tmax[:sample].contiguous())
         _equal("closest_hit on the bench shape's sample",
                tuple(x[:sample] for x in got),
-               traverse.closest_hit_plain(scene.p_fat, *few, *args))
+               walks.closest_hit_plain(scene.p_fat, *few, *args))
     taken, slots = counts.tolist()
 
     def run():
@@ -1108,6 +1083,7 @@ def split_phase(scene, rays, label):
     output on every lane, and each ray's steps) and its fat-table twin,
     and timed, per ray kind with lane use. Returns ({wrapper name:
     {max_abs_err, ms, plain_ms}}, {wrapper name: launches})."""
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.kernels import traverse
 
     dev = scene.p_fat.device
@@ -1128,12 +1104,12 @@ def split_phase(scene, rays, label):
     # the path: each entry point once, as a caller of the kernel-level
     # API calls it, each with its counts
     counts = {name: new_counts() for name in
-              (*traverse.ORDER_MODES, "any_hit_split", "closest_hit_packet")}
+              (*walks.ORDER_MODES, "any_hit_split", "closest_hit_packet")}
     traverse.reset_launch_counts()
     ordered = {m: traverse.closest_hit_split(*tab, org, dirn, tmax, *args,
                                              order_mode=m, return_iters=True,
                                              counts=counts[m])
-               for m in traverse.ORDER_MODES}
+               for m in walks.ORDER_MODES}
     occ = traverse.any_hit_split(*tab, ob, ds, t_cut, *args,
                                  counts=counts["any_hit_split"])
     packet = traverse.closest_hit_packet(*tab, org, dirn, tmax, *args,
@@ -1160,8 +1136,8 @@ def split_phase(scene, rays, label):
     errs = []
     for mode, got in ordered.items():
         name = f"closest_hit_split ({mode})"
-        with traverse.count_work() as work:
-            want = traverse.closest_hit_split_plain(
+        with walks.count_work() as work:
+            want = walks.closest_hit_split_plain(
                 *tab, org, dirn, tmax, *args, order_mode=mode,
                 return_iters=True)
         sync(dev)
@@ -1171,7 +1147,7 @@ def split_phase(scene, rays, label):
         errs.append(float((got[0] - want[0]).abs().max()))
         ms = time_ms(lambda: traverse.closest_hit_split(
             *tab, org, dirn, tmax, *args, order_mode=mode), dev)
-        plain_ms = time_ms(lambda: traverse.closest_hit_split_plain(
+        plain_ms = time_ms(lambda: walks.closest_hit_split_plain(
             *tab, org, dirn, tmax, *args, order_mode=mode), dev,
             PLAIN_REPS)
         log(f"{name} [{label}] rays={org.shape[0]} max_abs_err_t="
@@ -1194,8 +1170,8 @@ def split_phase(scene, rays, label):
 
     # #8 against its plain version on every lane, in either order, and
     # against #2
-    with traverse.count_work() as work:
-        occ_p, steps_p = traverse.any_hit_split_plain(
+    with walks.count_work() as work:
+        occ_p, steps_p = walks.any_hit_split_plain(
             *tab, ob, ds, t_cut, *args,
             order_mode=traverse.SPLIT_ANY_HIT_ORDER, return_iters=True)
     sync(dev)
@@ -1206,13 +1182,13 @@ def split_phase(scene, rays, label):
     _equal("any_hit_split (full) against its plain version",
            (traverse.any_hit_split(*tab, ob, ds, t_cut, *args,
                                    order_mode="full"),),
-           (traverse.any_hit_split_plain(*tab, ob, ds, t_cut, *args,
-                                         order_mode="full"),))
+           (walks.any_hit_split_plain(*tab, ob, ds, t_cut, *args,
+                                      order_mode="full"),))
     _equal("any_hit_split against any_hit", (occ,),
            (traverse.any_hit(scene.p_fat, ob, ds, t_cut, *args),))
     ms = time_ms(lambda: traverse.any_hit_split(*tab, ob, ds, t_cut, *args),
                  dev)
-    plain_ms = time_ms(lambda: traverse.any_hit_split_plain(
+    plain_ms = time_ms(lambda: walks.any_hit_split_plain(
         *tab, ob, ds, t_cut, *args, order_mode=traverse.SPLIT_ANY_HIT_ORDER),
         dev, PLAIN_REPS)
     log(f"any_hit_split [{label}] rays={ob.shape[0]} occluded="
@@ -1224,8 +1200,8 @@ def split_phase(scene, rays, label):
 
     # #13 against its plain version (every output and the step count) and
     # against #4, on every lane
-    with traverse.count_work() as work:
-        *pp, psteps = traverse.closest_hit_packet_plain(
+    with walks.count_work() as work:
+        *pp, psteps = walks.closest_hit_packet_plain(
             *tab, org, dirn, tmax, *args, return_iters=True)
     sync(dev)
     bnd = bound(work, org.shape[0], "closest")
@@ -1238,7 +1214,7 @@ def split_phase(scene, rays, label):
     err = float((packet[0] - pp[0]).abs().max())
     ms = time_ms(lambda: traverse.closest_hit_packet(*tab, org, dirn, tmax,
                                                      *args), dev)
-    plain_ms = time_ms(lambda: traverse.closest_hit_packet_plain(
+    plain_ms = time_ms(lambda: walks.closest_hit_packet_plain(
         *tab, org, dirn, tmax, *args), dev, PLAIN_REPS)
     log(f"closest_hit_packet [{label}] rays={org.shape[0]} "
         f"max_abs_err_t={err:.3e}, every output and the step count equal to "
@@ -1257,16 +1233,16 @@ def split_phase(scene, rays, label):
     for kind, (o, d, tm) in kinds.items():
         if kind == "shadow":
             runs = {"any_hit_split": (
-                traverse.any_hit_split, traverse.any_hit_split_plain,
+                traverse.any_hit_split, walks.any_hit_split_plain,
                 dict(order_mode=traverse.SPLIT_ANY_HIT_ORDER))}
             twins = {"any_hit (fat)": lambda: traverse.any_hit(
                 scene.p_fat, o, d, tm, *args)}
         else:
             runs = {f"closest_hit_split {m}": (
-                traverse.closest_hit_split, traverse.closest_hit_split_plain,
-                dict(order_mode=m)) for m in traverse.ORDER_MODES}
+                traverse.closest_hit_split, walks.closest_hit_split_plain,
+                dict(order_mode=m)) for m in walks.ORDER_MODES}
             runs["closest_hit_packet"] = (traverse.closest_hit_packet,
-                                          traverse.closest_hit_packet_plain,
+                                          walks.closest_hit_packet_plain,
                                           {})
             twins = {"closest_hit (fat)": lambda: traverse.closest_hit(
                          scene.p_fat, o, d, tm, *args),
@@ -1300,7 +1276,7 @@ def dynamic_smem(name: str) -> int:
 
 def _packet_text(c) -> str:
     """Lane use, copies a packet step and prefetch hit rate from a warp
-    packet's counts (traverse.PACKET_COUNTS)."""
+    packet's counts (accel.traverse.PACKET_COUNTS)."""
     steps, lanes, demand, used, discarded = c
     return (f"packet_steps={steps} lane_use={lanes / (32 * steps):.3f} "
             f"copies/packet_step={(demand + used + discarded) / steps:.4f} "
@@ -1321,6 +1297,7 @@ def staged_phase(scene, rays, label):
     and #1, #4 and #13, with #9's and #1's lane use. Returns ({wrapper
     name: {max_abs_err, ms, plain_ms}}, {wrapper name: launches})."""
     from ptsharp_tpu_torch.accel import tables
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.kernels import build, traverse
 
     dev = scene.p_fat.device
@@ -1347,13 +1324,14 @@ def staged_phase(scene, rays, label):
     }
 
     def run(name, o, d, tm, plain=False, counts=None):
-        fn = getattr(traverse, f"{name}_plain" if plain else name)
+        fn = getattr(walks, f"{name}_plain") if plain \
+            else getattr(traverse, name)
         if counts is not None:
             return fn(*kernels[name][0], o, d, tm, *args, counts=counts)
         return fn(*kernels[name][0], o, d, tm, *args)
 
     def new_counts(name):
-        n = len(traverse.PACKET_COUNTS) if name in PACKETS else 2
+        n = len(walks.PACKET_COUNTS) if name in PACKETS else 2
         return torch.zeros(n, dtype=torch.int64, device=dev)
 
     # the path: each entry point once, as a caller of the kernel-level
@@ -1378,7 +1356,7 @@ def staged_phase(scene, rays, label):
              for name, c in twin_counts.items()}
     out = {}
     for name, (_tabs, twin) in kernels.items():
-        with traverse.count_work() as work:
+        with walks.count_work() as work:
             plain = run(name, org, dirn, tmax, plain=True)
         sync(dev)
         bnd = bound(work, org.shape[0], "closest")
@@ -1423,17 +1401,17 @@ def staged_phase(scene, rays, label):
         wrapper = getattr(traverse, name)
         block_rows, smem, prefetch = traverse.cache_layout(wrapper)
         tabs = kernels[name][0]
-        *model, mc = traverse.warp_packet_plain(
+        *model, mc = walks.warp_packet_plain(
             tabs[0], tabs[1] if len(tabs) > 1 else None, org, dirn, tmax,
             *args, block_rows=block_rows, prefetch=prefetch)
         _equal(f"{name} against the plain model of its schedule", got[name],
                model)
-        want = [int(mc[key].sum()) for key in traverse.PACKET_COUNTS]
+        want = [int(mc[key].sum()) for key in walks.PACKET_COUNTS]
         counted = totals[name] = kernel_counts[name].tolist()
         if counted != want:
             raise AssertionError(f"{name} counted {counted}, the plain model "
                                  f"of its schedule {want} "
-                                 f"({traverse.PACKET_COUNTS})")
+                                 f"({walks.PACKET_COUNTS})")
         if counted[1] != pre_steps:
             raise AssertionError(f"{name}'s lanes took {counted[1]} steps, "
                                  f"closest_hit_preorder's rays {pre_steps}")
@@ -1485,7 +1463,7 @@ def staged_phase(scene, rays, label):
     # multiple of the packet width
     for name in PACKETS:
         both = [sum(x) for x in zip(*kind_counts[name])]
-        if n_cam % traverse.PACKET_WIDTH == 0 and both != totals[name]:
+        if n_cam % walks.PACKET_WIDTH == 0 and both != totals[name]:
             raise AssertionError(f"{name}'s counts per ray kind do not add "
                                  f"up to the whole run's")
     return out, {name: (launches[name], launch_rays[name])
@@ -1540,8 +1518,8 @@ def rows_phase(scene, rays, label):
         "any_hit_wide_rows": (
             lambda o, d, t: traverse.any_hit_wide_rows(*wide, o, d, t,
                                                        *wide_args),
-            lambda o, d, t: traverse.any_hit_wide_rows_plain(*wide, o, d, t,
-                                                             *wide_args),
+            lambda o, d, t: walks.any_hit_wide_rows_plain(*wide, o, d, t,
+                                                          *wide_args),
             (so, sd, t_cut), "any"),
     }
     log(f"rows tables [{label}]: u_rows {tuple(scene.u_rows.shape)}, w_rows "
@@ -1566,7 +1544,7 @@ def rows_phase(scene, rays, label):
 
     out = {}
     for name, (kernel, plain, inputs, kind) in runs.items():
-        with traverse.count_work() as work:
+        with walks.count_work() as work:
             want = plain(*inputs)
         sync(dev)
         bnd = bound(work, inputs[0].shape[0], kind)
@@ -1619,7 +1597,7 @@ def rows_phase(scene, rays, label):
                                          walks.traverse_wide, wide,
                                          wide_args),
                "any_hit_wide_rows": (traverse.any_hit_wide_rows,
-                                     traverse.any_hit_wide_rows_plain, wide,
+                                     walks.any_hit_wide_rows_plain, wide,
                                      wide_args)}
     for kind, rk in kinds.items():
         names = [n for n, r in runs.items() if (r[3] == "any") ==
@@ -1677,7 +1655,7 @@ def cluster_chunk_phase(scene, rays, label):
     tabs = (scene.u_rows, scene.leaf_rows)
     args = (scene.u_inst_base[0], scene.u_inst_end[0], scene.max_leaf)
     got = traverse.closest_hit_binary(*tabs, o, d, t_walk, *args)
-    with traverse.count_work() as work:
+    with walks.count_work() as work:
         want = walks.traverse_packed(*tabs, o, d, t_walk, *args)
     sync(dev)
     _equal("closest_hit_binary on a cluster chunk against its plain version",
@@ -1741,7 +1719,7 @@ def scalar_rows_phase(scene, rays, label):
     for kernel, plain, tabs, rk, kargs in (
             (traverse.closest_hit_wide_rows, walks.traverse_wide, wide,
              (org, dirn, tmax), args),
-            (traverse.any_hit_wide_rows, traverse.any_hit_wide_rows_plain,
+            (traverse.any_hit_wide_rows, walks.any_hit_wide_rows_plain,
              wide, (so, sd, rays["t_cut"]), args),
             (traverse.closest_hit_binary, walks.traverse_packed, binary,
              (org, dirn, tmax), binary_args)):
@@ -1769,6 +1747,8 @@ def tlas_rays(scene, cam, width, height, n_cam, n_bounce):
     frame, as the renderer gives them), scattered bounce rays from their
     hits, and shadow rays from the bounce origins toward the lights with
     their t_cut (phase_rays' kinds, for a scene without a fat table)."""
+    from tests.torch_walk_cases import bounce_rays, shadow_cut
+
     oc, dc = camera_rays(scene, cam, width, height, n_cam)
     ob, db = bounce_rays(scene, oc, dc, n_bounce)
     ds, t_cut = shadow_cut(scene, ob)
@@ -1797,6 +1777,7 @@ def tlas_phase(scene, rays, label):
     the plain version's), lane use and time. Returns ({wrapper name:
     {max_abs_err, ms, plain_ms, bound_ms, bound_by}}, {wrapper name:
     launches})."""
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.intersect import scene_tlas
     from ptsharp_tpu_torch.kernels import traverse
 
@@ -1812,10 +1793,10 @@ def tlas_phase(scene, rays, label):
         f"{tabs.sphere_center.shape[0]}, cubes {tabs.cube_min.shape[0]}, "
         f"cylinders {tabs.cyl_radius.shape[0]}")
     runs = {"closest_hit_tlas": (traverse.closest_hit_tlas,
-                                 traverse.closest_hit_tlas_plain,
+                                 walks.closest_hit_tlas_plain,
                                  (org, dirn, tmax), "tlas"),
             "any_hit_tlas": (traverse.any_hit_tlas,
-                             traverse.any_hit_tlas_plain, (so, sd, t_cut),
+                             walks.any_hit_tlas_plain, (so, sd, t_cut),
                              "any")}
     traverse.reset_launch_counts()
     got = {name: kernel(tabs, *inputs)
@@ -1830,7 +1811,7 @@ def tlas_phase(scene, rays, label):
                     for name in runs))
     out = {}
     for name, (kernel, plain, inputs, kind) in runs.items():
-        with traverse.count_work() as work:
+        with walks.count_work() as work:
             want = plain(tabs, *inputs)
         sync(dev)
         bnd = bound(work, inputs[0].shape[0], kind)
@@ -1862,10 +1843,10 @@ def tlas_phase(scene, rays, label):
                         tmax[n_cam:].contiguous()),
              "shadow": (so, sd, t_cut)}
     for kind, rk in kinds.items():
-        kernel, plain = ((traverse.any_hit_tlas, traverse.any_hit_tlas_plain)
+        kernel, plain = ((traverse.any_hit_tlas, walks.any_hit_tlas_plain)
                          if kind == "shadow" else
                          (traverse.closest_hit_tlas,
-                          traverse.closest_hit_tlas_plain))
+                          walks.closest_hit_tlas_plain))
         ms, use, steps = _kind_stats(kernel, plain, (tabs,), *rk, (),
                                      f"the {kind} rays", dev)
         kernel_ms = device_ms(lambda: kernel(tabs, *rk))
@@ -1911,6 +1892,7 @@ def tlas_instance_phase(device, label):
     equal to the plain version's, the any-hit equal to the bounded
     closest-hit's kind != PT_NONE; each kernel's time."""
     from ptsharp_tpu_torch import examples
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.intersect import scene_tlas
     from ptsharp_tpu_torch.kernels import traverse
 
@@ -1928,9 +1910,9 @@ def tlas_instance_phase(device, label):
         shadow = (rays["shadow_org"], rays["shadow_dirn"], rays["t_cut"])
         line = []
         for kernel, plain, inputs in (
-                (traverse.closest_hit_tlas, traverse.closest_hit_tlas_plain,
+                (traverse.closest_hit_tlas, walks.closest_hit_tlas_plain,
                  (org, dirn, tmax)),
-                (traverse.any_hit_tlas, traverse.any_hit_tlas_plain,
+                (traverse.any_hit_tlas, walks.any_hit_tlas_plain,
                  shadow)):
             counts = torch.zeros(2, dtype=torch.int64, device=device)
             got = kernel(tabs, *inputs, counts=counts)
@@ -2009,6 +1991,7 @@ def instance_phase(scene, rays, label):
     launch an instance each); each launch against its plain version on
     every lane. Returns ({wrapper name: {max_abs_err}}, {wrapper name:
     launches})."""
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.intersect import _instance_rays
     from ptsharp_tpu_torch.kernels import traverse
 
@@ -2022,8 +2005,8 @@ def instance_phase(scene, rays, label):
     for walk, (closest, anyhit) in WALKS.items():
         s = replace(scene, p_ordered=walk == "ordered")
         kc, ka = getattr(traverse, closest), getattr(traverse, anyhit)
-        pc = getattr(traverse, f"{closest}_plain")
-        pa = getattr(traverse, f"{anyhit}_plain")
+        pc = getattr(walks, f"{closest}_plain")
+        pa = getattr(walks, f"{anyhit}_plain")
 
         def args(i):
             return (s.p_inst_base[i], s.p_inst_end[i], s.max_leaf, s.wide_k)
@@ -2061,61 +2044,15 @@ def instance_phase(scene, rays, label):
     return out, counted
 
 
-def stack_chain(k: int, depth: int) -> np.ndarray:
-    """A fat table of depth+1 K-wide internal nodes in a chain, built by
-    hand: node l has K-1 leaf children and, last, node l+1; the last
-    node has K leaf children. One triangle a leaf, a plane x = c facing
-    rays along +x near the x axis. Every internal box enters at x = 1,
-    before its leaf siblings (x >= 1.5), so the ordered walk descends the
-    whole chain first and pushes K-1 leaves at each level: (K-1)(depth+1)
-    entries. The only triangle before x = 5 (at x = 1.55) sits in the
-    nearest leaf of node depth-1, pushed last before the final node,
-    beyond a stack of 64; the final node's triangles lie at x >= 5.05,
-    the others at x >= 10.05, in leaf boxes that all enter by x = 2.1."""
-    n_nodes = k * (depth + 1) + 1
-    fat = np.zeros((2 * n_nodes, 128), np.float32)
-    bits = fat.view(np.int32)
-    inner_box = [1.0, -1.0, -1.0, 100.0, 1.0, 1.0]
-
-    def leaf_x(level, c):
-        """(entry x of the leaf's box, x of its triangle)."""
-        if level == depth - 1 and c == 0:
-            return 1.5, 1.55
-        far = 5.0 if level == depth else 10.0 + level
-        return 2.0 + 0.01 * c, far + 0.2 * c + 0.05
-
-    n_leaf = 0
-    for level in range(depth + 1):
-        p = k * level  # this chain node's index
-        last = level == depth
-        fat[2 * p, 0:6] = inner_box
-        bits[2 * p, 8] = n_nodes  # its subtree runs to the end
-        for c in range(k):
-            j = p + 1 + c  # preorder: the leaves follow their parent
-            if c == k - 1 and not last:
-                box = inner_box  # the chain's next node, p + k
-            else:
-                lo, xt = leaf_x(level, c)
-                box = [lo, -1.0, -1.0, xt + 0.05, 1.0, 1.0]
-                fat[2 * j, 0:6] = box
-                bits[2 * j, 6] = n_leaf  # first slot (leaf_size 1)
-                bits[2 * j, 7] = 1
-                bits[2 * j, 8] = j + 1
-                fat[2 * j + 1, 0:9] = [xt, -1, -1, 0, 4, 0, 0, 0, 4]
-                n_leaf += 1
-            fat[2 * p, 9 + 6 * c:15 + 6 * c] = box
-            bits[2 * p, 9 + 6 * k + c] = j
-    return fat
-
-
-
 def stack_phase(device):
     """The ordered kernels, over the fat and the split tables, on trees
     whose max_stack_bound lies in (64, 128]: their t must be the
     stack-free preorder walk's (x = 1.55), and every shadow ray to
     t_cut = 3 occluded."""
     from ptsharp_tpu_torch.accel import tables
+    from ptsharp_tpu_torch.accel import traverse as walks
     from ptsharp_tpu_torch.kernels import traverse
+    from tests.torch_walk_cases import STACK_CHAINS, stack_chain
 
     for k, depth in STACK_CHAINS:
         fat_np = stack_chain(k, depth)
@@ -2133,16 +2070,16 @@ def stack_phase(device):
         args = (0, fat.shape[0] // 2, 1, k)
         tm = torch.full((n,), INF, device=device)
         tc = torch.full((n,), 3.0, device=device)
-        want = traverse.closest_hit_preorder_plain(fat, org, d, tm, *args)
+        want = walks.closest_hit_preorder_plain(fat, org, d, tm, *args)
         runs = {"closest_hit": traverse.closest_hit(fat, org, d, tm, *args)}
-        for mode in traverse.ORDER_MODES:
+        for mode in walks.ORDER_MODES:
             runs[f"closest_hit_split {mode}"] = traverse.closest_hit_split(
                 *tab, org, d, tm, *args, order_mode=mode)
         for name, got in runs.items():
             _equal(f"{name} on a K={k} chain", got[:2], want[:2])
         occ = [traverse.any_hit(fat, org, d, tc, *args)] + [
             traverse.any_hit_split(*tab, org, d, tc, *args, order_mode=m)
-            for m in traverse.ORDER_MODES]
+            for m in walks.ORDER_MODES]
         if not all(bool(o.all()) for o in occ):
             raise AssertionError(f"an ordered any-hit misses the K={k} "
                                  f"chain's occluder")

@@ -23,9 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from ptsharp_tpu_torch.accel.traverse import leaf_intersect
+from ptsharp_tpu_torch.accel.traverse import INF, leaf_intersect, safe_inv
 from ptsharp_tpu_torch.kernels import traverse
-from ptsharp_tpu_torch.kernels.traverse import INF, _safe_inv
 
 
 def _cull_and_intersect(c_bmin, c_bmax, c_rows, tris_per_cluster, org,
@@ -35,7 +34,7 @@ def _cull_and_intersect(c_bmin, c_bmax, c_rows, tris_per_cluster, org,
     rc = org.shape[0]
     n_c = c_bmin.shape[0]
     k_cand = min(k_cand, n_c)  # a small scene may hold fewer clusters
-    inv_d = _safe_inv(dirn)
+    inv_d = safe_inv(dirn)
 
     def axis_minmax(ax):
         lo = (c_bmin[None, :, ax] - org[:, None, ax]) * inv_d[:, None, ax]

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ptsharp_tpu_torch.accel import cluster
+from ptsharp_tpu_torch.accel import traverse as walks
 from ptsharp_tpu_torch.core import vec
 from ptsharp_tpu_torch.geometry import function as fn_mod
 from ptsharp_tpu_torch.geometry import primitives
@@ -115,11 +116,11 @@ def _instance_rays(scene: SceneData, i: int, org, dirn):
             _xform_dir(inv, dirn).contiguous())
 
 
-def scene_tlas(scene: SceneData) -> traverse.TlasTables:
+def scene_tlas(scene: SceneData) -> walks.TlasTables:
     """The tables of `scene` that its TLAS walk reads: binary u_rows for
     "walk", else the K-wide w_rows (ptsharp_tpu/intersect.py:178-184)."""
     wide = scene.intersector != "walk"
-    return traverse.TlasTables(
+    return walks.TlasTables(
         rows=scene.w_rows if wide else scene.u_rows, leaf=scene.leaf_rows,
         inst_inv=scene.inst_inv,
         inst_range=scene.w_inst_range if wide else scene.u_inst_range,
@@ -402,19 +403,19 @@ def light_hit_t(scene: SceneData, org, dirn, lidx) -> torch.Tensor:
     if PT_SPHERE in scene.light_types:
         pic = torch.clamp(pi, 0, scene.sphere_center.shape[0] - 1)
         o, d = local(scene.sphere_inv, scene.sphere_xform, pic)
-        t = traverse._sphere_t(o, d, scene.sphere_center[pic],
-                       scene.sphere_radius[pic])
+        t = walks.sphere_t(o, d, scene.sphere_center[pic],
+                           scene.sphere_radius[pic])
         t_light = torch.where(lt == PT_SPHERE, t, t_light)
     if PT_CUBE in scene.light_types:
         pic = torch.clamp(pi, 0, scene.cube_min.shape[0] - 1)
         o, d = local(scene.cube_inv, scene.cube_xform, pic)
-        t = traverse._cube_t(o, d, scene.cube_min[pic], scene.cube_max[pic])
+        t = walks.cube_t(o, d, scene.cube_min[pic], scene.cube_max[pic])
         t_light = torch.where(lt == PT_CUBE, t, t_light)
     if PT_CYLINDER in scene.light_types:
         pic = torch.clamp(pi, 0, scene.cyl_radius.shape[0] - 1)
         o, d = local(scene.cyl_inv, scene.cyl_xform, pic)
-        t = traverse._cyl_t(o, d, scene.cyl_radius[pic], scene.cyl_z0[pic],
-                            scene.cyl_z1[pic])
+        t = walks.cyl_t(o, d, scene.cyl_radius[pic], scene.cyl_z0[pic],
+                        scene.cyl_z1[pic])
         t_light = torch.where(lt == PT_CYLINDER, t, t_light)
     return t_light
 

@@ -9,6 +9,11 @@ carries a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused. `-fmad=false` keeps every multiply and
 add rounding on its own, as the plain PyTorch versions and the JAX
 reference round them.
+
+Every wrapper of a C entry (kernels/traverse.py, threefry.py,
+sdf_march.py) launches it through `launch`, which also keeps the
+persistent kernels' ray counter of each stream. This module imports
+nothing from the package.
 """
 
 from __future__ import annotations
@@ -22,11 +27,16 @@ import subprocess
 import threading
 import time
 
-from ptsharp_tpu_torch.kernels.traverse import STACK_CAPACITY
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "ptsharp_tpu_torch")
+# traversal stack entries per ray of the ordered kernels (PT_STACK_CAP), as
+# the JAX ordered kernels hold per group; ordered scene builds check
+# max_stack_bound against it (the full bunny needs 43), and the plain
+# ordered walk holds as many (accel/traverse.py STACK_CAPACITY)
+STACK_CAPACITY = 128
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
     *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
@@ -203,3 +213,37 @@ def load():
         build_info["library"] = so
         _lib = _bind(ctypes.CDLL(so))
         return _lib
+
+
+# (device index, stream) -> the two ints of the persistent kernels' ray
+# counter on that stream: zeroed once here, and by the kernel's last warp
+# at the end of each launch, so a launch fills nothing first
+_RAY_COUNTERS = {}
+
+
+def launch(wrapper, entry: str, device, *args, persistent: bool = False,
+           counts=None, **added: int) -> None:
+    """Call the library's C entry `entry` on the current stream of
+    `device`: `args`, then for a persistent kernel (whose warps take rays
+    from the stream's ray counter) that counter and the pointer of
+    `counts` (a tensor the kernel adds to, or null), then the stream. A
+    nonzero return raises RuntimeError naming the entry, and drops the
+    ray counter, which a failed launch may leave set. Else the launch
+    adds one to `wrapper.launches` and each of `added` (its rays, its
+    words) to the wrapper's attribute of that name."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    if persistent:
+        if key not in _RAY_COUNTERS:
+            _RAY_COUNTERS[key] = torch.zeros(2, dtype=torch.int32,
+                                             device=device)
+        args += (_RAY_COUNTERS[key].data_ptr(),
+                 None if counts is None else counts.data_ptr())
+    err = getattr(load(), entry)(*args, stream)
+    if err:
+        if persistent:
+            del _RAY_COUNTERS[key]
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
+    wrapper.launches += 1
+    for name, n in added.items():
+        setattr(wrapper, name, getattr(wrapper, name) + n)

@@ -3,7 +3,7 @@
 geometry/sdf.py compiles an Sdf tree into a `Program` (`compile_program`)
 and, for rays on a CUDA device, marches them with `march`: one launch on
 the current stream runs every ray to its end (persistent warps that take
-rays from the walks' ray counter, kernels/traverse.py `ray_counter`) and
+rays from the stream's ray counter, kernels/build.py `launch`) and
 writes each ray's hit t, bit-equal to the plain march (geometry/march.py
 over the tree's torch ops), which is this kernel's plain version and the
 route of every other device. It does not wait for the card.
@@ -24,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ptsharp_tpu_torch.kernels import build
 
 OPS = ("sphere", "sphere_n", "cube", "cylinder", "capsule", "capsule_n",
        "torus", "union", "intersection", "difference", "affine", "divide",
@@ -78,21 +80,11 @@ def march(prog: Program, org, dirn, t0, t_exit, active, max_steps: int,
                          f"{sorted({str(x.device) for x in tensors})}")
     out = torch.empty(r, dtype=torch.float32, device=dev)
     if r:
-        from ptsharp_tpu_torch.kernels import build, traverse
-
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with traverse.ray_counter(dev, stream) as next_ray:
-            err = build.load().pt_sdf_march(
-                prog.code.data_ptr(), prog.code.shape[0],
-                prog.consts.data_ptr(), org.data_ptr(), dirn.data_ptr(),
-                t0.data_ptr(), t_exit.data_ptr(), active.data_ptr(), r,
-                max_steps, out.data_ptr(), next_ray.data_ptr(),
-                None if counts is None else counts.data_ptr(), stream)
-            if err:
-                raise RuntimeError(f"pt_sdf_march kernel launch failed: "
-                                   f"CUDA error {err}")
-        march.launches += 1
-        march.rays += r
+        build.launch(march, "pt_sdf_march", dev, prog.code.data_ptr(),
+                     prog.code.shape[0], prog.consts.data_ptr(),
+                     org.data_ptr(), dirn.data_ptr(), t0.data_ptr(),
+                     t_exit.data_ptr(), active.data_ptr(), r, max_steps,
+                     out.data_ptr(), persistent=True, counts=counts, rays=r)
     return out
 
 

@@ -11,8 +11,9 @@ its plain version bit for bit (tests/test_torch_rng_kernel.py).
   randint(a0, a1, b0, b1, span, mult, minval, shape, device)
                                            int32 in [minval, minval + span)
 
-Each wrapper adds one to its `launches` count and the words it wrote to
-its `words` for every launch (a draw of no words launches nothing);
+Each launch goes through kernels/build.py `launch`, which adds one to
+the wrapper's `launches` count and the words it wrote to its `words` (a
+draw of no words launches nothing);
 `reset_launch_counts()` clears them. A device other than CUDA raises:
 there is no fallback from a kernel to the plain version.
 """
@@ -20,6 +21,8 @@ there is no fallback from a kernel to the plain version.
 from __future__ import annotations
 
 import torch
+
+from ptsharp_tpu_torch.kernels import build
 
 _MASK = 0xFFFFFFFF
 
@@ -30,15 +33,8 @@ def _launch(wrapper, entry: str, out: torch.Tensor, *args) -> torch.Tensor:
     draw."""
     n = out.numel()
     if n:
-        from ptsharp_tpu_torch.kernels import build
-
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = getattr(build.load(), entry)(out.data_ptr(), *args, stream)
-        if err:
-            raise RuntimeError(f"{entry} kernel launch failed: CUDA error "
-                               f"{err}")
-        wrapper.launches += 1
-        wrapper.words += n
+        build.launch(wrapper, entry, out.device, out.data_ptr(), *args,
+                     words=n)
     return out
 
 

@@ -52,7 +52,7 @@ from ptsharp_tpu_torch.accel import tables
 from ptsharp_tpu_torch.accel import wide as wide_mod
 from ptsharp_tpu_torch.core import device as devices
 from ptsharp_tpu_torch.geometry.mesh import TriMesh
-from ptsharp_tpu_torch.kernels.traverse import STACK_CAPACITY
+from ptsharp_tpu_torch.kernels.build import STACK_CAPACITY
 from ptsharp_tpu_torch.materials import Material, MaterialTable
 from ptsharp_tpu_torch.textures import TextureAtlas
 

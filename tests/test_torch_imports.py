@@ -1,8 +1,12 @@
 """The port stands alone: importing ptsharp_tpu_torch and every one of its
 modules, in a fresh interpreter, loads neither jax nor ptsharp_tpu; the
 whole catalog builds, and iterative_render takes every option of the JAX
-package's."""
+package's. The traversal layers point one way: the plain walks import no
+kernel module, the kernel loader nothing of the package, and nothing
+reaches a private name of the kernel wrappers."""
 
+import ast
+import glob
 import os
 import pkgutil
 import subprocess
@@ -77,6 +81,70 @@ def test_new_module_imports_without_jax(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imports(path):
+    """(module, names) of every import in the file at `path`, relative to
+    the repository: names None for `import module`."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, None
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module, [a.name for a in node.names]
+
+
+def _private_wrapper_names(path):
+    """The underscore names that the file at `path` takes from
+    kernels.traverse, by import or as an attribute of the module."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read())
+    wrappers = "ptsharp_tpu_torch.kernels.traverse"
+    aliases, found = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module == wrappers:
+            found += [a.name for a in node.names if a.name.startswith("_")]
+        elif isinstance(node, ast.ImportFrom) \
+                and node.module == "ptsharp_tpu_torch.kernels":
+            aliases |= {a.asname or a.name for a in node.names
+                        if a.name == "traverse"}
+        elif isinstance(node, ast.Import):
+            aliases |= {a.asname for a in node.names
+                        if a.name == wrappers and a.asname}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and node.attr.startswith("_") \
+                and isinstance(node.value, ast.Name) \
+                and node.value.id in aliases:
+            found.append(node.attr)
+    return found
+
+
+@pytest.mark.parametrize("arrow", ["plain_walks", "loader", "private"])
+def test_traversal_imports_point_one_way(arrow):
+    """accel/traverse.py (the plain walks) imports no module of kernels/;
+    kernels/build.py (the library and its one launch path) imports no
+    module of the package; and no file of the package, its tests or the
+    card scripts takes an underscore name from kernels.traverse."""
+    if arrow == "plain_walks":
+        bad = [m for m, _n in _imports("ptsharp_tpu_torch/accel/traverse.py")
+               if m.startswith("ptsharp_tpu_torch.kernels")
+               or (m == "ptsharp_tpu_torch" and "kernels" in (_n or ()))]
+    elif arrow == "loader":
+        bad = [m for m, _n in _imports("ptsharp_tpu_torch/kernels/build.py")
+               if m.split(".")[0] == "ptsharp_tpu_torch"]
+    else:
+        files = sorted(
+            os.path.relpath(p, REPO) for pattern in (
+                "ptsharp_tpu_torch/**/*.py", "tests/*.py", "chip_*.py")
+            for p in glob.glob(os.path.join(REPO, pattern), recursive=True))
+        files.remove(os.path.join("ptsharp_tpu_torch", "kernels",
+                                  "traverse.py"))
+        assert len(files) > 80
+        bad = [(path, name) for path in files
+               for name in _private_wrapper_names(path)]
+    assert not bad
 
 
 @pytest.mark.parametrize("entry", ["build", "example", "look_at",

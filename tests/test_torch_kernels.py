@@ -24,9 +24,10 @@ from ptsharp_tpu.materials import diffuse_material
 from ptsharp_tpu.pallas import ordered_kernel, wide_kernel
 from ptsharp_tpu.scene import SceneBuilder
 
-from ptsharp_tpu_torch.kernels import traverse
+from ptsharp_tpu_torch.accel import traverse as walks
+from ptsharp_tpu_torch.kernels import build, traverse
 
-from chip_smoke import STACK_CHAINS, stack_chain
+from tests.torch_walk_cases import STACK_CHAINS, stack_chain
 
 N = 1024
 RTOL = ATOL = 1e-5
@@ -81,14 +82,14 @@ def _tied(fat, org, dirn, t_max, leaf_size):
     at the nearest t, by brute force over every leaf slot."""
     tri = torch.as_tensor(fat[1::2, :leaf_size * 9]).reshape(1, -1, 9)
     tri = tri.expand(org.shape[0], -1, -1)
-    ok, tt, _u, _v = traverse._mt(tri, org, dirn)
+    ok, tt, _u, _v = walks.mt(tri, org, dirn)
     tt = torch.where(ok & (tt < t_max[:, None]), tt, 1e30)
     two = torch.topk(tt, 2, dim=1, largest=False).values.numpy()
     return two[:, 1] - two[:, 0] <= ATOL + RTOL * np.abs(two[:, 0])
 
 
 def test_closest_hit_plain_matches_ordered_fat_kernel(ref):
-    t, slot, u, v = traverse.closest_hit_plain(
+    t, slot, u, v = walks.closest_hit_plain(
         ref["fat"], ref["org"], ref["dirn"], ref["t_max"], *ref["args"])
     t_ref, s_ref, u_ref, v_ref = ref["closest"]
     np.testing.assert_allclose(t.numpy(), t_ref, rtol=RTOL, atol=ATOL)
@@ -106,11 +107,11 @@ def test_closest_hit_plain_matches_ordered_fat_kernel(ref):
 
 @pytest.mark.parametrize("kernel", ["wide8", "fat_pipe"])
 def test_any_hit_plain_matches_kernel(ref, kernel):
-    occ = traverse.any_hit_plain(ref["fat"], ref["org"], ref["dirn"],
-                                 ref["t_cut"], *ref["args"]).numpy()
+    occ = walks.any_hit_plain(ref["fat"], ref["org"], ref["dirn"],
+                              ref["t_cut"], *ref["args"]).numpy()
     occ_ref = ref["occ"][kernel]
     assert 0.1 < occ_ref.mean() < 0.9
-    t_near, _s, _u, _v = traverse.closest_hit_plain(
+    t_near, _s, _u, _v = walks.closest_hit_plain(
         ref["fat"], ref["org"], ref["dirn"],
         torch.full((N,), 1e9), *ref["args"])
     tc = ref["t_cut"].numpy()
@@ -121,10 +122,10 @@ def test_any_hit_plain_matches_kernel(ref, kernel):
 
 def test_any_hit_agrees_with_bounded_closest_hit(ref):
     """occluded(t_cut) == (closest hit below t_cut) on the plain versions."""
-    occ = traverse.any_hit_plain(ref["fat"], ref["org"], ref["dirn"],
-                                 ref["t_cut"], *ref["args"]).numpy()
+    occ = walks.any_hit_plain(ref["fat"], ref["org"], ref["dirn"],
+                              ref["t_cut"], *ref["args"]).numpy()
     tc = ref["t_cut"]
-    t, _s, _u, _v = traverse.closest_hit_plain(
+    t, _s, _u, _v = walks.closest_hit_plain(
         ref["fat"], ref["org"], ref["dirn"], tc, *ref["args"])
     np.testing.assert_array_equal(occ, (t.numpy() < 1e8) & (tc.numpy() > 0))
 
@@ -170,7 +171,7 @@ def test_stack_capacity_holds_a_bound_past_64(monkeypatch, k, depth):
 
     fat = stack_chain(k, depth)
     bound = tables.max_stack_bound(fat[0::2], k)
-    assert 64 < bound <= traverse.STACK_CAPACITY == 128
+    assert 64 < bound <= build.STACK_CAPACITY == walks.STACK_CAPACITY == 128
     tscene.check_stack_bound(bound)
     monkeypatch.setattr(tscene, "STACK_CAPACITY", 64)
     with pytest.raises(ValueError, match="stack"):
@@ -189,20 +190,20 @@ def test_stack_capacity_holds_a_bound_past_64(monkeypatch, k, depth):
     rows, leaf = map(torch.from_numpy, split)
     args = (0, fat.shape[0] // 2, 1, k)
     tm = torch.full((n,), 1e9)
-    t_pre, s_pre, _u, _v = traverse.closest_hit_preorder_plain(
+    t_pre, s_pre, _u, _v = walks.closest_hit_preorder_plain(
         fat_t, org_t, d_t, tm, *args)
     np.testing.assert_allclose(t_pre.numpy() * d[:, 0], 1.55, rtol=1e-5)
-    for mode in traverse.ORDER_MODES:
+    for mode in walks.ORDER_MODES:
         for t, s, _u, _v in (
-                traverse.closest_hit_split_plain(rows, leaf, org_t, d_t, tm,
-                                                 *args, order_mode=mode),
-                traverse.closest_hit_plain(fat_t, org_t, d_t, tm, *args)):
+                walks.closest_hit_split_plain(rows, leaf, org_t, d_t, tm,
+                                              *args, order_mode=mode),
+                walks.closest_hit_plain(fat_t, org_t, d_t, tm, *args)):
             assert torch.equal(t, t_pre) and torch.equal(s, s_pre)
     t_cut = torch.full((n,), 3.0)
-    assert traverse.any_hit_plain(fat_t, org_t, d_t, t_cut, *args).all()
-    for mode in traverse.ORDER_MODES:
-        assert traverse.any_hit_split_plain(rows, leaf, org_t, d_t, t_cut,
-                                            *args, order_mode=mode).all()
+    assert walks.any_hit_plain(fat_t, org_t, d_t, t_cut, *args).all()
+    for mode in walks.ORDER_MODES:
+        assert walks.any_hit_split_plain(rows, leaf, org_t, d_t, t_cut,
+                                         *args, order_mode=mode).all()
 
 
 # rays of a launch: fewer than one warp; the test's rays; more than the
@@ -233,12 +234,12 @@ def test_cuda_kernels_match_plain_versions(ref, n):
     torch.cuda.synchronize()
     assert traverse.closest_hit.launches == 1
     assert traverse.any_hit.launches == 1
-    *want, steps = traverse.closest_hit_plain(fat, org, d, tm, *ref["args"],
-                                              return_iters=True)
+    *want, steps = walks.closest_hit_plain(fat, org, d, tm, *ref["args"],
+                                           return_iters=True)
     for got, exp in zip((t, s, u, v), want):
         assert torch.equal(got, exp)
-    occ_p, steps_any = traverse.any_hit_plain(fat, org, d, tc, *ref["args"],
-                                              return_iters=True)
+    occ_p, steps_any = walks.any_hit_plain(fat, org, d, tc, *ref["args"],
+                                           return_iters=True)
     assert torch.equal(occ, occ_p)
     # the kernels take the plain versions' steps; lane slots bound them
     assert counts[:, 0].tolist() == [int(steps.sum()), int(steps_any.sum())]

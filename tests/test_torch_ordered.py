@@ -30,6 +30,7 @@ from ptsharp_tpu.scene import SceneBuilder
 
 from ptsharp_tpu_torch import examples
 from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.accel import traverse as walks
 from ptsharp_tpu_torch.kernels import traverse
 
 from tests.test_torch_kernels import _tied
@@ -111,9 +112,9 @@ def test_push_order_against_the_jax_kernel(kind, leaf_size, k):
     tables.check_child_boxes(split[0], k)
     rows, leaf = map(torch.from_numpy, split)
     o, dd, t = map(torch.from_numpy, (org, d, tm))
-    slots = {m: traverse.closest_hit_split_plain(
+    slots = {m: walks.closest_hit_split_plain(
         rows, leaf, o, dd, t, *args, order_mode=m)[1].numpy()
-        for m in traverse.ORDER_MODES}
+        for m in walks.ORDER_MODES}
     hit = t_ref < 1e8
     n_hit, n_differ, n_full, n_near = AGREEMENT[(kind, leaf_size, k)]
     assert int(hit.sum()) == n_hit
@@ -124,7 +125,7 @@ def test_push_order_against_the_jax_kernel(kind, leaf_size, k):
     # #1's plain version walks the order that agrees on more lanes
     assert n_near >= n_full
     np.testing.assert_array_equal(
-        traverse.closest_hit_plain(fat, o, dd, t, *args)[1].numpy(),
+        walks.closest_hit_plain(fat, o, dd, t, *args)[1].numpy(),
         slots["near"])
 
 
@@ -200,9 +201,9 @@ def test_entry_distance_cull_matches_the_own_box_retest(k):
     assert 0.2 < hit.mean() < 0.9
     same = hit & ~_tied(fat, org, d, tm, sp.max_leaf)
     for t, slot, u, v in (
-            traverse.closest_hit_plain(fat, org, d, tm, *args),
-            traverse.closest_hit_split_plain(rows, leaf, org, d, tm, *args,
-                                             order_mode="near")):
+            walks.closest_hit_plain(fat, org, d, tm, *args),
+            walks.closest_hit_split_plain(rows, leaf, org, d, tm, *args,
+                                          order_mode="near")):
         _assert_t(t.numpy(), t_ref)
         np.testing.assert_array_equal(slot.numpy() >= 0, hit)
         np.testing.assert_array_equal(slot.numpy()[same], s_ref[same])
@@ -211,11 +212,11 @@ def test_entry_distance_cull_matches_the_own_box_retest(k):
     occ_ref = np.asarray(ordered_kernel.pallas_occluded_ordered8(
         sp.p_rows, sp.p_leaf, jo, jd, jt, *args))
     assert 0.1 < occ_ref.mean() < 0.9
-    t_near = traverse.closest_hit_plain(fat, org, d, torch.full((N,), 1e9),
-                                        *args)[0].numpy()
+    t_near = walks.closest_hit_plain(fat, org, d, torch.full((N,), 1e9),
+                                     *args)[0].numpy()
     edge = np.abs(t_near - tm_np) <= 1e-5 * np.abs(tm_np)
-    for occ in (traverse.any_hit_plain(fat, org, d, tm, *args),
-                traverse.any_hit_split_plain(rows, leaf, org, d, tm, *args)):
+    for occ in (walks.any_hit_plain(fat, org, d, tm, *args),
+                walks.any_hit_split_plain(rows, leaf, org, d, tm, *args)):
         np.testing.assert_array_equal(occ.numpy()[~edge], occ_ref[~edge])
 
 
@@ -232,6 +233,6 @@ def test_counts_are_kept_by_the_kernels_only():
         traverse.any_hit(fat, org, d, tm, *args, counts=counts)
     traverse.reset_launch_counts()
     t, s, _u, _v = traverse.closest_hit(fat, org, d, tm, *args)
-    assert torch.equal(s, traverse.closest_hit_plain(fat, org, d, tm,
-                                                     *args)[1])
+    assert torch.equal(s, walks.closest_hit_plain(fat, org, d, tm,
+                                                  *args)[1])
     assert traverse.closest_hit.launches == 0

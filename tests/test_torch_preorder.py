@@ -40,6 +40,7 @@ from ptsharp_tpu.materials import diffuse_material
 from ptsharp_tpu.pallas import hbm_kernel, wide_kernel
 from ptsharp_tpu.scene import SceneBuilder
 
+from ptsharp_tpu_torch.accel import traverse as walks
 from ptsharp_tpu_torch.kernels import traverse
 
 from tests.test_torch_kernels import _rays, _tied
@@ -100,7 +101,7 @@ def ref(request):
 
 def _edge(ref):
     """Lanes whose nearest hit lies within 1e-5 * t_cut of t_cut."""
-    t_near, _s, _u, _v = traverse.closest_hit_preorder_plain(
+    t_near, _s, _u, _v = walks.closest_hit_preorder_plain(
         ref["fat"], ref["org"], ref["dirn"], torch.full((N,), 1e9),
         *ref["args"])
     tc = ref["t_cut"].numpy()
@@ -109,7 +110,7 @@ def _edge(ref):
 
 @pytest.mark.parametrize("kernel", ["wide8", "hbm8_fat"])
 def test_closest_hit_preorder_plain_matches_kernel(ref, kernel):
-    t, slot, u, v = traverse.closest_hit_preorder_plain(
+    t, slot, u, v = walks.closest_hit_preorder_plain(
         ref["fat"], ref["org"], ref["dirn"], ref["t_max"], *ref["args"])
     t_ref, s_ref, u_ref, v_ref = ref["closest"][kernel]
     hit = s_ref >= 0
@@ -123,7 +124,7 @@ def test_closest_hit_preorder_plain_matches_kernel(ref, kernel):
 
 
 def test_any_hit_preorder_plain_matches_kernel(ref):
-    occ = traverse.any_hit_preorder_plain(
+    occ = walks.any_hit_preorder_plain(
         ref["fat"], ref["org"], ref["dirn"], ref["t_cut"],
         *ref["args"]).numpy()
     assert 0.1 < ref["occ"].mean() < 0.9
@@ -136,29 +137,29 @@ def test_preorder_and_ordered_walks_agree(ref):
     """Both walk orders find the same t; slots differ only at ties; the
     two any-hits agree off the t_cut band."""
     fat, org, d = ref["fat"], ref["org"], ref["dirn"]
-    tp, sp, _up, _vp = traverse.closest_hit_preorder_plain(
+    tp, sp, _up, _vp = walks.closest_hit_preorder_plain(
         fat, org, d, ref["t_max"], *ref["args"])
-    to, so, _uo, _vo = traverse.closest_hit_plain(
+    to, so, _uo, _vo = walks.closest_hit_plain(
         fat, org, d, ref["t_max"], *ref["args"])
     np.testing.assert_array_equal(tp.numpy(), to.numpy())
     differ = sp.numpy() != so.numpy()
     tie = _tied(fat, org, d, ref["t_max"], ref["args"][2])
     assert not (differ & ~tie).any()
-    occ_p = traverse.any_hit_preorder_plain(fat, org, d, ref["t_cut"],
-                                            *ref["args"]).numpy()
-    occ_o = traverse.any_hit_plain(fat, org, d, ref["t_cut"],
-                                   *ref["args"]).numpy()
+    occ_p = walks.any_hit_preorder_plain(fat, org, d, ref["t_cut"],
+                                         *ref["args"]).numpy()
+    occ_o = walks.any_hit_plain(fat, org, d, ref["t_cut"],
+                                *ref["args"]).numpy()
     edge = _edge(ref)
     np.testing.assert_array_equal(occ_p[~edge], occ_o[~edge])
 
 
 def test_any_hit_preorder_agrees_with_bounded_closest_hit(ref):
     """occluded(t_cut) == (closest hit below t_cut), both preorder."""
-    occ = traverse.any_hit_preorder_plain(
+    occ = walks.any_hit_preorder_plain(
         ref["fat"], ref["org"], ref["dirn"], ref["t_cut"],
         *ref["args"]).numpy()
     tc = ref["t_cut"]
-    t, _s, _u, _v = traverse.closest_hit_preorder_plain(
+    t, _s, _u, _v = walks.closest_hit_preorder_plain(
         ref["fat"], ref["org"], ref["dirn"], tc, *ref["args"])
     np.testing.assert_array_equal(occ, (t.numpy() < 1e8) & (tc.numpy() > 0))
 
@@ -184,15 +185,15 @@ def test_preorder_plain_versions_count_their_steps(ref):
     t_cut <= 0 takes none and no any-hit lane takes more than its
     closest-hit walk bounded by the same t_cut."""
     fat, org, d, args = ref["fat"], ref["org"], ref["dirn"], ref["args"]
-    *got, steps = traverse.closest_hit_preorder_plain(
+    *got, steps = walks.closest_hit_preorder_plain(
         fat, org, d, ref["t_cut"], *args, return_iters=True)
-    want = traverse.closest_hit_preorder_plain(fat, org, d, ref["t_cut"],
-                                               *args)
+    want = walks.closest_hit_preorder_plain(fat, org, d, ref["t_cut"],
+                                            *args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert int(steps.min()) >= 1 and int(steps.max()) <= args[1] - args[0]
-    occ, any_steps = traverse.any_hit_preorder_plain(
+    occ, any_steps = walks.any_hit_preorder_plain(
         fat, org, d, ref["t_cut"], *args, return_iters=True)
-    assert torch.equal(occ, traverse.any_hit_preorder_plain(
+    assert torch.equal(occ, walks.any_hit_preorder_plain(
         fat, org, d, ref["t_cut"], *args))
     inactive = ref["t_cut"] <= 0
     assert (any_steps[inactive] == 0).all()
@@ -214,7 +215,7 @@ def test_work_counts_a_leafs_triangles_not_its_padding(ref):
     assert int(count[leaves].min()) < leaf_size  # some padding to skip
     # each lane at the leaf of its nearest hit, a lane that hits nothing
     # at some leaf
-    _t, slot, _u, _v = traverse.closest_hit_preorder_plain(
+    _t, slot, _u, _v = walks.closest_hit_preorder_plain(
         fat, org, d, torch.full((N,), 1e9), *args)
     lanes = torch.arange(N)
     at = leaves[lanes % leaves.numel()]
@@ -222,11 +223,11 @@ def test_work_counts_a_leafs_triangles_not_its_padding(ref):
         & (slot[:, None].long() < (first + count)[leaves][None, :])
     at = torch.where(slot >= 0, leaves[own.long().argmax(dim=1)], at)
     node = 2 * at  # fat rows of the leaves
-    walk = traverse._SkipWalk(traverse._Table(fat), org, d,
-                              ref["t_cut"].clone(), args[0], args[1],
-                              args[3], torch.ones(N, dtype=torch.bool))
+    walk = walks.SkipWalk(walks.Table(fat), org, d,
+                          ref["t_cut"].clone(), args[0], args[1],
+                          args[3], torch.ones(N, dtype=torch.bool))
     cnt = count[node // 2]
-    with traverse.count_work() as work:
+    with walks.count_work() as work:
         ok, tt, _u, _v = walk.leaf_block(lanes, node, leaf_size)
     assert work.triangles == int(cnt.sum())
     distinct = torch.unique(node)
@@ -234,7 +235,7 @@ def test_work_counts_a_leafs_triangles_not_its_padding(ref):
     assert not (ok & (torch.arange(leaf_size) >= cnt[:, None])).any()
 
     t_cut = torch.full((N,), 1e9)
-    with traverse.count_work() as work:
+    with walks.count_work() as work:
         walk.leaf_block(lanes, node, leaf_size, t_cut)
     acc = ok & (tt < t_cut[:, None])
     want = sum(int(np.argmax(a)) + 1 if a.any() else int(c)
@@ -273,10 +274,10 @@ def test_cuda_preorder_kernels_match_plain_versions(ref):
     assert traverse.closest_hit_preorder.launches == 1
     assert traverse.any_hit_preorder.launches == 1
     assert traverse.closest_hit.launches == traverse.any_hit.launches == 0
-    *want, steps = traverse.closest_hit_preorder_plain(
+    *want, steps = walks.closest_hit_preorder_plain(
         fat, org, d, tm, *ref["args"], return_iters=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    occ_p, any_steps = traverse.any_hit_preorder_plain(
+    occ_p, any_steps = walks.any_hit_preorder_plain(
         fat, org, d, tc, *ref["args"], return_iters=True)
     assert torch.equal(occ, occ_p)
     assert counts[:, 0].tolist() == [int(steps.sum()), int(any_steps.sum())]

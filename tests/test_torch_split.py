@@ -47,6 +47,7 @@ from ptsharp_tpu.pallas import ordered_kernel, wide_kernel
 from ptsharp_tpu.scene import SceneBuilder
 
 from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.accel import traverse as walks
 from ptsharp_tpu_torch.kernels import traverse
 
 from tests.test_torch_kernels import CUDA_RAYS, _rays, _tied
@@ -115,7 +116,7 @@ def _assert_t(t, t_ref):
 
 def _edge(ref):
     """Lanes whose nearest hit lies within 1e-5 * t_cut of t_cut."""
-    t_near, _s, _u, _v = traverse.closest_hit_plain(
+    t_near, _s, _u, _v = walks.closest_hit_plain(
         ref["fat"], ref["org"], ref["dirn"], torch.full((N,), 1e9),
         *ref["args"])
     tc = ref["t_cut"].numpy()
@@ -125,7 +126,7 @@ def _edge(ref):
 @pytest.mark.parametrize("run", sorted(ORDERED))
 def test_closest_hit_split_plain_matches_ordered8(ref, run):
     mode = ORDERED[run]["order_mode"]
-    t, slot, u, v = traverse.closest_hit_split_plain(
+    t, slot, u, v = walks.closest_hit_split_plain(
         *_split(ref), ref["t_max"], *ref["args"], order_mode=mode)
     t_ref, s_ref, u_ref, v_ref = ref["ordered"][run]
     hit = s_ref >= 0
@@ -141,10 +142,10 @@ def test_closest_hit_split_plain_matches_ordered8(ref, run):
     assert (t.numpy()[~hit] == 1e9).all()
 
 
-@pytest.mark.parametrize("mode", traverse.ORDER_MODES)
+@pytest.mark.parametrize("mode", walks.ORDER_MODES)
 def test_any_hit_split_plain_matches_occluded_ordered8(ref, mode):
-    occ = traverse.any_hit_split_plain(*_split(ref), ref["t_cut"],
-                                       *ref["args"], order_mode=mode).numpy()
+    occ = walks.any_hit_split_plain(*_split(ref), ref["t_cut"],
+                                    *ref["args"], order_mode=mode).numpy()
     assert 0.1 < ref["occ"].mean() < 0.9
     edge = _edge(ref)
     np.testing.assert_array_equal(occ[~edge], ref["occ"][~edge])
@@ -152,7 +153,7 @@ def test_any_hit_split_plain_matches_occluded_ordered8(ref, mode):
 
 
 def test_closest_hit_packet_plain_matches_traverse_wide(ref):
-    t, slot, u, v = traverse.closest_hit_packet_plain(
+    t, slot, u, v = walks.closest_hit_packet_plain(
         *_split(ref), ref["t_max"], *ref["args"])
     t_ref, s_ref, u_ref, v_ref = ref["packet"]
     hit = s_ref >= 0
@@ -170,19 +171,19 @@ def test_split_walks_equal_the_fat_walks(ref):
     any-hits."""
     fat, org, d, tm = ref["fat"], ref["org"], ref["dirn"], ref["t_max"]
     pairs = [
-        (traverse.closest_hit_packet_plain(*_split(ref), tm, *ref["args"]),
-         traverse.closest_hit_preorder_plain(fat, org, d, tm, *ref["args"])),
-        (traverse.closest_hit_split_plain(*_split(ref), tm, *ref["args"],
-                                          order_mode="near"),
-         traverse.closest_hit_plain(fat, org, d, tm, *ref["args"])),
+        (walks.closest_hit_packet_plain(*_split(ref), tm, *ref["args"]),
+         walks.closest_hit_preorder_plain(fat, org, d, tm, *ref["args"])),
+        (walks.closest_hit_split_plain(*_split(ref), tm, *ref["args"],
+                                       order_mode="near"),
+         walks.closest_hit_plain(fat, org, d, tm, *ref["args"])),
     ]
     for split, whole in pairs:
         for a, b in zip(split, whole):
             assert torch.equal(a, b)
-    occ = traverse.any_hit_split_plain(*_split(ref), ref["t_cut"],
-                                       *ref["args"])
-    assert torch.equal(occ, traverse.any_hit_plain(fat, org, d, ref["t_cut"],
-                                                   *ref["args"]))
+    occ = walks.any_hit_split_plain(*_split(ref), ref["t_cut"],
+                                    *ref["args"])
+    assert torch.equal(occ, walks.any_hit_plain(fat, org, d, ref["t_cut"],
+                                                *ref["args"]))
 
 
 def test_split_near_walk_equals_the_fat_walk_in_steps(ref):
@@ -190,11 +191,11 @@ def test_split_near_walk_equals_the_fat_walk_in_steps(ref):
     over the fat table the split tables come from: all five outputs
     bit-equal, each ray's step count included."""
     fat, org, d, tm = ref["fat"], ref["org"], ref["dirn"], ref["t_max"]
-    split = traverse.closest_hit_split_plain(*_split(ref), tm, *ref["args"],
-                                             order_mode="near",
-                                             return_iters=True)
-    whole = traverse.closest_hit_plain(fat, org, d, tm, *ref["args"],
-                                       return_iters=True)
+    split = walks.closest_hit_split_plain(*_split(ref), tm, *ref["args"],
+                                          order_mode="near",
+                                          return_iters=True)
+    whole = walks.closest_hit_plain(fat, org, d, tm, *ref["args"],
+                                    return_iters=True)
     assert len(split) == len(whole) == 5
     for a, b in zip(split, whole):
         assert torch.equal(a, b)
@@ -203,19 +204,19 @@ def test_split_near_walk_equals_the_fat_walk_in_steps(ref):
 def test_any_hit_split_orders_agree(ref):
     """The ordered any-hit visits each node at most once, so its two push
     orders give the same occlusion on every lane (the kernel runs one)."""
-    occ = {m: traverse.any_hit_split_plain(*_split(ref), ref["t_cut"],
-                                           *ref["args"], order_mode=m)
-           for m in traverse.ORDER_MODES}
+    occ = {m: walks.any_hit_split_plain(*_split(ref), ref["t_cut"],
+                                        *ref["args"], order_mode=m)
+           for m in walks.ORDER_MODES}
     assert 0.1 < float(occ["full"].float().mean()) < 0.9
     assert torch.equal(occ["full"], occ["near"])
 
 
-@pytest.mark.parametrize("mode", traverse.ORDER_MODES)
+@pytest.mark.parametrize("mode", walks.ORDER_MODES)
 def test_step_counts(ref, mode):
     """return_iters adds each ray's step count and changes nothing else;
     a ray with t_max <= 0 misses the root box where its walk starts and
     takes no step."""
-    out = traverse.closest_hit_split_plain(
+    out = walks.closest_hit_split_plain(
         *_split(ref), ref["t_max"], *ref["args"], order_mode=mode,
         return_iters=True)
     base, end = ref["args"][:2]
@@ -224,7 +225,7 @@ def test_step_counts(ref, mode):
     assert (steps >= 0).all() and (steps <= end - base + 2).all()
     np.testing.assert_array_equal(steps[ref["t_max"].numpy() <= 0], 0)
     assert steps.mean() > 2
-    plain = traverse.closest_hit_split_plain(
+    plain = walks.closest_hit_split_plain(
         *_split(ref), ref["t_max"], *ref["args"], order_mode=mode)
     for a, b in zip(out[:4], plain):
         assert torch.equal(a, b)
@@ -237,11 +238,11 @@ def test_packet_walk_counts_its_steps(ref):
     t_max <= 0; on CPU tensors the wrapper raises on `counts`, which only
     the kernel keeps."""
     fat, org, d, tm = ref["fat"], ref["org"], ref["dirn"], ref["t_max"]
-    *out, steps = traverse.closest_hit_packet_plain(
+    *out, steps = walks.closest_hit_packet_plain(
         *_split(ref), tm, *ref["args"], return_iters=True)
-    plain = traverse.closest_hit_packet_plain(*_split(ref), tm, *ref["args"])
+    plain = walks.closest_hit_packet_plain(*_split(ref), tm, *ref["args"])
     assert all(torch.equal(a, b) for a, b in zip(out, plain))
-    fat_steps = traverse.closest_hit_preorder_plain(
+    fat_steps = walks.closest_hit_preorder_plain(
         fat, org, d, tm, *ref["args"], return_iters=True)[-1]
     assert torch.equal(steps, fat_steps)
     np.testing.assert_array_equal(steps.numpy()[tm.numpy() <= 0], 1)
@@ -312,20 +313,20 @@ def test_cuda_split_kernels_match_plain_versions(ref):
     tm, tc = ref["t_max"].to(dev), ref["t_cut"].to(dev)
     args = ref["args"]
     traverse.reset_launch_counts()
-    for mode in traverse.ORDER_MODES:
+    for mode in walks.ORDER_MODES:
         counts = torch.zeros((2, 2), dtype=torch.int64, device=dev)
         got = traverse.closest_hit_split(rows, leaf, org, d, tm, *args,
                                          order_mode=mode, return_iters=True,
                                          counts=counts[0])
-        want = traverse.closest_hit_split_plain(rows, leaf, org, d, tm,
-                                                *args, order_mode=mode,
-                                                return_iters=True)
+        want = walks.closest_hit_split_plain(rows, leaf, org, d, tm,
+                                             *args, order_mode=mode,
+                                             return_iters=True)
         assert len(got) == len(want) == 5
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         occ = traverse.any_hit_split(rows, leaf, org, d, tc, *args,
                                      order_mode=mode, counts=counts[1])
-        occ_p, steps_any = traverse.any_hit_split_plain(
+        occ_p, steps_any = walks.any_hit_split_plain(
             rows, leaf, org, d, tc, *args,
             order_mode=traverse.SPLIT_ANY_HIT_ORDER, return_iters=True)
         assert torch.equal(occ, occ_p)
@@ -333,7 +334,7 @@ def test_cuda_split_kernels_match_plain_versions(ref):
                                           int(steps_any.sum())]
         assert bool((counts[:, 0] <= counts[:, 1]).all())
     got = traverse.closest_hit_packet(rows, leaf, org, d, tm, *args)
-    want = traverse.closest_hit_packet_plain(rows, leaf, org, d, tm, *args)
+    want = walks.closest_hit_packet_plain(rows, leaf, org, d, tm, *args)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
     torch.cuda.synchronize()
@@ -368,8 +369,8 @@ def test_cuda_packet_walk_matches_plain_version(ref, n):
     counts = torch.zeros(2, dtype=torch.int64, device=dev)
     got = traverse.closest_hit_packet(rows, leaf, org, d, tm, *args,
                                       counts=counts)
-    *want, steps = traverse.closest_hit_packet_plain(rows, leaf, org, d, tm,
-                                                     *args, return_iters=True)
+    *want, steps = walks.closest_hit_packet_plain(rows, leaf, org, d, tm,
+                                                  *args, return_iters=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     twin = traverse.closest_hit_preorder(fat, org, d, tm, *args)
     assert all(torch.equal(a, b) for a, b in zip(got, twin))

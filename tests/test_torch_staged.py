@@ -27,7 +27,7 @@ The dual walk's plain version is the ordered walk of closest_hit_plain
 (stack entries with their entry distance): each ray takes its steps.
 
 The plain model of the warp-packet schedule of #10, #11 and #12
-(traverse.warp_packet_plain: packets of W lanes with one cursor each, and
+(accel.traverse.warp_packet_plain: packets of W lanes with one cursor each, and
 the copies of its two-buffer rings or, for #11, one-row stages without
 prefetch) at W = 1 takes each ray's own steps (closest_hit_packet_plain's),
 and at W = 32 and 128 gives every lane the per-lane walk's (t, slot, u, v)
@@ -55,6 +55,7 @@ import torch
 from ptsharp_tpu.pallas import hbm_kernel, ordered_kernel, wide_kernel
 
 from ptsharp_tpu_torch.accel import tables
+from ptsharp_tpu_torch.accel import traverse as walks
 from ptsharp_tpu_torch.kernels import traverse
 
 from tests.test_torch_kernels import _rays, _tied
@@ -122,8 +123,8 @@ def _assert_preorder_packet(got, want):
 
 @pytest.mark.parametrize("mt_gate", [False, True])
 def test_closest_hit_dual_plain_matches_dual_kernel(ref, mt_gate):
-    t, slot, u, v = traverse.closest_hit_dual_plain(ref["fat"],
-                                                    *_rays_of(ref))
+    t, slot, u, v = walks.closest_hit_dual_plain(ref["fat"],
+                                                 *_rays_of(ref))
     t_ref, s_ref, u_ref, v_ref = ref["jax"]("dual", mt_gate=mt_gate)
     hit = s_ref >= 0
     assert 0.2 < hit.mean() < 0.9
@@ -140,13 +141,13 @@ def test_closest_hit_dual_plain_matches_dual_kernel(ref, mt_gate):
 
 def test_closest_hit_fat_cache_plain_matches_fat_cache_kernel(ref):
     _assert_preorder_packet(
-        traverse.closest_hit_fat_cache_plain(ref["fat"], *_rays_of(ref)),
+        walks.closest_hit_fat_cache_plain(ref["fat"], *_rays_of(ref)),
         ref["jax"]("fat_cache"))
 
 
 def test_closest_hit_block_cache_plain_matches_hbm8(ref):
-    got = traverse.closest_hit_block_cache_plain(*ref["padded"],
-                                                 *_rays_of(ref))
+    got = walks.closest_hit_block_cache_plain(*ref["padded"],
+                                              *_rays_of(ref))
     modes = (0, 1, 2) if ref["name"] == ALL_LEAF_MODES else (0,)
     for mode in modes:
         _assert_preorder_packet(got, ref["jax"]("block_cache",
@@ -155,7 +156,7 @@ def test_closest_hit_block_cache_plain_matches_hbm8(ref):
 
 def test_closest_hit_row_stage_plain_matches_hbm8_row(ref):
     _assert_preorder_packet(
-        traverse.closest_hit_row_stage_plain(*ref["padded"], *_rays_of(ref)),
+        walks.closest_hit_row_stage_plain(*ref["padded"], *_rays_of(ref)),
         ref["jax"]("row_stage"))
 
 
@@ -177,7 +178,7 @@ def test_row_stage_reference_fault():
         sp.p_rows, sp.p_leaf, *jr)]
     row = np.asarray(hbm_kernel.pallas_traverse_hbm8_row(
         sp.p_rows, sp.p_leaf, *jr)[1])
-    got = traverse.closest_hit_row_stage_plain(
+    got = walks.closest_hit_row_stage_plain(
         *map(torch.from_numpy, (rows, leaf, org, d, t_max)), *args)
     _assert_preorder_packet(got, wide8)
     assert (row != wide8[1]).sum() >= 1
@@ -190,14 +191,14 @@ def test_staged_walks_equal_the_fat_walks(ref):
     preorder walk."""
     rays = _rays_of(ref)
     fat, split = ref["fat"], (ref["rows"], ref["leaf"])
-    pre = traverse.closest_hit_preorder_plain(fat, *rays)
+    pre = walks.closest_hit_preorder_plain(fat, *rays)
     pairs = [
-        (traverse.closest_hit_dual_plain(fat, *rays),
-         traverse.closest_hit_plain(fat, *rays)),
-        (traverse.closest_hit_fat_cache_plain(fat, *rays), pre),
-        (traverse.closest_hit_block_cache_plain(*ref["padded"], *rays), pre),
-        (traverse.closest_hit_row_stage_plain(*ref["padded"], *rays), pre),
-        (traverse.closest_hit_row_stage_plain(*split, *rays), pre),
+        (walks.closest_hit_dual_plain(fat, *rays),
+         walks.closest_hit_plain(fat, *rays)),
+        (walks.closest_hit_fat_cache_plain(fat, *rays), pre),
+        (walks.closest_hit_block_cache_plain(*ref["padded"], *rays), pre),
+        (walks.closest_hit_row_stage_plain(*ref["padded"], *rays), pre),
+        (walks.closest_hit_row_stage_plain(*split, *rays), pre),
     ]
     for got, want in pairs:
         for a, b in zip(got, want):
@@ -208,9 +209,9 @@ def test_dual_plain_takes_the_ordered_walks_steps(ref):
     """The dual walk's plain version takes closest_hit_plain's steps on
     every ray, the steps csrc/closest_hit_dual.cu counts, and gives its
     results."""
-    *out, steps = traverse.closest_hit_dual_plain(ref["fat"], *_rays_of(ref),
-                                                  return_iters=True)
-    *want, want_steps = traverse.closest_hit_plain(
+    *out, steps = walks.closest_hit_dual_plain(ref["fat"], *_rays_of(ref),
+                                               return_iters=True)
+    *want, want_steps = walks.closest_hit_plain(
         ref["fat"], *_rays_of(ref), return_iters=True)
     for a, b in zip(out, want):
         assert torch.equal(a, b)
@@ -223,14 +224,14 @@ def test_staged_wrappers_take_the_plain_version_on_cpu(ref):
     rays = _rays_of(ref)
     runs = [
         (traverse.closest_hit_dual(ref["fat"], *rays),
-         traverse.closest_hit_dual_plain(ref["fat"], *rays)),
+         walks.closest_hit_dual_plain(ref["fat"], *rays)),
         (traverse.closest_hit_fat_cache(ref["fat"], *rays),
-         traverse.closest_hit_fat_cache_plain(ref["fat"], *rays)),
+         walks.closest_hit_fat_cache_plain(ref["fat"], *rays)),
         (traverse.closest_hit_block_cache(*ref["padded"], *rays),
-         traverse.closest_hit_block_cache_plain(*ref["padded"], *rays)),
+         walks.closest_hit_block_cache_plain(*ref["padded"], *rays)),
         (traverse.closest_hit_row_stage(ref["rows"], ref["leaf"], *rays),
-         traverse.closest_hit_row_stage_plain(ref["rows"], ref["leaf"],
-                                              *rays)),
+         walks.closest_hit_row_stage_plain(ref["rows"], ref["leaf"],
+                                           *rays)),
     ]
     for got, want in runs:
         for a, b in zip(got, want):
@@ -269,9 +270,9 @@ def _packet_tables(ref, table):
 
 @pytest.mark.parametrize("table", ["fat", "split"])
 def test_packet_model_at_width_one_takes_each_rays_steps(ref, table):
-    *out, counts = traverse.warp_packet_plain(
+    *out, counts = walks.warp_packet_plain(
         *_packet_tables(ref, table), *_rays_of(ref), block_rows=8, width=1)
-    *want, steps = traverse.closest_hit_packet_plain(
+    *want, steps = walks.closest_hit_packet_plain(
         ref["rows"], ref["leaf"], *_rays_of(ref), return_iters=True)
     for a, b in zip(out, want):
         assert torch.equal(a, b)
@@ -287,10 +288,10 @@ def test_packet_model_matches_lane_walk_and_jax_kernel(ref, width, table):
     kernel of the same table (#12 fat cache, #10 block cache) as it does;
     the packet walks the union of its lanes' nodes, fewer steps than its
     lanes take together."""
-    *out, counts = traverse.warp_packet_plain(
+    *out, counts = walks.warp_packet_plain(
         *_packet_tables(ref, table), *_rays_of(ref), block_rows=8,
         width=width)
-    *want, steps = traverse.closest_hit_preorder_plain(
+    *want, steps = walks.closest_hit_preorder_plain(
         ref["fat"], *_rays_of(ref), return_iters=True)
     for a, b in zip(out, want):
         assert torch.equal(a, b)
@@ -305,13 +306,13 @@ def test_packet_model_matches_lane_walk_and_jax_kernel(ref, width, table):
             * (1 if table == "fat" else 2)).all()
 
 
-def _packet_walk(ref, tables, width=traverse.PACKET_WIDTH):
+def _packet_walk(ref, tables, width=walks.PACKET_WIDTH):
     """The model's packet walk over split tables (rows, leaf), run to its
     end: its reads a step."""
-    walk = traverse._PacketWalk(
-        traverse._Table(*tables, ref["args"][2]), ref["org"], ref["dirn"],
+    walk = walks.PacketWalk(
+        walks.Table(*tables, ref["args"][2]), ref["org"], ref["dirn"],
         ref["t_max"].clone(), *ref["args"][:2], ref["args"][3], width)
-    traverse._walk_closest(walk, ref["args"][2])
+    walks.walk_closest(walk, ref["args"][2])
     return walk
 
 
@@ -391,8 +392,8 @@ def test_ring_counts_follow_the_ring(block_rows, limit, seed, prefetch):
     rows[back, steps // 2:] //= 3
     reads = [(torch.arange(n_packets), torch.from_numpy(rows[:, j]))
              for j in range(steps)]
-    got = traverse._ring_counts(reads, block_rows, limit, n_packets,
-                                prefetch)
+    got = walks.ring_counts(reads, block_rows, limit, n_packets,
+                            prefetch)
     want = np.array([_ring_by_steps(r, block_rows, limit, prefetch)
                      for r in rows])
     for j in range(3):
@@ -408,10 +409,10 @@ def test_stage_model_on_unpadded_tables(ref, width):
     node rows and leaf rows: one demand copy a change of row."""
     rays = _rays_of(ref)
     split = (ref["rows"], ref["leaf"])
-    *out, counts = traverse.warp_packet_plain(*split, *rays, block_rows=1,
-                                              width=width, prefetch=False)
-    *want, steps = traverse.closest_hit_preorder_plain(ref["fat"], *rays,
-                                                       return_iters=True)
+    *out, counts = walks.warp_packet_plain(*split, *rays, block_rows=1,
+                                           width=width, prefetch=False)
+    *want, steps = walks.closest_hit_preorder_plain(ref["fat"], *rays,
+                                                    return_iters=True)
     for a, b in zip(out, want):
         assert torch.equal(a, b)
     assert int(counts["lane_steps"].sum()) == int(steps.sum())
@@ -434,11 +435,11 @@ def test_stage_model_on_unpadded_tables(ref, width):
 def test_packet_model_of_no_rays(ref, prefetch):
     """No ray, no packet: the model gives empty results and counts."""
     rays = [x[:0] for x in (ref["org"], ref["dirn"], ref["t_max"])]
-    *out, counts = traverse.warp_packet_plain(
+    *out, counts = walks.warp_packet_plain(
         ref["rows"], ref["leaf"], *rays, *ref["args"], block_rows=1,
         prefetch=prefetch)
     assert all(x.shape == (0,) for x in out)
-    assert all(counts[key].shape == (0,) for key in traverse.PACKET_COUNTS)
+    assert all(counts[key].shape == (0,) for key in walks.PACKET_COUNTS)
 
 
 @pytest.mark.parametrize("name", ["closest_hit_fat_cache",
@@ -450,7 +451,7 @@ def test_packet_wrappers_take_no_counts_on_the_cpu(ref, name):
             "closest_hit_row_stage": (ref["rows"], ref["leaf"])}.get(
                 name, (ref["fat"],))
     n_counts = 2 if name == "closest_hit_dual" else len(
-        traverse.PACKET_COUNTS)
+        walks.PACKET_COUNTS)
     counts = torch.zeros(n_counts, dtype=torch.int64)
     with pytest.raises(ValueError, match="counts"):
         getattr(traverse, name)(*tabs, *_rays_of(ref), counts=counts)
@@ -473,13 +474,13 @@ def test_cuda_staged_kernels_match_plain_versions(ref):
     traverse.reset_launch_counts()
     runs = [
         (traverse.closest_hit_dual(fat, *rays),
-         traverse.closest_hit_dual_plain(fat, *rays)),
+         walks.closest_hit_dual_plain(fat, *rays)),
         (traverse.closest_hit_fat_cache(fat, *rays),
-         traverse.closest_hit_fat_cache_plain(fat, *rays)),
+         walks.closest_hit_fat_cache_plain(fat, *rays)),
         (traverse.closest_hit_block_cache(*padded, *rays),
-         traverse.closest_hit_block_cache_plain(*padded, *rays)),
+         walks.closest_hit_block_cache_plain(*padded, *rays)),
         (traverse.closest_hit_row_stage(*split, *rays),
-         traverse.closest_hit_row_stage_plain(*split, *rays)),
+         walks.closest_hit_row_stage_plain(*split, *rays)),
     ]
     torch.cuda.synchronize()
     for got, want in runs:
@@ -491,19 +492,19 @@ def test_cuda_staged_kernels_match_plain_versions(ref):
         assert w.launches == 1
     counts = torch.zeros(2, dtype=torch.int64, device=dev)
     traverse.closest_hit_dual(fat, *rays, counts=counts)
-    steps = traverse.closest_hit_dual_plain(fat, *rays, return_iters=True)[-1]
+    steps = walks.closest_hit_dual_plain(fat, *rays, return_iters=True)[-1]
     assert int(counts[0]) == int(steps.sum()) <= int(counts[1])
     for w, tabs in ((traverse.closest_hit_fat_cache, (fat,)),
                     (traverse.closest_hit_block_cache, padded),
                     (traverse.closest_hit_row_stage, split)):
-        counts = torch.zeros(len(traverse.PACKET_COUNTS), dtype=torch.int64,
+        counts = torch.zeros(len(walks.PACKET_COUNTS), dtype=torch.int64,
                              device=dev)
         got = w(*tabs, *rays, counts=counts)
         block_rows, _smem, prefetch = traverse.cache_layout(w)
-        *model, mc = traverse.warp_packet_plain(
+        *model, mc = walks.warp_packet_plain(
             tabs[0], tabs[1] if len(tabs) > 1 else None, *rays,
             block_rows=block_rows, prefetch=prefetch)
         for a, b in zip(got, model):
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
         assert counts.tolist() == [int(mc[key].sum())
-                                   for key in traverse.PACKET_COUNTS]
+                                   for key in walks.PACKET_COUNTS]

@@ -41,6 +41,7 @@ import ptsharp_tpu_torch as tpt
 from ptsharp_tpu_torch import convert
 from ptsharp_tpu_torch import examples as tex
 from ptsharp_tpu_torch import intersect as tint
+from ptsharp_tpu_torch.accel import traverse as walks
 from ptsharp_tpu_torch.core import rng
 from ptsharp_tpu_torch.geometry import mesh as tmesh
 from ptsharp_tpu_torch.kernels import traverse
@@ -246,10 +247,10 @@ def test_any_hit_equals_bounded_closest_hit(walk):
     tabs = tint.scene_tlas(st)
     org, d, t_cut, _l = _rays(seed=9)
     o, dd, tc = (torch.from_numpy(x) for x in (org, d, t_cut))
-    occ, steps = traverse.any_hit_tlas_plain(tabs, o, dd, tc,
-                                             return_iters=True)
-    bounded = traverse.closest_hit_tlas_plain(tabs, o, dd, tc,
-                                              return_iters=True)
+    occ, steps = walks.any_hit_tlas_plain(tabs, o, dd, tc,
+                                          return_iters=True)
+    bounded = walks.closest_hit_tlas_plain(tabs, o, dd, tc,
+                                           return_iters=True)
     assert torch.equal(occ, bounded[1] != PT_NONE)
     assert 0.1 < float(occ.float().mean()) < 0.9
     assert bool((steps[tc <= 0] == 0).all())
@@ -264,10 +265,10 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     o, dd, tc = (torch.from_numpy(x) for x in (org, d, t_cut))
     tm = torch.full((512,), 1e9)
     got = traverse.closest_hit_tlas(tabs, o, dd, tm)
-    want = traverse.closest_hit_tlas_plain(tabs, o, dd, tm)
+    want = walks.closest_hit_tlas_plain(tabs, o, dd, tm)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(traverse.any_hit_tlas(tabs, o, dd, tc),
-                       traverse.any_hit_tlas_plain(tabs, o, dd, tc))
+                       walks.any_hit_tlas_plain(tabs, o, dd, tc))
     with pytest.raises(ValueError, match="counts"):
         traverse.closest_hit_tlas(tabs, o, dd, tm,
                                   counts=torch.zeros(2, dtype=torch.int64))
@@ -393,10 +394,10 @@ def test_launcher_picks_the_instance(name):
     o, dd, tc = (torch.from_numpy(x) for x in (org, d, t_cut))
     tm = torch.full((256,), 1e9)
     got = traverse.closest_hit_tlas(tabs, o, dd, tm)
-    want_hits = traverse.closest_hit_tlas_plain(tabs, o, dd, tm)
+    want_hits = walks.closest_hit_tlas_plain(tabs, o, dd, tm)
     assert all(torch.equal(a, b) for a, b in zip(got, want_hits))
     assert torch.equal(traverse.any_hit_tlas(tabs, o, dd, tc),
-                       traverse.any_hit_tlas_plain(tabs, o, dd, tc))
+                       walks.any_hit_tlas_plain(tabs, o, dd, tc))
 
 
 @pytest.mark.parametrize("table", ["inst_inv", "sphere_inv", "cube_inv",
@@ -440,11 +441,11 @@ def test_cuda_kernels_match_plain_versions(walk):
     assert traverse.any_hit_tlas.launches == 1
     for fn in (traverse.closest_hit_tlas, traverse.any_hit_tlas):
         assert tuple(fn.instance) == INSTANCES[walk][3]
-    *want, steps = traverse.closest_hit_tlas_plain(tabs, o, dd, tm,
-                                                   return_iters=True)
+    *want, steps = walks.closest_hit_tlas_plain(tabs, o, dd, tm,
+                                                return_iters=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert int(counts[0][0]) == int(steps.sum())
-    want_occ, steps = traverse.any_hit_tlas_plain(tabs, o, dd, tc,
-                                                  return_iters=True)
+    want_occ, steps = walks.any_hit_tlas_plain(tabs, o, dd, tc,
+                                               return_iters=True)
     assert torch.equal(occ, want_occ)
     assert int(counts[1][0]) == int(steps.sum())

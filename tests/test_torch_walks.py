@@ -77,9 +77,9 @@ from ptsharp_tpu_torch.materials import light_material as tlight
 from ptsharp_tpu_torch.renderer import RenderConfig, Renderer
 from ptsharp_tpu_torch.scene import SceneBuilder as TBuilder
 
-import chip_smoke
 from tests.test_torch_integrator import assert_radiance_parity, port_config
 from tests.test_torch_kernels import CUDA_RAYS
+from tests.torch_walk_cases import bounce_rays, shadow_cut
 
 INTERSECTORS = ("wide", "walk", "cluster")
 N = 1000
@@ -205,7 +205,7 @@ def _assert_hits_match(got, ref, org, d, leaf, t_max, min_hit=0.2):
     if diff.size:
         o, dd = torch.from_numpy(org[diff]), torch.from_numpy(d[diff])
         all_tri = tri[None].expand(diff.size, -1, -1)
-        ok, tt, _u, _v = traverse._mt(all_tri, o, dd)
+        ok, tt, _u, _v = ttraverse.mt(all_tri, o, dd)
         tm = torch.as_tensor(t_max, dtype=torch.float32).expand(N)[diff]
         tt = torch.where(ok & (tt < tm[:, None]), tt, 1e30)
         two = torch.topk(tt, 2, dim=1, largest=False).values.numpy()
@@ -353,7 +353,7 @@ def test_wrappers_take_their_plain_versions_on_the_cpu(walk_case):
     occ = traverse.any_hit_wide_rows(c["w_rows"], c["leaf"], org, d, t_cut,
                                      r["w_inst_base"][0], r["w_inst_end"][0],
                                      8, c["k"])
-    want_occ = traverse.any_hit_wide_rows_plain(
+    want_occ = ttraverse.any_hit_wide_rows_plain(
         c["w_rows"], c["leaf"], org, d, t_cut, r["w_inst_base"][0],
         r["w_inst_end"][0], 8, c["k"])
     assert occ.dtype == torch.bool and torch.equal(occ, want_occ)
@@ -386,7 +386,7 @@ def test_row_wrappers_take_no_counts_on_the_cpu(walk_case):
         c["w_rows"], c["leaf"], org, d, tm, *args, return_iters=True)
     assert torch.equal(t, ttraverse.traverse_wide(c["w_rows"], c["leaf"], org,
                                                   d, tm, *args)[0])
-    occ, any_steps = traverse.any_hit_wide_rows_plain(
+    occ, any_steps = ttraverse.any_hit_wide_rows_plain(
         c["w_rows"], c["leaf"], org, d, tm, *args, return_iters=True)
     assert int(steps.min()) >= 1 and int(steps.max()) <= args[1] - args[0]
     assert (any_steps[tm <= 0] == 0).all() and (any_steps <= steps).all()
@@ -398,22 +398,22 @@ def _scalar_binary_steps(u_rows, leaf, org, d, t_max, base, end, ls):
     leaf's slots (strict tt < best t) and the skip link at a hit leaf, the
     skip link where the box is missed."""
     bits = u_rows.view(torch.int32)
-    inv = traverse._safe_inv(d)
+    inv = ttraverse.safe_inv(d)
     steps = []
     for i in range(org.shape[0]):
         o, iv, bt = org[i:i + 1], inv[i:i + 1], t_max[i:i + 1].clone()
         cur, n = base, 0
         while cur < end:
             n += 1
-            tmin, tmax = traverse._slab(u_rows[cur:cur + 1, 0:6], o, iv)
+            tmin, tmax = ttraverse.slab(u_rows[cur:cur + 1, 0:6], o, iv)
             skip = int(bits[cur, 8])
-            if not bool(traverse._box_hit(tmin, tmax, bt)):
+            if not bool(ttraverse.box_hit(tmin, tmax, bt)):
                 cur = skip
             elif int(bits[cur, 7]) & 0xFF == 0:
                 cur += 1
             else:
                 blk = leaf[int(bits[cur, 6]) // ls, :ls * 9].reshape(1, ls, 9)
-                ok, tt, _u, _v = traverse._mt(blk, o, d[i:i + 1])
+                ok, tt, _u, _v = ttraverse.mt(blk, o, d[i:i + 1])
                 tt = torch.where(ok & (tt < bt[:, None]), tt, bt[:, None])
                 bt = tt.min(dim=1).values
                 cur = skip
@@ -594,8 +594,8 @@ def test_cluster_scores_tie(cluster_case):
     c = cluster_case
     o, d = torch.from_numpy(c["org"]), torch.from_numpy(c["d"])
     bmin, bmax = c["port"][0], c["port"][1]
-    inv = traverse._safe_inv(d)
-    tmin, tmax = traverse._slab(torch.cat([bmin, bmax], 1)[None],
+    inv = ttraverse.safe_inv(d)
+    tmin, tmax = ttraverse.slab(torch.cat([bmin, bmax], 1)[None],
                                 o[:, None, :], inv[:, None, :])
     zero_ties = ((tmin <= 0) & (tmax >= 0)).sum(1)
     assert (zero_ties >= 2).sum() > 50
@@ -692,7 +692,7 @@ def test_cuda_row_kernels_match_plain_versions(walk_case):
     counts.zero_()
     occ = traverse.any_hit_wide_rows(w_rows, leaf, org, d, tm, wb, we, 8,
                                      c["k"], counts=counts)
-    want, steps = traverse.any_hit_wide_rows_plain(
+    want, steps = ttraverse.any_hit_wide_rows_plain(
         w_rows, leaf, org, d, tm, wb, we, 8, c["k"], return_iters=True)
     assert torch.equal(occ, want) and int(counts[0]) == int(steps.sum())
     assert traverse.any_hit_wide_rows.launches == 1
@@ -756,9 +756,9 @@ def _shadow_rays(st, seed):
     missed), and every tenth lane's t_cut -INF, as occlusion_query bounds
     a lane that an earlier object already occludes."""
     org, d = _rays(N, seed)
-    o, _d = chip_smoke.bounce_rays(st, torch.from_numpy(org),
-                                   torch.from_numpy(d), N, seed)
-    ds, t_cut = chip_smoke.shadow_cut(st, o, seed)
+    o, _d = bounce_rays(st, torch.from_numpy(org), torch.from_numpy(d), N,
+                        seed)
+    ds, t_cut = shadow_cut(st, o, seed)
     t_cut[::10] = -INF
     return o, ds, t_cut
 
@@ -778,7 +778,7 @@ def test_any_hit_wide_rows_equals_the_bounded_closest_hit(scene, k):
     for i in range(st.inst_inv.shape[0]):
         oi, di = tintersect._instance_rays(st, i, o, d)
         args = (st.w_inst_base[i], st.w_inst_end[i], st.max_leaf, k)
-        occ = traverse.any_hit_wide_rows_plain(*tab, oi, di, t_cut, *args)
+        occ = ttraverse.any_hit_wide_rows_plain(*tab, oi, di, t_cut, *args)
         t = ttraverse.traverse_wide(*tab, oi, di, t_cut, *args)[0]
         np.testing.assert_array_equal(occ.numpy(), (t < INF).numpy())
         occluded |= occ
@@ -836,7 +836,7 @@ def test_leaf_padding_slots_are_zero_triangles(tables):
     tri = blocks[:, :ls * 9].reshape(-1, ls, 9)
     pad = torch.arange(ls)[None, :] >= count[:, None]
     assert (tri[pad] == 0).all() and (tri[~pad].abs().sum(1) > 0).all()
-    ok, _t, _u, _v = traverse._mt(torch.zeros(1, 1, 9),
+    ok, _t, _u, _v = ttraverse.mt(torch.zeros(1, 1, 9),
                                   torch.tensor([[0.1, 0.2, -1.0]]),
                                   torch.tensor([[0.0, 0.0, 1.0]]))
     assert not bool(ok.any())
