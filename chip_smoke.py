@@ -36,6 +36,19 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
               (the active lane steps times perfbench.march_ops's
               operations of a lane step of the configuration's tree, at
               PEAK_F32);
+  2d. tsum   the table sum (tsum_phase): the sums of one tape gradient
+              of the bunny.train cell's shapes (examples.build("bunny")
+              at 1920x1080, 1 spp, the colours a leaf, an MSE to 0.5)
+              captured at csrc/table_sum.cu's two call sites (the tape
+              backward's material sums, the atlas fetches' texels), each
+              against its float64 sum (raising past TSUM_RTOL of the
+              sum of its rows' absolute values), timed by kind
+              (mid, lm, texels: device ms behind a spin kernel, the
+              wrapper's call and index_add_ into zeros alone on the
+              same inputs) beside its bound (each lane's id and row read
+              once and the table written once, at PEAK_BYTES), with its
+              lanes, active lanes and adds (profiling.
+              table_sum_counters()) and ptxas's registers and spills;
   3. bunny    examples.build("bunny", intersector="pallas", wide_k=8): the
               full 81,920-triangle bunny, its BVH builder, table size and
               max_stack_bound;
@@ -307,7 +320,8 @@ builds the CUDA kernels from csrc/ (into build/ptsharp_tpu_torch/), then:
 
 `python3 chip_smoke.py --rng` runs phases 1, 2 and 2b alone and prints
 their JSON line; `python3 chip_smoke.py --march` runs phases 1, 2 and 2c
-alone and prints theirs.
+alone and prints theirs; `python3 chip_smoke.py --tsum` phases 1, 2 and
+2d.
 
 `python3 chip_smoke.py --shard-cards`, on a machine with four cards, runs
 the same check over NCCL, one rank a card (the bunny at 1920x1080, 2 spp,
@@ -657,6 +671,13 @@ def ptxas_report(text: str) -> dict:
         if fry:
             name = fry.group(1) + (f"<{fry.group(2)}>" if fry.group(2)
                                    else "")
+            rows[name] = {"smem": 0}
+            continue
+        # table_sum_kernel<Id, kShared>
+        tsum = m and re.search(r"table_sum_kernelI([il])Lb(\d)E", m.group(1))
+        if tsum:
+            name = (f"table_sum<{dict(i='int32', l='int64')[tsum.group(1)]},"
+                    f"{('global', 'shared')[int(tsum.group(2))]}>")
             rows[name] = {"smem": 0}
             continue
         if m:
@@ -2923,12 +2944,21 @@ def grad_run(scene, cam, icfg, width, height, weights, use_tape, seed=0):
     """One forward and backward of sum(render_image * weights) with
     respect to the scene's DiffParams leaves, each half with every launch
     count set to 0 just before and read just after. Returns the
-    gradients, the two halves' launches, their wall ms and the peak
-    device memory."""
+    gradients, the two halves' launches (the traversal wrappers', and the
+    table sum's launches and lanes as "table_sum"), their wall ms and the
+    peak device memory."""
     from ptsharp_tpu_torch import diff
     from ptsharp_tpu_torch.core import rng
-    from ptsharp_tpu_torch.kernels import traverse
+    from ptsharp_tpu_torch.kernels import table_sum, traverse
     from ptsharp_tpu_torch.tape import DiffParams, plug
+
+    def reset():
+        traverse.reset_launch_counts()
+        table_sum.reset_launch_counts()
+
+    def counts():
+        return {**_counts(), "table_sum": (table_sum.table_sum.launches,
+                                           table_sum.table_sum.lanes)}
 
     dev = scene.device
     leaves = [x.detach().clone().requires_grad_()
@@ -2936,19 +2966,19 @@ def grad_run(scene, cam, icfg, width, height, weights, use_tape, seed=0):
     s = plug(scene, DiffParams(*leaves))
     _reset_peak(dev)
     sync(dev)
-    traverse.reset_launch_counts()
+    reset()
     t0 = time.perf_counter()
     img = diff.render_image(s, cam, icfg, rng.PRNGKey(seed), width, height,
                             1, use_tape=use_tape)
     loss = (img * weights).sum()
     sync(dev)
     t1 = time.perf_counter()
-    fwd = _counts()
-    traverse.reset_launch_counts()
+    fwd = counts()
+    reset()
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     sync(dev)
     t2 = time.perf_counter()
-    bwd = _counts()
+    bwd = counts()
     grads = [torch.zeros_like(x) if g is None else g
              for g, x in zip(grads, leaves)]
     if not bool(torch.isfinite(img).all()):
@@ -3119,13 +3149,19 @@ def grad_phase(scene, cam, icfg, width, height, card):
     only, then forward and backward by the tape and by autograd under
     remat "full", "hits" and off, GRAD_REPS runs each with its launches
     (each half's counts set to 0 just before and read just after), wall
-    ms and peak memory. Every forward launches #1 and #2 once a depth;
-    the tape's backward launches nothing, "full" re-launches both once a
-    checkpointed depth (max_bounces), "hits" #2 only, off nothing. The
+    ms and peak memory. Every forward launches #1 and #2 once a depth
+    and no table sum; the tape's backward launches no traversal, "full"
+    re-launches both once a checkpointed depth (max_bounces), "hits" #2
+    only, off nothing; the tape's backward launches the table sum 6 times
+    a depth (its two material sums and four texel fetches), autograd's 4
+    times a textured sample (the colour at every depth, the gloss at
+    every depth but the last: 2 x depths - 1). The
     tape's and every autograd mode's gradients agree per leaf. Then the
     SGD steps, a small bunny's card gradients against the CPU's, and
     bench.py's fwd+bwd shape on cornell. Returns the phase's launches and
-    rays by wrapper (the main-path runs and the SGD steps)."""
+    rays by wrapper (the main-path runs and the SGD steps), with the
+    table sum's launches and lanes in the main-path runs as
+    "table_sum"."""
     from ptsharp_tpu_torch import diff
     from ptsharp_tpu_torch.core import rng
     from ptsharp_tpu_torch.kernels import traverse
@@ -3136,11 +3172,14 @@ def grad_phase(scene, cam, icfg, width, height, card):
     dev = scene.device
     depths = icfg.max_bounces + 1
     fwd_want = {"closest_hit": depths, "any_hit": depths}
-    bwd_want = {"tape": {},
+    tsum_ad = 4 * (2 * depths - 1)
+    bwd_want = {"tape": {"table_sum": 6 * depths},
                 "AD remat full": {"closest_hit": depths - 1,
-                                  "any_hit": depths - 1},
-                "AD remat hits": {"any_hit": depths - 1},
-                "AD remat off": {}}
+                                  "any_hit": depths - 1,
+                                  "table_sum": tsum_ad},
+                "AD remat hits": {"any_hit": depths - 1,
+                                  "table_sum": tsum_ad},
+                "AD remat off": {"table_sum": tsum_ad}}
     n = width * height
     weights = torch.from_numpy(np.random.default_rng(7).random(
         (height, width, 3)).astype(np.float32) / n).to(dev)
@@ -3709,6 +3748,113 @@ def march_phase(device) -> dict:
     return row
 
 
+# each table-sum entry against its float64 sum, over the sum of its rows'
+# absolute values: float32 round-off in an order that changes from run to
+# run (tests/test_torch_table_sum.py's tolerance)
+TSUM_RTOL = 1e-4
+
+
+def tsum_phase(device) -> dict:
+    """Phase 2d: the table-sum kernel on the sums of one tape gradient at
+    the bunny.train cell's shapes, against their float64 sums (raises
+    past TSUM_RTOL of the rows' absolute sum), timed by kind beside
+    index_add_ on the same inputs and beside the byte bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ptsharp_tpu_torch import diff, examples, profiling, tape, textures
+    from ptsharp_tpu_torch.core import rng
+    from ptsharp_tpu_torch.kernels import build, table_sum
+
+    scene, cam, rcfg, icfg = examples.build("bunny", intersector="pallas",
+                                            wide_k=8, device=device)
+    width, height = rcfg.width, rcfg.height
+    calls = []
+    kernel = table_sum.table_sum
+
+    def captured(ids, rows, m):
+        calls.append((ids.clone(), rows.clone(), m))
+        return kernel(ids, rows, m)
+
+    colors = scene.materials.color.clone().requires_grad_()
+    s = replace(scene, materials=scene.materials._replace(color=colors))
+    # the two call sites reach the kernel through their module's name
+    sites = (tape, textures)
+    for site in sites:
+        site.table_sum = types.SimpleNamespace(table_sum=captured)
+    try:
+        img = diff.render_image(s, cam, icfg, rng.PRNGKey(3), width, height,
+                                1, use_tape=True)
+        torch.autograd.grad(torch.mean((img - 0.5) ** 2), colors)
+    finally:
+        for site in sites:
+            site.table_sum = table_sum
+    sync(device)
+    if len(calls) != 6 * (icfg.max_bounces + 1):
+        raise AssertionError(f"table sum: {len(calls)} sums in a tape "
+                             f"gradient, expected 6 a depth")
+    kinds = {(5, 3): "mid", (4, 3): "lm"}
+    rows_out = {}
+    for ids, rows, m in calls:
+        kind = kinds.get((rows.shape[1], m), "texels")
+        got = kernel(ids, rows, m)
+        i = ids.clamp(0, m - 1).long()
+        want = torch.zeros((m, rows.shape[1]), dtype=torch.float64,
+                           device=device).index_add_(0, i, rows.double())
+        mass = torch.zeros_like(want).index_add_(0, i, rows.double().abs())
+        err = float(((got.double() - want).abs()
+                     / mass.clamp_min(1e-30)).max())
+        profiling.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            kernel(ids, rows, m)
+        c = profiling.table_sum_counters()
+        profiling.reset_counters()
+        ms = device_ms(lambda: kernel(ids, rows, m))
+        add_ms = device_ms(lambda: torch.zeros(
+            (m, rows.shape[1]), device=device).index_add_(0, ids, rows))
+        nbytes = ids.shape[0] * (ids.element_size() + 4 * rows.shape[1]) \
+            + m * rows.shape[1] * 4
+        row = rows_out.setdefault(kind, dict(
+            calls=0, lanes=0, active=0, adds=0, ms=0.0, index_add_ms=0.0,
+            bytes=0, max_rel_err=0.0, m=m, width=rows.shape[1]))
+        for k, v in (("calls", 1), ("lanes", c["lanes"]),
+                     ("active", c["active"]), ("adds", c["adds"]),
+                     ("ms", ms), ("index_add_ms", add_ms),
+                     ("bytes", nbytes)):
+            row[k] += v
+        row["max_rel_err"] = max(row["max_rel_err"], err)
+        if not err <= TSUM_RTOL:
+            raise AssertionError(f"table sum {kind} ({m} x {rows.shape[1]}, "
+                                 f"{ids.shape[0]} lanes): error {err:.3e} "
+                                 f"of the rows' absolute sum, past "
+                                 f"{TSUM_RTOL}")
+    total = dict(calls=0, ms=0.0, index_add_ms=0.0, bytes=0, lanes=0,
+                 active=0, adds=0)
+    for kind, row in sorted(rows_out.items()):
+        row["bound_ms"] = 1e3 * row["bytes"] / PEAK_BYTES
+        row["share"] = row["bound_ms"] / row["ms"]
+        for k in total:
+            total[k] += row[k]
+        log(f"table sum {kind} ({row['m']} x {row['width']}): "
+            f"{row['calls']} sums of {row['lanes'] // row['calls']} lanes, "
+            f"{100 * row['active'] / max(row['lanes'], 1):.1f}% active, "
+            f"{row['adds']} adds; card {row['ms']:.3f} ms, index_add_ "
+            f"{row['index_add_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+            f"(bytes), share {100 * row['share']:.1f}%; largest error "
+            f"{row['max_rel_err']:.2e} of the rows' absolute sum")
+    total["bound_ms"] = 1e3 * total["bytes"] / PEAK_BYTES
+    total["share"] = total["bound_ms"] / total["ms"]
+    total["max_rel_err"] = max(row["max_rel_err"]
+                               for row in rows_out.values())
+    regs = {k: v for k, v in ptxas_report(
+        build.build_info.get("ptxas", "")).items()
+        if k.startswith("table_sum")}
+    log(f"table sum, a tape gradient: card {total['ms']:.3f} ms, index_add_ "
+        f"{total['index_add_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms, "
+        f"share {100 * total['share']:.1f}%, adds a lane "
+        f"{total['adds'] / max(total['lanes'], 1):.4f}; ptxas {regs}")
+    return dict(kinds=rows_out, total=total, ptxas=regs)
+
+
 def scene_line(name, scene, seconds):
     if scene.intersector != "pallas":
         # leaf slots holding a triangle (padding slots are all zero)
@@ -3782,11 +3928,15 @@ def main(only: str | None = None) -> int:
     if only == "march":
         print(json.dumps({"march": march_phase(device)}))
         return 0
+    if only == "tsum":
+        print(json.dumps({"tsum": tsum_phase(device)}))
+        return 0
     rng_res = rng_phase(device)
     if only == "rng":
         print(json.dumps(rng_res))
         return 0
     march_res = march_phase(device)
+    tsum_res = tsum_phase(device)
 
     # bunny: the four kernels at two widths
     t0 = time.perf_counter()
@@ -3999,6 +4149,26 @@ def main(only: str | None = None) -> int:
             library_ms=None))
         if name in NOTES:
             kernels[-1]["note"] = NOTES[name]
+    # the table sum: its launches and lanes in the gradient phase's
+    # main-path runs; its error and times from phase 2d, where index_add_
+    # is both its plain version and the library's one call
+    summed = [run.get("table_sum", (0, 0)) for run in runs]
+    tsum_launches = sum(n for n, _lanes in summed)
+    if not tsum_launches:
+        raise AssertionError("no main-path gradient launched the table sum")
+    tsum = tsum_res["total"]
+    kernels.append(dict(
+        name="table_sum", route="cuda",
+        source="ptsharp_tpu_torch/csrc/table_sum.cu", replaces=[],
+        launches=tsum_launches,
+        lanes_a_launch=sum(n for _n, n in summed) / tsum_launches,
+        max_rel_err=tsum["max_rel_err"], ms=tsum["ms"],
+        plain_ms=tsum["index_add_ms"], bound_ms=tsum["bound_ms"],
+        bound_by="bytes", library_ms=tsum["index_add_ms"],
+        note="no Pallas kernel: the JAX package's one-hot matmul "
+             "(ptsharp_tpu/tape.py:167 _onehot_accum) and XLA's transpose "
+             "of the atlas gather; ms, plain_ms (index_add_) and bound_ms "
+             "over one tape gradient's sums at bunny.train's shapes"))
     # each threefry wrapper's launches and words over the main-path renders
     main_draws = {}
     for kind in {kind for kind, _shape in RNG_DRAWS}:
@@ -4031,5 +4201,6 @@ if __name__ == "__main__":
                             sys.argv[5]))
     if sys.argv[1:] == ["--shard-cards"]:
         sys.exit(shard_cards())
-    sys.exit(main(only={"--rng": "rng", "--march": "march"}.get(
+    sys.exit(main(only={"--rng": "rng", "--march": "march",
+                        "--tsum": "tsum"}.get(
         " ".join(sys.argv[1:]))))

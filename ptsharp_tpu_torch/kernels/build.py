@@ -11,9 +11,9 @@ add rounding on its own, as the plain PyTorch versions and the JAX
 reference round them.
 
 Every wrapper of a C entry (kernels/traverse.py, threefry.py,
-sdf_march.py) launches it through `launch`, which also keeps the
-persistent kernels' ray counter of each stream. This module imports
-nothing from the package.
+sdf_march.py, table_sum.py) launches it through `launch`, which also
+keeps the persistent kernels' ray counter of each stream. This module
+imports nothing from the package.
 """
 
 from __future__ import annotations
@@ -147,6 +147,11 @@ def _bind(lib):
     lib.pt_sdf_march.restype = ci
     lib.pt_sdf_march.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci, ci,
                                  vp, vp, vp, vp]
+    # the table sum (csrc/table_sum.cu): ids, whether they are int64, rows,
+    # their count and width, the table's rows, out, [3] counts or null,
+    # stream
+    lib.pt_table_sum.restype = ci
+    lib.pt_table_sum.argtypes = [vp, ci, vp, i64, ci, i64, vp, vp, vp]
     # the warp packets' ring block (table rows), dynamic shared memory and
     # whether their rings prefetch
     for name in ("fat_cache", "block_cache", "row_stage"):
@@ -231,6 +236,7 @@ def launch(wrapper, entry: str, device, *args, persistent: bool = False,
     ray counter, which a failed launch may leave set. Else the launch
     adds one to `wrapper.launches` and each of `added` (its rays, its
     words) to the wrapper's attribute of that name."""
+    lib = load()
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (device.index, stream)
     if persistent:
@@ -239,7 +245,7 @@ def launch(wrapper, entry: str, device, *args, persistent: bool = False,
                                              device=device)
         args += (_RAY_COUNTERS[key].data_ptr(),
                  None if counts is None else counts.data_ptr())
-    err = getattr(load(), entry)(*args, stream)
+    err = getattr(lib, entry)(*args, stream)
     if err:
         if persistent:
             del _RAY_COUNTERS[key]

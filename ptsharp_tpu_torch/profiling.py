@@ -54,6 +54,13 @@
     by the path it took, "kernel" (a CUDA device: one csrc/threefry.cu
     launch) or "plain" (the torch block, any other device); `draws()`
     gives them, `reset_counters()` clears them with the lane counters;
+  * table-sum counter: while a profiler records, each launch of the
+    table-sum kernel (kernels/table_sum.py: the tape backward's sums
+    into the parameter tables on a card) adds its lanes (rows in), its
+    active lanes (a nonzero entry) and its atomic adds to device memory
+    (one a float) to an int64 (3,) tensor of its device
+    (`table_sum_counts`); `table_sum_counters()` reads them (the one
+    wait for the card, after the run), `reset_counters()` clears them;
   * `trace_to(dir)` runs a block under torch.profiler (CPU and, where
     there is a card, CUDA activities) and writes a Chrome trace into
     `dir` (open it in chrome://tracing or Perfetto);
@@ -83,6 +90,9 @@ _MARCHES: dict[str, list[int]] = {}
 # draws by path (core/rng.py), while a profiler records
 PATHS = ("kernel", "plain")
 _DRAWS = dict.fromkeys(PATHS, 0)
+TABLE_SUM_FIELDS = ("lanes", "active", "adds")
+# device -> its (3,) int64 table-sum counts, on the device
+_TABLE_SUMS: dict = {}
 # the pass being counted; the integrator's depth steps find it here, since
 # the trace functions' signatures are the JAX package's
 _open: "_Tally | None" = None
@@ -109,9 +119,33 @@ def march_counters() -> dict:
             for t, c in sorted(_MARCHES.items())}
 
 
+def table_sum_counts(device):
+    """The (3,) int64 tensor on `device` that a table-sum launch adds
+    its TABLE_SUM_FIELDS to while a profiler records (made at first
+    use); None while none records."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    counts = _TABLE_SUMS.get(device)
+    if counts is None:
+        counts = _TABLE_SUMS[device] = torch.zeros(3, dtype=torch.int64,
+                                                   device=device)
+    return counts
+
+
+def table_sum_counters() -> dict:
+    """{"lanes", "active", "adds"} summed over the table-sum launches
+    made while a profiler recorded, on every device (read from the
+    devices: this waits for them)."""
+    total = [0] * len(TABLE_SUM_FIELDS)
+    for counts in _TABLE_SUMS.values():
+        total = [a + b for a, b in zip(total, counts.tolist())]
+    return dict(zip(TABLE_SUM_FIELDS, total))
+
+
 def reset_counters() -> None:
     _COUNTERS.clear()
     _MARCHES.clear()
+    _TABLE_SUMS.clear()
     _DRAWS.update(dict.fromkeys(PATHS, 0))
 
 

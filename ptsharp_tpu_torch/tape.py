@@ -16,7 +16,9 @@ throughput, material id, uv, light material, kappa, RR scale, flag bits)
 and a reverse loop over the depths that rebuilds those pointwise terms and
 takes their local vector-Jacobian product: no traversal, no RNG, no sort,
 no shading re-run. Per-lane cotangents are summed into the (M,) and (M, 3)
-tables with index_add_ (_table_sum).
+tables by kernels/table_sum.py (on a card one launch of
+csrc/table_sum.cu, elsewhere index_add_), as the atlas fetches' are summed
+into the texels (textures.TextureAtlas.sample).
 
 Parameter contract (DiffParams): material color, emittance and tint
 (lights share the table; a mesh light's NEE term reads the row of the
@@ -42,6 +44,7 @@ from ptsharp_tpu_torch.integrator import (
     TAPE_MISS_ENV, TAPE_NEE, TAPE_SPEC, TAPE_TEX, IntegratorConfig,
     TapeRecord, _trace_prefix, trace,
 )
+from ptsharp_tpu_torch.kernels import table_sum
 from ptsharp_tpu_torch.scene import SceneData
 from ptsharp_tpu_torch.textures import TextureAtlas
 
@@ -87,22 +90,6 @@ def _trace_tape(scene: SceneData, cfg: IntegratorConfig, org, dirn, key,
         scene, cfg, org, dirn, key, strat_idx, n_strat, cfg.max_bounces + 1,
         tape=tape)
     return state.radiance, (alb, nrm, rays), tape
-
-
-# _table_sum spreads each table row over this many copies (lane % SPREAD)
-# and adds the copies afterwards: index_add_ adds atomically on the card,
-# where every lane's add to one address waits its turn, and a wavefront's
-# lanes meet on a few material rows
-SPREAD = 64
-
-
-def _table_sum(ids, m: int, cols):
-    """(m, W) sums of the per-lane rows cols (R, W) by table row ids."""
-    lane = torch.arange(ids.shape[0], device=ids.device) % SPREAD
-    out = torch.zeros((m * SPREAD, cols.shape[1]), dtype=cols.dtype,
-                      device=cols.device)
-    out.index_add_(0, ids * SPREAD + lane, cols)
-    return out.view(m, SPREAD, -1).sum(dim=1)
 
 
 def _row(ids, m: int):
@@ -163,9 +150,10 @@ def _tape_backward(scene: SceneData, p: DiffParams, tape, g) -> DiffParams:
         dcm, de, dtint, dcl, del_, denv, dtex, ybar = (
             torch.zeros_like(x) if d is None else d
             for d, x in zip(grads, wrt))
-        at_mid = _table_sum(mid, m, torch.cat(
-            [dcm, de[:, None], dtint[:, None]], dim=1))
-        at_lm = _table_sum(lm, m, torch.cat([dcl, del_[:, None]], dim=1))
+        at_mid = table_sum.table_sum(mid, torch.cat(
+            [dcm, de[:, None], dtint[:, None]], dim=1), m)
+        at_lm = table_sum.table_sum(lm, torch.cat([dcl, del_[:, None]],
+                                                  dim=1), m)
         acc.color.add_(at_mid[:, :3] + at_lm[:, :3])
         acc.emittance.add_(at_mid[:, 3] + at_lm[:, 3])
         acc.tint.add_(at_mid[:, 4])

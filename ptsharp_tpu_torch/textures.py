@@ -18,6 +18,25 @@ import torch
 
 from ptsharp_tpu_torch.core import color as colorlib
 from ptsharp_tpu_torch.core import vec
+from ptsharp_tpu_torch.kernels import table_sum
+
+
+class _TexelFetch(torch.autograd.Function):
+    """texels.index_select(0, idx) whose backward sums the cotangent rows
+    into the (rows, 3) texel table with kernels/table_sum.py: on a card
+    the table-sum kernel, elsewhere index_add_, which is index_select's
+    own backward."""
+
+    @staticmethod
+    def forward(ctx, texels, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = texels.shape[0]
+        return texels.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return table_sum.table_sum(idx, g.contiguous(), ctx.rows), None
 
 
 class TextureAtlas(NamedTuple):
@@ -74,17 +93,22 @@ class TextureAtlas(NamedTuple):
         fy = (vv - y0)[..., None]
         x1 = torch.where(x0 + 1 >= wi, 0, x0 + 1)
         y1 = torch.where(y0 + 1 >= hi, 0, y0 + 1)
-        # index_select, whose backward is an atomic index_add_: the
-        # backward of advanced indexing on CUDA sorts the indices and sums
-        # each run of equal ones serially, and a wavefront's lanes pile
-        # onto a few texels (every untextured lane reads texel 0)
+        # index_select: the backward of advanced indexing on CUDA sorts the
+        # indices and sums each run of equal ones serially, and a
+        # wavefront's lanes pile onto a few texels (every untextured lane
+        # reads texel 0, its cotangent zero); under grad _TexelFetch sums
+        # the cotangents, on a card with the table-sum kernel, which skips
+        # the zero rows, in place of index_select's index_add_
         texels = self.data.reshape(-1, 3)
         mh, mw = self.data.shape[1], self.data.shape[2]
+        kernel = torch.is_grad_enabled() and texels.requires_grad
 
         def fetch(y, x):
             idx = (tid * mh + y) * mw + x
-            return texels.index_select(0, idx.reshape(-1)) \
-                .reshape(idx.shape + (3,))
+            flat = idx.reshape(-1)
+            rows = (_TexelFetch.apply(texels, flat) if kernel
+                    else texels.index_select(0, flat))
+            return rows.reshape(idx.shape + (3,))
 
         c00 = fetch(y0, x0)
         c01 = fetch(y0, x1)
